@@ -31,3 +31,9 @@ def _reset_mesh_globals():
     mesh_lib.CURRENT_MESH, mesh_lib.TP_ACTIVE = None, False
     yield
     mesh_lib.CURRENT_MESH, mesh_lib.TP_ACTIVE = saved
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's "
+        "CUDA kernels); skips without one")

@@ -1,0 +1,67 @@
+"""Layout round trip of the weight bridge: a random port state_dict, through
+the JAX package's reference importers to flax, then through
+vqcpcb_tpu_torch.convert, comes back exactly. This pins every layout the
+bridge handles (Dense transposes, the (E, 3, H, hd) in_proj, (H, S, hd)
+relative tables, direction-stacked BiGRU weights, (K, S, d) codebooks, raw
+params)."""
+import torch
+
+from vqcpcb_tpu.training.import_reference import (import_decoder_state_dict,
+                                                   import_encoder_state_dicts)
+from vqcpcb_tpu_torch import convert
+from vqcpcb_tpu_torch.models.data_processor import (BachCPCDataProcessor,
+                                                    BachDataProcessor)
+from vqcpcb_tpu_torch.models.decoder import Decoder
+from vqcpcb_tpu_torch.models.downscalers import GruDownscaler
+from vqcpcb_tpu_torch.models.encoder import Encoder
+from vqcpcb_tpu_torch.models.upscalers import MlpUpscaler
+from vqcpcb_tpu_torch.ops.quantizer import ProductVectorQuantizer
+
+VOCABS = [5, 6, 7, 8]
+
+
+def _randomized(module, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=gen)
+            for k, v in module.state_dict().items()}
+
+
+def _sub(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _assert_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_encoder_layout_round_trip():
+    enc = Encoder(BachCPCDataProcessor(8, 16, VOCABS),
+                  GruDownscaler(8, 4, [16], 12, num_layers=2, dropout=0.0,
+                                bidirectional=True),
+                  ProductVectorQuantizer(8, 4, 0.25, 2),
+                  MlpUpscaler(4, 10, 12, 0.0))
+    sd = _randomized(enc, 0)
+    params = import_encoder_state_dicts(
+        _sub(sd, "data_processor."), _sub(sd, "downscaler."),
+        _sub(sd, "quantizer."), _sub(sd, "upscaler."), num_layers_gru=2,
+        bidirectional=True)
+    back = convert.encoder_state_dict(params)
+    _assert_equal(back, sd)
+    enc.load_state_dict(back, strict=True)
+
+
+def test_decoder_layout_round_trip():
+    dec = Decoder(BachDataProcessor(8, 8, VOCABS), "anticausal", d_model=16,
+                  num_encoder_layers=2, num_decoder_layers=2, n_head=4,
+                  dim_feedforward=24, positional_embedding_size=4,
+                  num_channels_encoder=1, num_events_encoder=2,
+                  num_channels_decoder=4, num_events_decoder=8,
+                  total_upscaling=16, source_vocab_size=6)
+    sd = _randomized(dec, 1)
+    params = import_decoder_state_dict(sd, num_heads=4, num_encoder_layers=2,
+                                       num_decoder_layers=2, aligned_cross=True)
+    back = convert.decoder_state_dict(params)
+    _assert_equal(back, sd)
+    dec.load_state_dict(back, strict=True)

@@ -1,0 +1,15 @@
+"""PyTorch + CUDA port of vqcpcb_tpu for NVIDIA Hopper (H100).
+
+Module names mirror the JAX package `vqcpcb_tpu/`, so each counterpart is
+found by path. The port imports torch and numpy only: never jax, flax or
+anything of `vqcpcb_tpu` (it keeps its own copies of what it needs, e.g.
+`data/vocab.py`). Every Pallas TPU kernel on a ported path is a CUDA C++
+kernel under `csrc/`, built with nvcc at first use (`ops/_build.py`), with a
+plain PyTorch version beside it that CPU tensors take.
+
+Ported so far: the re-harmonisation serving path — the frozen encoder's
+codes (nearest-codebook kernel, `ops/vq_kernels.py`), the relative-attention
+decoder's prefill (relative-bias attention kernel,
+`ops/attention_kernels.py`) and its KV-cached sampler
+(`models/decoder.py`, `training/decoder_trainer.py`).
+"""

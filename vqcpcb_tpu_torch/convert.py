@@ -1,0 +1,132 @@
+"""Weight bridge: JAX (flax) param trees -> the port's state_dicts.
+
+The inverse of vqcpcb_tpu/training/import_reference.py: the port keeps the
+reference's parameter names, so `import_encoder_state_dicts` /
+`import_decoder_state_dict` followed by these functions gives back the
+starting state_dict exactly. Inputs are nested dicts of arrays (numpy, as
+jax.device_get returns them); the results load with strict=True.
+
+Layouts handled: flax Dense kernels are (in, out), torch Linear weights
+(out, in); the attention in_proj kernel is (E, 3, H, hd) and becomes the
+(3E, E) in_proj_weight; rel_e1 / rel_e2 are (H, S, hd) and become (H*S, hd);
+the fused BiGRU stacks its two directions on axis 0 of (2, in, 3h) and
+becomes g_enc_fwd / g_enc_bwd; codebooks are (K, S, d) and become
+embeddings.{k}; sos and the target embeddings are raw params.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C", copy=True))
+
+
+def _dense(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}weight": _tensor(np.asarray(params["kernel"]).T),
+            f"{prefix}bias": _tensor(params["bias"])}
+
+
+def _gru(layers: Mapping, prefix: str, direction=None) -> Dict[str, torch.Tensor]:
+    """flax GRU / one direction of BiGRU params -> torch.nn.GRU names."""
+    def pick(a):
+        return np.asarray(a) if direction is None else np.asarray(a)[direction]
+
+    out = {}
+    layer = 0
+    while f"layer_{layer}_w_i" in layers:
+        out[f"{prefix}weight_ih_l{layer}"] = _tensor(pick(layers[f"layer_{layer}_w_i"]).T)
+        out[f"{prefix}weight_hh_l{layer}"] = _tensor(pick(layers[f"layer_{layer}_w_h"]).T)
+        out[f"{prefix}bias_ih_l{layer}"] = _tensor(pick(layers[f"layer_{layer}_b_i"]))
+        out[f"{prefix}bias_hh_l{layer}"] = _tensor(pick(layers[f"layer_{layer}_b_h"]))
+        layer += 1
+    return out
+
+
+def _embeddings(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {}
+    c = 0
+    while f"embed_{c}" in params:
+        out[f"{prefix}embeddings.{c}.weight"] = _tensor(params[f"embed_{c}"]["embedding"])
+        c += 1
+    return out
+
+
+def _attention(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    kernel = np.asarray(params["in_proj"]["kernel"])         # (E, 3, H, hd)
+    e = kernel.shape[0]
+    out = {f"{prefix}in_proj_weight": _tensor(kernel.reshape(e, 3 * e).T),
+           f"{prefix}in_proj_bias": _tensor(
+               np.asarray(params["in_proj"]["bias"]).reshape(3 * e))}
+    out.update(_dense(params["out_proj"], f"{prefix}out_proj."))
+    if "rel_e1" in params:
+        for name in ("e1", "e2"):
+            table = np.asarray(params[f"rel_{name}"])         # (H, S, hd)
+            out[f"{prefix}attn_bias.{name}"] = _tensor(
+                table.reshape(-1, table.shape[-1]))
+    return out
+
+
+def _layer_norm(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}weight": _tensor(params["scale"]),
+            f"{prefix}bias": _tensor(params["bias"])}
+
+
+def _transformer_layer(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    out = _attention(params["self_attn"], f"{prefix}self_attn.")
+    out.update(_dense(params["ff"]["linear1"], f"{prefix}linear1."))
+    out.update(_dense(params["ff"]["linear2"], f"{prefix}linear2."))
+    for norm in ("norm1", "norm2", "norm3"):
+        if norm in params:
+            out.update(_layer_norm(params[norm], f"{prefix}{norm}."))
+    if "cross_mlp_1" in params:
+        out.update(_dense(params["cross_mlp_1"], f"{prefix}cross_attn.0."))
+        out.update(_dense(params["cross_mlp_2"], f"{prefix}cross_attn.2."))
+    return out
+
+
+def encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax Encoder 'params' (GRU downscaler, product quantizer, optional MLP
+    upscaler) -> state_dict of vqcpcb_tpu_torch.models.encoder.Encoder."""
+    sd = _embeddings(params["data_processor"], "data_processor.")
+    ds = params["downscaler"]
+    if "bigru" in ds:
+        sd.update(_gru(ds["bigru"], "downscaler.g_enc_fwd.", direction=0))
+        sd.update(_gru(ds["bigru"], "downscaler.g_enc_bwd.", direction=1))
+    else:
+        sd.update(_gru(ds["g_enc_fwd"], "downscaler.g_enc_fwd."))
+    sd.update(_dense(ds["output_linear"], "downscaler.output_linear."))
+    for k, table in enumerate(np.asarray(params["quantizer"]["codebooks"])):
+        sd[f"quantizer.embeddings.{k}"] = _tensor(table)
+    if "upscaler" in params:
+        sd.update(_dense(params["upscaler"]["fc1"], "upscaler.mlp.0."))
+        sd.update(_dense(params["upscaler"]["fc2"], "upscaler.mlp.3."))
+    return sd
+
+
+def decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax Decoder 'params' (relative, aligned cross branch) -> state_dict
+    of vqcpcb_tpu_torch.models.decoder.Decoder."""
+    sd = {"sos": _tensor(params["sos"]),
+          "target_channel_embeddings": _tensor(params["target_channel_embeddings"]),
+          "target_events_positioning_embeddings": _tensor(
+              params["target_events_positioning_embeddings"]),
+          "source_embeddings.weight": _tensor(
+              params["source_embeddings"]["embedding"])}
+    sd.update(_dense(params["linear_target"], "linear_target."))
+    sd.update(_embeddings(params["data_processor"], "data_processor."))
+    for stack, name in (("encoder_transformer", "encoder"),
+                        ("decoder_transformer", "decoder")):
+        i = 0
+        while f"layer_{i}" in params[stack]:
+            sd.update(_transformer_layer(params[stack][f"layer_{i}"],
+                                         f"transformer.{name}.layers.{i}."))
+            i += 1
+    c = 0
+    while f"pre_softmax_{c}" in params:
+        sd.update(_dense(params[f"pre_softmax_{c}"], f"pre_softmaxes.{c}."))
+        c += 1
+    return sd

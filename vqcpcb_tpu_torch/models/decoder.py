@@ -1,0 +1,249 @@
+"""Re-harmonisation decoder: frozen-encoder codes -> chorale tokens
+(counterpart of vqcpcb_tpu/models/decoder.py).
+
+This slice ports the relative decoder with the aligned ("diagonal")
+cross branch -- the flagship AC/D/C configuration, `transformer_type`
+'relative' and `cross_attention_type` 'diagonal' in JAX terms (the absolute
+decoder and the attention cross branch come with a later slice): codes are re-embedded
+and run through a relative-attention encoder (the memory); target tokens are
+embedded with channel and intra-code position features, shifted by SOS and
+decoded causally. `sample_range` is the KV-cached sampler: one prefill per
+call, then one decode step per position, eager PyTorch.
+
+Parameter names follow the reference Decoder (sos, linear_target,
+source_embeddings, target_channel_embeddings,
+target_events_positioning_embeddings, data_processor.embeddings.{c},
+transformer.encoder.layers.{i}, transformer.decoder.layers.{i},
+pre_softmaxes.{c}).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vqcpcb_tpu_torch.models.data_processor import DataProcessor
+from vqcpcb_tpu_torch.ops.kv_cache import Cache, cache_update, new_cache
+from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
+from vqcpcb_tpu_torch.ops.sampling import sample_categorical
+from vqcpcb_tpu_torch.ops.transformer import TransformerDecoder, TransformerEncoder
+from vqcpcb_tpu_torch.utils import (flatten, kv_cache_dtype, resolve_device,
+                                    to_device)
+
+
+def categorical_crossentropy(logits: Sequence[torch.Tensor],
+                             target: torch.Tensor) -> torch.Tensor:
+    """Sum over channels of the mean CE of channel c's logits
+    (vqcpcb_tpu/ops/losses.py:categorical_crossentropy, all positions)."""
+    return sum(F.cross_entropy(lg.float().reshape(-1, lg.shape[-1]),
+                               target[..., c].reshape(-1).long())
+               for c, lg in enumerate(logits))
+
+
+class Decoder(nn.Module):
+    def __init__(self, data_processor: DataProcessor,
+                 encoder_attention_type: str, d_model: int,
+                 num_encoder_layers: int, num_decoder_layers: int, n_head: int,
+                 dim_feedforward: int, positional_embedding_size: int,
+                 num_channels_encoder: int, num_events_encoder: int,
+                 num_channels_decoder: int, num_events_decoder: int,
+                 total_upscaling: int, source_vocab_size: int):
+        super().__init__()
+        if encoder_attention_type not in ("anticausal", "causal", "full"):
+            raise ValueError(encoder_attention_type)
+        self.data_processor = data_processor
+        self.encoder_attention_type = encoder_attention_type
+        self.d_model = d_model
+        self.num_channels_decoder = num_channels_decoder
+        self.num_events_encoder = num_events_encoder
+        self.total_upscaling = total_upscaling
+        self.num_tokens_target = num_channels_decoder * num_events_decoder
+        if self.num_tokens_target % total_upscaling:
+            raise ValueError("target tokens are not a multiple of the upscaling")
+        p = positional_embedding_size
+        self.target_channel_embeddings = nn.Parameter(
+            torch.randn(1, num_channels_decoder, p))
+        self.target_events_positioning_embeddings = nn.Parameter(
+            torch.randn(1, total_upscaling // num_channels_decoder, p))
+        self.source_embeddings = nn.Embedding(source_vocab_size, d_model)
+        self.linear_target = nn.Linear(data_processor.embedding_size + 2 * p,
+                                       d_model)
+        self.sos = nn.Parameter(torch.randn(1, 1, d_model))
+        self.transformer = nn.ModuleDict({
+            "encoder": TransformerEncoder(
+                num_encoder_layers, d_model, n_head, "relative_attention",
+                num_channels_encoder, num_events_encoder, dim_feedforward),
+            "decoder": TransformerDecoder(
+                num_decoder_layers, d_model=d_model, n_head=n_head,
+                attention_bias_type_self="relative_attention",
+                num_channels_encoder=num_channels_encoder,
+                num_events_encoder=num_events_encoder,
+                num_channels_decoder=num_channels_decoder,
+                num_events_decoder=num_events_decoder,
+                dim_feedforward=dim_feedforward),
+        })
+        self.pre_softmaxes = nn.ModuleList(
+            nn.Linear(d_model, v) for v in data_processor.num_tokens_per_channel)
+
+    @property
+    def decoder_layers(self):
+        return self.transformer["decoder"].layers
+
+    # ---- embeddings ---------------------------------------------------------
+
+    def embed_source(self, source: torch.Tensor) -> torch.Tensor:
+        """Code indices (B, S) -> (B, S, d_model)."""
+        return self.source_embeddings(source.long())
+
+    def embed_target(self, target: torch.Tensor) -> torch.Tensor:
+        """Target tokens (B, E, C) -> (B, E*C, d_model), without the SOS
+        shift: token embedding, channel and intra-code event features."""
+        b = target.shape[0]
+        target_seq = flatten(self.data_processor.embed(target))
+        num_tokens = target_seq.shape[1]
+        c = self.num_channels_decoder
+        channel = self.target_channel_embeddings.repeat(b, num_tokens // c, 1)
+        events = self.target_events_positioning_embeddings.repeat_interleave(
+            c, dim=1).repeat(b, num_tokens // self.total_upscaling, 1)
+        return self.linear_target(torch.cat([target_seq, channel, events], 2))
+
+    def shift_with_sos(self, target_seq: torch.Tensor) -> torch.Tensor:
+        sos = self.sos.expand(target_seq.shape[0], 1, -1)
+        return torch.cat([sos, target_seq[:, :-1]], dim=1)
+
+    def encode_memory(self, source: torch.Tensor) -> torch.Tensor:
+        """The relative-attention encoder over the embedded codes."""
+        source_seq = self.embed_source(source)
+        n, dev = source_seq.shape[1], source_seq.device
+        if self.encoder_attention_type == "full":
+            mask = None
+        elif self.encoder_attention_type == "causal":
+            mask = causal_mask(n, device=dev)
+        else:
+            mask = anticausal_mask(n, device=dev)
+        return self.transformer["encoder"](source_seq, mask)
+
+    # ---- teacher-forced forward ---------------------------------------------
+
+    def forward(self, source: torch.Tensor, target: torch.Tensor) -> Dict:
+        """source (B, S) codes, target (B, num_events, C) tokens. Returns
+        {'loss', 'weights_per_category'}: the per-channel logits
+        (B, num_events, vocab_c) and their summed CE (decoder.py:223)."""
+        b = target.shape[0]
+        memory = self.encode_memory(source)
+        target_seq = self.shift_with_sos(self.embed_target(target))
+        output = self.transformer["decoder"](
+            target_seq, memory,
+            causal_mask(target_seq.shape[1], device=target_seq.device))
+        output = output.reshape(b, -1, self.num_channels_decoder, self.d_model)
+        logits = [head(output[:, :, c])
+                  for c, head in enumerate(self.pre_softmaxes)]
+        return {"loss": categorical_crossentropy(logits, target),
+                "weights_per_category": logits}
+
+    # ---- KV-cached sampling ---------------------------------------------------
+
+    def _embed_input_at(self, prev_token: torch.Tensor, t: int) -> torch.Tensor:
+        """Transformer input at flat position t > 0: the embedding of the
+        token at t-1 with position t-1's features, as the SOS shift of the
+        full sequence gives it (decoder.py:287). prev_token (B,) -> (B, d)."""
+        c = self.num_channels_decoder
+        prev_pos = t - 1
+        channel = prev_pos % c
+        emb = self.data_processor.embeddings[channel]
+        token_emb = emb(prev_token.long().clamp(0, emb.num_embeddings - 1))
+        b = prev_token.shape[0]
+        event_in_code = (prev_pos % self.total_upscaling) // c
+        feats = torch.cat([
+            token_emb,
+            self.target_channel_embeddings[0, channel].expand(b, -1),
+            self.target_events_positioning_embeddings[0, event_in_code].expand(b, -1),
+        ], dim=-1)
+        return self.linear_target(feats)
+
+    def _head_logits_at(self, x: torch.Tensor, t: int) -> torch.Tensor:
+        """Output head of channel t % C padded to the largest vocabulary with
+        -inf: x (B, d) -> (B, vocab_max), the values of the JAX padded head
+        (decoder.py:320)."""
+        vocabs = self.data_processor.num_tokens_per_channel
+        c = t % self.num_channels_decoder
+        logits = self.pre_softmaxes[c](x)
+        pad = max(vocabs) - vocabs[c]
+        if pad:
+            logits = F.pad(logits, (0, pad), value=float("-inf"))
+        return logits
+
+    def prefill(self, source: torch.Tensor, target: torch.Tensor,
+                cache_dt: Optional[torch.dtype] = None
+                ) -> Tuple[List[Tuple[Cache, Cache]], List[torch.Tensor]]:
+        """One full forward filling every layer's caches: per layer (k, v) of
+        (B, H, T, hd) in the cache format, and the aligned cross branch
+        (B, T, E) (decoder.py:363)."""
+        memory = self.encode_memory(source)
+        out = self.shift_with_sos(self.embed_target(target))
+        mask = causal_mask(out.shape[1], device=out.device)
+        caches, crosses = [], []
+        for layer in self.decoder_layers:
+            out, (k, v), cross = layer.capture(out, memory, mask)
+            caches.append((new_cache(k.contiguous(), cache_dt),
+                           new_cache(v.contiguous(), cache_dt)))
+            crosses.append(cross)
+        return caches, crosses
+
+    def _decode_one(self, x_t: torch.Tensor, caches, crosses, t: int
+                    ) -> torch.Tensor:
+        """All decoder layers at position t; writes each layer's K/V row t
+        into its cache first (in place). x_t (B, 1, E) -> (B, 1, E)."""
+        out = x_t
+        for layer, (k_cache, v_cache), cross in zip(self.decoder_layers,
+                                                    caches, crosses):
+            k_t, v_t = layer.self_attn.project_kv(out)          # (B, H, 1, hd)
+            cache_update(k_cache, k_t, t)
+            cache_update(v_cache, v_t, t)
+            out = layer.step(out, k_cache, v_cache, cross[:, t:t + 1], t,
+                             self.num_tokens_target)
+        return out
+
+    @torch.no_grad()
+    def sample_range(self, source, tokens_init, start: int, num_steps: int,
+                     generator: torch.Generator, temperature: float = 1.0,
+                     top_k: int = 0, top_p: float = 0.0,
+                     forbidden_indices=None, exact_ties: bool = False,
+                     device=None) -> torch.Tensor:
+        """Sample flat positions [start, start + num_steps) autoregressively
+        (decoder.py:421).
+
+        source (B, S) codes; tokens_init (B, E, C) tokens, the fixed context
+        outside the sampled range; forbidden_indices: optional (C, n) token
+        ids excluded per channel. Runs on `device` -- the card unless the
+        caller names another; the module must already live there. Caches
+        follow utils.kv_cache_dtype (int8 on the card, f32 on the CPU).
+        Returns the updated (B, E, C) tokens on that device."""
+        device = resolve_device(device)
+        here = self.sos.device
+        if here.type != device.type or (device.index is not None
+                                        and here != device):
+            raise ValueError(f"the decoder lives on {here}, not {device}; "
+                             "move it with .to(device)")
+        source = to_device(source, here)
+        tokens_init = to_device(tokens_init, here)
+        b, num_events, c = tokens_init.shape
+        tokens_flat = tokens_init.reshape(b, num_events * c).clone()
+        caches, crosses = self.prefill(source, tokens_init, kv_cache_dtype(here))
+        forbidden = (None if forbidden_indices is None
+                     else to_device(forbidden_indices, here).long())
+        for t in range(start, start + num_steps):
+            if t > 0:
+                x_t = self._embed_input_at(tokens_flat[:, t - 1], t)
+            else:
+                x_t = self.sos[0].expand(b, -1)
+            out = self._decode_one(x_t[:, None], caches, crosses, t)
+            logits = self._head_logits_at(out[:, 0], t)
+            if forbidden is not None:
+                logits = logits.index_fill(1, forbidden[t % c], float("-inf"))
+            new_token = sample_categorical(generator, logits, temperature,
+                                           top_k, top_p, exact_ties)
+            tokens_flat[:, t] = new_token.to(tokens_flat.dtype)
+        return tokens_flat.reshape(b, num_events, c)

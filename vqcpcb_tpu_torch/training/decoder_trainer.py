@@ -1,0 +1,186 @@
+"""Generation half of the decoder trainer (counterpart of
+vqcpcb_tpu/training/decoder_trainer.py:55-65,250-471): frozen-encoder codes
+for a template, then sliding-window KV-cached decoding of the code sequence.
+
+`DecoderGenerator` holds a frozen encoder and a decoder on one device (the
+card unless the caller names another) and an explicit torch.Generator for
+the draws. It returns token grids; writing scores, checkpoints and the CLI
+come with a later slice.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, START_SYMBOL,
+                                         Vocabulary)
+from vqcpcb_tpu_torch.models.decoder import Decoder
+from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
+from vqcpcb_tpu_torch.utils import resolve_device, to_device
+
+
+def compute_start_end_times(t: int, num_blocks: int, num_blocks_model: int):
+    """Sliding-window bookkeeping: (t_begin, t_end, t_relative) of the model
+    window that decodes code t (decoder_trainer.py:55)."""
+    if num_blocks_model // 2 <= t < num_blocks - num_blocks_model // 2:
+        t_relative = num_blocks_model // 2
+    elif t < num_blocks_model // 2:
+        t_relative = t
+    else:
+        t_relative = num_blocks_model - (num_blocks - t)
+    t_begin = min(max(0, t - num_blocks_model // 2), num_blocks - num_blocks_model)
+    return t_begin, t_begin + num_blocks_model, t_relative
+
+
+class DecoderGenerator:
+    def __init__(self, encoder: Encoder, decoder: Decoder,
+                 vocabulary: Vocabulary, codebook_size: int, device=None,
+                 seed: int = 0):
+        self.device = resolve_device(device)
+        self.encoder = encoder.to(self.device).eval()
+        self.decoder = decoder.to(self.device).eval()
+        self.vocabulary = vocabulary
+        self.codebook_size = codebook_size
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    @torch.no_grad()
+    def encode_codes(self, x) -> torch.Tensor:
+        """Token grid (B, ticks, voices) -> merged codes (B, S) on the device
+        (decoder_trainer.py:109)."""
+        _, indices, _ = self.encoder(to_device(x, self.device))
+        return merge_codes(indices, self.codebook_size)
+
+    def _meta_chunks(self, num_events: int):
+        """START/PAD, END/PAD and PAD framing chunks (decoder_trainer.py:250)."""
+        vocab = self.vocabulary
+        pad = np.array(vocab.symbol_indices(PAD_SYMBOL))
+        start = np.array(vocab.symbol_indices(START_SYMBOL))
+        end = np.array(vocab.symbol_indices(END_SYMBOL))
+        start_chunk = np.tile(pad[None], (num_events, 1))
+        start_chunk[-1] = start
+        end_pad_chunk = np.tile(pad[None], (num_events, 1))
+        end_pad_chunk[0] = end
+        pad_chunk = np.tile(pad[None], (num_events, 1))
+        return start_chunk, end_pad_chunk, pad_chunk
+
+    def init_generation_chorale(self, num_events: int, start_index: int,
+                                batch_size: int) -> np.ndarray:
+        """PAD everywhere, START at event start_index - 1."""
+        vocab = self.vocabulary
+        x = np.tile(np.array(vocab.symbol_indices(PAD_SYMBOL))[None],
+                    (num_events, 1))
+        x[start_index - 1] = np.array(vocab.symbol_indices(START_SYMBOL))
+        return np.tile(x[None], (batch_size, 1, 1)).astype(np.int32)
+
+    def _forbidden(self, exclude_meta_symbols: bool) -> Optional[np.ndarray]:
+        """(C, 3) ids of START, END and PAD per channel, or None."""
+        if not exclude_meta_symbols:
+            return None
+        return np.stack([
+            np.array([d[s] for s in (START_SYMBOL, END_SYMBOL, PAD_SYMBOL)])
+            for d in self.vocabulary.note2index_dicts], axis=0)
+
+    def generate_from_code_long(self, encoding_indices, temperature: float,
+                                top_k: int = 0, top_p: float = 1.0,
+                                num_decodings: int = 1,
+                                code_index_start: Optional[int] = None,
+                                code_index_end: Optional[int] = None,
+                                exclude_meta_symbols: bool = False,
+                                codes_per_window: int = 1) -> List[np.ndarray]:
+        """Sliding-window decoding of a long code sequence (1 or more rows,
+        (B, n_codes)); one sample_range call -- one prefill -- per window,
+        batched over decodings. codes_per_window codes are decoded per window
+        before it slides (1 is the reference's placement,
+        decoder_trainer.py:322). Returns the token grids of codes
+        [code_index_start, code_index_end), one per row and decoding."""
+        encoding_indices = np.asarray(encoding_indices)
+        size_encoding = encoding_indices.shape[1]
+        dec = self.decoder
+        total_upscaling = dec.total_upscaling
+        num_channels = dec.num_channels_decoder
+        num_tokens_indices = dec.data_processor.num_tokens // total_upscaling
+        events_per_code = total_upscaling // num_channels
+        if size_encoding < num_tokens_indices:
+            raise ValueError(
+                f"code sequence of length {size_encoding} is shorter than "
+                f"the model window ({num_tokens_indices} codes); pad the "
+                "sequence to at least one window")
+        code_index_start = 0 if code_index_start is None else code_index_start
+        code_index_end = size_encoding if code_index_end is None else code_index_end
+        codes_per_window = max(1, codes_per_window)
+
+        num_events_full = size_encoding * events_per_code
+        events_before_start = code_index_start * events_per_code
+        events_before_end = code_index_end * events_per_code
+        batch_size = num_decodings * encoding_indices.shape[0]
+        chorale = self.init_generation_chorale(num_events_full,
+                                               events_before_start, batch_size)
+        codes_rep = np.repeat(encoding_indices, num_decodings, axis=0)
+        forbidden = self._forbidden(exclude_meta_symbols)
+
+        code_index = code_index_start
+        while code_index < code_index_end:
+            t_begin, t_end, t_relative = compute_start_end_times(
+                code_index, num_blocks=size_encoding,
+                num_blocks_model=num_tokens_indices)
+            chunk = min(codes_per_window, code_index_end - code_index,
+                        num_tokens_indices - t_relative)
+            ev0, ev1 = t_begin * events_per_code, t_end * events_per_code
+            sampled = dec.sample_range(
+                codes_rep[:, t_begin:t_end], chorale[:, ev0:ev1],
+                t_relative * total_upscaling, chunk * total_upscaling,
+                self.generator, temperature=temperature, top_k=top_k,
+                top_p=top_p, forbidden_indices=forbidden, device=self.device)
+            sampled = sampled.cpu().numpy()
+            rel0 = t_relative * events_per_code
+            abs0 = code_index * events_per_code
+            n_ev = chunk * events_per_code
+            chorale[:, abs0:abs0 + n_ev] = sampled[:, rel0:rel0 + n_ev]
+            code_index += chunk
+        return list(chorale[:, events_before_start:events_before_end])
+
+    def generate_reharmonisation(self, ticks, num_reharmonisations: int,
+                                 temperature: float, top_k: int = 0,
+                                 top_p: float = 1.0,
+                                 exclude_meta_symbols: bool = False,
+                                 codes_per_window: int = 1) -> List[np.ndarray]:
+        """Re-harmonise one template given as a tick grid (1, events, voices)
+        (decoder_trainer.py:407, which reads it from a score): frame it with
+        START/END/PAD chunks, encode, decode `num_reharmonisations` variants.
+        Returns one (events, voices) grid per variant."""
+        x = np.asarray(ticks)
+        num_events = self.decoder.data_processor.num_events
+        vocab = self.vocabulary
+        chunks = [x[:, i:i + num_events] for i in range(0, x.shape[1], num_events)]
+        start_chunk, end_pad_chunk, pad_chunk = self._meta_chunks(num_events)
+
+        last = chunks[-1]
+        completion = num_events - last.shape[1]
+        end_symbols = np.array(vocab.symbol_indices(END_SYMBOL))[None, None]
+        if completion > 1:
+            filler = np.tile(np.array(vocab.symbol_indices(PAD_SYMBOL))[None, None],
+                             (1, completion - 1, 1))
+            chunks[-1] = np.concatenate([last, end_symbols, filler], axis=1)
+            end_chunk = pad_chunk[None]
+        elif completion == 1:
+            chunks[-1] = np.concatenate([last, end_symbols], axis=1)
+            end_chunk = pad_chunk[None]
+        else:
+            end_chunk = end_pad_chunk[None]
+        x_chunks = np.concatenate([start_chunk[None]] + chunks + [end_chunk],
+                                  axis=0).astype(np.int32)
+
+        glued = self.encode_codes(x_chunks).cpu().numpy().reshape(1, -1)
+        channels = self.decoder.num_channels_decoder
+        total_upscaling = self.decoder.total_upscaling
+        code_index_start = num_events * channels // total_upscaling
+        code_index_end = glued.shape[1] - (
+            (num_events + completion) * channels // total_upscaling)
+        return self.generate_from_code_long(
+            glued, temperature=temperature, top_k=top_k, top_p=top_p,
+            num_decodings=num_reharmonisations,
+            code_index_start=code_index_start, code_index_end=code_index_end,
+            exclude_meta_symbols=exclude_meta_symbols,
+            codes_per_window=codes_per_window)
