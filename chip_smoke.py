@@ -160,12 +160,20 @@ def phase_vq(gen: torch.Generator) -> dict:
 
 # ---- phase 4 ---------------------------------------------------------------
 
-# bf16 rule on both sides; the two f32 reductions (CUDA-core FMA chains in
-# the kernel, PyTorch's matmuls in the plain version) may round a softmax
-# weight to the neighbouring bf16 value, one ulp = 2**-8 relative, which moves
-# an output by at most 2**-8 * w * max|v|; with |v| < ~5 that stays below 2e-2
-# for one weight and far below for the sums, so 2e-2 absolute is the bound.
-RELBIAS_ATOL = 2e-2
+# bf16 rule on both sides, the bound tests/test_torch_cuda.py derives: the two
+# f32 reductions (CUDA-core FMA chains in the kernel, PyTorch's matmuls in the
+# plain version) may round a softmax weight to the neighbouring bf16 value, one
+# ulp = 2**-8 relative, moving an output by 2**-8 * w * |v|; only the small
+# weights of long rows sit near enough to a rounding edge, which keeps that
+# below 2e-3 with |v| < ~5.
+RELBIAS_ATOL = 2e-3
+# A kernel that skipped a bf16 rounding point (q/k/v/E before the dots, w
+# before w.v) would land about as far from the bf16 plain version as the f32
+# plain version does (1.6e-2 to 2.2e-2 at the shapes below on an H100). The
+# kernel must also sit at least this many times closer to the bf16 rule than
+# the two rules sit to each other, so the check holds at shapes or inputs
+# where that gap is smaller.
+RELBIAS_RULE_CONTRAST = 8.0
 
 # Decoder logits, kernel route (bf16 dot inputs in the 6 relative-attention
 # layers) against the f32 plain route: each bf16 rounding is 2**-9 relative;
@@ -197,14 +205,20 @@ def phase_relbias(gen: torch.Generator) -> dict:
         q, k, v, mask, e1, e2 = _relbias_inputs(gen, 8, t, s, kind)
         got = ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2)
         want = ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2)
+        want32 = ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2,
+                                                torch.float32)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        rule_gap = (want32 - want).abs().max().item()
         worst = max(worst, err)
         log(f"# relbias_attention {name} (B=8, H={HEADS}, T={t}, S={s}, "
             f"d={HEAD_DIM}, bf16 dots): max abs err {err:.3e} "
-            f"(tolerance {RELBIAS_ATOL})")
-        if not err <= RELBIAS_ATOL:
-            raise AssertionError(f"relbias_attention {name}: max abs err {err}")
+            f"(tolerance {RELBIAS_ATOL}); bf16 rule vs f32 rule {rule_gap:.3e} "
+            f"(the error must stay below 1/{RELBIAS_RULE_CONTRAST:g} of it)")
+        if not (err <= RELBIAS_ATOL
+                and err * RELBIAS_RULE_CONTRAST <= rule_gap):
+            raise AssertionError(f"relbias_attention {name}: max abs err {err}, "
+                                 f"gap between the dot rules {rule_gap}")
     # f32 dot rule at the code encoder's shape (K, V and the table in f32 fit
     # the block only at short source lengths)
     q, k, v, mask, e1, e2 = _relbias_inputs(gen, 8, 24, 24, "anticausal")
@@ -356,15 +370,10 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
     sizes = torch.tensor(vocab.num_tokens_per_channel, device="cuda")
     if not ((sampled >= 0) & (sampled < sizes)).all():
         raise AssertionError("sampled tokens outside their channel's vocabulary")
-    with torch.no_grad():
-        _, prefill_s = synced_seconds(lambda: decoder.prefill(codes, tokens0,
-                                                              torch.int8))
     tokens_per_s = BATCH * n_tok / sample_s
     log(f"# (b) sample_range batch {BATCH} x {n_tok} positions (T 0.95, "
         f"top_p 0.8, int8 caches): {sample_s:.4f} s, {tokens_per_s:.1f} "
-        f"tokens/s; prefill alone {prefill_s * 1e3:.3f} ms")
-    if profile:
-        phase_profile(decoder, codes, generator.generator)
+        f"tokens/s")
 
     # (c) re-harmonisation of a random 40-beat template, 8 variants
     template = random_templates(vocab, gen, 1, 40 * 4).cpu().numpy()
@@ -372,8 +381,11 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
     outs, reharm_s = synced_seconds(lambda: generator.generate_reharmonisation(
         template, 8, temperature=0.95, top_p=0.8, exclude_meta_symbols=True))
     after_c = counts()
-    windows = (after_c["relbias_attention_fwd"]
-               - before_c["relbias_attention_fwd"]) // 6
+    windows, rest = divmod(after_c["relbias_attention_fwd"]
+                           - before_c["relbias_attention_fwd"], 6)
+    if rest or not windows:
+        raise AssertionError(f"re-harmonisation launched relbias_attention "
+                             f"{6 * windows + rest} times, not 6 per window")
     forbidden = generator._forbidden(True)
     for grid in outs:
         if grid.shape != (160, 4):
@@ -383,7 +395,16 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
                 raise AssertionError("a meta symbol was sampled while excluded")
     log(f"# (c) generate_reharmonisation 40 beats x 8 variants: "
         f"{reharm_s:.4f} s, {windows} windows, {len(outs) * 160 * 4} tokens")
+    # the main path is (a)-(c); what follows launches the kernels outside it
     main_counts = counts()
+
+    with torch.no_grad():
+        _, prefill_s = synced_seconds(lambda: decoder.prefill(codes, tokens0,
+                                                              torch.int8))
+    log(f"# prefill alone at batch {BATCH} (int8 caches): "
+        f"{prefill_s * 1e3:.3f} ms")
+    if profile:
+        phase_profile(decoder, codes, generator.generator)
 
     # (d) kernel route vs plain route, greedy KV cache vs teacher forcing
     small_codes, small = codes[:8], sampled[:8]
@@ -468,7 +489,6 @@ def main() -> int:
              replaces="vqcpcb_tpu/ops/pallas_vq.py:28",
              pallas_counterpart="vqcpcb_tpu/ops/pallas_vq.py:_kernel",
              launches=launches["vq_nearest"], max_abs_err=vq["max_abs_err"],
-             max_err=vq["max_abs_err"],
              ms=vq["ms"], plain_ms=vq["plain_ms"], bound_ms=vq["bound_ms"],
              bound_by=vq["bound_by"], library_ms=vq["library_ms"]),
         dict(name="relbias_attention_fwd", route="cuda",
@@ -476,11 +496,14 @@ def main() -> int:
              replaces="vqcpcb_tpu/ops/pallas_attention.py:571",
              pallas_counterpart="vqcpcb_tpu/ops/pallas_attention.py:_relbias_fwd_kernel",
              launches=launches["relbias_attention_fwd"],
-             max_abs_err=rb["max_abs_err"], max_err=rb["max_abs_err"],
+             max_abs_err=rb["max_abs_err"],
              ms=rb["ms"], plain_ms=rb["plain_ms"],
              bound_ms=rb["bound_ms"], bound_by=rb["bound_by"],
              library_ms=rb["library_ms"]),
     ]
+    # the error is read under two names by readers of this line; one number
+    for k in kernels:
+        k["max_err"] = k["max_abs_err"]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

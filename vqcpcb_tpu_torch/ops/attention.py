@@ -106,9 +106,17 @@ class MultiheadAttention(nn.Module):
         additive (L_tgt, L_src) mask or None. Returns (output (B, L_tgt, E),
         weights (B, H, L_tgt, L_src) on the plain path, None on the kernel
         path)."""
-        q = self.project_q(query)
-        k, v = self.project_kv(key)
-        if query.device.type != "cpu":
+        return self.attend(self.project_q(query), *self.project_kv(key),
+                           attn_mask)
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               attn_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The forward after the projections: scaled q (B, H, L_tgt, hd), k and
+        v (B, H, L_src, hd) as project_q / project_kv give them. A prefill
+        that also keeps k and v for the cache projects them once and calls
+        this."""
+        if q.device.type != "cpu":
             if self.attn_bias is None:
                 raise NotImplementedError(
                     "attention without the relative bias on the card is the "

@@ -58,16 +58,20 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         src2, a_self = self.self_attn(src, src, attn_mask=src_mask)
+        return self._after_self(src, src2), a_self
+
+    def _after_self(self, src, src2):
         src = self.norm1(src + src2)
-        src = self.norm2(src + feed_forward(src, self.linear1, self.linear2,
-                                            self.activation))
-        return src, a_self
+        return self.norm2(src + feed_forward(src, self.linear1, self.linear2,
+                                             self.activation))
 
     def capture(self, src, src_mask=None):
-        """Full forward that also returns this layer's self-attention K/V."""
-        k_self, v_self = self.self_attn.project_kv(src)
-        out, _ = self.forward(src, src_mask)
-        return out, (k_self, v_self)
+        """Full forward that also returns this layer's self-attention K/V,
+        projected once for both."""
+        attn = self.self_attn
+        k_self, v_self = attn.project_kv(src)
+        src2, _ = attn.attend(attn.project_q(src), k_self, v_self, src_mask)
+        return self._after_self(src, src2), (k_self, v_self)
 
     def step(self, x_t, k_cache: Cache, v_cache: Cache, t: int, seq_len: int):
         """One position: x_t (B, 1, E); caches already hold position t."""
@@ -152,9 +156,10 @@ class TransformerAlignedDecoderLayer(nn.Module):
 
     def capture(self, tgt, memory, tgt_mask=None):
         """Full forward returning the self-attention K/V and the cross branch
-        (B, T, E) for the decode steps."""
-        k_self, v_self = self.self_attn.project_kv(tgt)
-        tgt2, _ = self.self_attn(tgt, tgt, attn_mask=tgt_mask)
+        (B, T, E) for the decode steps; K/V are projected once for both."""
+        attn = self.self_attn
+        k_self, v_self = attn.project_kv(tgt)
+        tgt2, _ = attn.attend(attn.project_q(tgt), k_self, v_self, tgt_mask)
         tgt = self.norm1(tgt + tgt2)
         cross = self.cross_branch(memory, tgt.shape[1])
         return self._after_self(tgt, cross), (k_self, v_self), cross
