@@ -1,20 +1,31 @@
 """Smoke run of the PyTorch + CUDA port (vqcpcb_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py             # the smoke run
-    python3 chip_smoke.py --profile   # plus a profiler breakdown of sampling
+    python3 chip_smoke.py --profile   # plus profiler breakdowns of sampling
+                                      # and of 3 decoder train steps
 
 Phases, in order; any failure raises and the run exits non-zero:
   1. environment: the card's name and power limit, torch / CUDA versions,
      TF32 off for matmuls and cuDNN (the comparisons below are in f32);
   2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a);
   3. nearest-codebook kernel vs its plain PyTorch version, timed;
-  4. relative-bias attention kernel vs its plain version, timed beside its
-     bound and beside scaled_dot_product_attention as a yardstick;
-  5. the re-harmonisation serving path end to end at full width (random
+  4. relative-bias attention forward kernel (inference) vs its plain
+     version, timed beside its bound and beside scaled_dot_product_attention
+     as a yardstick;
+  5. relative-bias attention training kernels (forward and backward, with
+     dropout, packed and (B, H, L, d) layouts) vs their plain versions, the
+     dropout mask bit for bit, timed at the flagship training shape;
+  6. the re-harmonisation serving path end to end at full width (random
      weights from a seed): encoder codes, KV-cached sampling at batch 512,
      re-harmonisation of a random template, and kernel-route vs plain-route
      logits plus greedy KV-cached tokens vs the teacher-forced argmax;
-  6. one JSON line of per-kernel numbers, then the result line.
+  7. flagship decoder training at full width: DecoderTrainer steps at batch
+     32 with bf16 autocast and dropout 0.2 (falling loss, ms/step,
+     tokens/s, launches per step), and kernel-route vs CPU f32 plain-route
+     loss and gradients at batch 2, dropout 0;
+  8. one JSON line of per-kernel numbers, then the result line.
+Phases 6 and 7 are the two main paths: each is driven with the launch
+counts set to 0 just before it and read just after.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -37,9 +48,13 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-# Shapes of the slice at full width: 512 templates of 96 events x 4 voices,
-# 24 codes each (blocks of 16 tokens), decoder d_model 512 / 8 heads.
+# Shapes of the slices at full width: 512 templates of 96 events x 4 voices,
+# 24 codes each (blocks of 16 tokens), decoder d_model 512 / 8 heads;
+# decoder training at batch 32 (BENCHMARKS.md's decoder-training batch).
 BATCH = 512
+TRAIN_BATCH = 32
+TRAIN_STEPS = 30
+TRAIN_DROPOUT = 0.2
 NUM_EVENTS = 96
 NUM_CODES = 24
 HEADS = 8
@@ -258,6 +273,206 @@ def phase_relbias(gen: torch.Generator) -> dict:
 
 # ---- phase 5 ---------------------------------------------------------------
 
+# Training kernels vs their plain versions, bf16 dots on both sides: f32 sums
+# in other orders may round a weight or a score gradient to the neighbouring
+# bf16 value (2**-8 of one term of a sum), so each result must lie within
+# GRAD_FRAC of its max |value| (bf16 outputs add 2**-9 relative of their own);
+# and, as in phase 4, 8x closer to the bf16-rule plain version than the
+# f32-rule one is, so a kernel that skipped a rounding point is caught.
+GRAD_FRAC = 4e-3
+TRAIN_RESULTS = ("out", "dq", "dk", "dv", "dmask", "de1", "de2")
+
+
+def _pack(x):
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+def _train_inputs(gen, b, t, s, kind, packed, dtype=torch.float32):
+    q, k, v, mask, e1, e2 = _relbias_inputs(gen, b, t, s, kind)
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    if packed:
+        q, k, v, g = (_pack(x) for x in (q, k, v, g))
+    q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+    return q, k, v, mask, e1, e2, g
+
+
+def _fwd_bwd(fwd, bwd, q, k, v, mask, e1, e2, g, dot_dtype=torch.bfloat16,
+             need_dmask=False, **kw):
+    return [fwd(q, k, v, mask, e1, e2, dot_dtype, **kw),
+            *bwd(q, k, v, mask, e1, e2, g, dot_dtype, need_dmask=need_dmask, **kw)]
+
+
+def _hold(what, got, want, want32, worst) -> str:
+    """Each result against the bf16-rule plain version: within GRAD_FRAC of
+    its max |value| (plus one bf16 step at that value for a result stored in
+    bf16, where two f32 results a hair apart may round to neighbouring
+    values); and, when the f32-rule plain version is given, 8x closer to the
+    bf16 rule than the f32 rule is. Keeps the worst error in `worst`; returns
+    the numbers for the log."""
+    line = []
+    for res, a, w, w32 in zip(TRAIN_RESULTS, got, want,
+                              want32 or [None] * len(want)):
+        if a is None:
+            continue
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        limit = GRAD_FRAC * max(scale, 1e-30)
+        if a.dtype == torch.bfloat16:
+            limit += torch.finfo(torch.bfloat16).eps * scale
+        key = "fwd" if res == "out" else "bwd"
+        worst[key] = max(worst[key], err)
+        ok = err <= limit
+        if w32 is None:
+            line.append(f"{res} {err:.2e}/{scale:.3g}")
+        else:
+            gap = (w32.float() - w.float()).abs().max().item()
+            ok = ok and err * RELBIAS_RULE_CONTRAST <= gap
+            line.append(f"{res} {err:.2e}/{gap:.2e}/{scale:.3g}")
+        if not ok:
+            raise AssertionError(f"{what}: {res} err {err} (limit {limit}), "
+                                 f"{line[-1]}")
+    return ", ".join(line)
+
+
+def phase_relbias_train(gen: torch.Generator) -> dict:
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    import torch.nn.functional as F
+    from vqcpcb_tpu_torch.ops.relative_attention import subsampled_relative_bias
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    cases = [("decoder self-attention", 384, 384, "causal"),
+             ("code encoder", 24, 24, "anticausal"),
+             ("ratio 4", 96, 24, "anticausal_rect")]
+    for name, t, s, kind in cases:
+        for packed in (True, False):
+            for rate in (0.0, TRAIN_DROPOUT):
+                inputs = _train_inputs(gen, 4, t, s, kind, packed)
+                kw = dict(num_heads=HEADS if packed else None, dropout=rate,
+                          seed=1234)
+                # dmask once, at the flagship shape
+                need_dmask = t == 384 and packed and rate > 0
+                got = _fwd_bwd(ak.relbias_attention_fwd_cuda,
+                               ak.relbias_attention_bwd_cuda, *inputs,
+                               need_dmask=need_dmask, **kw)
+                want = _fwd_bwd(ak.relbias_attention_fwd_plain,
+                                ak.relbias_attention_bwd_plain, *inputs,
+                                need_dmask=need_dmask, **kw)
+                want32 = _fwd_bwd(ak.relbias_attention_fwd_plain,
+                                  ak.relbias_attention_bwd_plain, *inputs,
+                                  dot_dtype=torch.float32,
+                                  need_dmask=need_dmask, **kw)
+                torch.cuda.synchronize()
+                line = _hold(f"relbias training {name} packed={packed} "
+                             f"dropout={rate}", got, want, want32, worst)
+                if kind == "causal" and got[-1].any():
+                    raise AssertionError("e2 gradient under the causal mask is not 0")
+                log(f"# relbias train {name} (B=4, T={t}, S={s}, "
+                    f"{'packed' if packed else '(B,H,L,d)'}, dropout {rate}): "
+                    f"err/rule gap/max|value| {line}")
+        # the dropout mask, bit for bit: with v the one-hot columns of a block
+        # of 64 keys, the kernel's output is its dropped weight row there
+        q, k, _, mask, e1, e2, _ = _train_inputs(gen, 4, t, s, kind, False)
+        keep = ak.dropout_keep_plain((t, s), TRAIN_DROPOUT,
+                                     ak._stream_seeds(99, 4, HEADS, "cuda"))
+        mismatched = 0
+        for c0 in range(0, s, HEAD_DIM):
+            n = min(HEAD_DIM, s - c0)
+            v = torch.zeros((4, HEADS, s, HEAD_DIM), device="cuda")
+            v[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
+            out = ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
+                                                dropout=TRAIN_DROPOUT, seed=99)
+            w = ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2)
+            live = w[..., :n] > 0
+            mismatched += (((out[..., :n] != 0) & live)
+                           != (keep[..., c0:c0 + n] & live)).sum().item()
+        log(f"# relbias train {name}: dropout mask vs the hash, {mismatched} "
+            f"of {4 * HEADS * t * s} entries differ (need 0)")
+        if mismatched:
+            raise AssertionError(f"dropout mask differs at {mismatched} entries")
+
+    # the main path's calls: packed bf16 at B=32, dropout 0.2, at both of its
+    # shapes. The bf16-input results are held against the plain versions on
+    # the same inputs, and must equal, bit for bit, the kernels' results on
+    # their f32 twin (the same values in f32) rounded to bf16; the twin's
+    # results are held against both dot rules like the B=4 cases above.
+    for name, t, kind in (("code encoder", 24, "anticausal"),
+                          ("decoder self-attention", 384, "causal")):
+        inputs = _train_inputs(gen, TRAIN_BATCH, t, t, kind, True, torch.bfloat16)
+        q, k, v, mask, e1, e2, g = inputs
+        twin = (q.float(), k.float(), v.float(), mask, e1, e2, g.float())
+        kw = dict(num_heads=HEADS, dropout=TRAIN_DROPOUT, seed=3)
+        cuda = (ak.relbias_attention_fwd_cuda, ak.relbias_attention_bwd_cuda)
+        plain = (ak.relbias_attention_fwd_plain, ak.relbias_attention_bwd_plain)
+        got, got32 = _fwd_bwd(*cuda, *inputs, **kw), _fwd_bwd(*cuda, *twin, **kw)
+        torch.cuda.synchronize()
+        line = _hold(f"relbias training {name} B={TRAIN_BATCH} bf16 inputs", got,
+                     _fwd_bwd(*plain, *inputs, **kw), None, worst)
+        line32 = _hold(f"relbias training {name} B={TRAIN_BATCH} f32 twin", got32,
+                       _fwd_bwd(*plain, *twin, **kw),
+                       _fwd_bwd(*plain, *twin, dot_dtype=torch.float32, **kw), worst)
+        for res, a, a32 in zip(TRAIN_RESULTS, got, got32):
+            if a is not None and not torch.equal(a, a32.to(a.dtype)):
+                raise AssertionError(f"relbias training {name}: {res} from bf16 "
+                                     "inputs is not the f32 twin's rounded to bf16")
+        log(f"# relbias train {name} (B={TRAIN_BATCH}, T=S={t}, packed, dropout "
+            f"{TRAIN_DROPOUT}): bf16 inputs err/max|value| {line}; f32 twin "
+            f"err/rule gap/max|value| {line32}; bf16 results = the twin's "
+            f"rounded to bf16, bit for bit")
+        del got, got32, twin
+        torch.cuda.empty_cache()
+
+    # timing at the flagship training shape, as the training path calls it
+    # (the decoder's inputs, the last of the loop above)
+    b, t = TRAIN_BATCH, 384
+    fwd_ms = time_cuda(lambda: ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2, **kw), 20)
+    bwd_ms = time_cuda(lambda: ak.relbias_attention_bwd_cuda(
+        q, k, v, mask, e1, e2, g, need_dmask=False, **kw), 10)
+    fwd_plain = time_cuda(lambda: ak.relbias_attention_fwd_plain(
+        q, k, v, mask, e1, e2, **kw), 5, warmup=1)
+    bwd_plain = time_cuda(lambda: ak.relbias_attention_bwd_plain(
+        q, k, v, mask, e1, e2, g, need_dmask=False, **kw), 3, warmup=1)
+    q4, k4, v4, g4 = (x.unflatten(-1, (HEADS, HEAD_DIM)).transpose(1, 2).contiguous()
+                      for x in (q, k, v, g))
+    # the same kernels on the (B, H, L, d) layout (the TPU's K3 pair)
+    kw4 = dict(kw, num_heads=None)
+    fwd_bhld = time_cuda(lambda: ak.relbias_attention_fwd_cuda(
+        q4, k4, v4, mask, e1, e2, **kw4), 20)
+    bwd_bhld = time_cuda(lambda: ak.relbias_attention_bwd_cuda(
+        q4, k4, v4, mask, e1, e2, g4, need_dmask=False, **kw4), 10)
+    bias = (mask + subsampled_relative_bias(q4.float(), e1, e2)).to(torch.bfloat16)
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4, bias)]
+    sdpa = lambda: F.scaled_dot_product_attention(       # noqa: E731
+        *leaves[:3], attn_mask=leaves[3], dropout_p=TRAIN_DROPOUT, scale=1.0)
+    lib_fwd = time_cuda(sdpa, 10, warmup=2)
+    lib_fwd_bwd = time_cuda(lambda: sdpa().backward(g4), 10, warmup=2)
+    del leaves, bias, q4, k4, v4, g4
+    n, e = b * HEADS, HEADS * HEAD_DIM
+    act = 2 * b * t * e                              # one bf16 (B, T, H*d) tensor
+    side = 4 * t * t + 4 * HEADS * (2 * t - 1) * HEAD_DIM   # mask, E (f32)
+    prod = 2 * t * t * HEAD_DIM * n                  # one T x S x d product
+    # fwd: q.k, q.E, w.v; bwd: q.k, q.E, do.v, ds.k, dc.E (dq), ds.q (dk),
+    # w.do (dv), dc.q (dE)
+    fwd_bound = bound(4 * act + side, 3 * prod, BF16_FLOPS)
+    bwd_bound = bound(7 * act + 2 * side, 8 * prod, BF16_FLOPS)
+    log(f"# relbias train at B={b}, T=S={t}, packed bf16, dropout "
+        f"{TRAIN_DROPOUT}: fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
+        f"sdpa(mask+bias) {lib_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+        f"({fwd_bound[1]}); bwd kernels {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
+        f"sdpa autograd bwd {lib_fwd_bwd - lib_fwd:.4f} ms, bound "
+        f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); on (B, H, L, d): fwd "
+        f"{fwd_bhld:.4f} ms, bwd {bwd_bhld:.4f} ms")
+    torch.cuda.empty_cache()
+    return {"fwd": dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
+                        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                        max_abs_err=worst["fwd"], ms_bhld=fwd_bhld),
+            "bwd": dict(ms=bwd_ms, plain_ms=bwd_plain,
+                        library_ms=lib_fwd_bwd - lib_fwd,
+                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                        max_abs_err=worst["bwd"], ms_bhld=bwd_bhld)}
+
+
+# ---- phase 6 ---------------------------------------------------------------
+
 def synthetic_vocabulary():
     """4 voices of 56 pitches 'p<midi>' plus the 6 special symbols: 62
     tokens per voice, the vocabulary size of the flagship decoder."""
@@ -267,10 +482,11 @@ def synthetic_vocabulary():
         midi_of_plain_name)
 
 
-def build_models(vocab):
+def build_models(vocab, dropout: float = 0.0):
     """Full width, random weights from torch's init under a fixed seed:
     the encoder of configs/encoder_random_config.py and the flagship AC/D/C
-    decoder of configs/decoder_relative_AC_D_C_random.py."""
+    decoder of configs/decoder_relative_AC_D_C_random.py (its dropout 0.2
+    is the caller's `dropout`; serving runs in eval mode)."""
     from vqcpcb_tpu_torch.models.data_processor import (BachCPCDataProcessor,
                                                         BachDataProcessor)
     from vqcpcb_tpu_torch.models.decoder import Decoder
@@ -292,8 +508,18 @@ def build_models(vocab):
         dim_feedforward=1024, positional_embedding_size=8,
         num_channels_encoder=1, num_events_encoder=NUM_CODES,
         num_channels_decoder=4, num_events_decoder=NUM_EVENTS,
-        total_upscaling=16, source_vocab_size=CODEBOOK_SIZE)
+        total_upscaling=16, source_vocab_size=CODEBOOK_SIZE, dropout=dropout)
     return encoder, decoder
+
+
+def init_codebook(encoder, templates, gen) -> None:
+    """Data-dependent codebook init (the reference's first-batch init,
+    vqcpcb_tpu/ops/quantizer.py:29): codes drawn from the downscaler's
+    outputs, so the templates' codes spread over the codebook."""
+    with torch.no_grad():
+        z = encoder.downscaler(encoder.embed_tokens(templates)).reshape(-1, 3)
+        pick = torch.randperm(z.shape[0], generator=gen, device="cuda")[:CODEBOOK_SIZE]
+        encoder.quantizer.embeddings[0].copy_(z[pick])
 
 
 def random_templates(vocab, gen, batch, events):
@@ -310,11 +536,13 @@ def reset_counts():
     from vqcpcb_tpu_torch.ops import attention_kernels as ak, vq_kernels as vk
     vk.launches = 0
     ak.launches = 0
+    ak.bwd_launches = 0
 
 
 def counts():
     from vqcpcb_tpu_torch.ops import attention_kernels as ak, vq_kernels as vk
-    return {"vq_nearest": vk.launches, "relbias_attention_fwd": ak.launches}
+    return {"vq_nearest": vk.launches, "relbias_attention_fwd": ak.launches,
+            "relbias_attention_bwd": ak.bwd_launches}
 
 
 def synced_seconds(fn):
@@ -331,13 +559,7 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
     encoder, decoder = build_models(vocab)
     generator = DecoderGenerator(encoder, decoder, vocab, CODEBOOK_SIZE, seed=0)
     templates = random_templates(vocab, gen, BATCH, NUM_EVENTS)
-    with torch.no_grad():
-        # data-dependent codebook init (the reference's first-batch init,
-        # vqcpcb_tpu/ops/quantizer.py:29): codes drawn from the downscaler's
-        # outputs, so the codes of the templates spread over the codebook
-        z = encoder.downscaler(encoder.embed_tokens(templates)).reshape(-1, 3)
-        pick = torch.randperm(z.shape[0], generator=gen, device="cuda")[:CODEBOOK_SIZE]
-        encoder.quantizer.embeddings[0].copy_(z[pick])
+    init_codebook(encoder, templates, gen)
     # warm-up of every route outside the counted run (cuDNN, cuBLAS plans)
     warm_codes = generator.encode_codes(templates[:8])
     decoder.sample_range(warm_codes, templates[:8], 0, 8, generator.generator,
@@ -439,28 +661,148 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
                 reharm_s=reharm_s, windows=windows)
 
 
+def _log_profile(prof, wall_s: float, label: str, top: int) -> None:
+    """Device time by kernel from a finished profiler, and the share of the
+    wall time the card was busy (kernels only: the aten ops above them carry
+    the same device time)."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"# profile: {label}: wall {wall_s * 1e3:.3f} ms (under the profiler), "
+        f"device busy {busy_ms:.3f} ms ({busy_ms / (wall_s * 1e3) * 100:.1f}%)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:top]:
+        log(f"# profile {e.self_device_time_total / 1e3:10.3f} ms "
+            f"{e.count:6d} calls  {e.key[:90]}")
+
+
 def phase_profile(decoder, codes, generator: torch.Generator) -> None:
     """Device time by kernel over one sample_range of 64 positions at batch
-    512 (a prefill and 64 decode steps), from torch.profiler, and the share
-    of the wall time the card was busy."""
-    from torch.autograd import DeviceType
+    512 (a prefill and 64 decode steps), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     tokens0 = torch.zeros((codes.shape[0], NUM_EVENTS, 4), dtype=torch.int32,
                           device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_s = synced_seconds(lambda: decoder.sample_range(
             codes, tokens0, 0, 64, generator, temperature=0.95, top_p=0.8))
-    # kernels only: the aten ops above them carry the same device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"# profile: sample_range batch {codes.shape[0]}, 64 positions: wall "
-        f"{wall_s * 1e3:.3f} ms (under the profiler), device busy "
-        f"{busy_ms:.3f} ms ({busy_ms / (wall_s * 1e3) * 100:.1f}%)")
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:12]:
-        log(f"# profile {e.self_device_time_total / 1e3:10.3f} ms "
-            f"{e.count:6d} calls  {e.key[:90]}")
+    _log_profile(prof, wall_s, f"sample_range batch {codes.shape[0]}, 64 "
+                 "positions", 12)
+
+
+# ---- phase 7 ---------------------------------------------------------------
+
+# Decoder loss and gradients, kernel route (bf16 autocast, bf16 dots in the
+# attention kernels) against the CPU f32 plain route at dropout 0: every
+# product of the 6 layers rounds its inputs to bf16 (2**-9 relative), which
+# moves the loss by well under 2% and leaves each gradient's direction within
+# cosine 0.99 of the f32 one.
+LOSS_RTOL = 2e-2
+GRAD_COSINE = 0.99
+
+
+def set_dropout(model, rate: float) -> None:
+    from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = rate
+        elif isinstance(m, MultiheadAttention):
+            m.dropout = rate
+
+
+def loss_and_grads(decoder, codes, x, autocast: bool):
+    decoder.train()
+    decoder.zero_grad(set_to_none=True)
+    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+        loss = decoder(codes, x)["loss"]
+    loss.backward()
+    return loss.item(), {
+        n: (torch.zeros(p.shape) if p.grad is None else p.grad.float().cpu())
+        for n, p in decoder.named_parameters()}
+
+
+def phase_decoder_training(gen: torch.Generator, profile: bool) -> dict:
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    vocab = synthetic_vocabulary()
+    encoder, decoder = build_models(vocab, dropout=TRAIN_DROPOUT)
+    batches = [random_templates(vocab, gen, TRAIN_BATCH, NUM_EVENTS)
+               for _ in range(4)]
+    trainer = DecoderTrainer(encoder, decoder, CODEBOOK_SIZE, seed=0)
+    trainer.init_state(lr=1e-4)               # the flagship config's lr
+    init_codebook(trainer.encoder, torch.cat(batches), gen)
+    for x in batches[:2]:                     # warm-up: cuBLAS plans, caches
+        trainer.train_step(x)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        out, sec = synced_seconds(lambda: trainer.train_step(batches[i % 4]))
+        losses.append(out["loss"])
+        step_s.append(sec)
+    main_counts = counts()
+    losses = torch.stack(losses).float().cpu().tolist()
+    want = {"relbias_attention_fwd": 6 * TRAIN_STEPS,
+            "relbias_attention_bwd": 6 * TRAIN_STEPS, "vq_nearest": TRAIN_STEPS}
+    log(f"# (a) train steps: launches {json.dumps(main_counts)} over "
+        f"{TRAIN_STEPS} steps (need {json.dumps(want)})")
+    if main_counts != want:
+        raise AssertionError(f"train-step launches {main_counts}, not {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    step_ms = float(np.median(step_s)) * 1e3
+    tokens_per_s = TRAIN_BATCH * NUM_EVENTS * 4 / (step_ms / 1e3)
+    log(f"# (a) decoder training batch {TRAIN_BATCH} x {NUM_EVENTS * 4} tokens, "
+        f"bf16 autocast, dropout {TRAIN_DROPOUT}, Adam lr 1e-4 clip 5: median "
+        f"{step_ms:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
+        f"{max(step_s) * 1e3:.3f}), {tokens_per_s:.1f} tokens/s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 4 {first:.4f}, "
+        f"last 4 {last:.4f})")
+    evaluated = trainer.epoch([{"x": x} for x in batches], train=False)
+    log(f"# (a) eval epoch over the 4 batches: loss {evaluated['loss']:.4f}, "
+        f"{evaluated['tokens_per_sec']:.1f} tokens/s")
+    if not np.isfinite(evaluated["loss"]):
+        raise AssertionError(f"eval loss {evaluated}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_s = synced_seconds(lambda: [trainer.train_step(batches[i])
+                                                for i in range(3)])
+        _log_profile(prof, wall_s, f"3 decoder train steps at batch {TRAIN_BATCH}", 20)
+
+    # (b) kernel route vs the CPU f32 plain route, batch 2, dropout 0
+    dec = trainer.decoder
+    set_dropout(dec, 0.0)
+    small = batches[0][:2]
+    codes = trainer.encode_codes(small)
+    loss_k, grads_k = loss_and_grads(dec, codes, small, autocast=True)
+    plain = copy.deepcopy(dec).cpu()
+    loss_p, grads_p = loss_and_grads(plain, codes.cpu(), small.cpu(), autocast=False)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    worst_name, worst_cos = None, 1.0
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        norm = gp.norm() * gk.norm()
+        if norm == 0:
+            if gp.any() or gk.any():
+                raise AssertionError(f"{name}: one route's gradient is zero")
+            continue
+        cos = float((gp * gk).sum() / norm)
+        if cos < worst_cos:
+            worst_name, worst_cos = name, cos
+    log(f"# (b) batch 2, dropout 0: loss kernel route {loss_k:.5f} vs CPU f32 "
+        f"plain route {loss_p:.5f} (relative {loss_err:.3e}, need <= "
+        f"{LOSS_RTOL}); lowest gradient cosine {worst_cos:.5f} ({worst_name}) "
+        f"over {len(grads_p)} parameters (need >= {GRAD_COSINE})")
+    if not (loss_err <= LOSS_RTOL and worst_cos >= GRAD_COSINE):
+        raise AssertionError("decoder training: kernel route disagrees with "
+                             "the plain route")
+    return dict(launches=main_counts, step_ms=step_ms,
+                tokens_per_s=tokens_per_s, losses=losses,
+                loss_err=loss_err, worst_cos=worst_cos)
 
 
 def main() -> int:
@@ -479,27 +821,46 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     vq = phase_vq(gen)
     rb = phase_relbias(gen)
-    e2e = phase_end_to_end(gen, profile="--profile" in sys.argv[1:])
-    launches = e2e["launches"]
-    log(f"# main-path launches: {json.dumps(launches)}")
+    rb_train = phase_relbias_train(gen)
+    profile = "--profile" in sys.argv[1:]
+    e2e = phase_end_to_end(gen, profile=profile)
+    train = phase_decoder_training(gen, profile=profile)
+    by_path = {"serving": e2e["launches"], "decoder_training": train["launches"]}
+    launches = {k: sum(path.get(k, 0) for path in by_path.values())
+                for k in train["launches"]}
+    log(f"# main-path launches: {json.dumps(by_path)}")
 
+    def entry(name, source, replaces, counterpart, also, numbers, **extra):
+        # ms_bhld: the same call on the (B, H, L, d) layout, where timed
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_bhld")
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    pallas_counterpart=counterpart, also_replaces=also,
+                    launches=launches[name],
+                    launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
+                    max_abs_err=numbers["max_abs_err"],
+                    **{k: numbers[k] for k in keys if k in numbers}, **extra)
+
+    train_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "ms_bhld")
     kernels = [
-        dict(name="vq_nearest", route="cuda",
-             source="vqcpcb_tpu_torch/csrc/vq_nearest.cu",
-             replaces="vqcpcb_tpu/ops/pallas_vq.py:28",
-             pallas_counterpart="vqcpcb_tpu/ops/pallas_vq.py:_kernel",
-             launches=launches["vq_nearest"], max_abs_err=vq["max_abs_err"],
-             ms=vq["ms"], plain_ms=vq["plain_ms"], bound_ms=vq["bound_ms"],
-             bound_by=vq["bound_by"], library_ms=vq["library_ms"]),
-        dict(name="relbias_attention_fwd", route="cuda",
-             source="vqcpcb_tpu_torch/csrc/relbias_attention.cu",
-             replaces="vqcpcb_tpu/ops/pallas_attention.py:571",
-             pallas_counterpart="vqcpcb_tpu/ops/pallas_attention.py:_relbias_fwd_kernel",
-             launches=launches["relbias_attention_fwd"],
-             max_abs_err=rb["max_abs_err"],
-             ms=rb["ms"], plain_ms=rb["plain_ms"],
-             bound_ms=rb["bound_ms"], bound_by=rb["bound_by"],
-             library_ms=rb["library_ms"]),
+        entry("vq_nearest", "vqcpcb_tpu_torch/csrc/vq_nearest.cu",
+              "vqcpcb_tpu/ops/pallas_vq.py:28", "vqcpcb_tpu/ops/pallas_vq.py:_kernel",
+              [], vq),
+        # top-level times at the serving prefill's shape (B=512, T=S=384, f32
+        # inputs), as since the kernel was first ported; the training shape
+        # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"
+        entry("relbias_attention_fwd", "vqcpcb_tpu_torch/csrc/relbias_attention.cu",
+              "vqcpcb_tpu/ops/pallas_attention.py:571",
+              "vqcpcb_tpu/ops/pallas_attention.py:_relbias_fwd_kernel",
+              ["vqcpcb_tpu/ops/pallas_attention.py:875"],
+              dict(rb, max_abs_err=max(rb["max_abs_err"],
+                                       rb_train["fwd"]["max_abs_err"])),
+              training={k: rb_train["fwd"][k] for k in train_keys}),
+        # times at the training shape, the only one the backward runs at
+        entry("relbias_attention_bwd",
+              "vqcpcb_tpu_torch/csrc/relbias_attention_bwd.cu",
+              "vqcpcb_tpu/ops/pallas_attention.py:895",
+              "vqcpcb_tpu/ops/pallas_attention.py:_relbias_bwd_kernel_packed",
+              ["vqcpcb_tpu/ops/pallas_attention.py:582"], rb_train["bwd"]),
     ]
     # the error is read under two names by readers of this line; one number
     for k in kernels:

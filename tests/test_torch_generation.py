@@ -24,6 +24,8 @@ from vqcpcb_tpu_torch.models.encoder import Encoder
 from vqcpcb_tpu_torch.ops.quantizer import ProductVectorQuantizer
 from vqcpcb_tpu_torch.training.decoder_trainer import (DecoderGenerator,
                                                        compute_start_end_times)
+from vqcpcb_tpu_torch.training.decoder_trainer import \
+    DecoderTrainer as PortDecoderTrainer
 
 CODEBOOK = 8
 
@@ -180,3 +182,48 @@ def test_generator_needs_the_card_unless_told_cpu(pair, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DecoderGenerator(port.encoder, port.decoder, port.vocabulary, CODEBOOK)
+
+
+def test_train_step_matches_jax(pair):
+    """One DecoderTrainer.train_step against the JAX trainer's train_step
+    from the same weights and batch (frozen-encoder codes, f32, dropout 0,
+    Adam lr 1e-3 with the clip), both on copies so the other tests keep
+    their weights: loss to 1e-5 relative, and every parameter after the step
+    within 1e-6 of JAX's -- or within 2 * lr where |grad| < 1e-5, since
+    Adam's first step moves a weight by lr * g / (|g| + 1e-8), which is
+    ill-conditioned there."""
+    import copy
+    trainer, port, x0 = pair
+    lr = 1e-3
+    ours = PortDecoderTrainer(copy.deepcopy(port.encoder), copy.deepcopy(port.decoder),
+                          CODEBOOK, device="cpu", seed=0).init_state(lr)
+    state = jax.tree.map(jnp.array, trainer.state)     # train_step donates it
+    state, metrics = trainer._train_step(state, trainer.encoder_variables,
+                                         jnp.asarray(x0), jax.random.PRNGKey(5))
+    got = ours.train_step(x0)
+    np.testing.assert_allclose(got["loss"].item(), float(metrics["loss"]), rtol=1e-5)
+    want = convert.decoder_state_dict(jax.device_get(state.params))
+    assert ours.step == 1
+    for name, p in ours.decoder.named_parameters():
+        small = p.grad.abs() < 1e-5
+        err = (p.detach() - want[name]).abs()
+        assert bool((err[~small] <= 1e-6).all()), (name, float(err[~small].max()))
+        assert bool((err[small] <= 2 * lr).all()), name
+
+
+def test_trainer_epoch_means_the_step_losses(pair):
+    """DecoderTrainer.epoch over loader-style batches: the eval epoch's loss
+    is eval_step's, num_batches caps a training epoch, and each trained
+    batch is one optimizer step."""
+    import copy
+    _, port, x0 = pair
+    ours = PortDecoderTrainer(copy.deepcopy(port.encoder), copy.deepcopy(port.decoder),
+                              CODEBOOK, device="cpu").init_state(1e-3)
+    batches = [{"x": x0}, {"x": x0[:2]}]
+    evaluated = ours.epoch(batches, train=False)
+    want = (ours.eval_step(x0)["loss"] + ours.eval_step(x0[:2])["loss"]) / 2
+    np.testing.assert_allclose(evaluated["loss"], want.item(), rtol=1e-6)
+    assert evaluated["tokens_per_sec"] > 0
+    trained = ours.epoch(batches, train=True, num_batches=1)
+    assert ours.step == 1 and np.isfinite(trained["loss"])
+    assert ours.epoch([], train=True) == {}

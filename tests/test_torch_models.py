@@ -158,7 +158,7 @@ def _mha_pair(t=32, s=8):
     xk = rng.randn(2, s, 32).astype(np.float32)
     params = jax.tree.map(np.asarray, jm.init(
         jax.random.PRNGKey(0), jnp.asarray(xq), jnp.asarray(xk), jnp.asarray(xk))["params"])
-    m = MultiheadAttention(32, 4, "relative_attention", 1, s, 1, t)
+    m = MultiheadAttention(32, 4, "relative_attention", 1, s, 1, t).eval()
     m.load_state_dict(convert._attention(params, ""), strict=True)
     return jm, params, m, xq, xk
 

@@ -1,0 +1,453 @@
+// Relative-bias attention backward, Hopper (sm_90a).
+//
+// Replaces: vqcpcb_tpu/ops/pallas_attention.py:_relbias_bwd_kernel_packed
+// (training, packed (B, L, H*d) layout) and :_relbias_bwd_kernel
+// ((B*H, L, d) layout), both computing _relbias_bwd_head. Per (b, h), with
+// the forward's scores, softmax w and dropout mask regenerated:
+//
+//   dw    = keep * (do . v^T) / (1-rate)        ds = w * (dw - sum_s dw*w)
+//   dq    = ds . k + dc . E                     dk = ds^T . q
+//   dv    = w_drop^T . do                       dc[t, s + shift(t)] = ds[t, s]
+//   dE   += dc^T . q   (summed over the batch)  dmask += ds (over b and h)
+//
+// with shift(t) = (S-1) - t/r and E = [e1; e2[1:]]. Rounding follows the TPU
+// kernel: q, k, v, E and do are rounded to the dot type before the products;
+// ds (and so dc) is rounded before the dq, dk and dE products and w_drop
+// before dv; products accumulate in f32; dmask is built from the f32 ds. The
+// softmax row term is sum_s dw*w: under dropout and rounding it is not
+// rowsum(do * out).
+//
+// What bounds it on the H100: eight T x S x d products per (b, h) (scores,
+// bias, do.v^T, two for dq, dk, dv, dE) against q, k, v, do in and dq, dk,
+// dv out -- about 440 flops per bf16 byte at T = S = 384, d = 64, above the
+// card's ridge of about 295, so the bf16 tensor-core rate bounds it. This first
+// version runs the products on the CUDA cores (no wgmma, no TMA) and moves
+// ds and w_drop through device memory, so it sits well above that bound.
+//
+// Design: three kernels on one stream, no atomics but the optional dmask.
+//  1. rows: one block of 8 warps per (b, h, tile of query rows) stages K, V
+//     and the table window as the forward does. Each warp takes one row:
+//     scores, q.E bias and do.v^T in one pass over the keys, the softmax,
+//     the regenerated dropout, the row term, ds; then dq from the row of ds
+//     held in shared memory. It writes ds and w_drop, rounded to the dot
+//     type, to (B, H, T, S) scratch.
+//  2. cols: one block per (b, h, 32 key columns) walks the query rows in
+//     chunks of 64, staging q, do and the scratch columns, and owns the dk
+//     and dv rows of its columns in registers: no cross-block reduction.
+//  3. table: one block per (h, 32 rows of E) loops over the batch and the
+//     query rows that address its rows (a contiguous range of t for each
+//     row j of E), staging q and the band ds[t, j - shift(t)] of the
+//     scratch; dE for its rows is summed over the batch in registers.
+// K, V and the table window, the accumulation of dk/dv over all T rows and
+// dE over the batch do not fit one block's shared memory together at
+// S = 384 (the reason for the split); the scratch costs 2 * B*H*T*S dot-type
+// elements (75 MB each at B = 32, H = 8, T = S = 384 in bf16).
+#include "relbias_common.cuh"
+
+namespace {
+
+using namespace relbias;
+
+constexpr int kColTile = 32;     // key columns per cols block
+constexpr int kTableTile = 32;   // rows of E per table block
+constexpr int kRowChunk = 64;    // query rows staged at a time (cols, table)
+constexpr int kColsPerWarp = kColTile / kWarps;
+static_assert(kTableTile == kColTile, "cols and table share the warp map");
+
+template <typename In, typename Elem, int D>
+__global__ void __launch_bounds__(kThreads)
+relbias_bwd_rows_kernel(const In* __restrict__ q, const In* __restrict__ k,
+                        const In* __restrict__ v,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ e,
+                        const In* __restrict__ dout, In* __restrict__ dq,
+                        Elem* __restrict__ ds_out, Elem* __restrict__ wd_out,
+                        float* __restrict__ dmask, Layout lq, Layout lkv,
+                        Layout ldo, Layout ldq, int B, int H, int T, int S,
+                        int tile, uint32_t seed, uint32_t threshold,
+                        float inv_keep, int dropout) {
+  using DT = Dot<Elem>;
+  constexpr int kStride = D + DT::kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elem* ks = reinterpret_cast<Elem*>(smem_raw);
+  Elem* vs = ks + (size_t)S * kStride;
+  Elem* es = vs + (size_t)S * D;
+  const int ratio = T / S;
+  const int n_table = table_rows(S, tile, ratio);
+  float* rows = reinterpret_cast<float*>(es + (size_t)n_table * kStride);
+  float* vecs = rows + (size_t)kWarps * 2 * S;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * tile;
+  const int t1 = min(t0 + tile, T);
+  const In* qb = q + b * lq.b + h * lq.h;
+  const In* dob = dout + b * ldo.b + h * ldo.h;
+  In* dqb = dq + b * ldq.b + h * ldq.h;
+  const long long scratch = (long long)(b * H + h) * T * S;
+  const int shift_lo = (S - 1) - (t1 - 1) / ratio;
+  const float* eb = e + ((long long)h * (2 * S - 1) + shift_lo) * D;
+  const int e_count = min(n_table, 2 * S - 1 - shift_lo);
+  stage_kv_table<In, Elem, D>(k + b * lkv.b + h * lkv.h,
+                              v + b * lkv.b + h * lkv.h, lkv.l, eb, e_count, S,
+                              ks, vs, es);
+  __syncthreads();
+
+  const uint32_t key = stream_key(seed, h, b, B);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* wrow = rows + warp * 2 * S;   // scores -> w -> rounded ds
+  float* dwrow = wrow + S;             // do.v^T -> dropped dw
+  float* dor = vecs + warp * D;        // the row of do, rounded
+  for (int t = t0 + warp; t < t1; t += kWarps) {
+    float qr[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) qr[j] = DT::round(to_float(qb[t * lq.l + j]));
+    for (int j = lane; j < D; j += 32)
+      dor[j] = DT::round(to_float(dob[t * ldo.l + j]));
+    __syncwarp();
+    const int shift = (S - 1) - t / ratio - shift_lo;
+    const float* mrow = mask + (long long)t * S;
+
+    float m = -INFINITY;
+    for (int s = lane; s < S; s += 32) {
+      const Elem* kr = ks + s * kStride;
+      const Elem* er = es + (s + shift) * kStride;
+      const Elem* vr = vs + s * D;
+      float acc_k = 0.f, acc_e = 0.f, acc_v = 0.f;
+#pragma unroll
+      for (int j = 0; j < D; j += 2) {
+        const float2 kk = DT::load2(kr + j);
+        const float2 ee = DT::load2(er + j);
+        const float2 vv = DT::load2(vr + j);
+        acc_k = fmaf(qr[j], kk.x, acc_k);
+        acc_k = fmaf(qr[j + 1], kk.y, acc_k);
+        acc_e = fmaf(qr[j], ee.x, acc_e);
+        acc_e = fmaf(qr[j + 1], ee.y, acc_e);
+        acc_v = fmaf(dor[j], vv.x, acc_v);
+        acc_v = fmaf(dor[j + 1], vv.y, acc_v);
+      }
+      const float score = __fadd_rn(__fadd_rn(acc_k, mrow[s]), acc_e);
+      wrow[s] = score;
+      dwrow[s] = acc_v;
+      m = fmaxf(m, score);
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float p = expf(wrow[s] - m);
+      wrow[s] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    float row_term = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float w = wrow[s] / sum;
+      float dw = dwrow[s], w_drop = w;
+      if (dropout) {
+        const bool kept = dropout_keep(key, t, s, S, threshold);
+        w_drop = kept ? w * inv_keep : 0.f;
+        dw = kept ? dw * inv_keep : 0.f;
+      }
+      wd_out[scratch + (long long)t * S + s] = DT::store(w_drop);
+      row_term = __fadd_rn(row_term, __fmul_rn(dw, w));
+      wrow[s] = w;
+      dwrow[s] = dw;
+    }
+    row_term = warp_sum(row_term);
+    for (int s = lane; s < S; s += 32) {
+      const float ds = wrow[s] * (dwrow[s] - row_term);
+      if (dmask) atomicAdd(dmask + (long long)t * S + s, ds);
+      ds_out[scratch + (long long)t * S + s] = DT::store(ds);
+      wrow[s] = DT::round(ds);
+    }
+    __syncwarp();
+
+    // dq = ds . k + dc . E, the two products summed apart as the TPU kernel
+    // does; lanes split the head dimension
+    for (int p = lane; p < D / 2; p += 32) {
+      float kx = 0.f, ky = 0.f, ex = 0.f, ey = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const float d = wrow[s];
+        const float2 kk = DT::load2(ks + s * kStride + 2 * p);
+        const float2 ee = DT::load2(es + (s + shift) * kStride + 2 * p);
+        kx = fmaf(d, kk.x, kx);
+        ky = fmaf(d, kk.y, ky);
+        ex = fmaf(d, ee.x, ex);
+        ey = fmaf(d, ee.y, ey);
+      }
+      In* o = dqb + t * ldq.l + 2 * p;
+      o[0] = from_float<In>(kx + ex);
+      o[1] = from_float<In>(ky + ey);
+    }
+    __syncwarp();   // the row buffers are rewritten by the next query row
+  }
+}
+
+// Stage rows [t0, t0 + n) of a (T, D) view, rounded to the dot type.
+template <typename In, typename Elem, int D>
+__device__ __forceinline__ void stage_rows(const In* __restrict__ src,
+                                           long long row, int t0, int n,
+                                           Elem* dst) {
+  for (int i = threadIdx.x; i < n * D; i += kThreads) {
+    const int r = i / D, j = i - r * D;
+    dst[i] = Dot<Elem>::store(to_float(src[(t0 + r) * row + j]));
+  }
+}
+
+template <typename In, typename Elem, int D>
+__global__ void __launch_bounds__(kThreads)
+relbias_bwd_cols_kernel(const In* __restrict__ q, const In* __restrict__ dout,
+                        const Elem* __restrict__ ds,
+                        const Elem* __restrict__ wd, In* __restrict__ dk,
+                        In* __restrict__ dv, Layout lq, Layout ldo,
+                        Layout ldkv, int H, int T, int S) {
+  using DT = Dot<Elem>;
+  constexpr int kPairs = (D / 2 + 31) / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elem* qs = reinterpret_cast<Elem*>(smem_raw);
+  Elem* dos = qs + kRowChunk * D;
+  Elem* dss = dos + kRowChunk * D;
+  Elem* wds = dss + kRowChunk * kColTile;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int s0 = blockIdx.x * kColTile;
+  const In* qb = q + b * lq.b + h * lq.h;
+  const In* dob = dout + b * ldo.b + h * ldo.h;
+  const long long scratch = (long long)(b * H + h) * T * S;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  float adk[kColsPerWarp][kPairs][2] = {};
+  float adv[kColsPerWarp][kPairs][2] = {};
+  for (int t0 = 0; t0 < T; t0 += kRowChunk) {
+    const int n = min(kRowChunk, T - t0);
+    stage_rows<In, Elem, D>(qb, lq.l, t0, n, qs);
+    stage_rows<In, Elem, D>(dob, ldo.l, t0, n, dos);
+    for (int i = threadIdx.x; i < n * kColTile; i += kThreads) {
+      const int r = i / kColTile, s = s0 + i - r * kColTile;
+      const long long at = scratch + (long long)(t0 + r) * S + s;
+      dss[i] = s < S ? ds[at] : DT::store(0.f);
+      wds[i] = s < S ? wd[at] : DT::store(0.f);
+    }
+    __syncthreads();
+    for (int r = 0; r < n; ++r) {
+#pragma unroll
+      for (int pi = 0; pi < kPairs; ++pi) {
+        const int p = lane + 32 * pi;
+        if (p >= D / 2) break;
+        const float2 qq = DT::load2(qs + r * D + 2 * p);
+        const float2 dd = DT::load2(dos + r * D + 2 * p);
+#pragma unroll
+        for (int cw = 0; cw < kColsPerWarp; ++cw) {
+          const int c = warp + cw * kWarps;
+          const float dsv = DT::load(dss[r * kColTile + c]);
+          const float wdv = DT::load(wds[r * kColTile + c]);
+          adk[cw][pi][0] = fmaf(dsv, qq.x, adk[cw][pi][0]);
+          adk[cw][pi][1] = fmaf(dsv, qq.y, adk[cw][pi][1]);
+          adv[cw][pi][0] = fmaf(wdv, dd.x, adv[cw][pi][0]);
+          adv[cw][pi][1] = fmaf(wdv, dd.y, adv[cw][pi][1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int cw = 0; cw < kColsPerWarp; ++cw) {
+    const int s = s0 + warp + cw * kWarps;
+    if (s >= S) continue;
+#pragma unroll
+    for (int pi = 0; pi < kPairs; ++pi) {
+      const int p = lane + 32 * pi;
+      if (p >= D / 2) break;
+      const long long at = b * ldkv.b + h * ldkv.h + s * ldkv.l + 2 * p;
+      dk[at] = from_float<In>(adk[cw][pi][0]);
+      dk[at + 1] = from_float<In>(adk[cw][pi][1]);
+      dv[at] = from_float<In>(adv[cw][pi][0]);
+      dv[at + 1] = from_float<In>(adv[cw][pi][1]);
+    }
+  }
+}
+
+template <typename In, typename Elem, int D>
+__global__ void __launch_bounds__(kThreads)
+relbias_bwd_table_kernel(const In* __restrict__ q, const Elem* __restrict__ ds,
+                         float* __restrict__ de, Layout lq, int B, int H,
+                         int T, int S) {
+  using DT = Dot<Elem>;
+  constexpr int kPairs = (D / 2 + 31) / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elem* qs = reinterpret_cast<Elem*>(smem_raw);
+  Elem* band = qs + kRowChunk * D;
+
+  const int h = blockIdx.y;
+  const int j0 = blockIdx.x * kTableTile;
+  const int ratio = T / S;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // row j of E is read by the query rows t with 0 <= j - shift(t) < S, i.e.
+  // S-1-j <= t/r <= 2S-2-j: the block's rows need t in [t_lo, t_hi)
+  const int t_lo = max(0, S - kTableTile - j0) * ratio;
+  const int t_hi = min(T, (2 * S - 1 - j0) * ratio);
+
+  float acc[kColsPerWarp][kPairs][2] = {};
+  for (int b = 0; b < B; ++b) {
+    const In* qb = q + b * lq.b + h * lq.h;
+    const long long scratch = (long long)(b * H + h) * T * S;
+    for (int t0 = t_lo; t0 < t_hi; t0 += kRowChunk) {
+      const int n = min(kRowChunk, t_hi - t0);
+      stage_rows<In, Elem, D>(qb, lq.l, t0, n, qs);
+      for (int i = threadIdx.x; i < n * kTableTile; i += kThreads) {
+        const int r = i / kTableTile, c = i - r * kTableTile;
+        const int t = t0 + r;
+        const int s = j0 + c - (S - 1) + t / ratio;
+        band[i] = (s >= 0 && s < S) ? ds[scratch + (long long)t * S + s]
+                                    : DT::store(0.f);
+      }
+      __syncthreads();
+      for (int r = 0; r < n; ++r) {
+#pragma unroll
+        for (int pi = 0; pi < kPairs; ++pi) {
+          const int p = lane + 32 * pi;
+          if (p >= D / 2) break;
+          const float2 qq = DT::load2(qs + r * D + 2 * p);
+#pragma unroll
+          for (int cw = 0; cw < kColsPerWarp; ++cw) {
+            const float dc = DT::load(band[r * kTableTile + warp + cw * kWarps]);
+            acc[cw][pi][0] = fmaf(dc, qq.x, acc[cw][pi][0]);
+            acc[cw][pi][1] = fmaf(dc, qq.y, acc[cw][pi][1]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int cw = 0; cw < kColsPerWarp; ++cw) {
+    const int j = j0 + warp + cw * kWarps;
+    if (j >= 2 * S - 1) continue;
+#pragma unroll
+    for (int pi = 0; pi < kPairs; ++pi) {
+      const int p = lane + 32 * pi;
+      if (p >= D / 2) break;
+      float* o = de + ((long long)h * (2 * S - 1) + j) * D + 2 * p;
+      o[0] = acc[cw][pi][0];
+      o[1] = acc[cw][pi][1];
+    }
+  }
+}
+
+template <typename In, typename Elem, int D>
+int launch(const void* q, const void* k, const void* v, const float* mask,
+           const float* e, const void* dout, void* dq, void* dk, void* dv,
+           float* dmask, float* de, void* ds_scratch, void* wd_scratch,
+           const Layout* lay, int B, int H, int T, int S, uint32_t seed,
+           uint32_t threshold, float inv_keep, int dropout,
+           cudaStream_t stream) {
+  size_t bytes = 0;
+  const int tile = pick_tile<Elem>(S, D, T / S, 2, 1, &bytes);
+  if (!tile) return kErrSharedMemory;
+  const In* q_ = static_cast<const In*>(q);
+  const In* do_ = static_cast<const In*>(dout);
+  Elem* ds_ = static_cast<Elem*>(ds_scratch);
+  Elem* wd_ = static_cast<Elem*>(wd_scratch);
+
+  cudaFuncSetAttribute(relbias_bwd_rows_kernel<In, Elem, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  relbias_bwd_rows_kernel<In, Elem, D>
+      <<<dim3((T + tile - 1) / tile, H, B), kThreads, bytes, stream>>>(
+          q_, static_cast<const In*>(k), static_cast<const In*>(v), mask, e,
+          do_, static_cast<In*>(dq), ds_, wd_, dmask, lay[0], lay[1], lay[2],
+          lay[3], B, H, T, S, tile, seed, threshold, inv_keep, dropout);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+
+  const int cols_bytes = (int)(sizeof(Elem) * kRowChunk * (2 * D + 2 * kColTile));
+  cudaFuncSetAttribute(relbias_bwd_cols_kernel<In, Elem, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, cols_bytes);
+  relbias_bwd_cols_kernel<In, Elem, D>
+      <<<dim3((S + kColTile - 1) / kColTile, H, B), kThreads, cols_bytes,
+         stream>>>(q_, do_, ds_, wd_, static_cast<In*>(dk),
+                   static_cast<In*>(dv), lay[0], lay[2], lay[4], H, T, S);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  const int table_bytes = (int)(sizeof(Elem) * kRowChunk * (D + kTableTile));
+  cudaFuncSetAttribute(relbias_bwd_table_kernel<In, Elem, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       table_bytes);
+  relbias_bwd_table_kernel<In, Elem, D>
+      <<<dim3((2 * S - 1 + kTableTile - 1) / kTableTile, H), kThreads,
+         table_bytes, stream>>>(q_, ds_, de, lay[0], B, H, T, S);
+  return (int)cudaGetLastError();
+}
+
+template <typename In, typename Elem>
+int dispatch(int D, const void* q, const void* k, const void* v,
+             const float* mask, const float* e, const void* dout, void* dq,
+             void* dk, void* dv, float* dmask, float* de, void* ds_scratch,
+             void* wd_scratch, const Layout* lay, int B, int H, int T, int S,
+             uint32_t seed, uint32_t threshold, float inv_keep, int dropout,
+             cudaStream_t st) {
+#define RELBIAS_BWD_CASE(DIM)                                                 \
+  case DIM:                                                                   \
+    return launch<In, Elem, DIM>(q, k, v, mask, e, dout, dq, dk, dv, dmask,  \
+                                 de, ds_scratch, wd_scratch, lay, B, H, T, S, \
+                                 seed, threshold, inv_keep, dropout, st);
+  switch (D) {
+    RELBIAS_BWD_CASE(8)
+    RELBIAS_BWD_CASE(16)
+    RELBIAS_BWD_CASE(32)
+    RELBIAS_BWD_CASE(64)
+    RELBIAS_BWD_CASE(128)
+    default: return kErrHeadDim;
+  }
+#undef RELBIAS_BWD_CASE
+}
+
+}  // namespace
+
+extern "C" {
+
+// The forward's inputs (q, k, v views, mask, the combined table e, the same
+// seed, threshold and keep scale) plus dout, a (B, H, T, D) view of the
+// output's gradient. Writes dq (a (B, H, T, D) view) and dk, dv ((B, H, S, D)
+// views sharing one set of strides) in the input type, de (H, 2S-1, D) f32
+// (summed over the batch), and, when dmask is not null, adds the f32 score
+// gradient summed over (b, h) into dmask (T, S), which the caller zeroes.
+// ds_scratch and wd_scratch each hold B*H*T*S elements of the dot type.
+// `strides` holds 15 element strides (batch, head, row) for q, k/v, dout, dq
+// and dk/dv. Returns 0 when launched, -1 for an unsupported head dimension,
+// -2 when the rows kernel does not fit in shared memory, -3 for bf16 inputs
+// with f32 dots, else the first cudaError_t of the three launches.
+int relbias_attention_bwd(const void* q, const void* k, const void* v,
+                          const float* mask, const float* e, const void* dout,
+                          void* dq, void* dk, void* dv, float* dmask,
+                          float* de, void* ds_scratch, void* wd_scratch,
+                          const long long* strides, int B, int H, int T, int S,
+                          int D, int in_bf16, int bf16_dots, uint32_t seed,
+                          uint32_t threshold, float inv_keep, int dropout,
+                          void* stream) {
+  if (B == 0 || H == 0 || T == 0) return 0;
+  Layout lay[5];
+  for (int i = 0; i < 5; ++i)
+    lay[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (in_bf16 && !bf16_dots) return kErrDtype;
+  if (in_bf16)
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(
+        D, q, k, v, mask, e, dout, dq, dk, dv, dmask, de, ds_scratch,
+        wd_scratch, lay, B, H, T, S, seed, threshold, inv_keep, dropout, st);
+  return bf16_dots
+             ? dispatch<float, __nv_bfloat16>(
+                   D, q, k, v, mask, e, dout, dq, dk, dv, dmask, de,
+                   ds_scratch, wd_scratch, lay, B, H, T, S, seed, threshold,
+                   inv_keep, dropout, st)
+             : dispatch<float, float>(D, q, k, v, mask, e, dout, dq, dk, dv,
+                                      dmask, de, ds_scratch, wd_scratch, lay,
+                                      B, H, T, S, seed, threshold, inv_keep,
+                                      dropout, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,168 @@
+// Shared pieces of the relative-bias attention kernels (relbias_attention.cu,
+// relbias_attention_bwd.cu): the dot-type rounding rules, input/output
+// element conversions, the layout strides, the shared-memory plan of a
+// (b, h, query tile) block, and the in-kernel dropout hash.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace relbias {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxTile = 64;
+
+enum : int { kErrHeadDim = -1, kErrSharedMemory = -2, kErrDtype = -3 };
+
+// Dot type: the type q, k, v, E (and in the backward do, ds, dc, w) are
+// rounded to before a product. Staged operands live in shared memory in it.
+template <typename Elem> struct Dot;
+
+template <> struct Dot<float> {
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float2 load2(const float* p) {
+    return make_float2(p[0], p[1]);
+  }
+  static constexpr int kPad = 1;   // elements: one 32-bit word
+};
+
+template <> struct Dot<__nv_bfloat16> {
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16(x);
+  }
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static constexpr int kPad = 2;   // elements: one 32-bit word
+};
+
+// Input / output elements (q, k, v, do, out, dq, dk, dv): f32 or bf16.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Element strides of a (B, H, L, d) view whose last axis is contiguous:
+// (B, H, L, d) itself is (H*L*d, L*d, d); the packed (B, L, H*d) layout is
+// (L*H*d, d, H*d); a k or v slice of a packed (B, L, 3*H*d) projection has
+// row stride 3*H*d.
+struct Layout {
+  long long b, h, l;
+};
+
+__host__ __device__ inline int table_rows(int S, int tile, int ratio) {
+  return S + (tile - 1) / ratio + 1;
+}
+
+// Shared memory of a (b, h, query tile) block: K (padded rows), V, the rows
+// of E = [e1; e2[1:]] that the tile's shifts address (padded rows), and
+// `rows_per_warp` f32 rows of S plus `vec_per_warp` f32 vectors of D per warp.
+template <typename Elem>
+__host__ __device__ inline size_t tile_smem_bytes(int S, int D, int tile,
+                                                  int ratio, int rows_per_warp,
+                                                  int vec_per_warp) {
+  const int stride = D + Dot<Elem>::kPad;
+  return sizeof(Elem) * ((size_t)S * stride + (size_t)S * D +
+                         (size_t)table_rows(S, tile, ratio) * stride) +
+         sizeof(float) * (size_t)kWarps *
+             ((size_t)rows_per_warp * S + (size_t)vec_per_warp * D);
+}
+
+// The largest query tile (a power of two up to kMaxTile) whose block fits
+// the card's opt-in shared memory; 0 when not even one row fits.
+template <typename Elem>
+inline int pick_tile(int S, int D, int ratio, int rows_per_warp,
+                     int vec_per_warp, size_t* bytes) {
+  int device = 0, max_smem = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  for (int tile = kMaxTile; tile >= 1; tile >>= 1) {
+    *bytes = tile_smem_bytes<Elem>(S, D, tile, ratio, rows_per_warp,
+                                   vec_per_warp);
+    if (*bytes <= (size_t)max_smem) return tile;
+  }
+  return 0;
+}
+
+// Stage K, V and the table window of one (b, h, query tile) block. K and E
+// rows are padded by one 32-bit word so lanes reading 32 different rows hit
+// 32 different banks. Returns nothing; the caller synchronises.
+template <typename In, typename Elem, int D>
+__device__ __forceinline__ void stage_kv_table(
+    const In* __restrict__ kb, const In* __restrict__ vb, long long kv_row,
+    const float* __restrict__ eb, int e_count, int S, Elem* ks, Elem* vs,
+    Elem* es) {
+  using DT = Dot<Elem>;
+  constexpr int kStride = D + DT::kPad;
+  for (int i = threadIdx.x; i < S * D; i += kThreads) {
+    const int s = i / D, j = i - s * D;
+    ks[s * kStride + j] = DT::store(to_float(kb[s * kv_row + j]));
+    vs[i] = DT::store(to_float(vb[s * kv_row + j]));
+  }
+  for (int i = threadIdx.x; i < e_count * D; i += kThreads) {
+    const int s = i / D, j = i - s * D;
+    es[s * kStride + j] = DT::store(eb[i]);
+  }
+}
+
+// ---- in-kernel dropout (pallas_attention.py:_hash_u32, _dropout_keep) ----
+// keep(t, s) = lowbias32((t*S + s) ^ lowbias32(stream * 0x9E3779B9))
+//              >= threshold, all in wrapping uint32, with stream =
+// seed + h*B + b for the relative-bias kernels (pallas_attention.py:574,883)
+// and threshold = min(round(rate * 2^32), 2^32 - 1).
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t stream_key(uint32_t seed, int h, int b,
+                                               int B) {
+  return hash_u32((seed + (uint32_t)h * (uint32_t)B + (uint32_t)b) *
+                  0x9E3779B9u);
+}
+
+__device__ __forceinline__ bool dropout_keep(uint32_t key, int t, int s, int S,
+                                             uint32_t threshold) {
+  return hash_u32(((uint32_t)t * (uint32_t)S + (uint32_t)s) ^ key) >= threshold;
+}
+
+// Warp-wide reductions.
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+}  // namespace relbias

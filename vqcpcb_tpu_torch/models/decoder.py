@@ -10,6 +10,15 @@ embedded with channel and intra-code position features, shifted by SOS and
 decoded causally. `sample_range` is the KV-cached sampler: one prefill per
 call, then one decode step per position, eager PyTorch.
 
+Training: `forward` in train mode runs every relative-attention layer on the
+training route (the relative-bias attention kernels on CUDA) with dropout,
+as JAX's `Decoder.__call__(training=True)`. The output heads are fused into
+one (d_model, sum vocab) product with the stacked cross entropy, JAX's
+default (decoder.py:41-53, 246-261). The compute dtype is the caller's: the
+trainer runs the forward under bf16 autocast on CUDA (JAX's
+default_compute_dtype('bfloat16')) and in f32 on the CPU; parameters stay
+f32, and the target embedding's Dense stays f32 as in JAX.
+
 Parameter names follow the reference Decoder (sos, linear_target,
 source_embeddings, target_channel_embeddings,
 target_events_positioning_embeddings, data_processor.embeddings.{c},
@@ -18,7 +27,7 @@ pre_softmaxes.{c}).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,20 +35,12 @@ from torch import nn
 
 from vqcpcb_tpu_torch.models.data_processor import DataProcessor
 from vqcpcb_tpu_torch.ops.kv_cache import Cache, cache_update, new_cache
+from vqcpcb_tpu_torch.ops.losses import stacked_categorical_crossentropy
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerDecoder, TransformerEncoder
 from vqcpcb_tpu_torch.utils import (flatten, kv_cache_dtype, resolve_device,
                                     to_device)
-
-
-def categorical_crossentropy(logits: Sequence[torch.Tensor],
-                             target: torch.Tensor) -> torch.Tensor:
-    """Sum over channels of the mean CE of channel c's logits
-    (vqcpcb_tpu/ops/losses.py:categorical_crossentropy, all positions)."""
-    return sum(F.cross_entropy(lg.float().reshape(-1, lg.shape[-1]),
-                               target[..., c].reshape(-1).long())
-               for c, lg in enumerate(logits))
 
 
 class Decoder(nn.Module):
@@ -49,7 +50,8 @@ class Decoder(nn.Module):
                  dim_feedforward: int, positional_embedding_size: int,
                  num_channels_encoder: int, num_events_encoder: int,
                  num_channels_decoder: int, num_events_decoder: int,
-                 total_upscaling: int, source_vocab_size: int):
+                 total_upscaling: int, source_vocab_size: int,
+                 dropout: float = 0.0):
         super().__init__()
         if encoder_attention_type not in ("anticausal", "causal", "full"):
             raise ValueError(encoder_attention_type)
@@ -74,7 +76,8 @@ class Decoder(nn.Module):
         self.transformer = nn.ModuleDict({
             "encoder": TransformerEncoder(
                 num_encoder_layers, d_model, n_head, "relative_attention",
-                num_channels_encoder, num_events_encoder, dim_feedforward),
+                num_channels_encoder, num_events_encoder, dim_feedforward,
+                dropout=dropout),
             "decoder": TransformerDecoder(
                 num_decoder_layers, d_model=d_model, n_head=n_head,
                 attention_bias_type_self="relative_attention",
@@ -82,7 +85,7 @@ class Decoder(nn.Module):
                 num_events_encoder=num_events_encoder,
                 num_channels_decoder=num_channels_decoder,
                 num_events_decoder=num_events_decoder,
-                dim_feedforward=dim_feedforward),
+                dim_feedforward=dim_feedforward, dropout=dropout),
         })
         self.pre_softmaxes = nn.ModuleList(
             nn.Linear(d_model, v) for v in data_processor.num_tokens_per_channel)
@@ -107,7 +110,8 @@ class Decoder(nn.Module):
         channel = self.target_channel_embeddings.repeat(b, num_tokens // c, 1)
         events = self.target_events_positioning_embeddings.repeat_interleave(
             c, dim=1).repeat(b, num_tokens // self.total_upscaling, 1)
-        return self.linear_target(torch.cat([target_seq, channel, events], 2))
+        with torch.autocast(target_seq.device.type, enabled=False):
+            return self.linear_target(torch.cat([target_seq, channel, events], 2))
 
     def shift_with_sos(self, target_seq: torch.Tensor) -> torch.Tensor:
         sos = self.sos.expand(target_seq.shape[0], 1, -1)
@@ -130,7 +134,9 @@ class Decoder(nn.Module):
     def forward(self, source: torch.Tensor, target: torch.Tensor) -> Dict:
         """source (B, S) codes, target (B, num_events, C) tokens. Returns
         {'loss', 'weights_per_category'}: the per-channel logits
-        (B, num_events, vocab_c) and their summed CE (decoder.py:223)."""
+        (B, num_events, vocab_c) and their summed CE (decoder.py:223). In
+        train mode the attention layers take the training route, with
+        dropout."""
         b = target.shape[0]
         memory = self.encode_memory(source)
         target_seq = self.shift_with_sos(self.embed_target(target))
@@ -138,9 +144,16 @@ class Decoder(nn.Module):
             target_seq, memory,
             causal_mask(target_seq.shape[1], device=target_seq.device))
         output = output.reshape(b, -1, self.num_channels_decoder, self.d_model)
-        logits = [head(output[:, :, c])
-                  for c, head in enumerate(self.pre_softmaxes)]
-        return {"loss": categorical_crossentropy(logits, target),
+        # the fused output head (decoder.py:246-261): one product with the
+        # per-channel weights concatenated, channel c's logits in its columns
+        vocabs = self.data_processor.num_tokens_per_channel
+        stacked = F.linear(
+            output, torch.cat([h.weight for h in self.pre_softmaxes]),
+            torch.cat([h.bias for h in self.pre_softmaxes]))
+        offsets = [sum(vocabs[:c]) for c in range(len(vocabs))]
+        logits = [stacked[:, :, c, o:o + v]
+                  for c, (o, v) in enumerate(zip(offsets, vocabs))]
+        return {"loss": stacked_categorical_crossentropy(stacked, target, vocabs),
                 "weights_per_category": logits}
 
     # ---- KV-cached sampling ---------------------------------------------------

@@ -4,8 +4,8 @@ Each `csrc/<name>.cu` is compiled by nvcc for Hopper (sm_90a) into its own
 shared library with a plain C interface and loaded with ctypes: no PyTorch
 headers are compiled, so a build takes seconds. Libraries land in
 `build/kernels/` at the root of the checkout (git-ignored), named by a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. The first kernel call builds every missing library, one nvcc
+of the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. The first kernel call builds every missing library, one nvcc
 process per source, all started together. A missing or failing nvcc raises:
 nothing falls back to the plain PyTorch versions.
 
@@ -26,7 +26,7 @@ from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("vq_nearest", "relbias_attention")
+SOURCES = ("vq_nearest", "relbias_attention", "relbias_attention_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,7 +48,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

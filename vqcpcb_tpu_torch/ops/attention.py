@@ -1,5 +1,5 @@
 """Multi-head attention with the subsampled relative bias (counterpart of
-vqcpcb_tpu/ops/attention.py:MultiheadAttention, inference routes only).
+vqcpcb_tpu/ops/attention.py:MultiheadAttention).
 
 Parameters keep the reference layout: in_proj_weight (3E, E) with [q|k|v]
 rows, in_proj_bias (3E,), out_proj, and attn_bias.e1 / attn_bias.e2 stored
@@ -7,10 +7,19 @@ heads-major as (H*S, hd). q is scaled by hd**-0.5 before the bias, so the
 bias sees the scaled q.
 
 Routes of the full forward:
-  * CUDA with the relative bias: the hand-written relative-bias attention
-    kernel (ops/attention_kernels.py, bf16 dots), no weights returned -- the
-    route the JAX module takes on the TPU (attention.py:243-253);
-  * CPU: the plain path, f32 throughout, returning the weights.
+  * train mode with the relative bias: the packed route of the JAX module
+    (attention.py:188-231). The in-projection's (B, L, 3E) output is sliced,
+    never transposed; q is scaled before the bias; attention, its dropout
+    and its backward are RelbiasAttention (ops/attention_kernels.py): the
+    hand-written kernels with bf16 dots on CUDA, the plain versions in f32
+    on the CPU. No weights are returned. The dropout seed is drawn on the
+    host from `seed_generator` (torch's default CPU generator when None), so
+    no device value is read per layer;
+  * inference on CUDA with the relative bias: the forward kernel (bf16
+    dots), no weights returned -- the route the JAX module takes on the TPU
+    (attention.py:243-253);
+  * inference on the CPU: the plain path, f32 throughout, returning the
+    weights.
 Attention without the relative bias on CUDA is the TPU's other inference
 kernel, not ported yet; it raises. `step` (one query position over the
 KV cache) is plain PyTorch on every device, as it is plain XLA in JAX.
@@ -23,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vqcpcb_tpu_torch.ops.attention_kernels import relbias_attention_fwd
+from vqcpcb_tpu_torch.ops.attention_kernels import (RelbiasAttention,
+                                                    relbias_attention_fwd)
 from vqcpcb_tpu_torch.ops.kv_cache import Cache, cache_prefix, dequantize_kv
 from vqcpcb_tpu_torch.ops.relative_attention import (
     subsampled_relative_bias, subsampled_relative_bias_row)
@@ -51,7 +61,8 @@ class MultiheadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int,
                  attention_bias_type: Optional[str] = None,
                  num_channels_k: int = 1, num_events_k: int = 1,
-                 num_channels_q: int = 1, num_events_q: int = 1):
+                 num_channels_q: int = 1, num_events_q: int = 1,
+                 dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
@@ -59,6 +70,8 @@ class MultiheadAttention(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
+        self.dropout = dropout
+        self.seed_generator: Optional[torch.Generator] = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         nn.init.xavier_uniform_(self.in_proj_weight)
@@ -104,10 +117,31 @@ class MultiheadAttention(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """query (B, L_tgt, E), key (= value) (B, L_src, E), attn_mask an
         additive (L_tgt, L_src) mask or None. Returns (output (B, L_tgt, E),
-        weights (B, H, L_tgt, L_src) on the plain path, None on the kernel
-        path)."""
+        weights (B, H, L_tgt, L_src) on the plain inference path, None on the
+        kernel and training paths). Train mode takes the training route."""
+        if self.training and self.attn_bias is not None:
+            return self._train_packed(query, key, attn_mask), None
         return self.attend(self.project_q(query), *self.project_kv(key),
                            attn_mask)
+
+    def _train_packed(self, query: torch.Tensor, key: torch.Tensor,
+                      attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The packed training route (attention.py:188-231)."""
+        e = self.embed_dim
+        qkv_q = F.linear(query, self.in_proj_weight, self.in_proj_bias)
+        qkv_k = qkv_q if key is query else F.linear(
+            key, self.in_proj_weight, self.in_proj_bias)
+        q = qkv_q[..., :e] * self.head_dim ** -0.5           # (B, T, E)
+        k, v = qkv_k[..., e:2 * e], qkv_k[..., 2 * e:]       # views of (B, S, 3E)
+        seed = 0
+        if self.dropout > 0.0:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=self.seed_generator))
+        e1, e2 = self.attn_bias.tables()
+        dot_dtype = torch.float32 if q.device.type == "cpu" else torch.bfloat16
+        out = RelbiasAttention.apply(q, k, v, attn_mask, e1, e2, self.num_heads,
+                                     float(self.dropout), seed, dot_dtype)
+        return self.out_proj(out)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None

@@ -1,19 +1,34 @@
-"""Relative-bias attention forward (counterpart of the relbias forward in
-vqcpcb_tpu/ops/pallas_attention.py: fused_attention_train_relbias at
-dropout 0, the route fused_attention takes for inference with e1 set).
+"""Relative-bias attention, forward and backward, with in-kernel dropout
+(counterpart of vqcpcb_tpu/ops/pallas_attention.py: the relbias kernels
+`_relbias_fwd_kernel[_packed]` / `_relbias_bwd_kernel[_packed]`, their
+per-head math `_relbias_fwd_head` / `_relbias_bwd_head`, and the dropout
+hash `_hash_u32` / `_dropout_keep`).
 
-    out = softmax(q.k^T + mask + bias) . v,
-    bias[t, s] = q_t . E[s + (S-1) - t//r],  E = [e1; e2[1:]],  r = T/S
+    w   = softmax(q.k^T + mask + bias),  bias[t, s] = q_t . E[s + (S-1) - t//r]
+    out = dropout(w) . v,                E = [e1; e2[1:]],  r = T/S
 
-`relbias_attention_fwd` routes by device: a CPU tensor takes the plain
-PyTorch version, a CUDA tensor launches csrc/relbias_attention.cu or raises.
-Both round q, k, v and E to `dot_dtype` before the products (f32
-accumulation), keep the softmax in f32, round the weights to `dot_dtype`
-before w.v and return q's dtype.
+Layouts: with `num_heads=None` q is (B, H, T, d) and k, v are (B, H, S, d);
+with `num_heads=H` they are packed (B, T, H*d) and (B, S, H*d) -- the
+in-projection's output reshaped, never transposed -- and results come back
+packed. The CUDA kernels read any view whose last axis is contiguous through
+(batch, head, row) strides, so a k or v slice of a (B, S, 3*H*d) projection
+is read in place.
+
+Dropout (rate > 0) is the TPU kernels' counter-based hash: the (b, h) plane
+of the mask is `dropout_keep_plain((T, S), rate, seed + h*B + b)`, bit for
+bit the JAX mask, regenerated by the backward.
+
+Each wrapper routes by device: a CPU tensor takes the plain PyTorch version,
+a CUDA tensor launches csrc/relbias_attention.cu (forward) or
+csrc/relbias_attention_bwd.cu (backward, three kernels) or raises. Both
+round q, k, v, E (and do) to `dot_dtype` before the products with f32
+accumulation, keep the softmax in f32, and return the input dtype.
+`RelbiasAttention` is the autograd Function pairing the two.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,12 +36,92 @@ from vqcpcb_tpu_torch.ops import _build
 
 NEG_BIG = -1e30
 
-# Launches of the CUDA kernel since the last reset.
+# Launches since the last reset: forward kernel calls, and backward wrapper
+# calls (each launches the three backward kernels).
 launches = 0
+bwd_launches = 0
 
 _ERRORS = {-1: "head dim must be one of 8, 16, 32, 64, 128",
            -2: "K, V and the bias table do not fit in shared memory at this "
-               "source length and dot dtype"}
+               "source length and dot dtype",
+           -3: "bf16 inputs need bf16 dots"}
+
+_MASK32 = 0xFFFFFFFF
+
+
+# ---- dropout hash (pallas_attention.py:158-191) -----------------------------
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _hash_u32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 on uint32 values held in int64 (pallas_attention.py:158)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """The uint32 keep threshold min(round(rate * 2**32), 2**32 - 1)."""
+    return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_keep_plain(shape: Tuple[int, int], rate: float, seed,
+                       device=None) -> torch.Tensor:
+    """Regenerable dropout mask, True = keep (pallas_attention.py:170).
+
+    shape: (T, S); seed: an int or an integer tensor of stream indices
+    (wrapping uint32 arithmetic). Returns bool of seed.shape + (T, S):
+    lowbias32((t*S + s) ^ lowbias32(seed * 0x9E3779B9)) >= threshold."""
+    t, s = shape
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=device) & _MASK32
+    rows = torch.arange(t, dtype=torch.int64, device=seed.device)[:, None]
+    cols = torch.arange(s, dtype=torch.int64, device=seed.device)[None, :]
+    idx = (rows * s + cols) & _MASK32
+    seed_h = _hash_u32(_mul32(seed, 0x9E3779B9))[..., None, None]
+    return _hash_u32(idx ^ seed_h) >= dropout_threshold(rate)
+
+
+def _stream_seeds(seed: int, b: int, h: int, device) -> torch.Tensor:
+    """(B, H) stream indices seed + h*B + b (pallas_attention.py:574,883)."""
+    bi = torch.arange(b, dtype=torch.int64, device=device)[:, None]
+    hi = torch.arange(h, dtype=torch.int64, device=device)[None, :]
+    return int(seed) + hi * b + bi
+
+
+# ---- layouts ----------------------------------------------------------------
+
+def _heads(x: torch.Tensor, num_heads: Optional[int]) -> torch.Tensor:
+    """A (B, H, L, d) view of x: x itself, or a view of packed (B, L, H*d)."""
+    if num_heads is None:
+        if x.dim() != 4:
+            raise ValueError(f"expected (B, H, L, d), got {tuple(x.shape)}")
+        return x
+    if x.dim() != 3 or x.shape[-1] % num_heads:
+        raise ValueError(f"expected packed (B, L, H*d) with H = {num_heads}, "
+                         f"got {tuple(x.shape)}")
+    return x.unflatten(-1, (num_heads, -1)).transpose(1, 2)
+
+
+def _unheads(x4: torch.Tensor, num_heads: Optional[int]) -> torch.Tensor:
+    """Inverse of _heads for a (B, H, L, d) result, contiguous."""
+    if num_heads is None:
+        return x4.contiguous()
+    b, h, n, d = x4.shape
+    return x4.transpose(1, 2).reshape(b, n, h * d)
+
+
+def _empty_like_layout(x: torch.Tensor, num_heads: Optional[int]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A contiguous tensor of x's shape and dtype, and its (B, H, L, d) view."""
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    return out, _heads(out, num_heads)
 
 
 def combined_table(e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
@@ -35,26 +130,11 @@ def combined_table(e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
     return torch.cat([e1, e2[:, 1:]], dim=1)
 
 
-def relbias_attention_fwd_plain(q, k, v, mask, e1, e2,
-                                dot_dtype=torch.bfloat16) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: q (B, H, T, d) already scaled;
-    k, v (B, H, S, d); mask (T, S) additive or None; e1, e2 (H, S, d).
-    Returns (B, H, T, d) in q.dtype (pallas_attention.py:_relbias_fwd_head)."""
-    b, h, t, d = q.shape
-    s = k.shape[2]
-    ratio = t // s
-    mask = _finite_mask(mask, t, s, q.device)
-    rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
-    qd, kd, vd = rd(q), rd(k), rd(v)
-    table = rd(combined_table(e1, e2))                       # (H, 2S-1, d)
-    scores = torch.einsum("bhtd,bhsd->bhts", qd, kd)
-    c = torch.einsum("bhtd,hjd->bhtj", qd, table)            # (B, H, T, 2S-1)
-    cols = (torch.arange(s, device=q.device)[None, :]
-            + (s - 1) - torch.arange(t, device=q.device)[:, None] // ratio)
-    bias = torch.gather(c, 3, cols.expand(b, h, t, s))
-    w = torch.softmax(scores + mask + bias, dim=-1)
-    out = torch.einsum("bhts,bhsd->bhtd", rd(w), vd)
-    return out.to(q.dtype)
+def split_table_grad(de: torch.Tensor, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H, 2S-1, d) table gradient -> (de1, de2); e2's offset-0 row is never
+    addressed, so its gradient is 0 (pallas_attention.py:1029-1036)."""
+    zero = torch.zeros_like(de[:, :1])
+    return de[:, :s], torch.cat([zero, de[:, s:]], dim=1)
 
 
 def _finite_mask(mask, t, s, device):
@@ -65,59 +145,272 @@ def _finite_mask(mask, t, s, device):
     return torch.clamp(mask.float(), min=NEG_BIG)
 
 
-def _lib():
-    lib = _build.library("relbias_attention")
+def _bias_columns(t: int, s: int, device) -> torch.Tensor:
+    """(T, S) column of the combined table read at (t, s): s + (S-1) - t//r."""
+    ratio = t // s
+    return (torch.arange(s, device=device)[None, :] + (s - 1)
+            - torch.arange(t, device=device)[:, None] // ratio)
+
+
+# ---- plain versions -----------------------------------------------------------
+
+def _plain_weights(qd, kd, mask, table):
+    """f32 softmax of the scores, from inputs already rounded to the dot
+    type; also returns the gather index of the bias."""
+    b, h, t, _ = qd.shape
+    s = kd.shape[2]
+    scores = torch.einsum("bhtd,bhsd->bhts", qd, kd)
+    c = torch.einsum("bhtd,hjd->bhtj", qd, table)            # (B, H, T, 2S-1)
+    cols = _bias_columns(t, s, qd.device).expand(b, h, t, s)
+    bias = torch.gather(c, 3, cols)
+    mask = _finite_mask(mask, t, s, qd.device)
+    return torch.softmax(scores + mask + bias, dim=-1), cols
+
+
+def _plain_keep(b, h, t, s, dropout, seed, device):
+    if dropout <= 0.0:
+        return None, 1.0
+    keep = dropout_keep_plain((t, s), dropout, _stream_seeds(seed, b, h, device))
+    inv = torch.tensor(1.0 / (1.0 - dropout), dtype=torch.float32)
+    return keep, inv
+
+
+def relbias_attention_fwd_plain(q, k, v, mask, e1, e2,
+                                dot_dtype=torch.bfloat16, *,
+                                num_heads: Optional[int] = None,
+                                dropout: float = 0.0, seed: int = 0
+                                ) -> torch.Tensor:
+    """The forward kernel's arithmetic in PyTorch: q already scaled; mask
+    (T, S) additive or None; e1, e2 (H, S, d). Returns q's layout and dtype
+    (pallas_attention.py:_relbias_fwd_head)."""
+    q4, k4, v4 = (_heads(x, num_heads) for x in (q, k, v))
+    b, h, t, _ = q4.shape
+    s = k4.shape[2]
+    rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
+    w, _ = _plain_weights(rd(q4), rd(k4), mask, rd(combined_table(e1, e2)))
+    keep, inv = _plain_keep(b, h, t, s, dropout, seed, q.device)
+    if keep is not None:
+        w = torch.where(keep, w * inv, 0.0)
+    out = torch.einsum("bhts,bhsd->bhtd", rd(w), rd(v4))
+    return _unheads(out.to(q.dtype), num_heads)
+
+
+def relbias_attention_bwd_plain(q, k, v, mask, e1, e2, dout,
+                                dot_dtype=torch.bfloat16, *,
+                                num_heads: Optional[int] = None,
+                                dropout: float = 0.0, seed: int = 0,
+                                need_dmask: bool = True):
+    """The backward kernels' arithmetic in PyTorch
+    (pallas_attention.py:_relbias_bwd_head and _fused_relbias_packed_bwd).
+    Returns (dq, dk, dv, dmask, de1, de2): dq, dk, dv in the inputs' layout
+    and dtype, dmask (T, S) f32 summed over (b, h) or None, de1 and de2
+    (H, S, d) summed over the batch, in q's dtype."""
+    q4, k4, v4, do4 = (_heads(x, num_heads) for x in (q, k, v, dout))
+    b, h, t, d = q4.shape
+    s = k4.shape[2]
+    rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
+    qd, kd, vd, dod = rd(q4), rd(k4), rd(v4), rd(do4)
+    table = rd(combined_table(e1, e2))
+    w, cols = _plain_weights(qd, kd, mask, table)
+    keep, inv = _plain_keep(b, h, t, s, dropout, seed, q.device)
+    dw = torch.einsum("bhtd,bhsd->bhts", dod, vd)
+    w_drop = w
+    if keep is not None:
+        w_drop = torch.where(keep, w * inv, 0.0)
+        dw = torch.where(keep, dw * inv, 0.0)
+    dv = torch.einsum("bhts,bhtd->bhsd", rd(w_drop), dod)
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+    ds_d = rd(ds)
+    dc = torch.zeros((b, h, t, 2 * s - 1), dtype=ds_d.dtype, device=ds_d.device)
+    dc.scatter_(3, cols, ds_d)                               # dc[t, s + shift(t)]
+    dq = (torch.einsum("bhts,bhsd->bhtd", ds_d, kd)
+          + torch.einsum("bhtj,hjd->bhtd", dc, table))
+    dk = torch.einsum("bhts,bhtd->bhsd", ds_d, qd)
+    de = torch.einsum("bhtj,bhtd->hjd", dc, qd)
+    de1, de2 = split_table_grad(de.to(q.dtype), s)
+    dmask = ds.sum((0, 1)) if need_dmask else None
+    return (_unheads(dq.to(q.dtype), num_heads),
+            _unheads(dk.to(k.dtype), num_heads),
+            _unheads(dv.to(v.dtype), num_heads), dmask, de1, de2)
+
+
+# ---- CUDA launchers -----------------------------------------------------------
+
+def _typed(name: str, fn: str, n_ptrs: int) -> ctypes.CDLL:
+    lib = _build.library(name)
     if not getattr(lib, "_typed", False):
-        lib.relbias_attention_fwd.argtypes = ([ctypes.c_void_p] * 6
-                                              + [ctypes.c_int] * 6
-                                              + [ctypes.c_void_p])
-        lib.relbias_attention_fwd.restype = ctypes.c_int
+        f = getattr(lib, fn)
+        f.argtypes = ([ctypes.c_void_p] * n_ptrs
+                      + [ctypes.POINTER(ctypes.c_longlong)]
+                      + [ctypes.c_int] * 7
+                      + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                         ctypes.c_int, ctypes.c_void_p])
+        f.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
-                               dot_dtype=torch.bfloat16) -> torch.Tensor:
-    """Launch csrc/relbias_attention.cu on contiguous f32 CUDA tensors."""
-    global launches
-    b, h, t, d = q.shape
-    s = k.shape[2]
-    if k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+def _strides(*views: torch.Tensor):
+    vals = [x for v in views for x in v.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype, extra=()):
+    """Shapes, devices, dtypes and strides the kernels take; raises otherwise."""
+    b, h, t, d = q4.shape
+    s = k4.shape[2]
+    if k4.shape != (b, h, s, d) or v4.shape != (b, h, s, d):
+        raise ValueError(f"k {tuple(k4.shape)} / v {tuple(v4.shape)} do not "
+                         f"match q {tuple(q4.shape)}")
     if e1.shape != (h, s, d) or e2.shape != (h, s, d):
         raise ValueError(f"e1/e2 must be (H, S, d) = {(h, s, d)}")
-    if t % s:
+    if s == 0 or t % s:
         raise ValueError(f"target length {t} is not a multiple of {s}")
     if dot_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dot_dtype must be bfloat16 or float32, not {dot_dtype}")
-    for name, x in (("q", q), ("k", k), ("v", v), ("e1", e1), ("e2", e2)):
-        if (not x.is_cuda or x.device != q.device or x.dtype != torch.float32
-                or not x.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                             f"{q.device} (got {x.dtype} on {x.device})")
-    if mask is not None and (mask.shape != (t, s) or mask.device != q.device):
-        raise ValueError(f"mask must be ({t}, {s}) on {q.device}")
-    mask = _finite_mask(mask, t, s, q.device).contiguous()
-    table = combined_table(e1, e2).contiguous()
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _lib().relbias_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        table.data_ptr(), out.data_ptr(), b, h, t, s, d,
-        int(dot_dtype == torch.bfloat16), stream)
+    if q4.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must be float32 or bfloat16, not {q4.dtype}")
+    if q4.dtype == torch.bfloat16 and dot_dtype != torch.bfloat16:
+        raise ValueError("bf16 inputs need bf16 dots")
+    for name, x in (("q", q4), ("k", k4), ("v", v4), ("e1", e1), ("e2", e2),
+                    *extra):
+        if not x.is_cuda or x.device != q4.device:
+            raise ValueError(f"{name} must lie on {q4.device} (got {x.device})")
+        if name not in ("e1", "e2") and (x.dtype != q4.dtype or x.stride(-1) != 1):
+            raise ValueError(f"{name} must be {q4.dtype} with a contiguous last "
+                             f"axis (got {x.dtype}, strides {x.stride()})")
+    if k4.stride() != v4.stride():
+        raise ValueError("k and v must share one set of strides")
+    if mask is not None and (mask.shape != (t, s) or mask.device != q4.device):
+        raise ValueError(f"mask must be ({t}, {s}) on {q4.device}")
+
+
+def _raise_status(status: int, what: str, q4, s, dot_dtype) -> None:
     if status in _ERRORS:
-        raise ValueError(f"relbias_attention (T={t}, S={s}, d={d}, "
-                         f"{dot_dtype}): {_ERRORS[status]}")
-    _build.check(status, "relbias_attention")
+        raise ValueError(f"{what} (T={q4.shape[2]}, S={s}, d={q4.shape[3]}, "
+                         f"{q4.dtype} inputs, {dot_dtype} dots): {_ERRORS[status]}")
+    _build.check(status, what)
+
+
+def _kernel_args(q4, dot_dtype, dropout):
+    inv = 1.0 / (1.0 - dropout) if dropout > 0.0 else 1.0
+    return (int(q4.dtype == torch.bfloat16), int(dot_dtype == torch.bfloat16),
+            dropout_threshold(dropout) if dropout > 0.0 else 0, inv,
+            int(dropout > 0.0))
+
+
+def relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
+                               dot_dtype=torch.bfloat16, *,
+                               num_heads: Optional[int] = None,
+                               dropout: float = 0.0, seed: int = 0
+                               ) -> torch.Tensor:
+    """Launch csrc/relbias_attention.cu; see the module docstring."""
+    global launches
+    q4, k4, v4 = (_heads(x, num_heads) for x in (q, k, v))
+    _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype)
+    b, h, t, d = q4.shape
+    s = k4.shape[2]
+    mask = _finite_mask(mask, t, s, q.device).contiguous()
+    table = combined_table(e1, e2).float().contiguous()
+    out, out4 = _empty_like_layout(q, num_heads)
+    in_bf16, bf16_dots, threshold, inv, drop = _kernel_args(q4, dot_dtype, dropout)
+    lib = _typed("relbias_attention", "relbias_attention_fwd", 6)
+    status = lib.relbias_attention_fwd(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask.data_ptr(),
+        table.data_ptr(), out.data_ptr(), _strides(q4, k4, out4),
+        b, h, t, s, d, in_bf16, bf16_dots, int(seed) & _MASK32, threshold, inv,
+        drop, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_status(status, "relbias_attention_fwd", q4, s, dot_dtype)
     launches += 1
     return out
 
 
-def relbias_attention_fwd(q, k, v, mask, e1, e2,
-                          dot_dtype=torch.bfloat16) -> torch.Tensor:
+def relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, dout,
+                               dot_dtype=torch.bfloat16, *,
+                               num_heads: Optional[int] = None,
+                               dropout: float = 0.0, seed: int = 0,
+                               need_dmask: bool = True):
+    """Launch csrc/relbias_attention_bwd.cu; returns what
+    relbias_attention_bwd_plain returns."""
+    global bwd_launches
+    q4, k4, v4, do4 = (_heads(x, num_heads) for x in (q, k, v, dout))
+    _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype, extra=(("dout", do4),))
+    b, h, t, d = q4.shape
+    s = k4.shape[2]
+    if do4.shape != q4.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} does not match q {tuple(q.shape)}")
+    mask = _finite_mask(mask, t, s, q.device).contiguous()
+    table = combined_table(e1, e2).float().contiguous()
+    dq, dq4 = _empty_like_layout(q, num_heads)
+    dk, dk4 = _empty_like_layout(k, num_heads)
+    dv = torch.empty_like(dk)
+    dmask = (torch.zeros((t, s), dtype=torch.float32, device=q.device)
+             if need_dmask else None)
+    de = torch.empty((h, 2 * s - 1, d), dtype=torch.float32, device=q.device)
+    ds_scratch = torch.empty(b * h * t * s, dtype=dot_dtype, device=q.device)
+    wd_scratch = torch.empty_like(ds_scratch)
+    in_bf16, bf16_dots, threshold, inv, drop = _kernel_args(q4, dot_dtype, dropout)
+    lib = _typed("relbias_attention_bwd", "relbias_attention_bwd", 13)
+    status = lib.relbias_attention_bwd(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask.data_ptr(),
+        table.data_ptr(), do4.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), 0 if dmask is None else dmask.data_ptr(),
+        de.data_ptr(), ds_scratch.data_ptr(), wd_scratch.data_ptr(),
+        _strides(q4, k4, do4, dq4, dk4), b, h, t, s, d, in_bf16, bf16_dots,
+        int(seed) & _MASK32, threshold, inv, drop,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_status(status, "relbias_attention_bwd", q4, s, dot_dtype)
+    bwd_launches += 1
+    de1, de2 = split_table_grad(de.to(q.dtype), s)
+    return dq, dk, dv, dmask, de1, de2
+
+
+# ---- routing ------------------------------------------------------------------
+
+def relbias_attention_fwd(q, k, v, mask, e1, e2, dot_dtype=torch.bfloat16, *,
+                          num_heads: Optional[int] = None, dropout: float = 0.0,
+                          seed: int = 0) -> torch.Tensor:
     """Relative-bias attention forward; see the module docstring. The plain
     version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if q.device.type == "cpu":
-        return relbias_attention_fwd_plain(q, k, v, mask, e1, e2, dot_dtype)
-    return relbias_attention_fwd_cuda(q, k, v, mask, e1, e2, dot_dtype)
+    fn = (relbias_attention_fwd_plain if q.device.type == "cpu"
+          else relbias_attention_fwd_cuda)
+    return fn(q, k, v, mask, e1, e2, dot_dtype, num_heads=num_heads,
+              dropout=dropout, seed=seed)
+
+
+def relbias_attention_bwd(q, k, v, mask, e1, e2, dout,
+                          dot_dtype=torch.bfloat16, *,
+                          num_heads: Optional[int] = None, dropout: float = 0.0,
+                          seed: int = 0, need_dmask: bool = True):
+    """Relative-bias attention backward; see relbias_attention_bwd_plain.
+    The plain version for CPU tensors, the CUDA kernels for CUDA tensors."""
+    fn = (relbias_attention_bwd_plain if q.device.type == "cpu"
+          else relbias_attention_bwd_cuda)
+    return fn(q, k, v, mask, e1, e2, dout, dot_dtype, num_heads=num_heads,
+              dropout=dropout, seed=seed, need_dmask=need_dmask)
+
+
+class RelbiasAttention(torch.autograd.Function):
+    """Differentiable relative-bias attention: forward and backward are the
+    wrappers above (kernels on CUDA, plain versions on the CPU), the
+    counterpart of fused_attention_train_relbias[_packed]'s custom VJP. The
+    mask's gradient is computed only when the mask requires one. Arguments:
+    (q, k, v, mask, e1, e2, num_heads, dropout, seed, dot_dtype)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, e1, e2, num_heads, dropout, seed,
+                dot_dtype):
+        ctx.save_for_backward(q, k, v, mask, e1, e2)
+        ctx.config = dict(num_heads=num_heads, dropout=dropout, seed=seed)
+        ctx.dot_dtype = dot_dtype
+        return relbias_attention_fwd(q, k, v, mask, e1, e2, dot_dtype,
+                                     **ctx.config)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, e1, e2 = ctx.saved_tensors
+        dq, dk, dv, dmask, de1, de2 = relbias_attention_bwd(
+            q, k, v, mask, e1, e2, dout.to(q.dtype).contiguous(), ctx.dot_dtype,
+            need_dmask=mask is not None and ctx.needs_input_grad[3],
+            **ctx.config)
+        return dq, dk, dv, dmask, de1, de2, None, None, None, None

@@ -1,5 +1,5 @@
 """Post-LN transformer stacks with KV-cached decode steps (counterpart of
-vqcpcb_tpu/ops/transformer.py, inference only).
+vqcpcb_tpu/ops/transformer.py).
 
 Parameter names follow the reference (self_attn, linear1, linear2, norm1..3,
 cross_attn.0 / cross_attn.2, layers.{i}), the layout that
@@ -7,6 +7,14 @@ training/import_reference.py reads. LayerNorms use eps 1e-6, flax's default
 (torch's is 1e-5). The decoder layer of this slice is the aligned one,
 whose cross-attention is a position-aligned MLP; the attention decoder
 layer comes with a later slice.
+
+Training: in train mode a layer runs its self-attention on the training
+route (attention.py) and applies dropout after the attention (drop1), the
+cross branch (drop2 of the decoder layer), the FFN (drop2 / drop3) and on
+the FFN's hidden activation, as the JAX layers do (transformer.py:53-109,
+318-327). The rate defaults to 0; the Decoder passes its own. Under bf16
+autocast the aligned cross branch stays in f32, as its JAX Dense layers
+carry no compute dtype.
 """
 from __future__ import annotations
 
@@ -23,10 +31,10 @@ LAYER_NORM_EPS = 1e-6
 
 
 def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
-                 activation: str) -> torch.Tensor:
+                 activation: str, dropout: nn.Dropout) -> torch.Tensor:
     """The FeedForward block (transformer.py:53): linear1, relu or gelu
-    (flax's gelu is the tanh approximation), linear2. Its two Linears live on
-    the layer, under the reference's names."""
+    (flax's gelu is the tanh approximation), dropout, linear2. Its modules
+    live on the layer, the Linears under the reference's names."""
     h = linear1(x)
     if activation == "relu":
         h = F.relu(h)
@@ -34,7 +42,7 @@ def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"activation should be relu/gelu, not {activation}")
-    return linear2(h)
+    return linear2(dropout(h))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -43,16 +51,20 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_head: int,
                  attention_bias_type: Optional[str], num_channels: int,
                  num_events: int, dim_feedforward: int = 2048,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.0):
         super().__init__()
         self.self_attn = MultiheadAttention(
             d_model, n_head, attention_bias_type,
             num_channels_k=num_channels, num_events_k=num_events,
-            num_channels_q=num_channels, num_events_q=num_events)
+            num_channels_q=num_channels, num_events_q=num_events,
+            dropout=dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
+        self.drop1 = nn.Dropout(dropout)
+        self.drop2 = nn.Dropout(dropout)
+        self.ff_dropout = nn.Dropout(dropout)
         self.activation = activation
 
     def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None
@@ -61,9 +73,12 @@ class TransformerEncoderLayer(nn.Module):
         return self._after_self(src, src2), a_self
 
     def _after_self(self, src, src2):
-        src = self.norm1(src + src2)
-        return self.norm2(src + feed_forward(src, self.linear1, self.linear2,
-                                             self.activation))
+        src = self.norm1(src + self.drop1(src2))
+        return self.norm2(src + self.drop2(self._ff(src)))
+
+    def _ff(self, x):
+        return feed_forward(x, self.linear1, self.linear2, self.activation,
+                            self.ff_dropout)
 
     def capture(self, src, src_mask=None):
         """Full forward that also returns this layer's self-attention K/V,
@@ -77,8 +92,7 @@ class TransformerEncoderLayer(nn.Module):
         """One position: x_t (B, 1, E); caches already hold position t."""
         x = self.norm1(x_t + self.self_attn.step(x_t, k_cache, v_cache, t,
                                                  seq_len))
-        return self.norm2(x + feed_forward(x, self.linear1, self.linear2,
-                                           self.activation))
+        return self.norm2(x + self._ff(x))
 
 
 class TransformerEncoder(nn.Module):
@@ -86,11 +100,13 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, num_layers: int, d_model: int, n_head: int,
                  attention_bias_type: Optional[str], num_channels: int,
-                 num_events: int, dim_feedforward: int = 2048):
+                 num_events: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, n_head, attention_bias_type,
-                                    num_channels, num_events, dim_feedforward)
+                                    num_channels, num_events, dim_feedforward,
+                                    dropout=dropout)
             for _ in range(num_layers))
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor] = None
@@ -111,14 +127,15 @@ class TransformerAlignedDecoderLayer(nn.Module):
                  attention_bias_type_self: Optional[str],
                  num_channels_encoder: int, num_events_encoder: int,
                  num_channels_decoder: int, num_events_decoder: int,
-                 dim_feedforward: int = 2048, activation: str = "relu"):
+                 dim_feedforward: int = 2048, activation: str = "relu",
+                 dropout: float = 0.0):
         super().__init__()
         self.self_attn = MultiheadAttention(
             d_model, n_head, attention_bias_type_self,
             num_channels_k=num_channels_decoder,
             num_events_k=num_events_decoder,
             num_channels_q=num_channels_decoder,
-            num_events_q=num_events_decoder)
+            num_events_q=num_events_decoder, dropout=dropout)
         self.cross_attn = nn.Sequential(
             nn.Linear(d_model * num_channels_encoder, d_model * 2), nn.ELU(),
             nn.Linear(d_model * 2, d_model * num_channels_decoder))
@@ -127,6 +144,10 @@ class TransformerAlignedDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
+        self.drop1 = nn.Dropout(dropout)
+        self.drop2 = nn.Dropout(dropout)
+        self.drop3 = nn.Dropout(dropout)
+        self.ff_dropout = nn.Dropout(dropout)
         self.num_channels_encoder = num_channels_encoder
         self.num_channels_decoder = num_channels_decoder
         self.activation = activation
@@ -138,20 +159,21 @@ class TransformerAlignedDecoderLayer(nn.Module):
         b, s, e = memory.shape
         c_enc, c_dec = self.num_channels_encoder, self.num_channels_decoder
         n_mem = s // c_enc
-        h = self.cross_attn(memory.reshape(b, n_mem, c_enc * e))
+        with torch.autocast(memory.device.type, enabled=False):
+            h = self.cross_attn(memory.float().reshape(b, n_mem, c_enc * e))
         h = h.reshape(b, n_mem, e, c_dec).transpose(2, 3)      # (B, n, C, E)
         ratio = (tgt_len // c_dec) // n_mem
         return h[:, :, None].expand(b, n_mem, ratio, c_dec, e).reshape(
             b, tgt_len, e)
 
     def _after_self(self, x, cross):
-        x = self.norm2(x + cross)
-        return self.norm3(x + feed_forward(x, self.linear1, self.linear2,
-                                           self.activation))
+        x = self.norm2(x + self.drop2(cross))
+        return self.norm3(x + self.drop3(feed_forward(
+            x, self.linear1, self.linear2, self.activation, self.ff_dropout)))
 
     def forward(self, tgt, memory, tgt_mask=None):
         tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask)
-        tgt = self.norm1(tgt + tgt2)
+        tgt = self.norm1(tgt + self.drop1(tgt2))
         return self._after_self(tgt, self.cross_branch(memory, tgt.shape[1])), a_self
 
     def capture(self, tgt, memory, tgt_mask=None):

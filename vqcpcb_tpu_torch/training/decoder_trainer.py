@@ -1,15 +1,23 @@
-"""Generation half of the decoder trainer (counterpart of
-vqcpcb_tpu/training/decoder_trainer.py:55-65,250-471): frozen-encoder codes
-for a template, then sliding-window KV-cached decoding of the code sequence.
+"""The decoder trainer (counterpart of vqcpcb_tpu/training/decoder_trainer.py):
+its training steps (:120-160, 204-230) and its generation half (:55-65,
+250-471).
 
-`DecoderGenerator` holds a frozen encoder and a decoder on one device (the
-card unless the caller names another) and an explicit torch.Generator for
-the draws. It returns token grids; writing scores, checkpoints and the CLI
-come with a later slice.
+`DecoderTrainer` trains a decoder on the codes of a frozen encoder: one step
+encodes the batch (the nearest-codebook kernel on the card), runs the
+decoder in train mode under the compute dtype (bf16 autocast on CUDA, f32 on
+the CPU), and applies the clipped Adam of training/optim.py. It holds the
+model, the optimizer and the step count, the counterpart of the JAX
+TrainState. `DecoderGenerator` holds a frozen encoder and a decoder on one
+device and an explicit torch.Generator for the draws: frozen-encoder codes
+for a template, then sliding-window KV-cached decoding of the code sequence.
+Both run on the card unless the caller names another device. The training
+loop, checkpoints, score writing and the CLI come with a later slice.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import time
+from itertools import islice
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -18,6 +26,9 @@ from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, START_SYMBOL,
                                          Vocabulary)
 from vqcpcb_tpu_torch.models.decoder import Decoder
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
+from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
+from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
+                                             trapezoid_schedule)
 from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 
@@ -32,6 +43,90 @@ def compute_start_end_times(t: int, num_blocks: int, num_blocks_model: int):
         t_relative = num_blocks_model - (num_blocks - t)
     t_begin = min(max(0, t - num_blocks_model // 2), num_blocks - num_blocks_model)
     return t_begin, t_begin + num_blocks_model, t_relative
+
+
+class DecoderTrainer:
+    """Decoder training on frozen-encoder codes.
+
+    seed: seeds the host generator the attention layers draw their dropout
+    seeds from; the other dropout layers draw from torch's default
+    generator of the device."""
+
+    def __init__(self, encoder: Encoder, decoder: Decoder, codebook_size: int,
+                 device=None, seed: int = 0):
+        self.device = resolve_device(device)
+        self.encoder = encoder.to(self.device).eval().requires_grad_(False)
+        self.decoder = decoder.to(self.device)
+        self.codebook_size = codebook_size
+        self.compute_dtype = (torch.bfloat16 if self.device.type == "cuda"
+                              else torch.float32)
+        self.seed_generator = torch.Generator().manual_seed(seed)
+        for m in self.decoder.modules():
+            if isinstance(m, MultiheadAttention):
+                m.seed_generator = self.seed_generator
+        self.optimizer: Optional[Adam] = None
+        self.step = 0
+
+    def init_state(self, lr: float, schedule_lr: bool = False,
+                   warmup_steps: int = WARMUP_STEPS) -> "DecoderTrainer":
+        """Fresh optimizer state at step 0 (decoder_trainer.py:init_state;
+        the decoder's weights are the module's own)."""
+        self.optimizer = Adam(
+            self.decoder.parameters(),
+            trapezoid_schedule(lr, warmup_steps) if schedule_lr else lr)
+        self.step = 0
+        return self
+
+    @torch.no_grad()
+    def encode_codes(self, x: torch.Tensor) -> torch.Tensor:
+        """Token batch (B, events, voices) -> merged codes (B, S), no grad."""
+        _, indices, _ = self.encoder(x)
+        return merge_codes(indices, self.codebook_size)
+
+    def _loss(self, x: torch.Tensor) -> torch.Tensor:
+        codes = self.encode_codes(x)
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.compute_dtype == torch.bfloat16):
+            return self.decoder(codes, x)["loss"]
+
+    def train_step(self, x) -> Dict[str, torch.Tensor]:
+        """One clipped Adam step on a token batch; returns {'loss'} as a
+        device scalar (not read back)."""
+        if self.optimizer is None:
+            raise RuntimeError("init_state before train_step")
+        x = to_device(x, self.device)
+        self.decoder.train()
+        self.optimizer.zero_grad()
+        loss = self._loss(x)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def eval_step(self, x) -> Dict[str, torch.Tensor]:
+        self.decoder.eval()
+        return {"loss": self._loss(to_device(x, self.device))}
+
+    def epoch(self, batches: Iterable, train: bool,
+              num_batches: Optional[int] = None) -> Dict[str, float]:
+        """Train or evaluate over up to num_batches batches, each a dict
+        whose 'x' holds a token batch, as the data loaders give them;
+        returns the mean loss and tokens/s, with one read of the device at
+        the end (decoder_trainer.py:204-230)."""
+        total, count, tokens = None, 0, 0
+        t0 = time.perf_counter()
+        for batch in islice(batches, num_batches):
+            x = batch["x"]
+            loss = (self.train_step(x) if train else self.eval_step(x))["loss"]
+            total = loss.float() if total is None else total + loss.float()
+            count += 1
+            tokens += int(np.prod(x.shape))
+        if not count:
+            return {}
+        mean = total.item() / count
+        return {"loss": mean,
+                "tokens_per_sec": tokens / max(time.perf_counter() - t0, 1e-9)}
 
 
 class DecoderGenerator:
