@@ -7,7 +7,8 @@
 Phases, in order; any failure raises and the run exits non-zero:
   1. environment: the card's name and power limit, torch / CUDA versions,
      TF32 off for matmuls and cuDNN (the comparisons below are in f32);
-  2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a);
+  2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a), one
+     nvcc per source, all started together;
   3. nearest-codebook kernel vs its plain PyTorch version, timed;
   4. relative-bias attention forward kernel (inference) vs its plain
      version, timed beside its bound and beside scaled_dot_product_attention
@@ -15,17 +16,26 @@ Phases, in order; any failure raises and the run exits non-zero:
   5. relative-bias attention training kernels (forward and backward, with
      dropout, packed and (B, H, L, d) layouts) vs their plain versions, the
      dropout mask bit for bit, timed at the flagship training shape;
-  6. the re-harmonisation serving path end to end at full width (random
-     weights from a seed): encoder codes, KV-cached sampling at batch 512,
-     re-harmonisation of a random template, and kernel-route vs plain-route
-     logits plus greedy KV-cached tokens vs the teacher-forced argmax;
-  7. flagship decoder training at full width: DecoderTrainer steps at batch
-     32 with bf16 autocast and dropout 0.2 (falling loss, ms/step,
-     tokens/s, launches per step), and kernel-route vs CPU f32 plain-route
-     loss and gradients at batch 2, dropout 0;
-  8. one JSON line of per-kernel numbers, then the result line.
-Phases 6 and 7 are the two main paths: each is driven with the launch
-counts set to 0 just before it and read just after.
+  6. fused attention: K4 at batch 512 at the absolute decoder's three
+     shapes, K6's forward and backward at batch 32 with the placeholder and
+     with a real bias (dmask and dbias once), dropout 0 and 0.2, the mask
+     bit for bit on K6's stream, each vs its plain version and timed;
+  7. the re-harmonisation serving path end to end at full width (random
+     weights from a seed), for the flagship AC/D/C decoder and for the
+     absolute decoder: encoder codes, KV-cached sampling at batch 512,
+     re-harmonisation of a random template, the launches of one prefill,
+     and kernel-route vs plain-route logits plus greedy KV-cached tokens vs
+     the teacher-forced argmax;
+  8. decoder training at full width, flagship and absolute: DecoderTrainer
+     steps at batch 32 with bf16 autocast and dropout 0.2 (falling loss,
+     ms/step, tokens/s, launches per step), and kernel-route vs CPU f32
+     plain-route loss and gradients at batch 2, dropout 0; then the
+     flagship with VQCPCB_PALLAS_RELBIAS=0 (the explicit-bias route: K6 in
+     training, K4 at inference): a few train steps, one prefill, and its
+     loss and gradients vs the in-kernel route at dropout 0;
+  9. one JSON line of per-kernel numbers, then the result line.
+The five runs of phases 7 and 8 are the main paths: each is driven with the
+launch counts set to 0 just before it and read just after.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -191,9 +201,10 @@ RELBIAS_ATOL = 2e-3
 RELBIAS_RULE_CONTRAST = 8.0
 
 # Decoder logits, kernel route (bf16 dot inputs in the 6 relative-attention
-# layers) against the f32 plain route: each bf16 rounding is 2**-9 relative;
-# through 6 post-LN layers the logits keep a few such errors, so 2e-2 of the
-# largest logit bounds them with room and still catches a wrong kernel.
+# layers of the flagship; f32 in the absolute decoder's K4) against the f32
+# plain route: each bf16 rounding is 2**-9 relative; through 6 post-LN layers
+# the logits keep a few such errors, so 2e-2 of the largest logit bounds them
+# with room and still catches a wrong kernel.
 LOGITS_RTOL = 2e-2
 
 
@@ -303,24 +314,24 @@ def _fwd_bwd(fwd, bwd, q, k, v, mask, e1, e2, g, dot_dtype=torch.bfloat16,
             *bwd(q, k, v, mask, e1, e2, g, dot_dtype, need_dmask=need_dmask, **kw)]
 
 
-def _hold(what, got, want, want32, worst) -> str:
+def _hold(what, got, want, want32, worst, names=TRAIN_RESULTS,
+          bwd_key="bwd", fracs=None) -> str:
     """Each result against the bf16-rule plain version: within GRAD_FRAC of
-    its max |value| (plus one bf16 step at that value for a result stored in
-    bf16, where two f32 results a hair apart may round to neighbouring
-    values); and, when the f32-rule plain version is given, 8x closer to the
-    bf16 rule than the f32 rule is. Keeps the worst error in `worst`; returns
-    the numbers for the log."""
+    its max |value| (or the fraction `fracs` names for it; plus one bf16
+    step at that value for a result stored in bf16, where two f32 results a
+    hair apart may round to neighbouring values); and, when the f32-rule
+    plain version is given, 8x closer to the bf16 rule than the f32 rule is.
+    Keeps the worst error in `worst`; returns the numbers for the log."""
     line = []
-    for res, a, w, w32 in zip(TRAIN_RESULTS, got, want,
-                              want32 or [None] * len(want)):
+    for res, a, w, w32 in zip(names, got, want, want32 or [None] * len(want)):
         if a is None:
             continue
         err = (a.float() - w.float()).abs().max().item()
         scale = w.float().abs().max().item()
-        limit = GRAD_FRAC * max(scale, 1e-30)
+        limit = (fracs or {}).get(res, GRAD_FRAC) * max(scale, 1e-30)
         if a.dtype == torch.bfloat16:
             limit += torch.finfo(torch.bfloat16).eps * scale
-        key = "fwd" if res == "out" else "bwd"
+        key = "fwd" if res == "out" else bwd_key
         worst[key] = max(worst[key], err)
         ok = err <= limit
         if w32 is None:
@@ -445,7 +456,12 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
         *leaves[:3], attn_mask=leaves[3], dropout_p=TRAIN_DROPOUT, scale=1.0)
     lib_fwd = time_cuda(sdpa, 10, warmup=2)
     lib_fwd_bwd = time_cuda(lambda: sdpa().backward(g4), 10, warmup=2)
-    del leaves, bias, q4, k4, v4, g4
+    # the backward alone over one retained graph is the yardstick; the
+    # difference above, host-bound at these sizes, is logged beside it
+    out = sdpa()
+    lib_bwd = time_cuda(lambda: torch.autograd.grad(out, leaves, g4,
+                                                    retain_graph=True), 10, warmup=2)
+    del out, leaves, bias, q4, k4, v4, g4
     n, e = b * HEADS, HEADS * HEAD_DIM
     act = 2 * b * t * e                              # one bf16 (B, T, H*d) tensor
     side = 4 * t * t + 4 * HEADS * (2 * t - 1) * HEAD_DIM   # mask, E (f32)
@@ -458,20 +474,269 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
         f"{TRAIN_DROPOUT}: fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
         f"sdpa(mask+bias) {lib_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms "
         f"({fwd_bound[1]}); bwd kernels {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
-        f"sdpa autograd bwd {lib_fwd_bwd - lib_fwd:.4f} ms, bound "
+        f"sdpa autograd bwd {lib_bwd:.4f} ms (fwd+bwd less fwd "
+        f"{lib_fwd_bwd - lib_fwd:.4f} ms), bound "
         f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); on (B, H, L, d): fwd "
         f"{fwd_bhld:.4f} ms, bwd {bwd_bhld:.4f} ms")
     torch.cuda.empty_cache()
     return {"fwd": dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
                         bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                         max_abs_err=worst["fwd"], ms_bhld=fwd_bhld),
-            "bwd": dict(ms=bwd_ms, plain_ms=bwd_plain,
-                        library_ms=lib_fwd_bwd - lib_fwd,
+            "bwd": dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
                         bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
                         max_abs_err=worst["bwd"], ms_bhld=bwd_bhld)}
 
 
 # ---- phase 6 ---------------------------------------------------------------
+
+# K4 against its plain version: f32 dots and an f32 softmax on both sides
+# (TF32 off), the sums in other orders: 1e-5, as tests/test_torch_cuda.py.
+K4_ATOL = 1e-5
+FUSED_RESULTS = ("out", "dq", "dk", "dv", "dmask", "dbias")
+# dbias and dmask are K6's f32 score gradient ds, taken before every bf16
+# rounding point, so kernel and plain version differ only by f32 sums in
+# other orders (and, for dmask, the atomics' order over the B*H planes):
+# 1e-5 of the max |value|, the bound of the f32-dot CPU tests. A ds stored
+# in bf16 (2**-9 relative) fails it.
+DS_FRACS = {"dmask": 1e-5, "dbias": 1e-5}
+# The absolute decoder's attentions per (b, h): T, S and the mask. The
+# cross-attention has none: the wrapper passes a zero (T, S) mask, as the
+# JAX module does (attention.py:281).
+ABSOLUTE_SHAPES = (("decoder self-attention", 384, 384, "causal"),
+                   ("cross-attention", 384, 24, None),
+                   ("code encoder", 24, 24, "anticausal"))
+
+
+def _fused_mask(kind, t, s):
+    from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
+    if kind == "causal":
+        return causal_mask(t, device="cuda")
+    return anticausal_mask(s, device="cuda") if kind == "anticausal" else None
+
+
+def _split_heads(x):
+    return x.unflatten(-1, (HEADS, HEAD_DIM)).transpose(1, 2)
+
+
+def _projected(gen, b, t, s, dtype):
+    """q (B, T, E), already scaled, and k, v as the slices of a (B, S, 2E)
+    projection: the tensors the attention module hands the kernels."""
+    e = HEADS * HEAD_DIM
+    q = torch.randn((b, t, e), generator=gen, device="cuda") * HEAD_DIM ** -0.5
+    kv = torch.randn((b, s, 2 * e), generator=gen, device="cuda").to(dtype)
+    return q.to(dtype), kv[..., :e], kv[..., e:]
+
+
+def _fused_fwd_bwd(fwd, bwd, q, k, v, mask, bias, g, dot_dtype=torch.bfloat16,
+                   need_dmask=False, **kw):
+    return [fwd(q, k, v, mask, bias, dot_dtype, **kw),
+            *bwd(q, k, v, mask, bias, g, dot_dtype, need_dmask=need_dmask, **kw)]
+
+
+def _fused_bounds(b, t, s, real_bias):
+    """(fwd, bwd) bounds of K6 at one shape, packed bf16 inputs: bytes of
+    q, k, v, out (fwd) and q, k, v, do, dq, dk, dv (bwd), the f32 mask and,
+    with a real bias, its f32 values in and (bwd) dbias out; 2 and 5
+    T x S x d products."""
+    n = b * HEADS
+    side = 4 * t * s + (4 * n * t * s if real_bias else 0)
+    prod = 2 * t * s * HEAD_DIM * n
+    fwd = bound(2 * n * HEAD_DIM * (2 * t + 2 * s) + side, 2 * prod, BF16_FLOPS)
+    bwd = bound(2 * n * HEAD_DIM * (3 * t + 4 * s) + side
+                + (4 * n * t * s if real_bias else 0), 5 * prod, BF16_FLOPS)
+    return fwd, bwd
+
+
+def phase_fused(gen: torch.Generator) -> dict:
+    """K4 at the serving batch and K6 at the training batch, each against
+    its plain version, timed beside its bound and a PyTorch yardstick."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    import torch.nn.functional as F
+    worst = {"k4": 0.0, "fwd": 0.0, "bwd": 0.0, "bwd_bias": 0.0}
+    k4_times = {}
+    for name, t, s, kind in ABSOLUTE_SHAPES:
+        q, k, v = (_split_heads(x) for x in _projected(gen, BATCH, t, s, torch.float32))
+        mask = _fused_mask(kind, t, s)
+        err = (fk.fused_attention_cuda(q, k, v, mask)
+               - fk.fused_attention_plain(q, k, v, mask)).abs().max().item()
+        worst["k4"] = max(worst["k4"], err)
+        long = t == s == 384
+        ms = time_cuda(lambda: fk.fused_attention_cuda(q, k, v, mask), 5 if long else 20)
+        plain_ms = time_cuda(lambda: fk.fused_attention_plain(q, k, v, mask),
+                             3 if long else 10, warmup=1)
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0), 3 if long else 10, warmup=1)
+        n = BATCH * HEADS
+        bound_ms, bound_by = bound(4 * (2 * n * t * HEAD_DIM + 2 * n * s * HEAD_DIM + t * s),
+                                   2 * 2 * t * s * HEAD_DIM * n, F32_FLOPS)
+        k4_times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+        log(f"# fused_attention (K4) {name} (B={BATCH}, H={HEADS}, T={t}, S={s}, "
+            f"d={HEAD_DIM}, f32, strided views): max abs err {err:.3e} (tolerance "
+            f"{K4_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not err <= K4_ATOL:
+            raise AssertionError(f"fused_attention {name}: max abs err {err}")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # K6 at the training batch, packed bf16 as the training route gives it:
+    # the absolute decoder's three shapes at dropout 0 and 0.2 with the
+    # placeholder (K6-bwd-nobias; dmask once), and the explicit-bias route's
+    # two shapes with a real bias (K6-bwd: dbias). Each result against the
+    # plain version on the same inputs (dbias and dmask to DS_FRACS); the f32
+    # twin's against both dot rules (8x contrast); the bf16 results equal to
+    # the twin's rounded to bf16, bit for bit.
+    cuda = (fk.fused_attention_train_fwd_cuda, fk.fused_attention_train_bwd_cuda)
+    plain = (fk.fused_attention_train_fwd_plain, fk.fused_attention_train_bwd_plain)
+    cases = [("decoder self-attention", 384, 384, "causal", 0.0, False),
+             ("decoder self-attention", 384, 384, "causal", TRAIN_DROPOUT, False),
+             ("cross-attention", 384, 24, None, 0.0, False),
+             ("cross-attention", 384, 24, None, TRAIN_DROPOUT, False),
+             ("code encoder", 24, 24, "anticausal", 0.0, False),
+             ("code encoder", 24, 24, "anticausal", TRAIN_DROPOUT, False),
+             ("explicit relative bias", 384, 384, "causal", TRAIN_DROPOUT, True),
+             ("explicit relative bias, code encoder", 24, 24, "anticausal",
+              TRAIN_DROPOUT, True)]
+    for i, (name, t, s, kind, rate, real) in enumerate(cases):
+        q, k, v = _projected(gen, TRAIN_BATCH, t, s, torch.bfloat16)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        mask = _fused_mask(kind, t, s)
+        bias = (torch.randn((TRAIN_BATCH * HEADS, t, s), generator=gen, device="cuda")
+                if real else None)
+        need_dmask = i == 1
+        kw = dict(num_heads=HEADS, dropout=rate, seed=3, need_dmask=need_dmask)
+        inputs = (q, k, v, mask, bias, g)
+        twin = (q.float(), k.float(), v.float(), mask, bias, g.float())
+        got, got32 = _fused_fwd_bwd(*cuda, *inputs, **kw), _fused_fwd_bwd(*cuda, *twin, **kw)
+        torch.cuda.synchronize()
+        bwd_key = "bwd_bias" if real else "bwd"
+        line = _hold(f"K6 {name} B={TRAIN_BATCH} dropout {rate} bf16 inputs", got,
+                     _fused_fwd_bwd(*plain, *inputs, **kw), None, worst,
+                     FUSED_RESULTS, bwd_key, DS_FRACS)
+        # dmask and dbias are the f32 ds, which comes before every rounding
+        # point of the dot rule: on the twin's bf16-exact inputs both rules
+        # give the same values, so no contrast applies and DS_FRACS holds them
+        rule32 = _fused_fwd_bwd(*plain, *twin, dot_dtype=torch.float32, **kw)
+        rule32[4:] = [None, None]
+        line32 = _hold(f"K6 {name} B={TRAIN_BATCH} dropout {rate} f32 twin", got32,
+                       _fused_fwd_bwd(*plain, *twin, **kw), rule32, worst,
+                       FUSED_RESULTS, bwd_key, DS_FRACS)
+        for res, a, a32 in zip(FUSED_RESULTS, got, got32):
+            # dmask sums by atomics, in an order that changes between runs
+            if a is not None and res != "dmask" and not torch.equal(a, a32.to(a.dtype)):
+                raise AssertionError(f"K6 {name}: {res} from bf16 inputs is not "
+                                     "the f32 twin's rounded to bf16")
+        if (got[-1] is not None) != real or (got[4] is not None) != need_dmask:
+            raise AssertionError(f"K6 {name}: dbias / dmask returned where not asked")
+        log(f"# K6 {name} (B={TRAIN_BATCH}, T={t}, S={s}, packed bf16, dropout "
+            f"{rate}, {'real bias' if real else 'placeholder'}"
+            f"{', dmask' if need_dmask else ''}): bf16 inputs err/max|value| "
+            f"{line}; f32 twin err/rule gap/max|value| {line32}; bf16 results = "
+            f"the twin's rounded to bf16, bit for bit (dmask aside)")
+        del got, got32, twin
+    # timed as the training route calls them, dropout 0.2: the decoder's
+    # self-attention and the cross-attention with the placeholder, and the
+    # self-attention with a real bias (the explicit-bias route)
+    kw = dict(num_heads=HEADS, dropout=TRAIN_DROPOUT, seed=3)
+    times = {}
+    for label, t, s, kind, real in (("self", 384, 384, "causal", False),
+                                    ("cross", 384, 24, None, False),
+                                    ("bias", 384, 384, "causal", True)):
+        q, k, v = _projected(gen, TRAIN_BATCH, t, s, torch.bfloat16)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        mask = _fused_mask(kind, t, s)
+        bias = (torch.randn((TRAIN_BATCH * HEADS, t, s), generator=gen, device="cuda")
+                if real else None)
+        fwd_ms = time_cuda(lambda: fk.fused_attention_train_fwd_cuda(
+            q, k, v, mask, bias, **kw), 20)
+        bwd_ms = time_cuda(lambda: fk.fused_attention_train_bwd_cuda(
+            q, k, v, mask, bias, g, need_dmask=False, **kw), 10)
+        fwd_plain = time_cuda(lambda: fk.fused_attention_train_fwd_plain(
+            q, k, v, mask, bias, **kw), 5, warmup=1)
+        bwd_plain = time_cuda(lambda: fk.fused_attention_train_bwd_plain(
+            q, k, v, mask, bias, g, need_dmask=False, **kw), 3, warmup=1)
+        q4, k4, v4, g4 = (_split_heads(x).contiguous() for x in (q, k, v, g))
+        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+        attn = None
+        if real:     # mask + bias as one additive bf16 tensor, with its gradient
+            attn = (mask + bias.view(TRAIN_BATCH, HEADS, t, s)).to(
+                torch.bfloat16).requires_grad_(True)
+        sdpa = lambda: F.scaled_dot_product_attention(       # noqa: E731
+            *leaves, attn_mask=attn, is_causal=kind == "causal" and not real,
+            dropout_p=TRAIN_DROPOUT, scale=1.0)
+        lib_fwd = time_cuda(sdpa, 10, warmup=2)
+        # its autograd backward alone, over one retained graph (the
+        # difference of a forward+backward and a forward timing is
+        # host-bound at these sizes: it varied by more than 2x between runs
+        # on an H100)
+        out = sdpa()
+        lib_bwd = time_cuda(lambda: torch.autograd.grad(
+            out, leaves + ([attn] if real else []), g4, retain_graph=True), 10,
+            warmup=2)
+        del out
+        fwd_bound, bwd_bound = _fused_bounds(TRAIN_BATCH, t, s, real)
+        times[label] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain=fwd_plain,
+                            bwd_plain=bwd_plain, lib_fwd=lib_fwd, lib_bwd=lib_bwd,
+                            fwd_bound=fwd_bound, bwd_bound=bwd_bound)
+        log(f"# K6 {label} at B={TRAIN_BATCH}, T={t}, S={s}, packed bf16, dropout "
+            f"{TRAIN_DROPOUT}, {'real bias' if real else 'placeholder'}: fwd kernel "
+            f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, sdpa {lib_fwd:.4f} ms, "
+            f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); bwd kernels {bwd_ms:.4f} "
+            f"ms, plain {bwd_plain:.4f} ms, sdpa autograd bwd {lib_bwd:.4f} ms, "
+            f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        del leaves, attn, q4, k4, v4, g4, q, k, v, g, bias
+        torch.cuda.empty_cache()
+
+    # the dropout mask, bit for bit: with v the one-hot columns of a block of
+    # 64 keys, K6's output is its dropped weight row there (stream
+    # seed + b*H + h)
+    for name, t, s, kind in ABSOLUTE_SHAPES[:2]:
+        q, k, _ = (_split_heads(x).contiguous()
+                   for x in _projected(gen, 4, t, s, torch.float32))
+        mask = _fused_mask(kind, t, s)
+        keep = ak.dropout_keep_plain((t, s), TRAIN_DROPOUT,
+                                     fk.flat_stream_seeds(99, 4, HEADS, "cuda"))
+        # the weights that are not 0 before dropout, by the kernel's rule
+        rd = lambda x: x.to(torch.bfloat16).float()       # noqa: E731
+        w = torch.softmax(torch.einsum("bhtd,bhsd->bhts", rd(q), rd(k))
+                          + (0 if mask is None else mask.clamp_min(-1e30)), -1) > 0
+        mismatched = 0
+        for c0 in range(0, s, HEAD_DIM):
+            n = min(HEAD_DIM, s - c0)
+            v = torch.zeros((4, HEADS, s, HEAD_DIM), device="cuda")
+            v[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
+            out = fk.fused_attention_train_fwd_cuda(q, k, v, mask, None,
+                                                    dropout=TRAIN_DROPOUT, seed=99)
+            mismatched += (((out[..., :n] != 0) & w[..., c0:c0 + n])
+                           != (keep[..., c0:c0 + n] & w[..., c0:c0 + n])).sum().item()
+        log(f"# K6 {name}: dropout mask vs the hash on stream seed + b*H + h, "
+            f"{mismatched} of {4 * HEADS * t * s} entries differ (need 0)")
+        if mismatched:
+            raise AssertionError(f"K6 dropout mask differs at {mismatched} entries")
+    torch.cuda.empty_cache()
+    self_t, bias_t = times["self"], times["bias"]
+    return {
+        "k4": dict(k4_times["decoder self-attention"], max_abs_err=worst["k4"],
+                   cross=k4_times["cross-attention"],
+                   code_encoder=k4_times["code encoder"]),
+        "fwd": dict(ms=self_t["fwd_ms"], plain_ms=self_t["fwd_plain"],
+                    library_ms=self_t["lib_fwd"], bound_ms=self_t["fwd_bound"][0],
+                    bound_by=self_t["fwd_bound"][1], max_abs_err=worst["fwd"],
+                    cross={k: times["cross"][k] for k in ("fwd_ms", "fwd_plain", "lib_fwd")}),
+        "bwd_nobias": dict(ms=self_t["bwd_ms"], plain_ms=self_t["bwd_plain"],
+                           library_ms=self_t["lib_bwd"], bound_ms=self_t["bwd_bound"][0],
+                           bound_by=self_t["bwd_bound"][1], max_abs_err=worst["bwd"],
+                           cross={k: times["cross"][k]
+                                  for k in ("bwd_ms", "bwd_plain", "lib_bwd")}),
+        "bwd": dict(ms=bias_t["bwd_ms"], plain_ms=bias_t["bwd_plain"],
+                    library_ms=bias_t["lib_bwd"], bound_ms=bias_t["bwd_bound"][0],
+                    bound_by=bias_t["bwd_bound"][1], max_abs_err=worst["bwd_bias"]),
+    }
+
+
+# ---- phase 7 ---------------------------------------------------------------
 
 def synthetic_vocabulary():
     """4 voices of 56 pitches 'p<midi>' plus the 6 special symbols: 62
@@ -482,11 +747,35 @@ def synthetic_vocabulary():
         midi_of_plain_name)
 
 
-def build_models(vocab, dropout: float = 0.0):
+# Decoder configurations at full width: the flagship AC/D/C of
+# configs/decoder_relative_AC_D_C_random.py and the absolute decoder of
+# configs/decoder_random.py (decoder_type 'transformer', getters.py:283).
+DECODERS = {"flagship": dict(transformer_type="relative",
+                             cross_attention_type="diagonal"),
+            "absolute": dict(transformer_type="absolute",
+                             cross_attention_type="full")}
+# The kernel one prefill launches, and how often: 3 encoder + 3 decoder
+# self-attentions (relative bias), or those and 3 cross-attentions (K4).
+PREFILL_LAUNCHES = {"flagship": ("relbias_attention_fwd", 6),
+                    "absolute": ("fused_attention", 9)}
+# Launches of one train step: the attentions' forward and backward, and K1
+# for the frozen encoder's codes. "explicit_bias" is the flagship with
+# VQCPCB_PALLAS_RELBIAS=0.
+STEP_LAUNCHES = {
+    "flagship": {"relbias_attention_fwd": 6, "relbias_attention_bwd": 6,
+                 "vq_nearest": 1},
+    "absolute": {"fused_attention_train_fwd": 9,
+                 "fused_attention_train_bwd_nobias": 9, "vq_nearest": 1},
+    "explicit_bias": {"fused_attention_train_fwd": 6,
+                      "fused_attention_train_bwd": 6, "vq_nearest": 1}}
+
+
+def build_models(vocab, dropout: float = 0.0, kind: str = "flagship"):
     """Full width, random weights from torch's init under a fixed seed:
-    the encoder of configs/encoder_random_config.py and the flagship AC/D/C
-    decoder of configs/decoder_relative_AC_D_C_random.py (its dropout 0.2
-    is the caller's `dropout`; serving runs in eval mode)."""
+    the encoder of configs/encoder_random_config.py and a decoder of
+    DECODERS, d_model 512, 8 heads, 3 + 3 layers, ff 1024, positional 8
+    (the configs' dropout 0.2 is the caller's `dropout`; serving runs in
+    eval mode)."""
     from vqcpcb_tpu_torch.models.data_processor import (BachCPCDataProcessor,
                                                         BachDataProcessor)
     from vqcpcb_tpu_torch.models.decoder import Decoder
@@ -508,7 +797,8 @@ def build_models(vocab, dropout: float = 0.0):
         dim_feedforward=1024, positional_embedding_size=8,
         num_channels_encoder=1, num_events_encoder=NUM_CODES,
         num_channels_decoder=4, num_events_decoder=NUM_EVENTS,
-        total_upscaling=16, source_vocab_size=CODEBOOK_SIZE, dropout=dropout)
+        total_upscaling=16, source_vocab_size=CODEBOOK_SIZE, dropout=dropout,
+        **DECODERS[kind])
     return encoder, decoder
 
 
@@ -533,16 +823,29 @@ def random_templates(vocab, gen, batch, events):
 
 
 def reset_counts():
-    from vqcpcb_tpu_torch.ops import attention_kernels as ak, vq_kernels as vk
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    from vqcpcb_tpu_torch.ops import vq_kernels as vk
     vk.launches = 0
-    ak.launches = 0
-    ak.bwd_launches = 0
+    ak.launches = ak.bwd_launches = 0
+    fk.launches = fk.train_fwd_launches = 0
+    fk.train_bwd_launches = fk.train_bwd_nobias_launches = 0
 
 
 def counts():
-    from vqcpcb_tpu_torch.ops import attention_kernels as ak, vq_kernels as vk
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    from vqcpcb_tpu_torch.ops import vq_kernels as vk
     return {"vq_nearest": vk.launches, "relbias_attention_fwd": ak.launches,
-            "relbias_attention_bwd": ak.bwd_launches}
+            "relbias_attention_bwd": ak.bwd_launches,
+            "fused_attention": fk.launches,
+            "fused_attention_train_fwd": fk.train_fwd_launches,
+            "fused_attention_train_bwd": fk.train_bwd_launches,
+            "fused_attention_train_bwd_nobias": fk.train_bwd_nobias_launches}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
 
 
 def synced_seconds(fn):
@@ -553,13 +856,15 @@ def synced_seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
+def phase_serving(gen: torch.Generator, profile: bool, kind: str) -> dict:
+    """The re-harmonisation serving path of one decoder of DECODERS."""
     from vqcpcb_tpu_torch.training.decoder_trainer import DecoderGenerator
     vocab = synthetic_vocabulary()
-    encoder, decoder = build_models(vocab)
+    encoder, decoder = build_models(vocab, kind=kind)
     generator = DecoderGenerator(encoder, decoder, vocab, CODEBOOK_SIZE, seed=0)
     templates = random_templates(vocab, gen, BATCH, NUM_EVENTS)
     init_codebook(encoder, templates, gen)
+    key, per_prefill = PREFILL_LAUNCHES[kind]
     # warm-up of every route outside the counted run (cuDNN, cuBLAS plans)
     warm_codes = generator.encode_codes(templates[:8])
     decoder.sample_range(warm_codes, templates[:8], 0, 8, generator.generator,
@@ -575,8 +880,9 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
                              f"[{codes.min().item()}, {codes.max().item()}]")
     if after_a["vq_nearest"] < 1:
         raise AssertionError("encode_codes did not launch the vq_nearest kernel")
-    log(f"# (a) encode_codes: {BATCH} templates -> codes {tuple(codes.shape)}, "
-        f"{len(codes.unique())} distinct of {CODEBOOK_SIZE}, {encode_s * 1e3:.3f} ms")
+    log(f"# [{kind}] (a) encode_codes: {BATCH} templates -> codes "
+        f"{tuple(codes.shape)}, {len(codes.unique())} distinct of "
+        f"{CODEBOOK_SIZE}, {encode_s * 1e3:.3f} ms")
 
     # (b) KV-cached sampling of all 384 positions at batch 512, int8 caches
     tokens0 = torch.zeros((BATCH, NUM_EVENTS, 4), dtype=torch.int32, device="cuda")
@@ -584,30 +890,31 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
     sampled, sample_s = synced_seconds(lambda: decoder.sample_range(
         codes, tokens0, 0, n_tok, generator.generator, temperature=0.95,
         top_p=0.8))
-    after_b = counts()
-    prefill_launches = after_b["relbias_attention_fwd"] - after_a["relbias_attention_fwd"]
-    if prefill_launches != 6:
-        raise AssertionError(f"one prefill launched relbias_attention "
-                             f"{prefill_launches} times, not 6")
+    prefill = _delta(counts(), after_a)
+    want = {k: per_prefill if k == key else 0 for k in prefill}
+    want["vq_nearest"] = 0
+    if prefill != want:
+        raise AssertionError(f"one prefill launched {prefill}, not {want}")
     sizes = torch.tensor(vocab.num_tokens_per_channel, device="cuda")
     if not ((sampled >= 0) & (sampled < sizes)).all():
         raise AssertionError("sampled tokens outside their channel's vocabulary")
     tokens_per_s = BATCH * n_tok / sample_s
-    log(f"# (b) sample_range batch {BATCH} x {n_tok} positions (T 0.95, "
+    log(f"# [{kind}] (b) sample_range batch {BATCH} x {n_tok} positions (T 0.95, "
         f"top_p 0.8, int8 caches): {sample_s:.4f} s, {tokens_per_s:.1f} "
-        f"tokens/s")
+        f"tokens/s; one prefill launched {key} {per_prefill} times and no other "
+        f"attention kernel")
 
     # (c) re-harmonisation of a random 40-beat template, 8 variants
     template = random_templates(vocab, gen, 1, 40 * 4).cpu().numpy()
     before_c = counts()
     outs, reharm_s = synced_seconds(lambda: generator.generate_reharmonisation(
         template, 8, temperature=0.95, top_p=0.8, exclude_meta_symbols=True))
-    after_c = counts()
-    windows, rest = divmod(after_c["relbias_attention_fwd"]
-                           - before_c["relbias_attention_fwd"], 6)
-    if rest or not windows:
-        raise AssertionError(f"re-harmonisation launched relbias_attention "
-                             f"{6 * windows + rest} times, not 6 per window")
+    reharm = _delta(counts(), before_c)
+    windows, rest = divmod(reharm[key], per_prefill)
+    others = {k: c for k, c in reharm.items() if c and k not in (key, "vq_nearest")}
+    if rest or not windows or others:
+        raise AssertionError(f"re-harmonisation launched {reharm}, not "
+                             f"{per_prefill} {key} per window")
     forbidden = generator._forbidden(True)
     for grid in outs:
         if grid.shape != (160, 4):
@@ -615,7 +922,7 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
         for c in range(4):
             if np.isin(grid[:, c], forbidden[c]).any():
                 raise AssertionError("a meta symbol was sampled while excluded")
-    log(f"# (c) generate_reharmonisation 40 beats x 8 variants: "
+    log(f"# [{kind}] (c) generate_reharmonisation 40 beats x 8 variants: "
         f"{reharm_s:.4f} s, {windows} windows, {len(outs) * 160 * 4} tokens")
     # the main path is (a)-(c); what follows launches the kernels outside it
     main_counts = counts()
@@ -623,10 +930,10 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
     with torch.no_grad():
         _, prefill_s = synced_seconds(lambda: decoder.prefill(codes, tokens0,
                                                               torch.int8))
-    log(f"# prefill alone at batch {BATCH} (int8 caches): "
+    log(f"# [{kind}] prefill alone at batch {BATCH} (int8 caches): "
         f"{prefill_s * 1e3:.3f} ms")
     if profile:
-        phase_profile(decoder, codes, generator.generator)
+        phase_profile(decoder, codes, generator.generator, kind)
 
     # (d) kernel route vs plain route, greedy KV cache vs teacher forcing
     small_codes, small = codes[:8], sampled[:8]
@@ -637,9 +944,9 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
     scale = max(lg.abs().max().item() for lg in plain_logits)
     err = max((k.cpu() - p).abs().max().item()
               for k, p in zip(kernel_logits, plain_logits))
-    log(f"# (d) decoder logits at batch 8, kernel route (bf16 dots) vs plain "
-        f"route (f32, CPU): max abs err {err:.4e}, max |logit| {scale:.3f} "
-        f"(tolerance {LOGITS_RTOL} * max |logit|)")
+    log(f"# [{kind}] (d) decoder logits at batch 8, kernel route vs plain route "
+        f"(f32, CPU): max abs err {err:.4e}, max |logit| {scale:.3f} (tolerance "
+        f"{LOGITS_RTOL} * max |logit|)")
     if not err <= LOGITS_RTOL * scale:
         raise AssertionError(f"kernel-route logits differ by {err}")
     os.environ["VQCPCB_KV_DTYPE"] = "float32"
@@ -652,7 +959,7 @@ def phase_end_to_end(gen: torch.Generator, profile: bool) -> dict:
         forced = decoder(small_codes, greedy)["weights_per_category"]
     agree = torch.stack([lg.argmax(-1) for lg in forced], -1) == greedy.long()
     rate = agree.float().mean().item()
-    log(f"# (d) greedy f32-cache tokens vs teacher-forced argmax: "
+    log(f"# [{kind}] (d) greedy f32-cache tokens vs teacher-forced argmax: "
         f"{rate * 100:.3f}% of {agree.numel()} positions agree (need >= 99%)")
     if rate < 0.99:
         raise AssertionError(f"greedy agreement {rate}")
@@ -677,7 +984,7 @@ def _log_profile(prof, wall_s: float, label: str, top: int) -> None:
             f"{e.count:6d} calls  {e.key[:90]}")
 
 
-def phase_profile(decoder, codes, generator: torch.Generator) -> None:
+def phase_profile(decoder, codes, generator: torch.Generator, kind: str) -> None:
     """Device time by kernel over one sample_range of 64 positions at batch
     512 (a prefill and 64 decode steps), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -686,19 +993,20 @@ def phase_profile(decoder, codes, generator: torch.Generator) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_s = synced_seconds(lambda: decoder.sample_range(
             codes, tokens0, 0, 64, generator, temperature=0.95, top_p=0.8))
-    _log_profile(prof, wall_s, f"sample_range batch {codes.shape[0]}, 64 "
-                 "positions", 12)
+    _log_profile(prof, wall_s, f"[{kind}] sample_range batch {codes.shape[0]}, "
+                 "64 positions", 12)
 
 
-# ---- phase 7 ---------------------------------------------------------------
+# ---- phase 8 ---------------------------------------------------------------
 
 # Decoder loss and gradients, kernel route (bf16 autocast, bf16 dots in the
 # attention kernels) against the CPU f32 plain route at dropout 0: every
-# product of the 6 layers rounds its inputs to bf16 (2**-9 relative), which
+# product of the layers rounds its inputs to bf16 (2**-9 relative), which
 # moves the loss by well under 2% and leaves each gradient's direction within
 # cosine 0.99 of the f32 one.
 LOSS_RTOL = 2e-2
 GRAD_COSINE = 0.99
+EXPLICIT_STEPS = 6
 
 
 def set_dropout(model, rate: float) -> None:
@@ -721,48 +1029,83 @@ def loss_and_grads(decoder, codes, x, autocast: bool):
         for n, p in decoder.named_parameters()}
 
 
-def phase_decoder_training(gen: torch.Generator, profile: bool) -> dict:
-    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
-    vocab = synthetic_vocabulary()
-    encoder, decoder = build_models(vocab, dropout=TRAIN_DROPOUT)
-    batches = [random_templates(vocab, gen, TRAIN_BATCH, NUM_EVENTS)
-               for _ in range(4)]
-    trainer = DecoderTrainer(encoder, decoder, CODEBOOK_SIZE, seed=0)
-    trainer.init_state(lr=1e-4)               # the flagship config's lr
-    init_codebook(trainer.encoder, torch.cat(batches), gen)
-    for x in batches[:2]:                     # warm-up: cuBLAS plans, caches
-        trainer.train_step(x)
-    torch.cuda.synchronize()
+def compare_routes(what, a, b) -> tuple:
+    """(relative loss difference, lowest gradient cosine, its parameter) of
+    two (loss, grads) results; raises past LOSS_RTOL / GRAD_COSINE."""
+    (loss_a, grads_a), (loss_b, grads_b) = a, b
+    loss_err = abs(loss_a - loss_b) / abs(loss_b)
+    worst_name, worst_cos = None, 1.0
+    for name, gb in grads_b.items():
+        ga = grads_a[name]
+        norm = gb.norm() * ga.norm()
+        if norm == 0:
+            if gb.any() or ga.any():
+                raise AssertionError(f"{what}: {name}: one route's gradient is zero")
+            continue
+        cos = float((gb * ga).sum() / norm)
+        if cos < worst_cos:
+            worst_name, worst_cos = name, cos
+    log(f"# {what}: loss {loss_a:.5f} vs {loss_b:.5f} (relative {loss_err:.3e}, "
+        f"need <= {LOSS_RTOL}); lowest gradient cosine {worst_cos:.5f} "
+        f"({worst_name}) over {len(grads_b)} parameters (need >= {GRAD_COSINE})")
+    if not (loss_err <= LOSS_RTOL and worst_cos >= GRAD_COSINE):
+        raise AssertionError(f"{what}: the two routes disagree")
+    return loss_err, worst_cos, worst_name
 
+
+def train_steps(trainer, batches, steps: int, kind: str, must_fall: bool) -> dict:
+    """`steps` train steps, counted from zero launches; checks the launches
+    per step, finite losses and (must_fall) a falling loss."""
     reset_counts()
     losses, step_s = [], []
-    for i in range(TRAIN_STEPS):
-        out, sec = synced_seconds(lambda: trainer.train_step(batches[i % 4]))
+    for i in range(steps):
+        out, sec = synced_seconds(lambda: trainer.train_step(batches[i % len(batches)]))
         losses.append(out["loss"])
         step_s.append(sec)
     main_counts = counts()
     losses = torch.stack(losses).float().cpu().tolist()
-    want = {"relbias_attention_fwd": 6 * TRAIN_STEPS,
-            "relbias_attention_bwd": 6 * TRAIN_STEPS, "vq_nearest": TRAIN_STEPS}
-    log(f"# (a) train steps: launches {json.dumps(main_counts)} over "
-        f"{TRAIN_STEPS} steps (need {json.dumps(want)})")
+    want = {k: STEP_LAUNCHES[kind].get(k, 0) * steps for k in main_counts}
+    log(f"# [{kind}] train steps: launches {json.dumps(main_counts)} over "
+        f"{steps} steps (need {json.dumps(want)})")
     if main_counts != want:
         raise AssertionError(f"train-step launches {main_counts}, not {want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     first, last = np.mean(losses[:4]), np.mean(losses[-4:])
-    if not last < first:
+    if must_fall and not last < first:
         raise AssertionError(f"the loss did not fall: {losses}")
     step_ms = float(np.median(step_s)) * 1e3
     tokens_per_s = TRAIN_BATCH * NUM_EVENTS * 4 / (step_ms / 1e3)
-    log(f"# (a) decoder training batch {TRAIN_BATCH} x {NUM_EVENTS * 4} tokens, "
-        f"bf16 autocast, dropout {TRAIN_DROPOUT}, Adam lr 1e-4 clip 5: median "
-        f"{step_ms:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
+    log(f"# [{kind}] decoder training batch {TRAIN_BATCH} x {NUM_EVENTS * 4} "
+        f"tokens, bf16 autocast, dropout {TRAIN_DROPOUT}, Adam lr 1e-4 clip 5: "
+        f"median {step_ms:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
         f"{max(step_s) * 1e3:.3f}), {tokens_per_s:.1f} tokens/s; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 4 {first:.4f}, "
         f"last 4 {last:.4f})")
+    return dict(launches=main_counts, step_ms=step_ms, tokens_per_s=tokens_per_s,
+                losses=losses)
+
+
+def _trainer(gen, kind: str):
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    vocab = synthetic_vocabulary()
+    encoder, decoder = build_models(vocab, dropout=TRAIN_DROPOUT, kind=kind)
+    batches = [random_templates(vocab, gen, TRAIN_BATCH, NUM_EVENTS)
+               for _ in range(4)]
+    trainer = DecoderTrainer(encoder, decoder, CODEBOOK_SIZE, seed=0)
+    trainer.init_state(lr=1e-4)               # the configs' lr
+    init_codebook(trainer.encoder, torch.cat(batches), gen)
+    for x in batches[:2]:                     # warm-up: cuBLAS plans, caches
+        trainer.train_step(x)
+    torch.cuda.synchronize()
+    return trainer, batches
+
+
+def phase_decoder_training(gen: torch.Generator, profile: bool, kind: str) -> dict:
+    trainer, batches = _trainer(gen, kind)
+    result = train_steps(trainer, batches, TRAIN_STEPS, kind, must_fall=True)
     evaluated = trainer.epoch([{"x": x} for x in batches], train=False)
-    log(f"# (a) eval epoch over the 4 batches: loss {evaluated['loss']:.4f}, "
+    log(f"# [{kind}] eval epoch over the 4 batches: loss {evaluated['loss']:.4f}, "
         f"{evaluated['tokens_per_sec']:.1f} tokens/s")
     if not np.isfinite(evaluated["loss"]):
         raise AssertionError(f"eval loss {evaluated}")
@@ -771,38 +1114,54 @@ def phase_decoder_training(gen: torch.Generator, profile: bool) -> dict:
         with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall_s = synced_seconds(lambda: [trainer.train_step(batches[i])
                                                 for i in range(3)])
-        _log_profile(prof, wall_s, f"3 decoder train steps at batch {TRAIN_BATCH}", 20)
+        _log_profile(prof, wall_s, f"[{kind}] 3 decoder train steps at batch "
+                     f"{TRAIN_BATCH}", 20)
 
     # (b) kernel route vs the CPU f32 plain route, batch 2, dropout 0
     dec = trainer.decoder
     set_dropout(dec, 0.0)
     small = batches[0][:2]
     codes = trainer.encode_codes(small)
-    loss_k, grads_k = loss_and_grads(dec, codes, small, autocast=True)
-    plain = copy.deepcopy(dec).cpu()
-    loss_p, grads_p = loss_and_grads(plain, codes.cpu(), small.cpu(), autocast=False)
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    worst_name, worst_cos = None, 1.0
-    for name, gp in grads_p.items():
-        gk = grads_k[name]
-        norm = gp.norm() * gk.norm()
-        if norm == 0:
-            if gp.any() or gk.any():
-                raise AssertionError(f"{name}: one route's gradient is zero")
-            continue
-        cos = float((gp * gk).sum() / norm)
-        if cos < worst_cos:
-            worst_name, worst_cos = name, cos
-    log(f"# (b) batch 2, dropout 0: loss kernel route {loss_k:.5f} vs CPU f32 "
-        f"plain route {loss_p:.5f} (relative {loss_err:.3e}, need <= "
-        f"{LOSS_RTOL}); lowest gradient cosine {worst_cos:.5f} ({worst_name}) "
-        f"over {len(grads_p)} parameters (need >= {GRAD_COSINE})")
-    if not (loss_err <= LOSS_RTOL and worst_cos >= GRAD_COSINE):
-        raise AssertionError("decoder training: kernel route disagrees with "
-                             "the plain route")
-    return dict(launches=main_counts, step_ms=step_ms,
-                tokens_per_s=tokens_per_s, losses=losses,
-                loss_err=loss_err, worst_cos=worst_cos)
+    kernel = loss_and_grads(dec, codes, small, autocast=True)
+    plain = loss_and_grads(copy.deepcopy(dec).cpu(), codes.cpu(), small.cpu(),
+                           autocast=False)
+    loss_err, worst_cos, _ = compare_routes(
+        f"[{kind}] (b) batch 2, dropout 0, kernel route vs CPU f32 plain route",
+        kernel, plain)
+    return dict(result, loss_err=loss_err, worst_cos=worst_cos)
+
+
+def phase_explicit_bias(gen: torch.Generator) -> dict:
+    """The flagship with VQCPCB_PALLAS_RELBIAS=0: each relative layer builds
+    its (B*H, T, S) bias in PyTorch and runs K6 in training (K6-bwd returns
+    the bias's gradient) and K4 at inference."""
+    os.environ["VQCPCB_PALLAS_RELBIAS"] = "0"
+    try:
+        trainer, batches = _trainer(gen, "flagship")
+        result = train_steps(trainer, batches, EXPLICIT_STEPS, "explicit_bias",
+                             must_fall=False)
+        dec = trainer.decoder
+        codes = trainer.encode_codes(batches[0][:8])
+        reset_counts()
+        with torch.no_grad():
+            dec.eval().prefill(codes, batches[0][:8], torch.int8)
+        torch.cuda.synchronize()
+        prefill = counts()
+        want = {k: 6 if k == "fused_attention" else 0 for k in prefill}
+        log(f"# [explicit_bias] one prefill at batch 8: launches "
+            f"{json.dumps(prefill)} (need {json.dumps(want)})")
+        if prefill != want:
+            raise AssertionError(f"explicit-bias prefill launched {prefill}")
+        set_dropout(dec, 0.0)
+        small, small_codes = batches[0][:2], codes[:2]
+        explicit = loss_and_grads(dec, small_codes, small, autocast=True)
+    finally:
+        del os.environ["VQCPCB_PALLAS_RELBIAS"]
+    in_kernel = loss_and_grads(dec, small_codes, small, autocast=True)
+    loss_err, worst_cos, _ = compare_routes(
+        "[explicit_bias] batch 2, dropout 0, explicit-bias route vs in-kernel "
+        "relbias route, same weights", explicit, in_kernel)
+    return dict(result, loss_err=loss_err, worst_cos=worst_cos)
 
 
 def main() -> int:
@@ -822,12 +1181,15 @@ def main() -> int:
     vq = phase_vq(gen)
     rb = phase_relbias(gen)
     rb_train = phase_relbias_train(gen)
+    fused = phase_fused(gen)
     profile = "--profile" in sys.argv[1:]
-    e2e = phase_end_to_end(gen, profile=profile)
-    train = phase_decoder_training(gen, profile=profile)
-    by_path = {"serving": e2e["launches"], "decoder_training": train["launches"]}
-    launches = {k: sum(path.get(k, 0) for path in by_path.values())
-                for k in train["launches"]}
+    by_path = {}
+    by_path["serving"] = phase_serving(gen, profile, "flagship")["launches"]
+    by_path["decoder_training"] = phase_decoder_training(gen, profile, "flagship")["launches"]
+    by_path["absolute_serving"] = phase_serving(gen, profile, "absolute")["launches"]
+    by_path["absolute_training"] = phase_decoder_training(gen, profile, "absolute")["launches"]
+    by_path["explicit_bias"] = phase_explicit_bias(gen)["launches"]
+    launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
 
     def entry(name, source, replaces, counterpart, also, numbers, **extra):
@@ -836,11 +1198,12 @@ def main() -> int:
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     pallas_counterpart=counterpart, also_replaces=also,
                     launches=launches[name],
-                    launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
+                    launches_by_path={p: c[name] for p, c in by_path.items()},
                     max_abs_err=numbers["max_abs_err"],
                     **{k: numbers[k] for k in keys if k in numbers}, **extra)
 
     train_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "ms_bhld")
+    pa = "vqcpcb_tpu/ops/pallas_attention.py"
     kernels = [
         entry("vq_nearest", "vqcpcb_tpu_torch/csrc/vq_nearest.cu",
               "vqcpcb_tpu/ops/pallas_vq.py:28", "vqcpcb_tpu/ops/pallas_vq.py:_kernel",
@@ -849,18 +1212,32 @@ def main() -> int:
         # inputs), as since the kernel was first ported; the training shape
         # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"
         entry("relbias_attention_fwd", "vqcpcb_tpu_torch/csrc/relbias_attention.cu",
-              "vqcpcb_tpu/ops/pallas_attention.py:571",
-              "vqcpcb_tpu/ops/pallas_attention.py:_relbias_fwd_kernel",
-              ["vqcpcb_tpu/ops/pallas_attention.py:875"],
+              f"{pa}:571", f"{pa}:_relbias_fwd_kernel", [f"{pa}:875"],
               dict(rb, max_abs_err=max(rb["max_abs_err"],
                                        rb_train["fwd"]["max_abs_err"])),
               training={k: rb_train["fwd"][k] for k in train_keys}),
         # times at the training shape, the only one the backward runs at
         entry("relbias_attention_bwd",
               "vqcpcb_tpu_torch/csrc/relbias_attention_bwd.cu",
-              "vqcpcb_tpu/ops/pallas_attention.py:895",
-              "vqcpcb_tpu/ops/pallas_attention.py:_relbias_bwd_kernel_packed",
-              ["vqcpcb_tpu/ops/pallas_attention.py:582"], rb_train["bwd"]),
+              f"{pa}:895", f"{pa}:_relbias_bwd_kernel_packed", [f"{pa}:582"],
+              rb_train["bwd"]),
+        # K4: times at the absolute prefill's decoder self-attention (B=512,
+        # T=S=384, f32); the cross-attention's and the code encoder's beside
+        entry("fused_attention", "vqcpcb_tpu_torch/csrc/fused_attention.cu",
+              f"{pa}:32", f"{pa}:_kernel", [], fused["k4"],
+              cross=fused["k4"]["cross"], code_encoder=fused["k4"]["code_encoder"]),
+        # K6: times at the training batch's decoder self-attention (B=32,
+        # T=S=384, packed bf16, dropout 0.2); the cross-attention's beside
+        entry("fused_attention_train_fwd", "vqcpcb_tpu_torch/csrc/fused_attention.cu",
+              f"{pa}:194", f"{pa}:_train_fwd_kernel", [], fused["fwd"],
+              cross=fused["fwd"]["cross"]),
+        entry("fused_attention_train_bwd_nobias",
+              "vqcpcb_tpu_torch/csrc/fused_attention_bwd.cu",
+              f"{pa}:244", f"{pa}:_train_bwd_kernel_nobias", [], fused["bwd_nobias"],
+              cross=fused["bwd_nobias"]["cross"]),
+        # with the explicit relative bias (VQCPCB_PALLAS_RELBIAS=0)
+        entry("fused_attention_train_bwd", "vqcpcb_tpu_torch/csrc/fused_attention_bwd.cu",
+              f"{pa}:211", f"{pa}:_train_bwd_kernel", [], fused["bwd"]),
     ]
     # the error is read under two names by readers of this line; one number
     for k in kernels:

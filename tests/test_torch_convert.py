@@ -65,3 +65,25 @@ def test_decoder_layout_round_trip():
     back = convert.decoder_state_dict(params)
     _assert_equal(back, sd)
     dec.load_state_dict(back, strict=True)
+
+
+def test_absolute_decoder_layout_round_trip():
+    """The absolute decoder with full cross-attention (configs/decoder_random.py):
+    source and target positional embeddings, a source embedding d_model - p
+    wide, and each layer's multihead_attn, through import_decoder_state_dict
+    with aligned_cross=False, transformer_type='absolute'."""
+    dec = Decoder(BachDataProcessor(8, 8, VOCABS), "anticausal", d_model=16,
+                  num_encoder_layers=2, num_decoder_layers=2, n_head=4,
+                  dim_feedforward=24, positional_embedding_size=4,
+                  num_channels_encoder=1, num_events_encoder=2,
+                  num_channels_decoder=4, num_events_decoder=8,
+                  total_upscaling=16, source_vocab_size=6,
+                  transformer_type="absolute", cross_attention_type="full")
+    sd = _randomized(dec, 2)
+    assert "transformer.decoder.layers.1.multihead_attn.in_proj_weight" in sd
+    params = import_decoder_state_dict(sd, num_heads=4, num_encoder_layers=2,
+                                       num_decoder_layers=2, aligned_cross=False,
+                                       transformer_type="absolute")
+    back = convert.decoder_state_dict(params)
+    _assert_equal(back, sd)
+    dec.load_state_dict(back, strict=True)

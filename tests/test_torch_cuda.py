@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: they skip without an NVIDIA GPU (the kernels have no CPU
-mode; their plain versions are tested against JAX in test_torch_kernels.py
-and test_torch_relbias_train.py).
+mode; their plain versions are tested against JAX in test_torch_kernels.py,
+test_torch_relbias_train.py and test_torch_fused_attention.py).
 This file imports no JAX, so on a machine with a card and without JAX it
 runs alone, past tests/conftest.py:
 
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from vqcpcb_tpu_torch.ops import attention_kernels as ak
+from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
 from vqcpcb_tpu_torch.ops import vq_kernels as vk
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 
@@ -137,3 +138,116 @@ def test_relbias_backward_raises_on_what_it_does_not_take(gen):
     q, k, v, mask, e1, e2, g = _train_case(gen, 1, 2, 16, 16, 32, True, torch.bfloat16)
     with pytest.raises(ValueError, match="bf16 inputs need bf16 dots"):
         ak.relbias_attention_bwd(q, k, v, mask, e1, e2, g, torch.float32, num_heads=2)
+
+
+def _fused_case(gen, b, h, t, s, d, mask_kind, bias_kind, packed=False,
+                dtype=torch.float32):
+    """Inputs of the fused-attention kernels: a causal, anticausal or zero
+    mask, and no bias, the (B*H, 1, 1) placeholder or a real (B*H, T, S)."""
+    q = torch.randn((b, h, t, d), generator=gen, device="cuda") * d ** -0.5
+    k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda") for _ in range(2))
+    g = torch.randn((b, h, t, d), generator=gen, device="cuda")
+    mask = {"causal": lambda: causal_mask(t, device="cuda"),
+            "anticausal": lambda: anticausal_mask(s, sz_tgt=t, device="cuda"),
+            "zero": lambda: torch.zeros((t, s), device="cuda")}[mask_kind]()
+    bias = {"none": None,
+            "placeholder": torch.zeros((b * h, 1, 1), device="cuda"),
+            "real": torch.randn((b * h, t, s), generator=gen, device="cuda")}[bias_kind]
+    if packed:
+        q, k, v, g = (x.transpose(1, 2).reshape(b, x.shape[2], h * d)
+                      for x in (q, k, v, g))
+    q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+    return q, k, v, mask, bias, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,mask_kind,bias_kind", [
+    (64, 64, "causal", "none"), (96, 24, "zero", "placeholder"),
+    (24, 24, "anticausal", "real")])
+def test_fused_attention_kernel_on_card(gen, t, s, mask_kind, bias_kind):
+    """K4 against its plain version: f32 throughout on both sides (TF32
+    off), sums in two orders: 1e-5. Strided (B, H, L, d) views are read in
+    place."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask, bias, _ = _fused_case(gen, 2, 2, t, s, 32, mask_kind, bias_kind)
+    before = fk.launches
+    got = fk.fused_attention(q, k, v, mask, bias)
+    assert fk.launches == before + 1
+    torch.testing.assert_close(got, fk.fused_attention_plain(q, k, v, mask, bias),
+                               rtol=0, atol=1e-5)
+    kv = torch.randn((2, s, 2, 2, 32), generator=gen, device="cuda")
+    k4, v4 = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    torch.testing.assert_close(fk.fused_attention(q, k4, v4, mask, bias),
+                               fk.fused_attention_plain(q, k4, v4, mask, bias),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,mask_kind,bias_kind,packed,dropout,dtype", [
+    (64, 64, "causal", "none", True, 0.2, torch.bfloat16),
+    (96, 24, "zero", "placeholder", False, 0.2, torch.float32),
+    (32, 32, "causal", "real", True, 0.1, torch.float32),
+    (24, 24, "anticausal", "real", False, 0.0, torch.bfloat16),
+])
+def test_fused_attention_train_kernels_on_card(gen, t, s, mask_kind, bias_kind,
+                                                packed, dropout, dtype):
+    """K6's forward and backward against their plain versions, bf16 dots:
+    the same rounding points and dropout mask on both sides; f32 sums in
+    other orders may round a weight or a score gradient to the neighbouring
+    bf16 value, so each result lies within 4e-3 of max(1, its max |value|),
+    as for the relative-bias kernels. dmask and dbias are the f32 score
+    gradient, taken before any bf16 rounding: within 1e-5. The
+    placeholder's cotangent is none; a real bias's is the f32 score gradient
+    (K6-bwd)."""
+    b, h, d = 2, 2, 32
+    q, k, v, mask, bias, g = _fused_case(gen, b, h, t, s, d, mask_kind, bias_kind,
+                                         packed, dtype)
+    kw = dict(num_heads=h if packed else None, dropout=dropout, seed=77)
+    before = (fk.train_fwd_launches, fk.train_bwd_launches,
+              fk.train_bwd_nobias_launches)
+    got = [fk.fused_attention_train_fwd(q, k, v, mask, bias, **kw),
+           *fk.fused_attention_train_bwd(q, k, v, mask, bias, g, **kw)]
+    real = bias_kind == "real"
+    assert (fk.train_fwd_launches, fk.train_bwd_launches,
+            fk.train_bwd_nobias_launches) == (before[0] + 1, before[1] + real,
+                                              before[2] + (not real))
+    want = [fk.fused_attention_train_fwd_plain(q, k, v, mask, bias, **kw),
+            *fk.fused_attention_train_bwd_plain(q, k, v, mask, bias, g, **kw)]
+    for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "dbias"), got, want):
+        assert (a is None) == (w is None), name
+        if a is None:
+            continue
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        err = (a.float() - w.float()).abs().max().item()
+        frac = 1e-5 if name in ("dmask", "dbias") else 4e-3
+        assert err <= frac * max(1.0, w.float().abs().max().item()), (name, err)
+    assert (got[-1] is not None) == real
+
+
+@pytest.mark.cuda
+def test_fused_attention_kernel_dropout_mask_is_the_flat_hash(gen):
+    """With v the one-hot columns K6's output is its dropped weight row:
+    zero exactly where the hash on stream seed + b*H + h drops."""
+    b, h, t, s, d = 2, 3, 32, 32, 32
+    q, k, _, mask, _, _ = _fused_case(gen, b, h, t, s, d, "causal", "none")
+    v = torch.eye(s, d, device="cuda").expand(b, h, s, d).contiguous()
+    out = fk.fused_attention_train_fwd(q, k, v, mask, None, torch.float32,
+                                       dropout=0.2, seed=5)
+    w = fk.fused_attention_plain(q, k, v, mask)
+    keep = ak.dropout_keep_plain((t, s), 0.2, fk.flat_stream_seeds(5, b, h, "cuda"))
+    live = w[..., :s] > 0
+    assert torch.equal((out[..., :s] != 0) & live, keep & live)
+
+
+@pytest.mark.cuda
+def test_fused_attention_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    q, k, v, mask, _, g = _fused_case(gen, 1, 2, 16, 16, 32, "causal", "none",
+                                      True, torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 inputs need bf16 dots"):
+        fk.fused_attention_train_bwd(q, k, v, mask, None, g, torch.float32,
+                                     num_heads=2)
+    q4 = torch.randn((1, 2, 8, 12), generator=gen, device="cuda")    # head dim 12
+    with pytest.raises(ValueError, match="head dim"):
+        fk.fused_attention(q4, q4, q4, None)
+    with pytest.raises(ValueError, match="bias must be"):
+        fk.fused_attention(q4, q4, q4, None, torch.zeros((2, 3, 1), device="cuda"))

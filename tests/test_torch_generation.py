@@ -3,7 +3,8 @@ DecoderTrainer's generation (greedy, f32 caches), tokens exactly equal.
 
 The JAX trainer is built as tests/test_generation.py builds one (synthetic
 corpus, tiny encoder and AC/D/C decoder); its weights and vocabulary are
-carried across with vqcpcb_tpu_torch.convert."""
+carried across with vqcpcb_tpu_torch.convert. The builders take the
+decoder type, so tests/test_torch_absolute_decoder.py reuses them."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -30,7 +31,7 @@ from vqcpcb_tpu_torch.training.decoder_trainer import \
 CODEBOOK = 8
 
 
-def build_decoder_trainer(tmp_path):
+def build_decoder_trainer(tmp_path, decoder_type="transformer_relative_diagonal"):
     enc_config = {
         "training_method": "vqcpc",
         "dataset": "synthetic",
@@ -59,8 +60,7 @@ def build_decoder_trainer(tmp_path):
         config=enc_config, cache_root=str(tmp_path / "data"))
     data_processor = getters.get_data_processor(gen, "bach", dict(embedding_size=16))
     decoder = getters.get_decoder(
-        gen, data_processor, encoder, enc_config,
-        "transformer_relative_diagonal",
+        gen, data_processor, encoder, enc_config, decoder_type,
         dict(d_model=32, n_head=2, num_encoder_layers=1, num_decoder_layers=1,
              dim_feedforward=48, positional_embedding_size=4, dropout=0.0))
     rng = jax.random.PRNGKey(0)
@@ -103,7 +103,9 @@ def port_generator(trainer):
         dim_feedforward=48, positional_embedding_size=4,
         num_channels_encoder=1, num_events_encoder=jdec.num_events_encoder,
         num_channels_decoder=4, num_events_decoder=num_events,
-        total_upscaling=jdec.total_upscaling, source_vocab_size=CODEBOOK)
+        total_upscaling=jdec.total_upscaling, source_vocab_size=CODEBOOK,
+        transformer_type=jdec.transformer_type,
+        cross_attention_type=jdec.cross_attention_type)
     decoder.load_state_dict(convert.decoder_state_dict(
         jax.device_get(trainer.state.params)), strict=True)
     port_vocab = Vocabulary(note2index_dicts=vocab.note2index_dicts,

@@ -11,7 +11,9 @@ Layouts handled: flax Dense kernels are (in, out), torch Linear weights
 (3E, E) in_proj_weight; rel_e1 / rel_e2 are (H, S, hd) and become (H*S, hd);
 the fused BiGRU stacks its two directions on axis 0 of (2, in, 3h) and
 becomes g_enc_fwd / g_enc_bwd; codebooks are (K, S, d) and become
-embeddings.{k}; sos and the target embeddings are raw params.
+embeddings.{k}; sos and the positional embeddings (relative: target
+channel and event features; absolute: source and target positions) are raw
+params; an attention decoder layer's cross-attention is multihead_attn.
 """
 from __future__ import annotations
 
@@ -85,6 +87,8 @@ def _transformer_layer(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     if "cross_mlp_1" in params:
         out.update(_dense(params["cross_mlp_1"], f"{prefix}cross_attn.0."))
         out.update(_dense(params["cross_mlp_2"], f"{prefix}cross_attn.2."))
+    if "multihead_attn" in params:
+        out.update(_attention(params["multihead_attn"], f"{prefix}multihead_attn."))
     return out
 
 
@@ -108,14 +112,17 @@ def encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax Decoder 'params' (relative, aligned cross branch) -> state_dict
-    of vqcpcb_tpu_torch.models.decoder.Decoder."""
+    """flax Decoder 'params' (relative or absolute; aligned or attention
+    cross branch) -> state_dict of vqcpcb_tpu_torch.models.decoder.Decoder."""
     sd = {"sos": _tensor(params["sos"]),
-          "target_channel_embeddings": _tensor(params["target_channel_embeddings"]),
-          "target_events_positioning_embeddings": _tensor(
-              params["target_events_positioning_embeddings"]),
           "source_embeddings.weight": _tensor(
               params["source_embeddings"]["embedding"])}
+    for name in ("target_channel_embeddings",
+                 "target_events_positioning_embeddings",       # relative
+                 "source_positional_embeddings",
+                 "target_positional_embeddings"):              # absolute
+        if name in params:
+            sd[name] = _tensor(params[name])
     sd.update(_dense(params["linear_target"], "linear_target."))
     sd.update(_embeddings(params["data_processor"], "data_processor."))
     for stack, name in (("encoder_transformer", "encoder"),

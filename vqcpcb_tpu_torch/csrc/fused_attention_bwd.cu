@@ -1,0 +1,289 @@
+// Fused attention backward with an explicit bias, Hopper (sm_90a).
+//
+// Replaces: vqcpcb_tpu/ops/pallas_attention.py:_train_bwd_kernel (K6-bwd,
+// a real (B*H, T, S) bias, whose cotangent is the score gradient ds) and
+// :_train_bwd_kernel_nobias (K6-bwd-nobias, the (B*H, 1, 1) zero
+// placeholder, whose cotangent is zero), the backward of the custom VJP
+// fused_attention_train. Per (b, h) plane p = b*H + h, with the forward's
+// scores, softmax w and dropout mask (stream seed + b*H + h) regenerated:
+//
+//   dw = keep * (do . v^T) / (1-rate)      ds = w * (dw - sum_s dw*w)
+//   dq = ds . k      dk = ds^T . q         dv = w_drop^T . do
+//   dbias[p] = ds (K6-bwd only)            dmask += ds over (b, h), on request
+//
+// Rounding follows the TPU kernels (:214-241): q, k, v and do are rounded to
+// the dot type before the products, w_drop before dv and ds before dq and
+// dk; the scores, the softmax, the dropout and ds stay f32, and dbias and
+// dmask are the f32 ds. The two TPU kernels share all of their arithmetic;
+// here they are one template that writes ds to dbias or does not.
+//
+// dmask: the TPU accumulates it over its sequential grid into one (T, S)
+// block (:273-281). CUDA blocks run concurrently, so it is added with f32
+// atomics, and only when the caller asks (a mask that requires a gradient;
+// the model's masks are constants, so the main path never does).
+//
+// What bounds it on the H100: five T x S x d products per plane (q.k, do.v,
+// ds.k, ds^T.q, w_drop^T.do) against q, k, v, do in and dq, dk, dv out --
+// about 270 flops per bf16 byte at T = S = 384, d = 64, just below the
+// tensor cores' ridge of ~295, so its bytes bound it, narrowly; K6-bwd also
+// writes the B*H*T*S f32 values of dbias. This first version runs the
+// products on the CUDA cores and moves ds and w_drop through device memory.
+//
+// Design: the relative-bias backward's (relbias_attention_bwd.cu) without
+// the table, in two kernels on one stream:
+//  1. rows: one block of 8 warps per (b, h, 64 query rows) stages K and V;
+//     each warp takes one row: scores and do.v^T in one pass over the keys,
+//     the softmax, the regenerated dropout, the row term, ds (to dbias and
+//     dmask as asked); then dq from the row of ds held in shared memory. It
+//     writes ds and w_drop, rounded to the dot type, to (B, H, T, S) scratch.
+//  2. cols (attention_bwd_cols.cuh): dk and dv per (b, h, 32 keys).
+// dk and dv sum over every query row of the plane and cannot sit beside K
+// and V in one block's shared memory at S = 384 (the reason for the split).
+#include "attention_bwd_cols.cuh"
+
+namespace {
+
+using namespace relbias;
+
+// K (padded rows), V, and per warp two f32 rows of S and the row of do.
+template <typename Elem>
+size_t rows_smem_bytes(int S, int D) {
+  return sizeof(Elem) * ((size_t)S * (D + Dot<Elem>::kPad) + (size_t)S * D) +
+         sizeof(float) * (size_t)kWarps * (2 * (size_t)S + D);
+}
+
+template <typename In, typename Elem, int D, bool kWriteBias>
+__global__ void __launch_bounds__(kThreads)
+fused_bwd_rows_kernel(const In* __restrict__ q, const In* __restrict__ k,
+                      const In* __restrict__ v, const float* __restrict__ mask,
+                      Bias bias, const In* __restrict__ dout,
+                      In* __restrict__ dq, Elem* __restrict__ ds_out,
+                      Elem* __restrict__ wd_out, float* __restrict__ dbias,
+                      float* __restrict__ dmask, Layout lq, Layout lkv,
+                      Layout ldo, Layout ldq, int H, int T, int S,
+                      uint32_t seed, uint32_t threshold, float inv_keep,
+                      int dropout) {
+  using DT = Dot<Elem>;
+  constexpr int kStride = D + DT::kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elem* ks = reinterpret_cast<Elem*>(smem_raw);
+  Elem* vs = ks + (size_t)S * kStride;
+  float* rows = reinterpret_cast<float*>(vs + (size_t)S * D);
+  float* vecs = rows + (size_t)kWarps * 2 * S;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * kMaxTile;
+  const int t1 = min(t0 + kMaxTile, T);
+  const int plane = b * H + h;
+  const In* qb = q + b * lq.b + h * lq.h;
+  const In* dob = dout + b * ldo.b + h * ldo.h;
+  In* dqb = dq + b * ldq.b + h * ldq.h;
+  const long long scratch = (long long)plane * T * S;
+  stage_kv_table<In, Elem, D>(k + b * lkv.b + h * lkv.h,
+                              v + b * lkv.b + h * lkv.h, lkv.l, nullptr, 0, S,
+                              ks, vs, nullptr);
+  __syncthreads();
+
+  const uint32_t key = plane_key(seed, plane);
+  const float* bp = bias.p ? bias.p + plane * bias.bh : nullptr;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* wrow = rows + warp * 2 * S;   // scores -> w -> rounded ds
+  float* dwrow = wrow + S;             // do.v^T -> dropped dw
+  float* dor = vecs + warp * D;        // the row of do, rounded
+  for (int t = t0 + warp; t < t1; t += kWarps) {
+    float qr[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) qr[j] = DT::round(to_float(qb[t * lq.l + j]));
+    for (int j = lane; j < D; j += 32)
+      dor[j] = DT::round(to_float(dob[t * ldo.l + j]));
+    __syncwarp();
+    const float* mrow = mask + (long long)t * S;
+    const float* brow = bp ? bp + t * bias.t : nullptr;
+
+    float m = -INFINITY;
+    for (int s = lane; s < S; s += 32) {
+      const Elem* kr = ks + s * kStride;
+      const Elem* vr = vs + s * D;
+      float acc_k = 0.f, acc_v = 0.f;
+#pragma unroll
+      for (int j = 0; j < D; j += 2) {
+        const float2 kk = DT::load2(kr + j);
+        const float2 vv = DT::load2(vr + j);
+        acc_k = fmaf(qr[j], kk.x, acc_k);
+        acc_k = fmaf(qr[j + 1], kk.y, acc_k);
+        acc_v = fmaf(dor[j], vv.x, acc_v);
+        acc_v = fmaf(dor[j + 1], vv.y, acc_v);
+      }
+      float score = __fadd_rn(acc_k, mrow[s]);
+      if (brow) score = __fadd_rn(score, brow[s * bias.s]);
+      wrow[s] = score;
+      dwrow[s] = acc_v;
+      m = fmaxf(m, score);
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float p = expf(wrow[s] - m);
+      wrow[s] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    float row_term = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float w = wrow[s] / sum;
+      float dw = dwrow[s], w_drop = w;
+      if (dropout) {
+        const bool kept = dropout_keep(key, t, s, S, threshold);
+        w_drop = kept ? w * inv_keep : 0.f;
+        dw = kept ? dw * inv_keep : 0.f;
+      }
+      wd_out[scratch + (long long)t * S + s] = DT::store(w_drop);
+      row_term = __fadd_rn(row_term, __fmul_rn(dw, w));
+      wrow[s] = w;
+      dwrow[s] = dw;
+    }
+    row_term = warp_sum(row_term);
+    for (int s = lane; s < S; s += 32) {
+      const float ds = wrow[s] * (dwrow[s] - row_term);
+      if (kWriteBias) dbias[scratch + (long long)t * S + s] = ds;
+      if (dmask) atomicAdd(dmask + (long long)t * S + s, ds);
+      ds_out[scratch + (long long)t * S + s] = DT::store(ds);
+      wrow[s] = DT::round(ds);
+    }
+    __syncwarp();
+
+    // dq = ds . k; lanes split the head dimension
+    for (int p = lane; p < D / 2; p += 32) {
+      float ax = 0.f, ay = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const float d = wrow[s];
+        const float2 kk = DT::load2(ks + s * kStride + 2 * p);
+        ax = fmaf(d, kk.x, ax);
+        ay = fmaf(d, kk.y, ay);
+      }
+      In* o = dqb + t * ldq.l + 2 * p;
+      o[0] = from_float<In>(ax);
+      o[1] = from_float<In>(ay);
+    }
+    __syncwarp();   // the row buffers are rewritten by the next query row
+  }
+}
+
+template <typename In, typename Elem, int D, bool kWriteBias>
+int launch(const void* q, const void* k, const void* v, const float* mask,
+           Bias bias, const void* dout, void* dq, void* dk, void* dv,
+           float* dbias, float* dmask, void* ds_scratch, void* wd_scratch,
+           const Layout* lay, int B, int H, int T, int S, uint32_t seed,
+           uint32_t threshold, float inv_keep, int dropout,
+           cudaStream_t stream) {
+  int device = 0, max_smem = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  const size_t bytes = rows_smem_bytes<Elem>(S, D);
+  if (bytes > (size_t)max_smem) return kErrSharedMemory;
+  const In* q_ = static_cast<const In*>(q);
+  const In* do_ = static_cast<const In*>(dout);
+  Elem* ds_ = static_cast<Elem*>(ds_scratch);
+  Elem* wd_ = static_cast<Elem*>(wd_scratch);
+
+  cudaFuncSetAttribute(fused_bwd_rows_kernel<In, Elem, D, kWriteBias>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  fused_bwd_rows_kernel<In, Elem, D, kWriteBias>
+      <<<dim3((T + kMaxTile - 1) / kMaxTile, H, B), kThreads, bytes,
+         stream>>>(q_, static_cast<const In*>(k), static_cast<const In*>(v),
+                   mask, bias, do_, static_cast<In*>(dq), ds_, wd_, dbias,
+                   dmask, lay[0], lay[1], lay[2], lay[3], H, T, S, seed,
+                   threshold, inv_keep, dropout);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_cols<In, Elem, D>(q_, do_, ds_, wd_, static_cast<In*>(dk),
+                                  static_cast<In*>(dv), lay[0], lay[2], lay[4],
+                                  B, H, T, S, stream);
+}
+
+template <typename In, typename Elem, bool kWriteBias>
+int dispatch(int D, const void* q, const void* k, const void* v,
+             const float* mask, Bias bias, const void* dout, void* dq,
+             void* dk, void* dv, float* dbias, float* dmask, void* ds_scratch,
+             void* wd_scratch, const Layout* lay, int B, int H, int T, int S,
+             uint32_t seed, uint32_t threshold, float inv_keep, int dropout,
+             cudaStream_t st) {
+#define FUSED_BWD_CASE(DIM)                                                   \
+  case DIM:                                                                   \
+    return launch<In, Elem, DIM, kWriteBias>(                                 \
+        q, k, v, mask, bias, dout, dq, dk, dv, dbias, dmask, ds_scratch,      \
+        wd_scratch, lay, B, H, T, S, seed, threshold, inv_keep, dropout, st);
+  switch (D) {
+    FUSED_BWD_CASE(8)
+    FUSED_BWD_CASE(16)
+    FUSED_BWD_CASE(32)
+    FUSED_BWD_CASE(64)
+    FUSED_BWD_CASE(128)
+    default: return kErrHeadDim;
+  }
+#undef FUSED_BWD_CASE
+}
+
+template <bool kWriteBias>
+int run(const void* q, const void* k, const void* v, const float* mask,
+        Bias bias, const void* dout, void* dq, void* dk, void* dv,
+        float* dbias, float* dmask, void* ds_scratch, void* wd_scratch,
+        const Layout* lay, int B, int H, int T, int S, int D, int in_bf16,
+        int bf16_dots, uint32_t seed, uint32_t threshold, float inv_keep,
+        int dropout, cudaStream_t st) {
+#define FUSED_BWD_ARGS                                                        \
+  D, q, k, v, mask, bias, dout, dq, dk, dv, dbias, dmask, ds_scratch,        \
+      wd_scratch, lay, B, H, T, S, seed, threshold, inv_keep, dropout, st
+  if (in_bf16 && !bf16_dots) return kErrDtype;
+  if (in_bf16)
+    return dispatch<__nv_bfloat16, __nv_bfloat16, kWriteBias>(FUSED_BWD_ARGS);
+  return bf16_dots ? dispatch<float, __nv_bfloat16, kWriteBias>(FUSED_BWD_ARGS)
+                   : dispatch<float, float, kWriteBias>(FUSED_BWD_ARGS);
+#undef FUSED_BWD_ARGS
+}
+
+}  // namespace
+
+extern "C" {
+
+// The forward's inputs (q, k, v views, mask, bias, the same seed, threshold
+// and keep scale) plus dout, a (B, H, T, D) view of the output's gradient.
+// `strides` holds 18 element strides: (batch, head, row) for q, k/v, dout,
+// dq and dk/dv, then the bias's (plane, row, column). Writes dq (a
+// (B, H, T, D) view) and dk, dv ((B, H, S, D) views sharing one set of
+// strides) in the input type; when dbias is not null (K6-bwd) writes the f32
+// score gradient to dbias (B*H, T, S), else (K6-bwd-nobias) writes none;
+// when dmask is not null adds the f32 score gradient summed over (b, h) into
+// dmask (T, S), which the caller zeroes. ds_scratch and wd_scratch each hold
+// B*H*T*S elements of the dot type. Returns 0 when launched, -1 for an
+// unsupported head dimension, -2 when the rows kernel does not fit in shared
+// memory, -3 for bf16 inputs with f32 dots, else the first cudaError_t of
+// the two launches.
+int fused_attention_bwd(const void* q, const void* k, const void* v,
+                        const float* mask, const float* bias,
+                        const void* dout, void* dq, void* dk, void* dv,
+                        float* dbias, float* dmask, void* ds_scratch,
+                        void* wd_scratch, const long long* strides, int B,
+                        int H, int T, int S, int D, int in_bf16,
+                        int bf16_dots, uint32_t seed, uint32_t threshold,
+                        float inv_keep, int dropout, void* stream) {
+  if (B == 0 || H == 0 || T == 0) return 0;
+  Layout lay[5];
+  for (int i = 0; i < 5; ++i)
+    lay[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const Bias bv = {bias, strides[15], strides[16], strides[17]};
+  cudaStream_t st = (cudaStream_t)stream;
+  return dbias ? run<true>(q, k, v, mask, bv, dout, dq, dk, dv, dbias, dmask,
+                           ds_scratch, wd_scratch, lay, B, H, T, S, D,
+                           in_bf16, bf16_dots, seed, threshold, inv_keep,
+                           dropout, st)
+               : run<false>(q, k, v, mask, bv, dout, dq, dk, dv, nullptr,
+                            dmask, ds_scratch, wd_scratch, lay, B, H, T, S, D,
+                            in_bf16, bf16_dots, seed, threshold, inv_keep,
+                            dropout, st);
+}
+
+}  // extern "C"

@@ -31,9 +31,10 @@
 //     the regenerated dropout, the row term, ds; then dq from the row of ds
 //     held in shared memory. It writes ds and w_drop, rounded to the dot
 //     type, to (B, H, T, S) scratch.
-//  2. cols: one block per (b, h, 32 key columns) walks the query rows in
-//     chunks of 64, staging q, do and the scratch columns, and owns the dk
-//     and dv rows of its columns in registers: no cross-block reduction.
+//  2. cols (attention_bwd_cols.cuh): one block per (b, h, 32 key columns)
+//     walks the query rows in chunks of 64, staging q, do and the scratch
+//     columns, and owns the dk and dv rows of its columns in registers: no
+//     cross-block reduction.
 //  3. table: one block per (h, 32 rows of E) loops over the batch and the
 //     query rows that address its rows (a contiguous range of t for each
 //     row j of E), staging q and the band ds[t, j - shift(t)] of the
@@ -42,16 +43,13 @@
 // dE over the batch do not fit one block's shared memory together at
 // S = 384 (the reason for the split); the scratch costs 2 * B*H*T*S dot-type
 // elements (75 MB each at B = 32, H = 8, T = S = 384 in bf16).
-#include "relbias_common.cuh"
+#include "attention_bwd_cols.cuh"
 
 namespace {
 
 using namespace relbias;
 
-constexpr int kColTile = 32;     // key columns per cols block
 constexpr int kTableTile = 32;   // rows of E per table block
-constexpr int kRowChunk = 64;    // query rows staged at a time (cols, table)
-constexpr int kColsPerWarp = kColTile / kWarps;
 static_assert(kTableTile == kColTile, "cols and table share the warp map");
 
 template <typename In, typename Elem, int D>
@@ -184,92 +182,6 @@ relbias_bwd_rows_kernel(const In* __restrict__ q, const In* __restrict__ k,
   }
 }
 
-// Stage rows [t0, t0 + n) of a (T, D) view, rounded to the dot type.
-template <typename In, typename Elem, int D>
-__device__ __forceinline__ void stage_rows(const In* __restrict__ src,
-                                           long long row, int t0, int n,
-                                           Elem* dst) {
-  for (int i = threadIdx.x; i < n * D; i += kThreads) {
-    const int r = i / D, j = i - r * D;
-    dst[i] = Dot<Elem>::store(to_float(src[(t0 + r) * row + j]));
-  }
-}
-
-template <typename In, typename Elem, int D>
-__global__ void __launch_bounds__(kThreads)
-relbias_bwd_cols_kernel(const In* __restrict__ q, const In* __restrict__ dout,
-                        const Elem* __restrict__ ds,
-                        const Elem* __restrict__ wd, In* __restrict__ dk,
-                        In* __restrict__ dv, Layout lq, Layout ldo,
-                        Layout ldkv, int H, int T, int S) {
-  using DT = Dot<Elem>;
-  constexpr int kPairs = (D / 2 + 31) / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Elem* qs = reinterpret_cast<Elem*>(smem_raw);
-  Elem* dos = qs + kRowChunk * D;
-  Elem* dss = dos + kRowChunk * D;
-  Elem* wds = dss + kRowChunk * kColTile;
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int s0 = blockIdx.x * kColTile;
-  const In* qb = q + b * lq.b + h * lq.h;
-  const In* dob = dout + b * ldo.b + h * ldo.h;
-  const long long scratch = (long long)(b * H + h) * T * S;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  float adk[kColsPerWarp][kPairs][2] = {};
-  float adv[kColsPerWarp][kPairs][2] = {};
-  for (int t0 = 0; t0 < T; t0 += kRowChunk) {
-    const int n = min(kRowChunk, T - t0);
-    stage_rows<In, Elem, D>(qb, lq.l, t0, n, qs);
-    stage_rows<In, Elem, D>(dob, ldo.l, t0, n, dos);
-    for (int i = threadIdx.x; i < n * kColTile; i += kThreads) {
-      const int r = i / kColTile, s = s0 + i - r * kColTile;
-      const long long at = scratch + (long long)(t0 + r) * S + s;
-      dss[i] = s < S ? ds[at] : DT::store(0.f);
-      wds[i] = s < S ? wd[at] : DT::store(0.f);
-    }
-    __syncthreads();
-    for (int r = 0; r < n; ++r) {
-#pragma unroll
-      for (int pi = 0; pi < kPairs; ++pi) {
-        const int p = lane + 32 * pi;
-        if (p >= D / 2) break;
-        const float2 qq = DT::load2(qs + r * D + 2 * p);
-        const float2 dd = DT::load2(dos + r * D + 2 * p);
-#pragma unroll
-        for (int cw = 0; cw < kColsPerWarp; ++cw) {
-          const int c = warp + cw * kWarps;
-          const float dsv = DT::load(dss[r * kColTile + c]);
-          const float wdv = DT::load(wds[r * kColTile + c]);
-          adk[cw][pi][0] = fmaf(dsv, qq.x, adk[cw][pi][0]);
-          adk[cw][pi][1] = fmaf(dsv, qq.y, adk[cw][pi][1]);
-          adv[cw][pi][0] = fmaf(wdv, dd.x, adv[cw][pi][0]);
-          adv[cw][pi][1] = fmaf(wdv, dd.y, adv[cw][pi][1]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int cw = 0; cw < kColsPerWarp; ++cw) {
-    const int s = s0 + warp + cw * kWarps;
-    if (s >= S) continue;
-#pragma unroll
-    for (int pi = 0; pi < kPairs; ++pi) {
-      const int p = lane + 32 * pi;
-      if (p >= D / 2) break;
-      const long long at = b * ldkv.b + h * ldkv.h + s * ldkv.l + 2 * p;
-      dk[at] = from_float<In>(adk[cw][pi][0]);
-      dk[at + 1] = from_float<In>(adk[cw][pi][1]);
-      dv[at] = from_float<In>(adv[cw][pi][0]);
-      dv[at + 1] = from_float<In>(adv[cw][pi][1]);
-    }
-  }
-}
-
 template <typename In, typename Elem, int D>
 __global__ void __launch_bounds__(kThreads)
 relbias_bwd_table_kernel(const In* __restrict__ q, const Elem* __restrict__ ds,
@@ -363,14 +275,9 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   int err = (int)cudaGetLastError();
   if (err) return err;
 
-  const int cols_bytes = (int)(sizeof(Elem) * kRowChunk * (2 * D + 2 * kColTile));
-  cudaFuncSetAttribute(relbias_bwd_cols_kernel<In, Elem, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, cols_bytes);
-  relbias_bwd_cols_kernel<In, Elem, D>
-      <<<dim3((S + kColTile - 1) / kColTile, H, B), kThreads, cols_bytes,
-         stream>>>(q_, do_, ds_, wd_, static_cast<In*>(dk),
-                   static_cast<In*>(dv), lay[0], lay[2], lay[4], H, T, S);
-  err = (int)cudaGetLastError();
+  err = launch_cols<In, Elem, D>(q_, do_, ds_, wd_, static_cast<In*>(dk),
+                                 static_cast<In*>(dv), lay[0], lay[2], lay[4],
+                                 B, H, T, S, stream);
   if (err) return err;
 
   const int table_bytes = (int)(sizeof(Elem) * kRowChunk * (D + kTableTile));

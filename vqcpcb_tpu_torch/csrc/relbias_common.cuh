@@ -1,7 +1,8 @@
-// Shared pieces of the relative-bias attention kernels (relbias_attention.cu,
-// relbias_attention_bwd.cu): the dot-type rounding rules, input/output
-// element conversions, the layout strides, the shared-memory plan of a
-// (b, h, query tile) block, and the in-kernel dropout hash.
+// Shared pieces of the attention kernels (relbias_attention.cu,
+// relbias_attention_bwd.cu, fused_attention.cu, fused_attention_bwd.cu): the
+// dot-type rounding rules, input/output element conversions, the layout and
+// bias strides, the shared-memory plan of a (b, h, query tile) block, and
+// the in-kernel dropout hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +68,14 @@ from_float<__nv_bfloat16>(float x) {
 // row stride 3*H*d.
 struct Layout {
   long long b, h, l;
+};
+
+// An explicit (B*H, T, S) f32 bias read through element strides (plane,
+// row, column): zero strides broadcast a (B*H, 1, 1) placeholder, and
+// p == nullptr means no bias (fused_attention.cu, fused_attention_bwd.cu).
+struct Bias {
+  const float* p;
+  long long bh, t, s;
 };
 
 __host__ __device__ inline int table_rows(int S, int tile, int ratio) {
@@ -143,6 +152,12 @@ __device__ __forceinline__ uint32_t stream_key(uint32_t seed, int h, int b,
                                                int B) {
   return hash_u32((seed + (uint32_t)h * (uint32_t)B + (uint32_t)b) *
                   0x9E3779B9u);
+}
+
+// The fused-attention kernels (K6) run on a flat (B*H,) grid: their stream
+// is seed + b*H + h, the plane index (pallas_attention.py:203-204).
+__device__ __forceinline__ uint32_t plane_key(uint32_t seed, int plane) {
+  return hash_u32((seed + (uint32_t)plane) * 0x9E3779B9u);
 }
 
 __device__ __forceinline__ bool dropout_keep(uint32_t key, int t, int s, int S,

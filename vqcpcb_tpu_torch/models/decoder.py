@@ -1,29 +1,34 @@
 """Re-harmonisation decoder: frozen-encoder codes -> chorale tokens
 (counterpart of vqcpcb_tpu/models/decoder.py).
 
-This slice ports the relative decoder with the aligned ("diagonal")
-cross branch -- the flagship AC/D/C configuration, `transformer_type`
-'relative' and `cross_attention_type` 'diagonal' in JAX terms (the absolute
-decoder and the attention cross branch come with a later slice): codes are re-embedded
-and run through a relative-attention encoder (the memory); target tokens are
-embedded with channel and intra-code position features, shifted by SOS and
-decoded causally. `sample_range` is the KV-cached sampler: one prefill per
-call, then one decode step per position, eager PyTorch.
+Two transformer types, as in JAX: 'relative' (relative-attention layers;
+target tokens carry channel and intra-code position features) and
+'absolute' (no relative bias; source and target tokens carry learned
+absolute positional embeddings, the source embedding being d_model - p
+wide). The cross branch is 'diagonal' (the aligned MLP, relative only) or
+an attention over the memory, 'full' or 'anticausal'. The defaults are the
+flagship AC/D/C (relative, diagonal); `configs/decoder_random.py`
+(`decoder_type: 'transformer'`) is absolute with full cross-attention.
+Codes are re-embedded and run through the encoder transformer (the
+memory); target tokens are embedded, shifted by SOS and decoded causally.
+`sample_range` is the KV-cached sampler: one prefill per call, then one
+decode step per position, eager PyTorch.
 
-Training: `forward` in train mode runs every relative-attention layer on the
-training route (the relative-bias attention kernels on CUDA) with dropout,
-as JAX's `Decoder.__call__(training=True)`. The output heads are fused into
-one (d_model, sum vocab) product with the stacked cross entropy, JAX's
-default (decoder.py:41-53, 246-261). The compute dtype is the caller's: the
-trainer runs the forward under bf16 autocast on CUDA (JAX's
-default_compute_dtype('bfloat16')) and in f32 on the CPU; parameters stay
-f32, and the target embedding's Dense stays f32 as in JAX.
+Training: `forward` in train mode runs every attention layer on the
+training route (the relative-bias or the fused-attention kernels on CUDA)
+with dropout, as JAX's `Decoder.__call__(training=True)`. The output heads
+are fused into one (d_model, sum vocab) product with the stacked cross
+entropy, JAX's default (decoder.py:41-53, 246-261). The compute dtype is
+the caller's: the trainer runs the forward under bf16 autocast on CUDA
+(JAX's default_compute_dtype('bfloat16')) and in f32 on the CPU; parameters
+stay f32, and the target embedding's Dense stays f32 as in JAX.
 
 Parameter names follow the reference Decoder (sos, linear_target,
-source_embeddings, target_channel_embeddings,
-target_events_positioning_embeddings, data_processor.embeddings.{c},
-transformer.encoder.layers.{i}, transformer.decoder.layers.{i},
-pre_softmaxes.{c}).
+source_embeddings, target_channel_embeddings and
+target_events_positioning_embeddings (relative) or
+source_positional_embeddings and target_positional_embeddings (absolute),
+data_processor.embeddings.{c}, transformer.encoder.layers.{i},
+transformer.decoder.layers.{i}, pre_softmaxes.{c}).
 """
 from __future__ import annotations
 
@@ -51,41 +56,63 @@ class Decoder(nn.Module):
                  num_channels_encoder: int, num_events_encoder: int,
                  num_channels_decoder: int, num_events_decoder: int,
                  total_upscaling: int, source_vocab_size: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, transformer_type: str = "relative",
+                 cross_attention_type: str = "diagonal"):
         super().__init__()
         if encoder_attention_type not in ("anticausal", "causal", "full"):
             raise ValueError(encoder_attention_type)
+        if cross_attention_type not in ("anticausal", "diagonal", "full"):
+            raise ValueError(cross_attention_type)
+        if transformer_type not in ("absolute", "relative"):
+            raise ValueError(transformer_type)
         self.data_processor = data_processor
         self.encoder_attention_type = encoder_attention_type
+        self.transformer_type = transformer_type
+        self.cross_attention_type = cross_attention_type
         self.d_model = d_model
         self.num_channels_decoder = num_channels_decoder
         self.num_events_encoder = num_events_encoder
+        self.num_channels_encoder = num_channels_encoder
         self.total_upscaling = total_upscaling
         self.num_tokens_target = num_channels_decoder * num_events_decoder
         if self.num_tokens_target % total_upscaling:
             raise ValueError("target tokens are not a multiple of the upscaling")
         p = positional_embedding_size
-        self.target_channel_embeddings = nn.Parameter(
-            torch.randn(1, num_channels_decoder, p))
-        self.target_events_positioning_embeddings = nn.Parameter(
-            torch.randn(1, total_upscaling // num_channels_decoder, p))
-        self.source_embeddings = nn.Embedding(source_vocab_size, d_model)
-        self.linear_target = nn.Linear(data_processor.embedding_size + 2 * p,
-                                       d_model)
+        relative = transformer_type == "relative"
+        if relative:
+            self.target_channel_embeddings = nn.Parameter(
+                torch.randn(1, num_channels_decoder, p))
+            self.target_events_positioning_embeddings = nn.Parameter(
+                torch.randn(1, total_upscaling // num_channels_decoder, p))
+            source_dim, target_in = d_model, data_processor.embedding_size + 2 * p
+        else:
+            self.source_positional_embeddings = nn.Parameter(
+                torch.randn(1, self.num_tokens_target // total_upscaling, p))
+            self.target_positional_embeddings = nn.Parameter(
+                torch.randn(1, self.num_tokens_target, p))
+            source_dim, target_in = d_model - p, data_processor.embedding_size + p
+        self.source_embeddings = nn.Embedding(source_vocab_size, source_dim)
+        self.linear_target = nn.Linear(target_in, d_model)
         self.sos = nn.Parameter(torch.randn(1, 1, d_model))
+        bias_type = "relative_attention" if relative else None
+        self.aligned = relative and cross_attention_type == "diagonal"
+        layer_kwargs = dict(
+            d_model=d_model, n_head=n_head, attention_bias_type_self=bias_type,
+            num_channels_encoder=num_channels_encoder,
+            num_events_encoder=num_events_encoder,
+            num_channels_decoder=num_channels_decoder,
+            num_events_decoder=num_events_decoder,
+            dim_feedforward=dim_feedforward, dropout=dropout)
+        if not self.aligned:
+            layer_kwargs["attention_bias_type_cross"] = (
+                "relative_attention_target_source" if relative else None)
         self.transformer = nn.ModuleDict({
             "encoder": TransformerEncoder(
-                num_encoder_layers, d_model, n_head, "relative_attention",
+                num_encoder_layers, d_model, n_head, bias_type,
                 num_channels_encoder, num_events_encoder, dim_feedforward,
                 dropout=dropout),
-            "decoder": TransformerDecoder(
-                num_decoder_layers, d_model=d_model, n_head=n_head,
-                attention_bias_type_self="relative_attention",
-                num_channels_encoder=num_channels_encoder,
-                num_events_encoder=num_events_encoder,
-                num_channels_decoder=num_channels_decoder,
-                num_events_decoder=num_events_decoder,
-                dim_feedforward=dim_feedforward, dropout=dropout),
+            "decoder": TransformerDecoder(num_decoder_layers,
+                                          aligned=self.aligned, **layer_kwargs),
         })
         self.pre_softmaxes = nn.ModuleList(
             nn.Linear(d_model, v) for v in data_processor.num_tokens_per_channel)
@@ -97,21 +124,32 @@ class Decoder(nn.Module):
     # ---- embeddings ---------------------------------------------------------
 
     def embed_source(self, source: torch.Tensor) -> torch.Tensor:
-        """Code indices (B, S) -> (B, S, d_model)."""
-        return self.source_embeddings(source.long())
+        """Code indices (B, S) -> (B, S, d_model); the absolute decoder
+        concatenates the source positional embeddings."""
+        source_seq = self.source_embeddings(source.long())
+        if self.transformer_type == "absolute":
+            pos = self.source_positional_embeddings
+            source_seq = torch.cat(
+                [source_seq, pos.expand(source_seq.shape[0], -1, -1)], dim=2)
+        return source_seq
 
     def embed_target(self, target: torch.Tensor) -> torch.Tensor:
         """Target tokens (B, E, C) -> (B, E*C, d_model), without the SOS
-        shift: token embedding, channel and intra-code event features."""
+        shift: token embedding with channel and intra-code event features
+        (relative) or with the target positional embeddings (absolute)."""
         b = target.shape[0]
         target_seq = flatten(self.data_processor.embed(target))
         num_tokens = target_seq.shape[1]
-        c = self.num_channels_decoder
-        channel = self.target_channel_embeddings.repeat(b, num_tokens // c, 1)
-        events = self.target_events_positioning_embeddings.repeat_interleave(
-            c, dim=1).repeat(b, num_tokens // self.total_upscaling, 1)
+        if self.transformer_type == "relative":
+            c = self.num_channels_decoder
+            channel = self.target_channel_embeddings.repeat(b, num_tokens // c, 1)
+            events = self.target_events_positioning_embeddings.repeat_interleave(
+                c, dim=1).repeat(b, num_tokens // self.total_upscaling, 1)
+            feats = [target_seq, channel, events]
+        else:
+            feats = [target_seq, self.target_positional_embeddings.expand(b, -1, -1)]
         with torch.autocast(target_seq.device.type, enabled=False):
-            return self.linear_target(torch.cat([target_seq, channel, events], 2))
+            return self.linear_target(torch.cat(feats, 2))
 
     def shift_with_sos(self, target_seq: torch.Tensor) -> torch.Tensor:
         sos = self.sos.expand(target_seq.shape[0], 1, -1)
@@ -129,6 +167,26 @@ class Decoder(nn.Module):
             mask = anticausal_mask(n, device=dev)
         return self.transformer["encoder"](source_seq, mask)
 
+    def cross_mask(self, source_length: int, target_length: int
+                   ) -> Optional[torch.Tensor]:
+        """The (T, S) cross-attention mask: None for 'diagonal' and 'full'
+        (decoder.py:216)."""
+        if self.cross_attention_type in ("diagonal", "full"):
+            return None
+        return anticausal_mask(source_length, sz_tgt=target_length,
+                               device=self.sos.device)
+
+    def _cross_visibility(self) -> Optional[torch.Tensor]:
+        """(T, S) bool of the memory positions visible from each target
+        position (decoder.py:389), built once per sampling call; None where
+        every position is visible ('full', 'diagonal')."""
+        if self.cross_attention_type != "anticausal":
+            return None
+        s_len = self.num_events_encoder * self.num_channels_encoder
+        t = torch.arange(self.num_tokens_target, device=self.sos.device)
+        s = torch.arange(s_len, device=self.sos.device)
+        return s[None, :] >= (t // (self.num_tokens_target // s_len))[:, None]
+
     # ---- teacher-forced forward ---------------------------------------------
 
     def forward(self, source: torch.Tensor, target: torch.Tensor) -> Dict:
@@ -140,9 +198,10 @@ class Decoder(nn.Module):
         b = target.shape[0]
         memory = self.encode_memory(source)
         target_seq = self.shift_with_sos(self.embed_target(target))
+        t_len = target_seq.shape[1]
         output = self.transformer["decoder"](
-            target_seq, memory,
-            causal_mask(target_seq.shape[1], device=target_seq.device))
+            target_seq, memory, causal_mask(t_len, device=target_seq.device),
+            self.cross_mask(memory.shape[1], t_len))
         output = output.reshape(b, -1, self.num_channels_decoder, self.d_model)
         # the fused output head (decoder.py:246-261): one product with the
         # per-channel weights concatenated, channel c's logits in its columns
@@ -168,13 +227,14 @@ class Decoder(nn.Module):
         emb = self.data_processor.embeddings[channel]
         token_emb = emb(prev_token.long().clamp(0, emb.num_embeddings - 1))
         b = prev_token.shape[0]
-        event_in_code = (prev_pos % self.total_upscaling) // c
-        feats = torch.cat([
-            token_emb,
-            self.target_channel_embeddings[0, channel].expand(b, -1),
-            self.target_events_positioning_embeddings[0, event_in_code].expand(b, -1),
-        ], dim=-1)
-        return self.linear_target(feats)
+        if self.transformer_type == "relative":
+            event_in_code = (prev_pos % self.total_upscaling) // c
+            feats = [self.target_channel_embeddings[0, channel],
+                     self.target_events_positioning_embeddings[0, event_in_code]]
+        else:
+            feats = [self.target_positional_embeddings[0, prev_pos]]
+        return self.linear_target(torch.cat(
+            [token_emb] + [f.expand(b, -1) for f in feats], dim=-1))
 
     def _head_logits_at(self, x: torch.Tensor, t: int) -> torch.Tensor:
         """Output head of channel t % C padded to the largest vocabulary with
@@ -192,31 +252,40 @@ class Decoder(nn.Module):
                 cache_dt: Optional[torch.dtype] = None
                 ) -> Tuple[List[Tuple[Cache, Cache]], List[torch.Tensor]]:
         """One full forward filling every layer's caches: per layer (k, v) of
-        (B, H, T, hd) in the cache format, and the aligned cross branch
-        (B, T, E) (decoder.py:363)."""
+        (B, H, T, hd) in the cache format, and the cross context: the aligned
+        branch (B, T, E), or the memory's (k, v) of (B, H, S, hd) for an
+        attention layer (decoder.py:363)."""
         memory = self.encode_memory(source)
         out = self.shift_with_sos(self.embed_target(target))
         mask = causal_mask(out.shape[1], device=out.device)
+        mem_mask = self.cross_mask(memory.shape[1], out.shape[1])
         caches, crosses = [], []
         for layer in self.decoder_layers:
-            out, (k, v), cross = layer.capture(out, memory, mask)
+            out, (k, v), cross = layer.capture(out, memory, mask, mem_mask)
             caches.append((new_cache(k.contiguous(), cache_dt),
                            new_cache(v.contiguous(), cache_dt)))
             crosses.append(cross)
         return caches, crosses
 
-    def _decode_one(self, x_t: torch.Tensor, caches, crosses, t: int
+    def _decode_one(self, x_t: torch.Tensor, caches, crosses, t: int,
+                    cross_visible: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
         """All decoder layers at position t; writes each layer's K/V row t
-        into its cache first (in place). x_t (B, 1, E) -> (B, 1, E)."""
+        into its cache first (in place). x_t (B, 1, E) -> (B, 1, E);
+        cross_visible: _cross_visibility's (T, S) rows, or None."""
+        cross_mask = None if cross_visible is None else cross_visible[t]
         out = x_t
         for layer, (k_cache, v_cache), cross in zip(self.decoder_layers,
                                                     caches, crosses):
             k_t, v_t = layer.self_attn.project_kv(out)          # (B, H, 1, hd)
             cache_update(k_cache, k_t, t)
             cache_update(v_cache, v_t, t)
-            out = layer.step(out, k_cache, v_cache, cross[:, t:t + 1], t,
-                             self.num_tokens_target)
+            if self.aligned:
+                out = layer.step(out, k_cache, v_cache, cross[:, t:t + 1], t,
+                                 self.num_tokens_target)
+            else:
+                out = layer.step(out, k_cache, v_cache, *cross, t,
+                                 self.num_tokens_target, cross_mask)
         return out
 
     @torch.no_grad()
@@ -245,6 +314,7 @@ class Decoder(nn.Module):
         b, num_events, c = tokens_init.shape
         tokens_flat = tokens_init.reshape(b, num_events * c).clone()
         caches, crosses = self.prefill(source, tokens_init, kv_cache_dtype(here))
+        cross_visible = None if self.aligned else self._cross_visibility()
         forbidden = (None if forbidden_indices is None
                      else to_device(forbidden_indices, here).long())
         for t in range(start, start + num_steps):
@@ -252,7 +322,8 @@ class Decoder(nn.Module):
                 x_t = self._embed_input_at(tokens_flat[:, t - 1], t)
             else:
                 x_t = self.sos[0].expand(b, -1)
-            out = self._decode_one(x_t[:, None], caches, crosses, t)
+            out = self._decode_one(x_t[:, None], caches, crosses, t,
+                                   cross_visible)
             logits = self._head_logits_at(out[:, 0], t)
             if forbidden is not None:
                 logits = logits.index_fill(1, forbidden[t % c], float("-inf"))

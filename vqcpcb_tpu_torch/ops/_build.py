@@ -26,7 +26,8 @@ from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("vq_nearest", "relbias_attention", "relbias_attention_bwd")
+SOURCES = ("vq_nearest", "relbias_attention", "relbias_attention_bwd",
+           "fused_attention", "fused_attention_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -7,22 +7,28 @@ heads-major as (H*S, hd). q is scaled by hd**-0.5 before the bias, so the
 bias sees the scaled q.
 
 Routes of the full forward:
-  * train mode with the relative bias: the packed route of the JAX module
-    (attention.py:188-231). The in-projection's (B, L, 3E) output is sliced,
-    never transposed; q is scaled before the bias; attention, its dropout
-    and its backward are RelbiasAttention (ops/attention_kernels.py): the
-    hand-written kernels with bf16 dots on CUDA, the plain versions in f32
-    on the CPU. No weights are returned. The dropout seed is drawn on the
-    host from `seed_generator` (torch's default CPU generator when None), so
-    no device value is read per layer;
-  * inference on CUDA with the relative bias: the forward kernel (bf16
-    dots), no weights returned -- the route the JAX module takes on the TPU
+  * train mode: the packed route of the JAX module (attention.py:188-231,
+    255-318). The in-projection's (B, L, 3E) output is sliced, never
+    transposed (a cross-attention projects q from the query and k, v from
+    the key); q is scaled before any bias. Without the relative bias the
+    attention is FusedAttentionTrain (ops/fused_attention_kernels.py, K6)
+    with the zero placeholder bias; with it, RelbiasAttention
+    (ops/attention_kernels.py), or, with the in-kernel relbias off
+    (utils.relbias_in_kernel), FusedAttentionTrain with the bias built in
+    PyTorch (in f32, as JAX's skew) so autograd carries e1 and e2. The
+    kernels take bf16 dots on CUDA, the plain versions f32 on the CPU; both
+    apply the attention-weight dropout in-kernel. No weights are returned.
+    The dropout seed is drawn on the host from `seed_generator` (torch's
+    default CPU generator when None), so no device value is read per layer;
+  * inference on CUDA: K4 (fused_attention, f32 dots) without the relative
+    bias, or with the bias built in PyTorch when the in-kernel relbias is
+    off; the relative-bias forward kernel (bf16 dots) with it. No weights
+    are returned -- the routes the JAX module takes on the TPU
     (attention.py:243-253);
   * inference on the CPU: the plain path, f32 throughout, returning the
     weights.
-Attention without the relative bias on CUDA is the TPU's other inference
-kernel, not ported yet; it raises. `step` (one query position over the
-KV cache) is plain PyTorch on every device, as it is plain XLA in JAX.
+`step` (one query position over the KV cache) is plain PyTorch on every
+device, as it is plain XLA in JAX.
 """
 from __future__ import annotations
 
@@ -34,9 +40,12 @@ from torch import nn
 
 from vqcpcb_tpu_torch.ops.attention_kernels import (RelbiasAttention,
                                                     relbias_attention_fwd)
+from vqcpcb_tpu_torch.ops.fused_attention_kernels import (FusedAttentionTrain,
+                                                          fused_attention)
 from vqcpcb_tpu_torch.ops.kv_cache import Cache, cache_prefix, dequantize_kv
 from vqcpcb_tpu_torch.ops.relative_attention import (
     subsampled_relative_bias, subsampled_relative_bias_row)
+from vqcpcb_tpu_torch.utils import relbias_in_kernel
 
 RELATIVE_BIAS_TYPES = ("relative_attention", "relative_attention_target_source")
 
@@ -119,28 +128,46 @@ class MultiheadAttention(nn.Module):
         additive (L_tgt, L_src) mask or None. Returns (output (B, L_tgt, E),
         weights (B, H, L_tgt, L_src) on the plain inference path, None on the
         kernel and training paths). Train mode takes the training route."""
-        if self.training and self.attn_bias is not None:
+        if self.training:
             return self._train_packed(query, key, attn_mask), None
         return self.attend(self.project_q(query), *self.project_kv(key),
                            attn_mask)
 
+    def _explicit_bias(self, q4: torch.Tensor) -> torch.Tensor:
+        """The relative bias as a (B*H, T, S) f32 tensor, from the scaled q
+        (B, H, T, hd) (attention.py:305-306): computed in f32 outside any
+        autocast, as JAX's skew promotes to its f32 tables."""
+        b, h, t, _ = q4.shape
+        with torch.autocast(q4.device.type, enabled=False):
+            bias = subsampled_relative_bias(q4.float(), *self.attn_bias.tables())
+        return bias.reshape(b * h, t, bias.shape[-1])
+
     def _train_packed(self, query: torch.Tensor, key: torch.Tensor,
                       attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """The packed training route (attention.py:188-231)."""
-        e = self.embed_dim
-        qkv_q = F.linear(query, self.in_proj_weight, self.in_proj_bias)
-        qkv_k = qkv_q if key is query else F.linear(
-            key, self.in_proj_weight, self.in_proj_bias)
-        q = qkv_q[..., :e] * self.head_dim ** -0.5           # (B, T, E)
-        k, v = qkv_k[..., e:2 * e], qkv_k[..., 2 * e:]       # views of (B, S, 3E)
+        """The packed training route (attention.py:188-231, 255-318)."""
+        e, h = self.embed_dim, self.num_heads
+        if key is query:
+            qkv = F.linear(query, self.in_proj_weight, self.in_proj_bias)
+            q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+        else:
+            q = F.linear(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
+            kv = F.linear(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
+            k, v = kv[..., :e], kv[..., e:]                # views of (B, S, 2E)
+        q = q * self.head_dim ** -0.5                        # (B, T, E)
         seed = 0
         if self.dropout > 0.0:
             seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
                                      generator=self.seed_generator))
-        e1, e2 = self.attn_bias.tables()
         dot_dtype = torch.float32 if q.device.type == "cpu" else torch.bfloat16
-        out = RelbiasAttention.apply(q, k, v, attn_mask, e1, e2, self.num_heads,
-                                     float(self.dropout), seed, dot_dtype)
+        if self.attn_bias is not None and relbias_in_kernel():
+            e1, e2 = self.attn_bias.tables()
+            out = RelbiasAttention.apply(q, k, v, attn_mask, e1, e2, h,
+                                         float(self.dropout), seed, dot_dtype)
+        else:
+            bias = (None if self.attn_bias is None else
+                    self._explicit_bias(q.unflatten(-1, (h, -1)).transpose(1, 2)))
+            out = FusedAttentionTrain.apply(q, k, v, attn_mask, bias, h,
+                                            float(self.dropout), seed, dot_dtype)
         return self.out_proj(out)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,14 +179,15 @@ class MultiheadAttention(nn.Module):
         this."""
         if q.device.type != "cpu":
             if self.attn_bias is None:
-                raise NotImplementedError(
-                    "attention without the relative bias on the card is the "
-                    "TPU's plain fused-attention kernel, not ported yet")
-            e1, e2 = self.attn_bias.tables()
-            out = relbias_attention_fwd(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), attn_mask,
-                                        e1.contiguous(), e2.contiguous(),
-                                        dot_dtype=torch.bfloat16)
+                out = fused_attention(q, k, v, attn_mask)
+            elif relbias_in_kernel():
+                e1, e2 = self.attn_bias.tables()
+                out = relbias_attention_fwd(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), attn_mask,
+                                            e1.contiguous(), e2.contiguous(),
+                                            dot_dtype=torch.bfloat16)
+            else:
+                out = fused_attention(q, k, v, attn_mask, self._explicit_bias(q))
             return self._merge_heads(out), None
         scores = torch.einsum("bhtd,bhsd->bhts", q, k)
         if attn_mask is not None:
@@ -172,15 +200,16 @@ class MultiheadAttention(nn.Module):
 
     def step(self, query_t: torch.Tensor, k_cache: Cache, v_cache: Cache,
              t: int, seq_len_tgt: int,
-             key_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             key_len_mask: Optional[torch.Tensor] = None,
+             causal: bool = True) -> torch.Tensor:
         """Attend from one query position over cached keys and values.
 
         query_t (B, 1, E) at target position t; caches (B, H, S, hd) or int8
-        tuples. key_len_mask: (S,) bool of visible keys; None means the
-        causal rule (keys <= t), for which only rows [0, t] are read.
+        tuples. causal: the rule keys <= t, for which only rows [0, t] are
+        read; key_len_mask: (S,) bool of visible keys, or None for all.
         Returns (B, 1, E) (attention.py:354)."""
         q = self.project_q(query_t)[:, :, 0]                  # (B, H, hd)
-        if key_len_mask is None:
+        if causal:
             k_cache = cache_prefix(k_cache, t + 1)
             v_cache = cache_prefix(v_cache, t + 1)
         k = dequantize_kv(k_cache).float()

@@ -27,26 +27,18 @@ accumulation, keep the softmax in f32, and return the input dtype.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from vqcpcb_tpu_torch.ops import _build
-
-NEG_BIG = -1e30
+from vqcpcb_tpu_torch.ops._kernel_io import (
+    MASK32, check_inputs, dropout_threshold, empty_like_layout, finite_mask,
+    heads, kernel_args, raise_status, strides, typed, unheads)
 
 # Launches since the last reset: forward kernel calls, and backward wrapper
 # calls (each launches the three backward kernels).
 launches = 0
 bwd_launches = 0
-
-_ERRORS = {-1: "head dim must be one of 8, 16, 32, 64, 128",
-           -2: "K, V and the bias table do not fit in shared memory at this "
-               "source length and dot dtype",
-           -3: "bf16 inputs need bf16 dots"}
-
-_MASK32 = 0xFFFFFFFF
 
 
 # ---- dropout hash (pallas_attention.py:158-191) -----------------------------
@@ -55,7 +47,7 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """(x * c) mod 2**32 for int64 x in [0, 2**32), without int64 overflow."""
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _MASK32
+    return (lo + hi) & MASK32
 
 
 def _hash_u32(x: torch.Tensor) -> torch.Tensor:
@@ -67,11 +59,6 @@ def _hash_u32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def dropout_threshold(rate: float) -> int:
-    """The uint32 keep threshold min(round(rate * 2**32), 2**32 - 1)."""
-    return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
-
-
 def dropout_keep_plain(shape: Tuple[int, int], rate: float, seed,
                        device=None) -> torch.Tensor:
     """Regenerable dropout mask, True = keep (pallas_attention.py:170).
@@ -80,10 +67,10 @@ def dropout_keep_plain(shape: Tuple[int, int], rate: float, seed,
     (wrapping uint32 arithmetic). Returns bool of seed.shape + (T, S):
     lowbias32((t*S + s) ^ lowbias32(seed * 0x9E3779B9)) >= threshold."""
     t, s = shape
-    seed = torch.as_tensor(seed, dtype=torch.int64, device=device) & _MASK32
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=device) & MASK32
     rows = torch.arange(t, dtype=torch.int64, device=seed.device)[:, None]
     cols = torch.arange(s, dtype=torch.int64, device=seed.device)[None, :]
-    idx = (rows * s + cols) & _MASK32
+    idx = (rows * s + cols) & MASK32
     seed_h = _hash_u32(_mul32(seed, 0x9E3779B9))[..., None, None]
     return _hash_u32(idx ^ seed_h) >= dropout_threshold(rate)
 
@@ -95,34 +82,7 @@ def _stream_seeds(seed: int, b: int, h: int, device) -> torch.Tensor:
     return int(seed) + hi * b + bi
 
 
-# ---- layouts ----------------------------------------------------------------
-
-def _heads(x: torch.Tensor, num_heads: Optional[int]) -> torch.Tensor:
-    """A (B, H, L, d) view of x: x itself, or a view of packed (B, L, H*d)."""
-    if num_heads is None:
-        if x.dim() != 4:
-            raise ValueError(f"expected (B, H, L, d), got {tuple(x.shape)}")
-        return x
-    if x.dim() != 3 or x.shape[-1] % num_heads:
-        raise ValueError(f"expected packed (B, L, H*d) with H = {num_heads}, "
-                         f"got {tuple(x.shape)}")
-    return x.unflatten(-1, (num_heads, -1)).transpose(1, 2)
-
-
-def _unheads(x4: torch.Tensor, num_heads: Optional[int]) -> torch.Tensor:
-    """Inverse of _heads for a (B, H, L, d) result, contiguous."""
-    if num_heads is None:
-        return x4.contiguous()
-    b, h, n, d = x4.shape
-    return x4.transpose(1, 2).reshape(b, n, h * d)
-
-
-def _empty_like_layout(x: torch.Tensor, num_heads: Optional[int]
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A contiguous tensor of x's shape and dtype, and its (B, H, L, d) view."""
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    return out, _heads(out, num_heads)
-
+# ---- the relative-bias table ---------------------------------------------------
 
 def combined_table(e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
     """(H, S, d) x2 -> (H, 2S-1, d): row j of head h is e1[h, j] for j < S and
@@ -135,14 +95,6 @@ def split_table_grad(de: torch.Tensor, s: int) -> Tuple[torch.Tensor, torch.Tens
     addressed, so its gradient is 0 (pallas_attention.py:1029-1036)."""
     zero = torch.zeros_like(de[:, :1])
     return de[:, :s], torch.cat([zero, de[:, s:]], dim=1)
-
-
-def _finite_mask(mask, t, s, device):
-    """-inf becomes -1e30 so a fully masked row gives no NaN (the TPU
-    wrapper's clamp, pallas_attention.py:60)."""
-    if mask is None:
-        return torch.zeros((t, s), dtype=torch.float32, device=device)
-    return torch.clamp(mask.float(), min=NEG_BIG)
 
 
 def _bias_columns(t: int, s: int, device) -> torch.Tensor:
@@ -163,7 +115,7 @@ def _plain_weights(qd, kd, mask, table):
     c = torch.einsum("bhtd,hjd->bhtj", qd, table)            # (B, H, T, 2S-1)
     cols = _bias_columns(t, s, qd.device).expand(b, h, t, s)
     bias = torch.gather(c, 3, cols)
-    mask = _finite_mask(mask, t, s, qd.device)
+    mask = finite_mask(mask, t, s, qd.device)
     return torch.softmax(scores + mask + bias, dim=-1), cols
 
 
@@ -183,7 +135,7 @@ def relbias_attention_fwd_plain(q, k, v, mask, e1, e2,
     """The forward kernel's arithmetic in PyTorch: q already scaled; mask
     (T, S) additive or None; e1, e2 (H, S, d). Returns q's layout and dtype
     (pallas_attention.py:_relbias_fwd_head)."""
-    q4, k4, v4 = (_heads(x, num_heads) for x in (q, k, v))
+    q4, k4, v4 = (heads(x, num_heads) for x in (q, k, v))
     b, h, t, _ = q4.shape
     s = k4.shape[2]
     rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
@@ -192,7 +144,7 @@ def relbias_attention_fwd_plain(q, k, v, mask, e1, e2,
     if keep is not None:
         w = torch.where(keep, w * inv, 0.0)
     out = torch.einsum("bhts,bhsd->bhtd", rd(w), rd(v4))
-    return _unheads(out.to(q.dtype), num_heads)
+    return unheads(out.to(q.dtype), num_heads)
 
 
 def relbias_attention_bwd_plain(q, k, v, mask, e1, e2, dout,
@@ -205,7 +157,7 @@ def relbias_attention_bwd_plain(q, k, v, mask, e1, e2, dout,
     Returns (dq, dk, dv, dmask, de1, de2): dq, dk, dv in the inputs' layout
     and dtype, dmask (T, S) f32 summed over (b, h) or None, de1 and de2
     (H, S, d) summed over the batch, in q's dtype."""
-    q4, k4, v4, do4 = (_heads(x, num_heads) for x in (q, k, v, dout))
+    q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
     b, h, t, d = q4.shape
     s = k4.shape[2]
     rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
@@ -229,74 +181,26 @@ def relbias_attention_bwd_plain(q, k, v, mask, e1, e2, dout,
     de = torch.einsum("bhtj,bhtd->hjd", dc, qd)
     de1, de2 = split_table_grad(de.to(q.dtype), s)
     dmask = ds.sum((0, 1)) if need_dmask else None
-    return (_unheads(dq.to(q.dtype), num_heads),
-            _unheads(dk.to(k.dtype), num_heads),
-            _unheads(dv.to(v.dtype), num_heads), dmask, de1, de2)
+    return (unheads(dq.to(q.dtype), num_heads),
+            unheads(dk.to(k.dtype), num_heads),
+            unheads(dv.to(v.dtype), num_heads), dmask, de1, de2)
 
 
 # ---- CUDA launchers -----------------------------------------------------------
 
-def _typed(name: str, fn: str, n_ptrs: int) -> ctypes.CDLL:
-    lib = _build.library(name)
-    if not getattr(lib, "_typed", False):
-        f = getattr(lib, fn)
-        f.argtypes = ([ctypes.c_void_p] * n_ptrs
-                      + [ctypes.POINTER(ctypes.c_longlong)]
-                      + [ctypes.c_int] * 7
-                      + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-                         ctypes.c_int, ctypes.c_void_p])
-        f.restype = ctypes.c_int
-        lib._typed = True
-    return lib
-
-
-def _strides(*views: torch.Tensor):
-    vals = [x for v in views for x in v.stride()[:3]]
-    return (ctypes.c_longlong * len(vals))(*vals)
-
-
 def _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype, extra=()):
-    """Shapes, devices, dtypes and strides the kernels take; raises otherwise."""
+    """What the relative-bias kernels take besides check_inputs: the
+    (H, S, d) tables on q's device and T a multiple of S."""
+    check_inputs(q4, k4, v4, mask, dot_dtype, extra)
     b, h, t, d = q4.shape
     s = k4.shape[2]
-    if k4.shape != (b, h, s, d) or v4.shape != (b, h, s, d):
-        raise ValueError(f"k {tuple(k4.shape)} / v {tuple(v4.shape)} do not "
-                         f"match q {tuple(q4.shape)}")
     if e1.shape != (h, s, d) or e2.shape != (h, s, d):
         raise ValueError(f"e1/e2 must be (H, S, d) = {(h, s, d)}")
+    for name, x in (("e1", e1), ("e2", e2)):
+        if x.device != q4.device:
+            raise ValueError(f"{name} must lie on {q4.device} (got {x.device})")
     if s == 0 or t % s:
         raise ValueError(f"target length {t} is not a multiple of {s}")
-    if dot_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"dot_dtype must be bfloat16 or float32, not {dot_dtype}")
-    if q4.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q, k, v must be float32 or bfloat16, not {q4.dtype}")
-    if q4.dtype == torch.bfloat16 and dot_dtype != torch.bfloat16:
-        raise ValueError("bf16 inputs need bf16 dots")
-    for name, x in (("q", q4), ("k", k4), ("v", v4), ("e1", e1), ("e2", e2),
-                    *extra):
-        if not x.is_cuda or x.device != q4.device:
-            raise ValueError(f"{name} must lie on {q4.device} (got {x.device})")
-        if name not in ("e1", "e2") and (x.dtype != q4.dtype or x.stride(-1) != 1):
-            raise ValueError(f"{name} must be {q4.dtype} with a contiguous last "
-                             f"axis (got {x.dtype}, strides {x.stride()})")
-    if k4.stride() != v4.stride():
-        raise ValueError("k and v must share one set of strides")
-    if mask is not None and (mask.shape != (t, s) or mask.device != q4.device):
-        raise ValueError(f"mask must be ({t}, {s}) on {q4.device}")
-
-
-def _raise_status(status: int, what: str, q4, s, dot_dtype) -> None:
-    if status in _ERRORS:
-        raise ValueError(f"{what} (T={q4.shape[2]}, S={s}, d={q4.shape[3]}, "
-                         f"{q4.dtype} inputs, {dot_dtype} dots): {_ERRORS[status]}")
-    _build.check(status, what)
-
-
-def _kernel_args(q4, dot_dtype, dropout):
-    inv = 1.0 / (1.0 - dropout) if dropout > 0.0 else 1.0
-    return (int(q4.dtype == torch.bfloat16), int(dot_dtype == torch.bfloat16),
-            dropout_threshold(dropout) if dropout > 0.0 else 0, inv,
-            int(dropout > 0.0))
 
 
 def relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
@@ -306,21 +210,21 @@ def relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
                                ) -> torch.Tensor:
     """Launch csrc/relbias_attention.cu; see the module docstring."""
     global launches
-    q4, k4, v4 = (_heads(x, num_heads) for x in (q, k, v))
+    q4, k4, v4 = (heads(x, num_heads) for x in (q, k, v))
     _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype)
     b, h, t, d = q4.shape
     s = k4.shape[2]
-    mask = _finite_mask(mask, t, s, q.device).contiguous()
+    mask = finite_mask(mask, t, s, q.device).contiguous()
     table = combined_table(e1, e2).float().contiguous()
-    out, out4 = _empty_like_layout(q, num_heads)
-    in_bf16, bf16_dots, threshold, inv, drop = _kernel_args(q4, dot_dtype, dropout)
-    lib = _typed("relbias_attention", "relbias_attention_fwd", 6)
+    out, out4 = empty_like_layout(q, num_heads)
+    in_bf16, bf16_dots, threshold, inv, drop = kernel_args(q4, dot_dtype, dropout)
+    lib = typed("relbias_attention", "relbias_attention_fwd", 6)
     status = lib.relbias_attention_fwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask.data_ptr(),
-        table.data_ptr(), out.data_ptr(), _strides(q4, k4, out4),
-        b, h, t, s, d, in_bf16, bf16_dots, int(seed) & _MASK32, threshold, inv,
+        table.data_ptr(), out.data_ptr(), strides(q4, k4, out4),
+        b, h, t, s, d, in_bf16, bf16_dots, int(seed) & MASK32, threshold, inv,
         drop, torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_status(status, "relbias_attention_fwd", q4, s, dot_dtype)
+    raise_status(status, "relbias_attention_fwd", q4, s, dot_dtype)
     launches += 1
     return out
 
@@ -333,33 +237,33 @@ def relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, dout,
     """Launch csrc/relbias_attention_bwd.cu; returns what
     relbias_attention_bwd_plain returns."""
     global bwd_launches
-    q4, k4, v4, do4 = (_heads(x, num_heads) for x in (q, k, v, dout))
+    q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
     _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype, extra=(("dout", do4),))
     b, h, t, d = q4.shape
     s = k4.shape[2]
     if do4.shape != q4.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match q {tuple(q.shape)}")
-    mask = _finite_mask(mask, t, s, q.device).contiguous()
+    mask = finite_mask(mask, t, s, q.device).contiguous()
     table = combined_table(e1, e2).float().contiguous()
-    dq, dq4 = _empty_like_layout(q, num_heads)
-    dk, dk4 = _empty_like_layout(k, num_heads)
+    dq, dq4 = empty_like_layout(q, num_heads)
+    dk, dk4 = empty_like_layout(k, num_heads)
     dv = torch.empty_like(dk)
     dmask = (torch.zeros((t, s), dtype=torch.float32, device=q.device)
              if need_dmask else None)
     de = torch.empty((h, 2 * s - 1, d), dtype=torch.float32, device=q.device)
     ds_scratch = torch.empty(b * h * t * s, dtype=dot_dtype, device=q.device)
     wd_scratch = torch.empty_like(ds_scratch)
-    in_bf16, bf16_dots, threshold, inv, drop = _kernel_args(q4, dot_dtype, dropout)
-    lib = _typed("relbias_attention_bwd", "relbias_attention_bwd", 13)
+    in_bf16, bf16_dots, threshold, inv, drop = kernel_args(q4, dot_dtype, dropout)
+    lib = typed("relbias_attention_bwd", "relbias_attention_bwd", 13)
     status = lib.relbias_attention_bwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask.data_ptr(),
         table.data_ptr(), do4.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), 0 if dmask is None else dmask.data_ptr(),
         de.data_ptr(), ds_scratch.data_ptr(), wd_scratch.data_ptr(),
-        _strides(q4, k4, do4, dq4, dk4), b, h, t, s, d, in_bf16, bf16_dots,
-        int(seed) & _MASK32, threshold, inv, drop,
+        strides(q4, k4, do4, dq4, dk4), b, h, t, s, d, in_bf16, bf16_dots,
+        int(seed) & MASK32, threshold, inv, drop,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_status(status, "relbias_attention_bwd", q4, s, dot_dtype)
+    raise_status(status, "relbias_attention_bwd", q4, s, dot_dtype)
     bwd_launches += 1
     de1, de2 = split_table_grad(de.to(q.dtype), s)
     return dq, dk, dv, dmask, de1, de2

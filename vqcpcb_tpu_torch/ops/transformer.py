@@ -4,9 +4,10 @@ vqcpcb_tpu/ops/transformer.py).
 Parameter names follow the reference (self_attn, linear1, linear2, norm1..3,
 cross_attn.0 / cross_attn.2, layers.{i}), the layout that
 training/import_reference.py reads. LayerNorms use eps 1e-6, flax's default
-(torch's is 1e-5). The decoder layer of this slice is the aligned one,
-whose cross-attention is a position-aligned MLP; the attention decoder
-layer comes with a later slice.
+(torch's is 1e-5). Two decoder layers: the aligned one, whose
+cross-attention is a position-aligned MLP (cross_attn.0 / cross_attn.2),
+and the attention one, whose cross-attention attends over the memory
+(multihead_attn), as the JAX stack picks them (transformer.py:359-361).
 
 Training: in train mode a layer runs its self-attention on the training
 route (attention.py) and applies dropout after the attention (drop1), the
@@ -171,12 +172,13 @@ class TransformerAlignedDecoderLayer(nn.Module):
         return self.norm3(x + self.drop3(feed_forward(
             x, self.linear1, self.linear2, self.activation, self.ff_dropout)))
 
-    def forward(self, tgt, memory, tgt_mask=None):
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+        """memory_mask is unused: the aligned branch masks nothing."""
         tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask)
         tgt = self.norm1(tgt + self.drop1(tgt2))
         return self._after_self(tgt, self.cross_branch(memory, tgt.shape[1])), a_self
 
-    def capture(self, tgt, memory, tgt_mask=None):
+    def capture(self, tgt, memory, tgt_mask=None, memory_mask=None):
         """Full forward returning the self-attention K/V and the cross branch
         (B, T, E) for the decode steps; K/V are projected once for both."""
         attn = self.self_attn
@@ -194,17 +196,89 @@ class TransformerAlignedDecoderLayer(nn.Module):
         return self._after_self(x, cross_t)
 
 
-class TransformerDecoder(nn.Module):
-    """Stack of aligned decoder layers (transformer.py:350)."""
+class TransformerDecoderLayer(nn.Module):
+    """Causal self-attention, then cross-attention over the memory, then the
+    FFN, each followed by add & LN (transformer.py:172)."""
 
-    def __init__(self, num_layers: int, **layer_kwargs):
+    def __init__(self, d_model: int, n_head: int,
+                 attention_bias_type_self: Optional[str],
+                 attention_bias_type_cross: Optional[str],
+                 num_channels_encoder: int, num_events_encoder: int,
+                 num_channels_decoder: int, num_events_decoder: int,
+                 dim_feedforward: int = 2048, activation: str = "relu",
+                 dropout: float = 0.0):
         super().__init__()
-        self.layers = nn.ModuleList(
-            TransformerAlignedDecoderLayer(**layer_kwargs)
-            for _ in range(num_layers))
+        self.self_attn = MultiheadAttention(
+            d_model, n_head, attention_bias_type_self,
+            num_channels_k=num_channels_decoder,
+            num_events_k=num_events_decoder,
+            num_channels_q=num_channels_decoder,
+            num_events_q=num_events_decoder, dropout=dropout)
+        self.multihead_attn = MultiheadAttention(
+            d_model, n_head, attention_bias_type_cross,
+            num_channels_k=num_channels_encoder,
+            num_events_k=num_events_encoder,
+            num_channels_q=num_channels_decoder,
+            num_events_q=num_events_decoder, dropout=dropout)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
+        self.norm3 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
+        self.drop1 = nn.Dropout(dropout)
+        self.drop2 = nn.Dropout(dropout)
+        self.drop3 = nn.Dropout(dropout)
+        self.ff_dropout = nn.Dropout(dropout)
+        self.activation = activation
 
-    def forward(self, tgt, memory, tgt_mask=None):
+    def _ff_block(self, x):
+        return self.norm3(x + self.drop3(feed_forward(
+            x, self.linear1, self.linear2, self.activation, self.ff_dropout)))
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+        tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask)
+        tgt = self.norm1(tgt + self.drop1(tgt2))
+        tgt2, _ = self.multihead_attn(tgt, memory, attn_mask=memory_mask)
+        tgt = self.norm2(tgt + self.drop2(tgt2))
+        return self._ff_block(tgt), a_self
+
+    def capture(self, tgt, memory, tgt_mask=None, memory_mask=None):
+        """Full forward returning the self-attention K/V and the memory's K/V
+        for the decode steps, each projected once."""
+        self_attn, cross = self.self_attn, self.multihead_attn
+        k_self, v_self = self_attn.project_kv(tgt)
+        k_mem, v_mem = cross.project_kv(memory)
+        tgt2, _ = self_attn.attend(self_attn.project_q(tgt), k_self, v_self,
+                                   tgt_mask)
+        tgt = self.norm1(tgt + tgt2)
+        tgt2, _ = cross.attend(cross.project_q(tgt), k_mem, v_mem, memory_mask)
+        tgt = self.norm2(tgt + tgt2)
+        return self._ff_block(tgt), (k_self, v_self), (k_mem, v_mem)
+
+    def step(self, x_t, k_cache: Cache, v_cache: Cache, k_mem, v_mem, t: int,
+             seq_len_tgt: int, cross_key_mask: Optional[torch.Tensor]):
+        """One position: x_t (B, 1, E); caches already hold position t;
+        k_mem, v_mem (B, H, S, hd); cross_key_mask (S,) bool of the memory
+        positions visible from t, or None when all are."""
+        x = self.norm1(x_t + self.self_attn.step(x_t, k_cache, v_cache, t,
+                                                 seq_len_tgt))
+        x = self.norm2(x + self.multihead_attn.step(
+            x, k_mem, v_mem, t, seq_len_tgt, key_len_mask=cross_key_mask,
+            causal=False))
+        return self._ff_block(x)
+
+
+class TransformerDecoder(nn.Module):
+    """Stack of decoder layers, aligned or attention (transformer.py:350)."""
+
+    def __init__(self, num_layers: int, aligned: bool = True, **layer_kwargs):
+        super().__init__()
+        layer = TransformerAlignedDecoderLayer if aligned else TransformerDecoderLayer
+        self.layers = nn.ModuleList(layer(**layer_kwargs)
+                                    for _ in range(num_layers))
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
         out = tgt
         for layer in self.layers:
-            out, _ = layer(out, memory, tgt_mask)
+            out, _ = layer(out, memory, tgt_mask, memory_mask)
         return out

@@ -70,3 +70,15 @@ def kv_cache_dtype(device: torch.device) -> Optional[torch.dtype]:
             f"VQCPCB_KV_DTYPE={env!r}: use 'bfloat16'/'bf16', "
             "'float32'/'f32' or 'int8'")
     return torch.int8 if torch.device(device).type == "cuda" else None
+
+
+def relbias_in_kernel() -> bool:
+    """Whether a relative-bias attention layer computes its bias inside the
+    relative-bias kernels (the default) or builds the (B*H, T, S) bias in
+    PyTorch and passes it to the fused-attention kernels (K4 at inference,
+    K6 in training), where autograd carries it back to e1 and e2.
+
+    Reads VQCPCB_PALLAS_RELBIAS as the JAX package does
+    (vqcpcb_tpu/ops/pallas_attention.py:use_pallas_relbias): "1" (default)
+    is the in-kernel route, "0" the explicit-bias route."""
+    return os.environ.get("VQCPCB_PALLAS_RELBIAS", "1") == "1"
