@@ -14,12 +14,15 @@ Phases, in order; any failure raises and the run exits non-zero:
      version, timed beside its bound and beside scaled_dot_product_attention
      as a yardstick;
   5. relative-bias attention training kernels (forward and backward, with
-     dropout, packed and (B, H, L, d) layouts) vs their plain versions, the
-     dropout mask bit for bit, timed at the flagship training shape;
+     dropout, packed and (B, H, L, d) layouts, T/S = 1, 4 and 16) vs their
+     plain versions, the dropout mask and, at batch 32, the backward's bf16
+     w_drop and ds scratch bit for bit, timed at the flagship training shape
+     beside SDPA's autograd backward by its device time;
   6. fused attention: K4 at batch 512 at the absolute decoder's three
      shapes, K6's forward and backward at batch 32 with the placeholder and
      with a real bias (dmask and dbias once), dropout 0 and 0.2, the mask
-     bit for bit on K6's stream, each vs its plain version and timed;
+     and the backward's bf16 w_drop and ds scratch bit for bit, each vs its
+     plain version and timed (SDPA's backward by its device time);
   7. the re-harmonisation serving path end to end at full width (random
      weights from a seed), for the flagship AC/D/C decoder and for the
      absolute decoder: encoder codes, KV-cached sampling at batch 512,
@@ -89,6 +92,26 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Milliseconds of device time per call: the kernels' own time, summed
+    by torch.profiler over `reps` calls after warm-up, without the host's
+    gaps between them. Raises when the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return busy_us / 1e3 / reps
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -346,6 +369,25 @@ def _hold(what, got, want, want32, worst, names=TRAIN_RESULTS,
     return ", ".join(line)
 
 
+def _hold_scratch(what, bwd, weights_plain, inputs, kw) -> str:
+    """The backward's bf16 w_drop and ds scratch against the plain version's
+    f32 values rounded to bf16: equal at every entry. A weight rounded to
+    the other neighbouring bf16 value moves dv by one bf16 step of it times
+    do, as far as a skipped rounding point would."""
+    from vqcpcb_tpu_torch.ops._kernel_io import bwd_scratch, scratch_planes
+    kw = {key: val for key, val in kw.items() if key != "need_dmask"}
+    w_drop, ds = weights_plain(*inputs, **kw)
+    b, h, t, s = ds.shape
+    scratch = bwd_scratch(b, h, t, s, torch.bfloat16, ds.device)
+    bwd(*inputs, need_dmask=False, scratch=scratch, **kw)
+    differ = [(scratch_planes(x, b, h, t, s) != want.to(torch.bfloat16)).sum().item()
+              for x, want in ((scratch[1], w_drop), (scratch[0], ds))]
+    if any(differ):
+        raise AssertionError(f"{what}: {differ[0]} bf16 w_drop and {differ[1]} ds "
+                             "entries of the scratch differ from the plain version's")
+    return f"bf16 w_drop and ds = the plain version's at all {b * h * t * s} entries"
+
+
 def phase_relbias_train(gen: torch.Generator) -> dict:
     from vqcpcb_tpu_torch.ops import attention_kernels as ak
     import torch.nn.functional as F
@@ -353,7 +395,9 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
     worst = {"fwd": 0.0, "bwd": 0.0}
     cases = [("decoder self-attention", 384, 384, "causal"),
              ("code encoder", 24, 24, "anticausal"),
-             ("ratio 4", 96, 24, "anticausal_rect")]
+             ("ratio 4", 96, 24, "anticausal_rect"),
+             # the AC/AC/C decoder's relative cross-attention
+             ("ratio 16", 384, 24, "anticausal_rect")]
     for name, t, s, kind in cases:
         for packed in (True, False):
             for rate in (0.0, TRAIN_DROPOUT):
@@ -425,11 +469,14 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
             if a is not None and not torch.equal(a, a32.to(a.dtype)):
                 raise AssertionError(f"relbias training {name}: {res} from bf16 "
                                      "inputs is not the f32 twin's rounded to bf16")
+        del got, got32
+        line_s = _hold_scratch(f"relbias training {name} B={TRAIN_BATCH}", cuda[1],
+                               ak.relbias_attention_bwd_weights_plain, inputs, kw)
         log(f"# relbias train {name} (B={TRAIN_BATCH}, T=S={t}, packed, dropout "
             f"{TRAIN_DROPOUT}): bf16 inputs err/max|value| {line}; f32 twin "
             f"err/rule gap/max|value| {line32}; bf16 results = the twin's "
-            f"rounded to bf16, bit for bit")
-        del got, got32, twin
+            f"rounded to bf16, bit for bit; {line_s}")
+        del twin
         torch.cuda.empty_cache()
 
     # timing at the flagship training shape, as the training path calls it
@@ -456,11 +503,14 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
         *leaves[:3], attn_mask=leaves[3], dropout_p=TRAIN_DROPOUT, scale=1.0)
     lib_fwd = time_cuda(sdpa, 10, warmup=2)
     lib_fwd_bwd = time_cuda(lambda: sdpa().backward(g4), 10, warmup=2)
-    # the backward alone over one retained graph is the yardstick; the
-    # difference above, host-bound at these sizes, is logged beside it
+    # the backward alone over one retained graph: its device time (the
+    # profiler's sum of its kernels) is the yardstick; the event time and
+    # the difference above, host-bound at these sizes, are logged beside it
     out = sdpa()
-    lib_bwd = time_cuda(lambda: torch.autograd.grad(out, leaves, g4,
-                                                    retain_graph=True), 10, warmup=2)
+    sdpa_bwd = lambda: torch.autograd.grad(out, leaves, g4,   # noqa: E731
+                                           retain_graph=True)
+    lib_bwd_events = time_cuda(sdpa_bwd, 10, warmup=2)
+    lib_bwd = device_ms(sdpa_bwd, 10)
     del out, leaves, bias, q4, k4, v4, g4
     n, e = b * HEADS, HEADS * HEAD_DIM
     act = 2 * b * t * e                              # one bf16 (B, T, H*d) tensor
@@ -474,8 +524,8 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
         f"{TRAIN_DROPOUT}: fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
         f"sdpa(mask+bias) {lib_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms "
         f"({fwd_bound[1]}); bwd kernels {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
-        f"sdpa autograd bwd {lib_bwd:.4f} ms (fwd+bwd less fwd "
-        f"{lib_fwd_bwd - lib_fwd:.4f} ms), bound "
+        f"sdpa autograd bwd {lib_bwd:.4f} ms device time ({lib_bwd_events:.4f} "
+        f"ms by events, fwd+bwd less fwd {lib_fwd_bwd - lib_fwd:.4f} ms), bound "
         f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); on (B, H, L, d): fwd "
         f"{fwd_bhld:.4f} ms, bwd {bwd_bhld:.4f} ms")
     torch.cuda.empty_cache()
@@ -483,6 +533,7 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
                         bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                         max_abs_err=worst["fwd"], ms_bhld=fwd_bhld),
             "bwd": dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
+                        library_event_ms=lib_bwd_events,
                         bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
                         max_abs_err=worst["bwd"], ms_bhld=bwd_bhld)}
 
@@ -630,12 +681,14 @@ def phase_fused(gen: torch.Generator) -> dict:
                                      "the f32 twin's rounded to bf16")
         if (got[-1] is not None) != real or (got[4] is not None) != need_dmask:
             raise AssertionError(f"K6 {name}: dbias / dmask returned where not asked")
+        del got, got32, twin
+        line_s = _hold_scratch(f"K6 {name} B={TRAIN_BATCH} dropout {rate}", cuda[1],
+                               fk.fused_attention_train_bwd_weights_plain, inputs, kw)
         log(f"# K6 {name} (B={TRAIN_BATCH}, T={t}, S={s}, packed bf16, dropout "
             f"{rate}, {'real bias' if real else 'placeholder'}"
             f"{', dmask' if need_dmask else ''}): bf16 inputs err/max|value| "
             f"{line}; f32 twin err/rule gap/max|value| {line32}; bf16 results = "
-            f"the twin's rounded to bf16, bit for bit (dmask aside)")
-        del got, got32, twin
+            f"the twin's rounded to bf16, bit for bit (dmask aside); {line_s}")
     # timed as the training route calls them, dropout 0.2: the decoder's
     # self-attention and the cross-attention with the placeholder, and the
     # self-attention with a real bias (the explicit-bias route)
@@ -667,25 +720,27 @@ def phase_fused(gen: torch.Generator) -> dict:
             *leaves, attn_mask=attn, is_causal=kind == "causal" and not real,
             dropout_p=TRAIN_DROPOUT, scale=1.0)
         lib_fwd = time_cuda(sdpa, 10, warmup=2)
-        # its autograd backward alone, over one retained graph (the
-        # difference of a forward+backward and a forward timing is
-        # host-bound at these sizes: it varied by more than 2x between runs
-        # on an H100)
+        # its autograd backward alone, over one retained graph, by device
+        # time (host-bound at these sizes: its event time varied from 0.17
+        # to 0.78 ms between calls on an H100); the event time beside it
         out = sdpa()
-        lib_bwd = time_cuda(lambda: torch.autograd.grad(
-            out, leaves + ([attn] if real else []), g4, retain_graph=True), 10,
-            warmup=2)
+        sdpa_bwd = lambda: torch.autograd.grad(               # noqa: E731
+            out, leaves + ([attn] if real else []), g4, retain_graph=True)
+        lib_bwd_events = time_cuda(sdpa_bwd, 10, warmup=2)
+        lib_bwd = device_ms(sdpa_bwd, 10)
         del out
         fwd_bound, bwd_bound = _fused_bounds(TRAIN_BATCH, t, s, real)
         times[label] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain=fwd_plain,
                             bwd_plain=bwd_plain, lib_fwd=lib_fwd, lib_bwd=lib_bwd,
+                            lib_bwd_events=lib_bwd_events,
                             fwd_bound=fwd_bound, bwd_bound=bwd_bound)
         log(f"# K6 {label} at B={TRAIN_BATCH}, T={t}, S={s}, packed bf16, dropout "
             f"{TRAIN_DROPOUT}, {'real bias' if real else 'placeholder'}: fwd kernel "
             f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, sdpa {lib_fwd:.4f} ms, "
             f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); bwd kernels {bwd_ms:.4f} "
-            f"ms, plain {bwd_plain:.4f} ms, sdpa autograd bwd {lib_bwd:.4f} ms, "
-            f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+            f"ms, plain {bwd_plain:.4f} ms, sdpa autograd bwd {lib_bwd:.4f} ms device "
+            f"time ({lib_bwd_events:.4f} ms by events), bound {bwd_bound[0]:.4f} ms "
+            f"({bwd_bound[1]})")
         del leaves, attn, q4, k4, v4, g4, q, k, v, g, bias
         torch.cuda.empty_cache()
 
@@ -726,12 +781,16 @@ def phase_fused(gen: torch.Generator) -> dict:
                     bound_by=self_t["fwd_bound"][1], max_abs_err=worst["fwd"],
                     cross={k: times["cross"][k] for k in ("fwd_ms", "fwd_plain", "lib_fwd")}),
         "bwd_nobias": dict(ms=self_t["bwd_ms"], plain_ms=self_t["bwd_plain"],
-                           library_ms=self_t["lib_bwd"], bound_ms=self_t["bwd_bound"][0],
+                           library_ms=self_t["lib_bwd"],
+                           library_event_ms=self_t["lib_bwd_events"],
+                           bound_ms=self_t["bwd_bound"][0],
                            bound_by=self_t["bwd_bound"][1], max_abs_err=worst["bwd"],
-                           cross={k: times["cross"][k]
-                                  for k in ("bwd_ms", "bwd_plain", "lib_bwd")}),
+                           cross={k: times["cross"][k] for k in
+                                  ("bwd_ms", "bwd_plain", "lib_bwd", "lib_bwd_events")}),
         "bwd": dict(ms=bias_t["bwd_ms"], plain_ms=bias_t["bwd_plain"],
-                    library_ms=bias_t["lib_bwd"], bound_ms=bias_t["bwd_bound"][0],
+                    library_ms=bias_t["lib_bwd"],
+                    library_event_ms=bias_t["lib_bwd_events"],
+                    bound_ms=bias_t["bwd_bound"][0],
                     bound_by=bias_t["bwd_bound"][1], max_abs_err=worst["bwd_bias"]),
     }
 
@@ -1194,7 +1253,10 @@ def main() -> int:
 
     def entry(name, source, replaces, counterpart, also, numbers, **extra):
         # ms_bhld: the same call on the (B, H, L, d) layout, where timed
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_bhld")
+        # library_event_ms: the library call by CUDA events, beside its
+        # device time (library_ms), where both were taken
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_event_ms", "ms_bhld")
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     pallas_counterpart=counterpart, also_replaces=also,
                     launches=launches[name],

@@ -14,6 +14,7 @@ import torch
 from vqcpcb_tpu_torch.ops import attention_kernels as ak
 from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
 from vqcpcb_tpu_torch.ops import vq_kernels as vk
+from vqcpcb_tpu_torch.ops._kernel_io import bwd_scratch, scratch_planes
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 
 
@@ -71,14 +72,17 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(gen):
         ak.relbias_attention_fwd(q, q, q, None, e, e)
 
 
-def _train_case(gen, b, h, t, s, d, packed, dtype):
-    """Inputs of the training kernels: (B, H, L, d), or packed (B, L, H*d)."""
+def _train_case(gen, b, h, t, s, d, packed, dtype, masked_row=None):
+    """Inputs of the training kernels: (B, H, L, d), or packed (B, L, H*d);
+    `masked_row` masks every key of that query row."""
     q = torch.randn((b, h, t, d), generator=gen, device="cuda") * d ** -0.5
     k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda") for _ in range(2))
     g = torch.randn((b, h, t, d), generator=gen, device="cuda")
     e1, e2 = (torch.randn((h, s, d), generator=gen, device="cuda") for _ in range(2))
     mask = (causal_mask(t, device="cuda") if t == s
             else anticausal_mask(s, sz_tgt=t, device="cuda"))
+    if masked_row is not None:
+        mask[masked_row] = float("-inf")
     if packed:
         q, k, v, g = (x.transpose(1, 2).reshape(b, x.shape[2], h * d)
                       for x in (q, k, v, g))
@@ -86,36 +90,91 @@ def _train_case(gen, b, h, t, s, d, packed, dtype):
     return q, k, v, mask, e1, e2, g
 
 
+def _bf16_steps(a, w):
+    """How many bf16 values apart a and w lie, entry by entry (0 equal, 1
+    neighbours, counting across zero)."""
+    def order(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (order(a) - order(w)).abs()
+
+
+def _grad_err(a, w, frac=4e-3):
+    """How far kernel result `a` lies past its bound against the plain
+    version's `w` (<= 0 within it): frac of max(1, max |w|). An entry of a
+    result stored in bf16 that is w's neighbouring bf16 value is within it
+    too: two f32 sums a hair apart, in other orders, may round to
+    neighbouring bf16 values, one step of which can exceed the bound where
+    the max |value| sits low in its binade."""
+    err = (a.float() - w.float()).abs()
+    if a.dtype == torch.bfloat16:
+        err = torch.where(_bf16_steps(a, w) <= 1, 0.0, err)
+    limit = frac * max(1.0, w.float().abs().max().item())
+    return err.max().item() - limit
+
+
+def _scratch_differs(scratch, weights_plain, inputs, kw):
+    """The entries of the backward's bf16 w_drop and ds scratch that differ
+    from the plain version's f32 values rounded to bf16 (both must be 0: a
+    weight one bf16 step off moves dv as far as a skipped rounding point)."""
+    w_drop, ds = weights_plain(*inputs, **kw)
+    b, h, t, s = ds.shape
+    return {name: (scratch_planes(x, b, h, t, s) != want.to(torch.bfloat16)).sum().item()
+            for name, x, want in (("w_drop", scratch[1], w_drop), ("ds", scratch[0], ds))}
+
+
+# (B, H, T, S, d, packed, dropout, input dtype, fully masked query row):
+# the layouts and dtypes, ragged T and S, a fully masked row, ratio 16 (the
+# AC/AC/C cross-attention) and every head dim the dispatch takes
+TRAIN_CASES = [
+    (2, 2, 64, 64, 32, True, 0.2, torch.bfloat16, None),
+    (2, 2, 96, 24, 32, False, 0.2, torch.float32, None),
+    (2, 2, 24, 24, 32, True, 0.0, torch.float32, None),
+    (2, 2, 32, 32, 32, False, 0.1, torch.bfloat16, None),
+    (2, 2, 100, 100, 32, False, 0.2, torch.bfloat16, None),
+    (2, 2, 17, 17, 32, True, 0.2, torch.bfloat16, 5),
+    (1, 2, 384, 24, 64, True, 0.2, torch.bfloat16, None),
+    (2, 2, 64, 64, 8, False, 0.2, torch.bfloat16, None),
+    (2, 2, 64, 64, 16, True, 0.2, torch.bfloat16, None),
+    (2, 2, 96, 96, 128, True, 0.2, torch.bfloat16, None),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,s,packed,dropout,dtype", [
-    (64, 64, True, 0.2, torch.bfloat16),
-    (96, 24, False, 0.2, torch.float32),
-    (24, 24, True, 0.0, torch.float32),
-    (32, 32, False, 0.1, torch.bfloat16),
-])
-def test_relbias_train_kernels_on_card(gen, t, s, packed, dropout, dtype):
+@pytest.mark.parametrize("b,h,t,s,d,packed,dropout,dtype,masked_row", TRAIN_CASES)
+def test_relbias_train_kernels_on_card(gen, b, h, t, s, d, packed, dropout, dtype,
+                                       masked_row):
     """Forward and backward kernels against their plain versions, bf16 dots:
     the same rounding points and the same dropout mask on both sides; f32
     sums in other orders may round a weight or a score gradient to the
     neighbouring bf16 value (2**-8 of one term), so each result must lie
-    within 4e-3 of max(1, its max |value|) (bf16 outputs add their own
-    rounding of 2**-9 relative). e2's gradient under the causal mask is
-    exactly 0."""
-    b, h, d = 2, 2, 32
+    within 4e-3 of max(1, its max |value|) (an entry of a bf16 output may
+    instead be the plain version's neighbouring bf16 value). The bf16 w_drop
+    and ds the kernels keep equal the plain version's. e2's gradient under
+    the causal mask is exactly 0. A second backward on the same inputs gives
+    the same dq, dk, dv, de1 and de2 bit for bit (dmask sums by atomics)."""
     nh = h if packed else None
-    q, k, v, mask, e1, e2, g = _train_case(gen, b, h, t, s, d, packed, dtype)
+    inputs = _train_case(gen, b, h, t, s, d, packed, dtype, masked_row)
+    q, k, v, mask, e1, e2, g = inputs
     kw = dict(num_heads=nh, dropout=dropout, seed=77)
     before = (ak.launches, ak.bwd_launches)
     got = [ak.relbias_attention_fwd(q, k, v, mask, e1, e2, **kw),
            *ak.relbias_attention_bwd(q, k, v, mask, e1, e2, g, **kw)]
     assert (ak.launches, ak.bwd_launches) == (before[0] + 1, before[1] + 1)
+    scratch = bwd_scratch(b, h, t, s, torch.bfloat16, "cuda")
+    again = ak.relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, g, scratch=scratch,
+                                          **kw)
+    for name, a, a2 in zip(("dq", "dk", "dv", "dmask", "de1", "de2"), got[1:], again):
+        assert name == "dmask" or torch.equal(a, a2), name
+    differs = _scratch_differs(scratch, ak.relbias_attention_bwd_weights_plain,
+                               inputs, kw)
+    assert differs == {"w_drop": 0, "ds": 0}, differs
     want = [ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2, **kw),
             *ak.relbias_attention_bwd_plain(q, k, v, mask, e1, e2, g, **kw)]
     for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "de1", "de2"), got, want):
         assert a.shape == w.shape and a.dtype == w.dtype, name
-        err = (a.float() - w.float()).abs().max().item()
-        assert err <= 4e-3 * max(1.0, w.float().abs().max().item()), (name, err)
-    if t == s:
+        assert _grad_err(a, w) <= 0, (name, _grad_err(a, w))
+    if t == s and masked_row is None:
         assert not got[-1].any()
 
 
@@ -182,35 +241,61 @@ def test_fused_attention_kernel_on_card(gen, t, s, mask_kind, bias_kind):
                                rtol=0, atol=1e-5)
 
 
+# (B, H, T, S, d, mask, bias, packed, dropout, input dtype, fully masked
+# query row): as TRAIN_CASES, with no bias, the placeholder or a real bias
+FUSED_TRAIN_CASES = [
+    (2, 2, 64, 64, 32, "causal", "none", True, 0.2, torch.bfloat16, None),
+    (2, 2, 96, 24, 32, "zero", "placeholder", False, 0.2, torch.float32, None),
+    (2, 2, 32, 32, 32, "causal", "real", True, 0.1, torch.float32, None),
+    (2, 2, 24, 24, 32, "anticausal", "real", False, 0.0, torch.bfloat16, None),
+    (2, 2, 100, 100, 32, "causal", "placeholder", True, 0.2, torch.bfloat16, None),
+    (2, 2, 17, 17, 32, "causal", "real", False, 0.2, torch.bfloat16, 5),
+    (1, 2, 384, 24, 64, "zero", "placeholder", True, 0.2, torch.bfloat16, None),
+    (2, 2, 64, 64, 8, "causal", "none", False, 0.2, torch.bfloat16, None),
+    (2, 2, 64, 64, 16, "causal", "real", True, 0.2, torch.bfloat16, None),
+    (2, 2, 96, 96, 128, "causal", "placeholder", True, 0.2, torch.bfloat16, None),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,s,mask_kind,bias_kind,packed,dropout,dtype", [
-    (64, 64, "causal", "none", True, 0.2, torch.bfloat16),
-    (96, 24, "zero", "placeholder", False, 0.2, torch.float32),
-    (32, 32, "causal", "real", True, 0.1, torch.float32),
-    (24, 24, "anticausal", "real", False, 0.0, torch.bfloat16),
-])
-def test_fused_attention_train_kernels_on_card(gen, t, s, mask_kind, bias_kind,
-                                                packed, dropout, dtype):
+@pytest.mark.parametrize(
+    "b,h,t,s,d,mask_kind,bias_kind,packed,dropout,dtype,masked_row",
+    FUSED_TRAIN_CASES)
+def test_fused_attention_train_kernels_on_card(gen, b, h, t, s, d, mask_kind,
+                                                bias_kind, packed, dropout, dtype,
+                                                masked_row):
     """K6's forward and backward against their plain versions, bf16 dots:
     the same rounding points and dropout mask on both sides; f32 sums in
     other orders may round a weight or a score gradient to the neighbouring
-    bf16 value, so each result lies within 4e-3 of max(1, its max |value|),
-    as for the relative-bias kernels. dmask and dbias are the f32 score
+    bf16 value, so each result lies within 4e-3 of max(1, its max |value|)
+    or, in a bf16 output, one bf16 step of the plain version's entry, as for
+    the relative-bias kernels. dmask and dbias are the f32 score
     gradient, taken before any bf16 rounding: within 1e-5. The
     placeholder's cotangent is none; a real bias's is the f32 score gradient
-    (K6-bwd)."""
-    b, h, d = 2, 2, 32
-    q, k, v, mask, bias, g = _fused_case(gen, b, h, t, s, d, mask_kind, bias_kind,
-                                         packed, dtype)
+    (K6-bwd). A second backward gives the same dq, dk, dv and dbias bit for
+    bit (dmask sums by atomics), and the bf16 w_drop and ds the kernels
+    keep equal the plain version's."""
+    inputs = _fused_case(gen, b, h, t, s, d, mask_kind, bias_kind, packed, dtype)
+    q, k, v, mask, bias, g = inputs
+    if masked_row is not None:
+        mask[masked_row] = float("-inf")
     kw = dict(num_heads=h if packed else None, dropout=dropout, seed=77)
     before = (fk.train_fwd_launches, fk.train_bwd_launches,
               fk.train_bwd_nobias_launches)
     got = [fk.fused_attention_train_fwd(q, k, v, mask, bias, **kw),
            *fk.fused_attention_train_bwd(q, k, v, mask, bias, g, **kw)]
+    scratch = bwd_scratch(b, h, t, s, torch.bfloat16, "cuda")
+    again = fk.fused_attention_train_bwd_cuda(q, k, v, mask, bias, g, scratch=scratch,
+                                              **kw)
+    for name, a, a2 in zip(("dq", "dk", "dv", "dmask", "dbias"), got[1:], again):
+        assert name == "dmask" or a is None or torch.equal(a, a2), name
+    differs = _scratch_differs(scratch, fk.fused_attention_train_bwd_weights_plain,
+                               inputs, kw)
+    assert differs == {"w_drop": 0, "ds": 0}, differs
     real = bias_kind == "real"
     assert (fk.train_fwd_launches, fk.train_bwd_launches,
-            fk.train_bwd_nobias_launches) == (before[0] + 1, before[1] + real,
-                                              before[2] + (not real))
+            fk.train_bwd_nobias_launches) == (before[0] + 1, before[1] + 2 * real,
+                                              before[2] + 2 * (not real))
     want = [fk.fused_attention_train_fwd_plain(q, k, v, mask, bias, **kw),
             *fk.fused_attention_train_bwd_plain(q, k, v, mask, bias, g, **kw)]
     for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "dbias"), got, want):
@@ -218,9 +303,8 @@ def test_fused_attention_train_kernels_on_card(gen, t, s, mask_kind, bias_kind,
         if a is None:
             continue
         assert a.shape == w.shape and a.dtype == w.dtype, name
-        err = (a.float() - w.float()).abs().max().item()
         frac = 1e-5 if name in ("dmask", "dbias") else 4e-3
-        assert err <= frac * max(1.0, w.float().abs().max().item()), (name, err)
+        assert _grad_err(a, w, frac) <= 0, (name, _grad_err(a, w, frac))
     assert (got[-1] is not None) == real
 
 

@@ -1,7 +1,8 @@
-// The key-column pass shared by the attention backward kernels
-// (relbias_attention_bwd.cu, fused_attention_bwd.cu): given the score
-// gradient ds and the dropped weights w_drop of every (b, h) plane in
-// (B, H, T, S) scratch, both rounded to the dot type,
+// The key-column pass of the f32-dot attention backward kernels
+// (relbias_attention_bwd.cu, fused_attention_bwd.cu; the bf16-dot instances
+// run the tensor-core cols kernel of attention_bwd_mma.cuh): given the
+// score gradient ds and the dropped weights w_drop of every (b, h) plane in
+// (B, H, T, S) f32 scratch,
 //
 //   dk = ds^T . q        dv = w_drop^T . do
 //
@@ -29,12 +30,14 @@ __device__ __forceinline__ void stage_rows(const In* __restrict__ src,
   }
 }
 
-template <typename In, typename Elem, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-bwd_cols_kernel(const In* __restrict__ q, const In* __restrict__ dout,
-                const Elem* __restrict__ ds, const Elem* __restrict__ wd,
-                In* __restrict__ dk, In* __restrict__ dv, Layout lq,
+bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ dout,
+                const float* __restrict__ ds, const float* __restrict__ wd,
+                float* __restrict__ dk, float* __restrict__ dv, Layout lq,
                 Layout ldo, Layout ldkv, int H, int T, int S) {
+  using In = float;
+  using Elem = float;
   using DT = Dot<Elem>;
   constexpr int kPairs = (D / 2 + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -104,14 +107,15 @@ bwd_cols_kernel(const In* __restrict__ q, const In* __restrict__ dout,
 }
 
 // Launch the cols pass on `stream`; returns the launch's cudaError_t.
-template <typename In, typename Elem, int D>
-int launch_cols(const In* q, const In* dout, const Elem* ds, const Elem* wd,
-                In* dk, In* dv, Layout lq, Layout ldo, Layout ldkv, int B,
-                int H, int T, int S, cudaStream_t stream) {
-  const int bytes = (int)(sizeof(Elem) * kRowChunk * (2 * D + 2 * kColTile));
-  cudaFuncSetAttribute(bwd_cols_kernel<In, Elem, D>,
+template <int D>
+int launch_cols_f32(const float* q, const float* dout, const float* ds,
+                    const float* wd, float* dk, float* dv, Layout lq,
+                    Layout ldo, Layout ldkv, int B, int H, int T, int S,
+                    cudaStream_t stream) {
+  const int bytes = (int)(sizeof(float) * kRowChunk * (2 * D + 2 * kColTile));
+  cudaFuncSetAttribute(bwd_cols_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  bwd_cols_kernel<In, Elem, D>
+  bwd_cols_kernel<D>
       <<<dim3((S + kColTile - 1) / kColTile, H, B), kThreads, bytes, stream>>>(
           q, dout, ds, wd, dk, dv, lq, ldo, ldkv, H, T, S);
   return (int)cudaGetLastError();

@@ -25,44 +25,44 @@
 // What bounds it on the H100: five T x S x d products per plane (q.k, do.v,
 // ds.k, ds^T.q, w_drop^T.do) against q, k, v, do in and dq, dk, dv out --
 // about 270 flops per bf16 byte at T = S = 384, d = 64, just below the
-// tensor cores' ridge of ~295, so its bytes bound it, narrowly; K6-bwd also
-// writes the B*H*T*S f32 values of dbias. This first version runs the
-// products on the CUDA cores and moves ds and w_drop through device memory.
+// tensor cores' ridge of ~295, so its bytes bound it, narrowly (0.027 ms at
+// B = 32, H = 8); K6-bwd also writes the B*H*T*S f32 values of dbias
+// (0.117 ms).
 //
-// Design: the relative-bias backward's (relbias_attention_bwd.cu) without
-// the table, in two kernels on one stream:
-//  1. rows: one block of 8 warps per (b, h, 64 query rows) stages K and V;
-//     each warp takes one row: scores and do.v^T in one pass over the keys,
-//     the softmax, the regenerated dropout, the row term, ds (to dbias and
-//     dmask as asked); then dq from the row of ds held in shared memory. It
-//     writes ds and w_drop, rounded to the dot type, to (B, H, T, S) scratch.
-//  2. cols (attention_bwd_cols.cuh): dk and dv per (b, h, 32 keys).
-// dk and dv sum over every query row of the plane and cannot sit beside K
-// and V in one block's shared memory at S = 384 (the reason for the split).
+// bf16 dots (every training call on the card): the tensor-core rows and
+// cols kernels of attention_bwd_mma.cuh, whose note gives the design.
+// f32 dots (the f32 rule, off the main path): the CUDA-core kernels below
+// -- rows: one block of 8 warps per (b, h, 64 query rows) stages K and V,
+// each warp takes one row (scores and do.v^T, softmax, dropout, row term,
+// ds, then dq from the row of ds in shared memory) and writes ds and w_drop
+// to f32 scratch; cols (attention_bwd_cols.cuh): dk and dv per (b, h, 32
+// keys).
 #include "attention_bwd_cols.cuh"
+#include "attention_bwd_mma.cuh"
 
 namespace {
 
 using namespace relbias;
 
 // K (padded rows), V, and per warp two f32 rows of S and the row of do.
-template <typename Elem>
-size_t rows_smem_bytes(int S, int D) {
-  return sizeof(Elem) * ((size_t)S * (D + Dot<Elem>::kPad) + (size_t)S * D) +
+size_t rows_smem_bytes_f32(int S, int D) {
+  return sizeof(float) * ((size_t)S * (D + Dot<float>::kPad) + (size_t)S * D) +
          sizeof(float) * (size_t)kWarps * (2 * (size_t)S + D);
 }
 
-template <typename In, typename Elem, int D, bool kWriteBias>
+template <int D, bool kWriteBias>
 __global__ void __launch_bounds__(kThreads)
-fused_bwd_rows_kernel(const In* __restrict__ q, const In* __restrict__ k,
-                      const In* __restrict__ v, const float* __restrict__ mask,
-                      Bias bias, const In* __restrict__ dout,
-                      In* __restrict__ dq, Elem* __restrict__ ds_out,
-                      Elem* __restrict__ wd_out, float* __restrict__ dbias,
-                      float* __restrict__ dmask, Layout lq, Layout lkv,
-                      Layout ldo, Layout ldq, int H, int T, int S,
-                      uint32_t seed, uint32_t threshold, float inv_keep,
-                      int dropout) {
+fused_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ mask, Bias bias,
+                      const float* __restrict__ dout, float* __restrict__ dq,
+                      float* __restrict__ ds_out, float* __restrict__ wd_out,
+                      float* __restrict__ dbias, float* __restrict__ dmask,
+                      Layout lq, Layout lkv, Layout ldo, Layout ldq, int H,
+                      int T, int S, uint32_t seed, uint32_t threshold,
+                      float inv_keep, int dropout) {
+  using In = float;
+  using Elem = float;
   using DT = Dot<Elem>;
   constexpr int kStride = D + DT::kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -171,51 +171,92 @@ fused_bwd_rows_kernel(const In* __restrict__ q, const In* __restrict__ k,
   }
 }
 
-template <typename In, typename Elem, int D, bool kWriteBias>
-int launch(const void* q, const void* k, const void* v, const float* mask,
-           Bias bias, const void* dout, void* dq, void* dk, void* dv,
-           float* dbias, float* dmask, void* ds_scratch, void* wd_scratch,
-           const Layout* lay, int B, int H, int T, int S, uint32_t seed,
-           uint32_t threshold, float inv_keep, int dropout,
-           cudaStream_t stream) {
-  int device = 0, max_smem = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
-  const size_t bytes = rows_smem_bytes<Elem>(S, D);
-  if (bytes > (size_t)max_smem) return kErrSharedMemory;
-  const In* q_ = static_cast<const In*>(q);
-  const In* do_ = static_cast<const In*>(dout);
-  Elem* ds_ = static_cast<Elem*>(ds_scratch);
-  Elem* wd_ = static_cast<Elem*>(wd_scratch);
-
-  cudaFuncSetAttribute(fused_bwd_rows_kernel<In, Elem, D, kWriteBias>,
+// f32 dots: the CUDA-core rows kernel, then the cols kernel.
+template <int D, bool kWriteBias>
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* mask, Bias bias, const float* dout, float* dq,
+               float* dk, float* dv, float* dbias, float* dmask, float* ds,
+               float* wd, const Layout* lay, int B, int H, int T, int S,
+               uint32_t seed, uint32_t threshold, float inv_keep, int dropout,
+               cudaStream_t stream) {
+  const size_t bytes = rows_smem_bytes_f32(S, D);
+  if (bytes > (size_t)bwd_mma::max_smem()) return kErrSharedMemory;
+  cudaFuncSetAttribute(fused_bwd_rows_kernel<D, kWriteBias>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  fused_bwd_rows_kernel<In, Elem, D, kWriteBias>
+  fused_bwd_rows_kernel<D, kWriteBias>
       <<<dim3((T + kMaxTile - 1) / kMaxTile, H, B), kThreads, bytes,
-         stream>>>(q_, static_cast<const In*>(k), static_cast<const In*>(v),
-                   mask, bias, do_, static_cast<In*>(dq), ds_, wd_, dbias,
-                   dmask, lay[0], lay[1], lay[2], lay[3], H, T, S, seed,
-                   threshold, inv_keep, dropout);
+         stream>>>(q, k, v, mask, bias, dout, dq, ds, wd, dbias, dmask,
+                   lay[0], lay[1], lay[2], lay[3], H, T, S, seed, threshold,
+                   inv_keep, dropout);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_cols<In, Elem, D>(q_, do_, ds_, wd_, static_cast<In*>(dk),
-                                  static_cast<In*>(dv), lay[0], lay[2], lay[4],
-                                  B, H, T, S, stream);
+  return launch_cols_f32<D>(q, dout, ds, wd, dk, dv, lay[0], lay[2], lay[4],
+                            B, H, T, S, stream);
 }
 
-template <typename In, typename Elem, bool kWriteBias>
-int dispatch(int D, const void* q, const void* k, const void* v,
-             const float* mask, Bias bias, const void* dout, void* dq,
-             void* dk, void* dv, float* dbias, float* dmask, void* ds_scratch,
-             void* wd_scratch, const Layout* lay, int B, int H, int T, int S,
-             uint32_t seed, uint32_t threshold, float inv_keep, int dropout,
-             cudaStream_t st) {
+// bf16 dots: the tensor-core rows and cols kernels.
+template <typename In, int D, bool kWriteBias>
+int launch_mma(const void* q, const void* k, const void* v, const float* mask,
+               Bias bias, const void* dout, void* dq, void* dk, void* dv,
+               float* dbias, float* dmask, void* ds, void* wd, float* sc,
+               const Layout* lay, int B, int H, int T, int S, uint32_t seed,
+               uint32_t threshold, float inv_keep, int dropout,
+               cudaStream_t stream) {
+  bwd_mma::RowsArgs<In> a;
+  a.q = static_cast<const In*>(q);
+  a.k = static_cast<const In*>(k);
+  a.v = static_cast<const In*>(v);
+  a.dout = static_cast<const In*>(dout);
+  a.mask = mask;
+  a.bias = bias;
+  a.e = nullptr;
+  a.dq = static_cast<In*>(dq);
+  a.ds = static_cast<__nv_bfloat16*>(ds);
+  a.wd = static_cast<__nv_bfloat16*>(wd);
+  a.scores = sc;
+  a.dbias = dbias;
+  a.dmask = dmask;
+  a.dq_part = nullptr;
+  a.lq = lay[0];
+  a.lkv = lay[1];
+  a.ldo = lay[2];
+  a.ldq = lay[3];
+  a.B = B;
+  a.H = H;
+  a.T = T;
+  a.S = S;
+  a.Sp = bwd_mma::scratch_cols(S);
+  a.seed = seed;
+  a.threshold = threshold;
+  a.inv_keep = inv_keep;
+  a.dropout = dropout;
+  return bwd_mma::launch_rows_cols<In, D, false, kWriteBias>(
+      a, static_cast<In*>(dk), static_cast<In*>(dv), lay[4], stream);
+}
+
+template <bool kWriteBias>
+int dispatch(int D, int in_bf16, int bf16_dots, const void* q, const void* k,
+             const void* v, const float* mask, Bias bias, const void* dout,
+             void* dq, void* dk, void* dv, float* dbias, float* dmask,
+             void* ds, void* wd, float* sc, const Layout* lay, int B, int H,
+             int T, int S, uint32_t seed, uint32_t threshold, float inv_keep,
+             int dropout, cudaStream_t st) {
+#define FUSED_BWD_ARGS                                                        \
+  q, k, v, mask, bias, dout, dq, dk, dv, dbias, dmask, ds, wd, sc, lay, B, H, \
+      T, S, seed, threshold, inv_keep, dropout, st
 #define FUSED_BWD_CASE(DIM)                                                   \
   case DIM:                                                                   \
-    return launch<In, Elem, DIM, kWriteBias>(                                 \
-        q, k, v, mask, bias, dout, dq, dk, dv, dbias, dmask, ds_scratch,      \
-        wd_scratch, lay, B, H, T, S, seed, threshold, inv_keep, dropout, st);
+    if (!bf16_dots)                                                           \
+      return launch_f32<DIM, kWriteBias>(                                     \
+          static_cast<const float*>(q), static_cast<const float*>(k),         \
+          static_cast<const float*>(v), mask, bias,                           \
+          static_cast<const float*>(dout), static_cast<float*>(dq),           \
+          static_cast<float*>(dk), static_cast<float*>(dv), dbias, dmask,     \
+          static_cast<float*>(ds), static_cast<float*>(wd), lay, B, H, T, S,  \
+          seed, threshold, inv_keep, dropout, st);                            \
+    return in_bf16                                                            \
+               ? launch_mma<__nv_bfloat16, DIM, kWriteBias>(FUSED_BWD_ARGS)   \
+               : launch_mma<float, DIM, kWriteBias>(FUSED_BWD_ARGS);
   switch (D) {
     FUSED_BWD_CASE(8)
     FUSED_BWD_CASE(16)
@@ -225,23 +266,6 @@ int dispatch(int D, const void* q, const void* k, const void* v,
     default: return kErrHeadDim;
   }
 #undef FUSED_BWD_CASE
-}
-
-template <bool kWriteBias>
-int run(const void* q, const void* k, const void* v, const float* mask,
-        Bias bias, const void* dout, void* dq, void* dk, void* dv,
-        float* dbias, float* dmask, void* ds_scratch, void* wd_scratch,
-        const Layout* lay, int B, int H, int T, int S, int D, int in_bf16,
-        int bf16_dots, uint32_t seed, uint32_t threshold, float inv_keep,
-        int dropout, cudaStream_t st) {
-#define FUSED_BWD_ARGS                                                        \
-  D, q, k, v, mask, bias, dout, dq, dk, dv, dbias, dmask, ds_scratch,        \
-      wd_scratch, lay, B, H, T, S, seed, threshold, inv_keep, dropout, st
-  if (in_bf16 && !bf16_dots) return kErrDtype;
-  if (in_bf16)
-    return dispatch<__nv_bfloat16, __nv_bfloat16, kWriteBias>(FUSED_BWD_ARGS);
-  return bf16_dots ? dispatch<float, __nv_bfloat16, kWriteBias>(FUSED_BWD_ARGS)
-                   : dispatch<float, float, kWriteBias>(FUSED_BWD_ARGS);
 #undef FUSED_BWD_ARGS
 }
 
@@ -258,32 +282,38 @@ extern "C" {
 // score gradient to dbias (B*H, T, S), else (K6-bwd-nobias) writes none;
 // when dmask is not null adds the f32 score gradient summed over (b, h) into
 // dmask (T, S), which the caller zeroes. ds_scratch and wd_scratch each hold
-// B*H*T*S elements of the dot type. Returns 0 when launched, -1 for an
-// unsupported head dimension, -2 when the rows kernel does not fit in shared
-// memory, -3 for bf16 inputs with f32 dots, else the first cudaError_t of
-// the two launches.
+// B*H*T*Sp elements of the dot type, Sp = S rounded up to a multiple of 64,
+// wd_scratch right after ds_scratch; sc_scratch 2*B*H*T*Sp + 3*B*H*T floats
+// (bf16 dots only: the scores, the dropped do . v^T and the row
+// statistics). Returns 0 when
+// launched, -1 for an unsupported head dimension, -2 when a kernel does not
+// fit in shared memory, -3 for bf16 inputs with f32 dots, -4 when a bf16-dot
+// call gets rows that do not start on 16 bytes, -5 when wd_scratch does not
+// follow ds_scratch, else the first cudaError_t of the launches.
 int fused_attention_bwd(const void* q, const void* k, const void* v,
                         const float* mask, const float* bias,
                         const void* dout, void* dq, void* dk, void* dv,
                         float* dbias, float* dmask, void* ds_scratch,
-                        void* wd_scratch, const long long* strides, int B,
+                        void* wd_scratch, float* sc_scratch,
+                        const long long* strides, int B,
                         int H, int T, int S, int D, int in_bf16,
                         int bf16_dots, uint32_t seed, uint32_t threshold,
                         float inv_keep, int dropout, void* stream) {
   if (B == 0 || H == 0 || T == 0) return 0;
+  if (in_bf16 && !bf16_dots) return kErrDtype;
   Layout lay[5];
   for (int i = 0; i < 5; ++i)
     lay[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const Bias bv = {bias, strides[15], strides[16], strides[17]};
   cudaStream_t st = (cudaStream_t)stream;
-  return dbias ? run<true>(q, k, v, mask, bv, dout, dq, dk, dv, dbias, dmask,
-                           ds_scratch, wd_scratch, lay, B, H, T, S, D,
-                           in_bf16, bf16_dots, seed, threshold, inv_keep,
-                           dropout, st)
-               : run<false>(q, k, v, mask, bv, dout, dq, dk, dv, nullptr,
-                            dmask, ds_scratch, wd_scratch, lay, B, H, T, S, D,
-                            in_bf16, bf16_dots, seed, threshold, inv_keep,
-                            dropout, st);
+  return dbias ? dispatch<true>(D, in_bf16, bf16_dots, q, k, v, mask, bv,
+                                dout, dq, dk, dv, dbias, dmask, ds_scratch,
+                                wd_scratch, sc_scratch, lay, B, H, T, S, seed,
+                                threshold, inv_keep, dropout, st)
+               : dispatch<false>(D, in_bf16, bf16_dots, q, k, v, mask, bv,
+                                 dout, dq, dk, dv, nullptr, dmask, ds_scratch,
+                                 wd_scratch, sc_scratch, lay, B, H, T, S,
+                                 seed, threshold, inv_keep, dropout, st);
 }
 
 }  // extern "C"

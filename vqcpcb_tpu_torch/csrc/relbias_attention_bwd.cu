@@ -20,30 +20,28 @@
 // What bounds it on the H100: eight T x S x d products per (b, h) (scores,
 // bias, do.v^T, two for dq, dk, dv, dE) against q, k, v, do in and dq, dk,
 // dv out -- about 440 flops per bf16 byte at T = S = 384, d = 64, above the
-// card's ridge of about 295, so the bf16 tensor-core rate bounds it. This first
-// version runs the products on the CUDA cores (no wgmma, no TMA) and moves
-// ds and w_drop through device memory, so it sits well above that bound.
+// card's ridge of about 295, so the bf16 tensor-core rate bounds it (0.039
+// ms at B = 32, H = 8).
 //
-// Design: three kernels on one stream, no atomics but the optional dmask.
+// bf16 dots (every training call on the card): the tensor-core rows, cols
+// and table kernels of attention_bwd_mma.cuh, whose note gives the design
+// (dE in fixed-order partial sums over groups of the batch, no atomics).
+// f32 dots (the f32 rule, off the main path): the CUDA-core kernels below,
+// three on one stream, no atomics but the optional dmask:
 //  1. rows: one block of 8 warps per (b, h, tile of query rows) stages K, V
 //     and the table window as the forward does. Each warp takes one row:
 //     scores, q.E bias and do.v^T in one pass over the keys, the softmax,
 //     the regenerated dropout, the row term, ds; then dq from the row of ds
-//     held in shared memory. It writes ds and w_drop, rounded to the dot
-//     type, to (B, H, T, S) scratch.
+//     held in shared memory. It writes ds and w_drop to (B, H, T, S) f32
+//     scratch.
 //  2. cols (attention_bwd_cols.cuh): one block per (b, h, 32 key columns)
-//     walks the query rows in chunks of 64, staging q, do and the scratch
-//     columns, and owns the dk and dv rows of its columns in registers: no
-//     cross-block reduction.
+//     owns the dk and dv rows of its columns in registers.
 //  3. table: one block per (h, 32 rows of E) loops over the batch and the
 //     query rows that address its rows (a contiguous range of t for each
 //     row j of E), staging q and the band ds[t, j - shift(t)] of the
 //     scratch; dE for its rows is summed over the batch in registers.
-// K, V and the table window, the accumulation of dk/dv over all T rows and
-// dE over the batch do not fit one block's shared memory together at
-// S = 384 (the reason for the split); the scratch costs 2 * B*H*T*S dot-type
-// elements (75 MB each at B = 32, H = 8, T = S = 384 in bf16).
 #include "attention_bwd_cols.cuh"
+#include "attention_bwd_mma.cuh"
 
 namespace {
 
@@ -52,18 +50,21 @@ using namespace relbias;
 constexpr int kTableTile = 32;   // rows of E per table block
 static_assert(kTableTile == kColTile, "cols and table share the warp map");
 
-template <typename In, typename Elem, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-relbias_bwd_rows_kernel(const In* __restrict__ q, const In* __restrict__ k,
-                        const In* __restrict__ v,
+relbias_bwd_rows_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
                         const float* __restrict__ mask,
                         const float* __restrict__ e,
-                        const In* __restrict__ dout, In* __restrict__ dq,
-                        Elem* __restrict__ ds_out, Elem* __restrict__ wd_out,
+                        const float* __restrict__ dout, float* __restrict__ dq,
+                        float* __restrict__ ds_out, float* __restrict__ wd_out,
                         float* __restrict__ dmask, Layout lq, Layout lkv,
                         Layout ldo, Layout ldq, int B, int H, int T, int S,
                         int tile, uint32_t seed, uint32_t threshold,
                         float inv_keep, int dropout) {
+  using In = float;
+  using Elem = float;
   using DT = Dot<Elem>;
   constexpr int kStride = D + DT::kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -182,11 +183,13 @@ relbias_bwd_rows_kernel(const In* __restrict__ q, const In* __restrict__ k,
   }
 }
 
-template <typename In, typename Elem, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-relbias_bwd_table_kernel(const In* __restrict__ q, const Elem* __restrict__ ds,
-                         float* __restrict__ de, Layout lq, int B, int H,
-                         int T, int S) {
+relbias_bwd_table_kernel(const float* __restrict__ q,
+                         const float* __restrict__ ds, float* __restrict__ de,
+                         Layout lq, int B, int H, int T, int S) {
+  using In = float;
+  using Elem = float;
   using DT = Dot<Elem>;
   constexpr int kPairs = (D / 2 + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -250,58 +253,107 @@ relbias_bwd_table_kernel(const In* __restrict__ q, const Elem* __restrict__ ds,
   }
 }
 
-template <typename In, typename Elem, int D>
-int launch(const void* q, const void* k, const void* v, const float* mask,
-           const float* e, const void* dout, void* dq, void* dk, void* dv,
-           float* dmask, float* de, void* ds_scratch, void* wd_scratch,
-           const Layout* lay, int B, int H, int T, int S, uint32_t seed,
-           uint32_t threshold, float inv_keep, int dropout,
-           cudaStream_t stream) {
+// f32 dots: the CUDA-core rows, cols and table kernels.
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* mask, const float* e, const float* dout,
+               float* dq, float* dk, float* dv, float* dmask, float* de,
+               float* ds, float* wd, const Layout* lay, int B, int H, int T,
+               int S, uint32_t seed, uint32_t threshold, float inv_keep,
+               int dropout, cudaStream_t stream) {
   size_t bytes = 0;
-  const int tile = pick_tile<Elem>(S, D, T / S, 2, 1, &bytes);
+  const int tile = pick_tile<float>(S, D, T / S, 2, 1, &bytes);
   if (!tile) return kErrSharedMemory;
-  const In* q_ = static_cast<const In*>(q);
-  const In* do_ = static_cast<const In*>(dout);
-  Elem* ds_ = static_cast<Elem*>(ds_scratch);
-  Elem* wd_ = static_cast<Elem*>(wd_scratch);
-
-  cudaFuncSetAttribute(relbias_bwd_rows_kernel<In, Elem, D>,
+  cudaFuncSetAttribute(relbias_bwd_rows_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  relbias_bwd_rows_kernel<In, Elem, D>
+  relbias_bwd_rows_kernel<D>
       <<<dim3((T + tile - 1) / tile, H, B), kThreads, bytes, stream>>>(
-          q_, static_cast<const In*>(k), static_cast<const In*>(v), mask, e,
-          do_, static_cast<In*>(dq), ds_, wd_, dmask, lay[0], lay[1], lay[2],
+          q, k, v, mask, e, dout, dq, ds, wd, dmask, lay[0], lay[1], lay[2],
           lay[3], B, H, T, S, tile, seed, threshold, inv_keep, dropout);
   int err = (int)cudaGetLastError();
   if (err) return err;
 
-  err = launch_cols<In, Elem, D>(q_, do_, ds_, wd_, static_cast<In*>(dk),
-                                 static_cast<In*>(dv), lay[0], lay[2], lay[4],
-                                 B, H, T, S, stream);
+  err = launch_cols_f32<D>(q, dout, ds, wd, dk, dv, lay[0], lay[2], lay[4], B,
+                           H, T, S, stream);
   if (err) return err;
 
-  const int table_bytes = (int)(sizeof(Elem) * kRowChunk * (D + kTableTile));
-  cudaFuncSetAttribute(relbias_bwd_table_kernel<In, Elem, D>,
+  const int table_bytes = (int)(sizeof(float) * kRowChunk * (D + kTableTile));
+  cudaFuncSetAttribute(relbias_bwd_table_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        table_bytes);
-  relbias_bwd_table_kernel<In, Elem, D>
+  relbias_bwd_table_kernel<D>
       <<<dim3((2 * S - 1 + kTableTile - 1) / kTableTile, H), kThreads,
-         table_bytes, stream>>>(q_, ds_, de, lay[0], B, H, T, S);
+         table_bytes, stream>>>(q, ds, de, lay[0], B, H, T, S);
   return (int)cudaGetLastError();
 }
 
-template <typename In, typename Elem>
-int dispatch(int D, const void* q, const void* k, const void* v,
-             const float* mask, const float* e, const void* dout, void* dq,
-             void* dk, void* dv, float* dmask, float* de, void* ds_scratch,
-             void* wd_scratch, const Layout* lay, int B, int H, int T, int S,
-             uint32_t seed, uint32_t threshold, float inv_keep, int dropout,
+// bf16 dots: the tensor-core rows and cols kernels, then dq's table part,
+// the table kernel and the sum of its partial tables. de_partial holds the
+// table kernel's per-group sums, then dq's f32 ds . k part.
+template <typename In, int D>
+int launch_mma(const void* q, const void* k, const void* v, const float* mask,
+               const void* e, const void* dout, void* dq, void* dk, void* dv,
+               float* dmask, float* de, float* de_partial, void* ds, void* wd,
+               float* sc, const Layout* lay, int B, int H, int T, int S,
+               uint32_t seed, uint32_t threshold, float inv_keep, int dropout,
+               cudaStream_t stream) {
+  bwd_mma::RowsArgs<In> a;
+  a.q = static_cast<const In*>(q);
+  a.k = static_cast<const In*>(k);
+  a.v = static_cast<const In*>(v);
+  a.dout = static_cast<const In*>(dout);
+  a.mask = mask;
+  a.bias = {nullptr, 0, 0, 0};
+  a.e = static_cast<const __nv_bfloat16*>(e);
+  a.dq = static_cast<In*>(dq);
+  a.ds = static_cast<__nv_bfloat16*>(ds);
+  a.wd = static_cast<__nv_bfloat16*>(wd);
+  a.scores = sc;
+  a.dbias = nullptr;
+  a.dmask = dmask;
+  a.dq_part = de_partial +
+              (long long)bwd_mma::table_groups(B) * H * (2 * S - 1) * D;
+  a.lq = lay[0];
+  a.lkv = lay[1];
+  a.ldo = lay[2];
+  a.ldq = lay[3];
+  a.B = B;
+  a.H = H;
+  a.T = T;
+  a.S = S;
+  a.Sp = bwd_mma::scratch_cols(S);
+  a.seed = seed;
+  a.threshold = threshold;
+  a.inv_keep = inv_keep;
+  a.dropout = dropout;
+  const int err = bwd_mma::launch_rows_cols<In, D, true, false>(
+      a, static_cast<In*>(dk), static_cast<In*>(dv), lay[4], stream);
+  if (err) return err;
+  return bwd_mma::launch_relbias<In, D>(a, de_partial, de, stream);
+}
+
+int dispatch(int D, int in_bf16, int bf16_dots, const void* q, const void* k,
+             const void* v, const float* mask, const void* e,
+             const void* dout, void* dq, void* dk, void* dv, float* dmask,
+             float* de, float* de_partial, void* ds, void* wd, float* sc,
+             const Layout* lay, int B, int H, int T, int S, uint32_t seed,
+             uint32_t threshold, float inv_keep, int dropout,
              cudaStream_t st) {
+#define RELBIAS_BWD_ARGS                                                      \
+  q, k, v, mask, e, dout, dq, dk, dv, dmask, de, de_partial, ds, wd, sc, lay, \
+      B, H, T, S, seed, threshold, inv_keep, dropout, st
 #define RELBIAS_BWD_CASE(DIM)                                                 \
   case DIM:                                                                   \
-    return launch<In, Elem, DIM>(q, k, v, mask, e, dout, dq, dk, dv, dmask,  \
-                                 de, ds_scratch, wd_scratch, lay, B, H, T, S, \
-                                 seed, threshold, inv_keep, dropout, st);
+    if (!bf16_dots)                                                           \
+      return launch_f32<DIM>(                                                 \
+          static_cast<const float*>(q), static_cast<const float*>(k),         \
+          static_cast<const float*>(v), mask, static_cast<const float*>(e),   \
+          static_cast<const float*>(dout), static_cast<float*>(dq),           \
+          static_cast<float*>(dk), static_cast<float*>(dv), dmask, de,        \
+          static_cast<float*>(ds), static_cast<float*>(wd), lay, B, H, T, S,  \
+          seed, threshold, inv_keep, dropout, st);                            \
+    return in_bf16 ? launch_mma<__nv_bfloat16, DIM>(RELBIAS_BWD_ARGS)         \
+                   : launch_mma<float, DIM>(RELBIAS_BWD_ARGS);
   switch (D) {
     RELBIAS_BWD_CASE(8)
     RELBIAS_BWD_CASE(16)
@@ -311,6 +363,7 @@ int dispatch(int D, const void* q, const void* k, const void* v,
     default: return kErrHeadDim;
   }
 #undef RELBIAS_BWD_CASE
+#undef RELBIAS_BWD_ARGS
 }
 
 }  // namespace
@@ -319,42 +372,40 @@ extern "C" {
 
 // The forward's inputs (q, k, v views, mask, the combined table e, the same
 // seed, threshold and keep scale) plus dout, a (B, H, T, D) view of the
-// output's gradient. Writes dq (a (B, H, T, D) view) and dk, dv ((B, H, S, D)
-// views sharing one set of strides) in the input type, de (H, 2S-1, D) f32
-// (summed over the batch), and, when dmask is not null, adds the f32 score
-// gradient summed over (b, h) into dmask (T, S), which the caller zeroes.
-// ds_scratch and wd_scratch each hold B*H*T*S elements of the dot type.
-// `strides` holds 15 element strides (batch, head, row) for q, k/v, dout, dq
-// and dk/dv. Returns 0 when launched, -1 for an unsupported head dimension,
-// -2 when the rows kernel does not fit in shared memory, -3 for bf16 inputs
-// with f32 dots, else the first cudaError_t of the three launches.
+// output's gradient. e is (H, 2S-1, D) in the dot type. Writes dq (a
+// (B, H, T, D) view) and dk, dv ((B, H, S, D) views sharing one set of
+// strides) in the input type, de (H, 2S-1, D) f32 (summed over the batch),
+// and, when dmask is not null, adds the f32 score gradient summed over
+// (b, h) into dmask (T, S), which the caller zeroes. ds_scratch and
+// wd_scratch each hold B*H*T*Sp elements of the dot type, Sp = S rounded
+// up to a multiple of 64, wd_scratch right after ds_scratch; de_partial
+// holds min(B, 8)*H*(2S-1)*D + B*H*T*D floats and sc_scratch 2*B*H*T*Sp +
+// 3*B*H*T floats (bf16 dots only: the table kernel's per-group sums and
+// dq's ds . k part; the scores, the dropped do . v^T and the row
+// statistics). `strides` holds 15 element strides (batch, head, row) for
+// q, k/v, dout, dq and dk/dv. Returns 0 when launched, -1 for an
+// unsupported head dimension, -2 when a kernel does not fit in shared
+// memory, -3 for bf16 inputs with f32 dots, -4 when a bf16-dot call gets
+// rows that do not start on 16 bytes, -5 when wd_scratch does not follow
+// ds_scratch, else the first cudaError_t of the launches.
 int relbias_attention_bwd(const void* q, const void* k, const void* v,
-                          const float* mask, const float* e, const void* dout,
+                          const float* mask, const void* e, const void* dout,
                           void* dq, void* dk, void* dv, float* dmask,
-                          float* de, void* ds_scratch, void* wd_scratch,
-                          const long long* strides, int B, int H, int T, int S,
-                          int D, int in_bf16, int bf16_dots, uint32_t seed,
-                          uint32_t threshold, float inv_keep, int dropout,
-                          void* stream) {
+                          float* de, float* de_partial, void* ds_scratch,
+                          void* wd_scratch, float* sc_scratch,
+                          const long long* strides, int B,
+                          int H, int T, int S, int D, int in_bf16,
+                          int bf16_dots, uint32_t seed, uint32_t threshold,
+                          float inv_keep, int dropout, void* stream) {
   if (B == 0 || H == 0 || T == 0) return 0;
+  if (in_bf16 && !bf16_dots) return kErrDtype;
   Layout lay[5];
   for (int i = 0; i < 5; ++i)
     lay[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (in_bf16 && !bf16_dots) return kErrDtype;
-  if (in_bf16)
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(
-        D, q, k, v, mask, e, dout, dq, dk, dv, dmask, de, ds_scratch,
-        wd_scratch, lay, B, H, T, S, seed, threshold, inv_keep, dropout, st);
-  return bf16_dots
-             ? dispatch<float, __nv_bfloat16>(
-                   D, q, k, v, mask, e, dout, dq, dk, dv, dmask, de,
-                   ds_scratch, wd_scratch, lay, B, H, T, S, seed, threshold,
-                   inv_keep, dropout, st)
-             : dispatch<float, float>(D, q, k, v, mask, e, dout, dq, dk, dv,
-                                      dmask, de, ds_scratch, wd_scratch, lay,
-                                      B, H, T, S, seed, threshold, inv_keep,
-                                      dropout, st);
+  return dispatch(D, in_bf16, bf16_dots, q, k, v, mask, e, dout, dq, dk, dv,
+                  dmask, de, de_partial, ds_scratch, wd_scratch, sc_scratch,
+                  lay, B, H, T, S, seed, threshold, inv_keep, dropout,
+                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

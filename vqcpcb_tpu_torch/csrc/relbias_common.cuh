@@ -16,7 +16,13 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxTile = 64;
 
-enum : int { kErrHeadDim = -1, kErrSharedMemory = -2, kErrDtype = -3 };
+enum : int {
+  kErrHeadDim = -1,
+  kErrSharedMemory = -2,
+  kErrDtype = -3,
+  kErrAlign = -4,
+  kErrScratch = -5
+};
 
 // Dot type: the type q, k, v, E (and in the backward do, ds, dc, w) are
 // rounded to before a product. Staged operands live in shared memory in it.

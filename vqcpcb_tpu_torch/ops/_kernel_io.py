@@ -24,7 +24,51 @@ MASK32 = 0xFFFFFFFF
 ERRORS = {-1: "head dim must be one of 8, 16, 32, 64, 128",
           -2: "K and V (and the bias table) do not fit in shared memory "
               "at this source length and dot dtype",
-          -3: "bf16 inputs need bf16 dots"}
+          -3: "bf16 inputs need bf16 dots",
+          -4: "the bf16-dot backward reads rows that start on 16 bytes: "
+              "strides must be multiples of 16 bytes",
+          -5: "the backward's w_drop scratch must follow its ds scratch"}
+
+# The bf16-dot backward kernels (csrc/attention_bwd_mma.cuh) keep ds and
+# w_drop in (B, H, T, Sp) scratch rows of whole 64-key blocks, and sum the
+# relative-bias table gradient over at most TABLE_GROUPS groups of the batch.
+KEY_BLOCK = 64
+TABLE_GROUPS = 8
+
+
+def scratch_cols(s: int) -> int:
+    """Sp: the source length rounded up to whole key blocks."""
+    return -(-s // KEY_BLOCK) * KEY_BLOCK
+
+
+def bwd_scratch(b, h, t, s, dot_dtype, device):
+    """The scratch of one backward call: ds and w_drop, B*H*T*Sp elements of
+    the dot type each, w_drop right after ds in one allocation (the
+    bf16-dot kernels first keep B*H*T*Sp f32 products dw * w there); and
+    with bf16 dots the f32 scores and dropped do . v^T, B*H*T*Sp each, plus
+    three B*H*T row statistics, else None."""
+    n = b * h * t * scratch_cols(s)
+    ds_wd = torch.empty(2 * n, dtype=dot_dtype, device=device)
+    scores = (torch.empty(2 * n + 3 * b * h * t, dtype=torch.float32, device=device)
+              if dot_dtype == torch.bfloat16 else None)
+    return ds_wd[:n], ds_wd[n:], scores
+
+
+def scratch_planes(x: torch.Tensor, b, h, t, s) -> torch.Tensor:
+    """The (B, H, T, S) values of a ds or w_drop scratch of (B, H, T, Sp) rows."""
+    return x.view(b, h, t, scratch_cols(s))[..., :s]
+
+
+def score_grads_plain(w, dod, vd, keep, inv):
+    """The backward's f32 dropped weights w_drop and score gradient
+    ds = w * (dw - sum_s dw * w), dw = keep * (do . v^T) * inv, from the f32
+    softmax w and do, v already rounded to the dot type."""
+    dw = torch.einsum("bhtd,bhsd->bhts", dod, vd)
+    w_drop = w
+    if keep is not None:
+        w_drop = torch.where(keep, w * inv, 0.0)
+        dw = torch.where(keep, dw * inv, 0.0)
+    return w_drop, w * (dw - (dw * w).sum(-1, keepdim=True))
 
 
 # ---- layouts ----------------------------------------------------------------

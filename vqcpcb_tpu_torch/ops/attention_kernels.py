@@ -20,7 +20,9 @@ bit the JAX mask, regenerated by the backward.
 
 Each wrapper routes by device: a CPU tensor takes the plain PyTorch version,
 a CUDA tensor launches csrc/relbias_attention.cu (forward) or
-csrc/relbias_attention_bwd.cu (backward, three kernels) or raises. Both
+csrc/relbias_attention_bwd.cu (backward: with bf16 dots the tensor-core
+rows, cols, table and table-sum kernels of csrc/attention_bwd_mma.cuh, with
+f32 dots three CUDA-core kernels) or raises. Both
 round q, k, v, E (and do) to `dot_dtype` before the products with f32
 accumulation, keep the softmax in f32, and return the input dtype.
 `RelbiasAttention` is the autograd Function pairing the two.
@@ -32,11 +34,12 @@ from typing import Optional, Tuple
 import torch
 
 from vqcpcb_tpu_torch.ops._kernel_io import (
-    MASK32, check_inputs, dropout_threshold, empty_like_layout, finite_mask,
-    heads, kernel_args, raise_status, strides, typed, unheads)
+    MASK32, TABLE_GROUPS, bwd_scratch, check_inputs, dropout_threshold,
+    empty_like_layout, finite_mask, heads, kernel_args, raise_status,
+    score_grads_plain, strides, typed, unheads)
 
 # Launches since the last reset: forward kernel calls, and backward wrapper
-# calls (each launches the three backward kernels).
+# calls (each launches the backward's kernels in turn).
 launches = 0
 bwd_launches = 0
 
@@ -147,6 +150,21 @@ def relbias_attention_fwd_plain(q, k, v, mask, e1, e2,
     return unheads(out.to(q.dtype), num_heads)
 
 
+def relbias_attention_bwd_weights_plain(q, k, v, mask, e1, e2, dout,
+                                        dot_dtype=torch.bfloat16, *,
+                                        num_heads: Optional[int] = None,
+                                        dropout: float = 0.0, seed: int = 0):
+    """The f32 (B, H, T, S) dropped weights w_drop and score gradient ds of
+    relbias_attention_bwd_plain, which the bf16-dot kernels round to bf16
+    into their scratch before dv and dq, dk, dE."""
+    q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
+    b, h, t, _ = q4.shape
+    rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
+    w, _ = _plain_weights(rd(q4), rd(k4), mask, rd(combined_table(e1, e2)))
+    keep, inv = _plain_keep(b, h, t, k4.shape[2], dropout, seed, q.device)
+    return score_grads_plain(w, rd(do4), rd(v4), keep, inv)
+
+
 def relbias_attention_bwd_plain(q, k, v, mask, e1, e2, dout,
                                 dot_dtype=torch.bfloat16, *,
                                 num_heads: Optional[int] = None,
@@ -157,21 +175,17 @@ def relbias_attention_bwd_plain(q, k, v, mask, e1, e2, dout,
     Returns (dq, dk, dv, dmask, de1, de2): dq, dk, dv in the inputs' layout
     and dtype, dmask (T, S) f32 summed over (b, h) or None, de1 and de2
     (H, S, d) summed over the batch, in q's dtype."""
-    q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
+    q4, k4, do4 = (heads(x, num_heads) for x in (q, k, dout))
     b, h, t, d = q4.shape
     s = k4.shape[2]
     rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
-    qd, kd, vd, dod = rd(q4), rd(k4), rd(v4), rd(do4)
+    qd, kd, dod = rd(q4), rd(k4), rd(do4)
     table = rd(combined_table(e1, e2))
-    w, cols = _plain_weights(qd, kd, mask, table)
-    keep, inv = _plain_keep(b, h, t, s, dropout, seed, q.device)
-    dw = torch.einsum("bhtd,bhsd->bhts", dod, vd)
-    w_drop = w
-    if keep is not None:
-        w_drop = torch.where(keep, w * inv, 0.0)
-        dw = torch.where(keep, dw * inv, 0.0)
+    cols = _bias_columns(t, s, q.device).expand(b, h, t, s)
+    w_drop, ds = relbias_attention_bwd_weights_plain(
+        q, k, v, mask, e1, e2, dout, dot_dtype, num_heads=num_heads,
+        dropout=dropout, seed=seed)
     dv = torch.einsum("bhts,bhtd->bhsd", rd(w_drop), dod)
-    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
     ds_d = rd(ds)
     dc = torch.zeros((b, h, t, 2 * s - 1), dtype=ds_d.dtype, device=ds_d.device)
     dc.scatter_(3, cols, ds_d)                               # dc[t, s + shift(t)]
@@ -233,9 +247,12 @@ def relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, dout,
                                dot_dtype=torch.bfloat16, *,
                                num_heads: Optional[int] = None,
                                dropout: float = 0.0, seed: int = 0,
-                               need_dmask: bool = True):
+                               need_dmask: bool = True, scratch=None):
     """Launch csrc/relbias_attention_bwd.cu; returns what
-    relbias_attention_bwd_plain returns."""
+    relbias_attention_bwd_plain returns. `scratch` is bwd_scratch's triple
+    for these shapes, or None to allocate one; with bf16 dots its ds and
+    w_drop hold the bf16 values of relbias_attention_bwd_weights_plain's
+    results afterwards."""
     global bwd_launches
     q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
     _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype, extra=(("dout", do4),))
@@ -244,22 +261,29 @@ def relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, dout,
     if do4.shape != q4.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match q {tuple(q.shape)}")
     mask = finite_mask(mask, t, s, q.device).contiguous()
-    table = combined_table(e1, e2).float().contiguous()
+    # in the dot type: the bf16-dot kernels stage it as it is
+    table = combined_table(e1, e2).to(dot_dtype).contiguous()
     dq, dq4 = empty_like_layout(q, num_heads)
     dk, dk4 = empty_like_layout(k, num_heads)
     dv = torch.empty_like(dk)
     dmask = (torch.zeros((t, s), dtype=torch.float32, device=q.device)
              if need_dmask else None)
     de = torch.empty((h, 2 * s - 1, d), dtype=torch.float32, device=q.device)
-    ds_scratch = torch.empty(b * h * t * s, dtype=dot_dtype, device=q.device)
-    wd_scratch = torch.empty_like(ds_scratch)
+    # with bf16 dots: the table kernel's per-group sums, then dq's f32 ds.k part
+    de_partial = (torch.empty(min(b, TABLE_GROUPS) * de.numel() + b * h * t * d,
+                              dtype=torch.float32, device=q.device)
+                  if dot_dtype == torch.bfloat16 else de)
+    if scratch is None:
+        scratch = bwd_scratch(b, h, t, s, dot_dtype, q.device)
+    ds_scratch, wd_scratch, sc_scratch = scratch
     in_bf16, bf16_dots, threshold, inv, drop = kernel_args(q4, dot_dtype, dropout)
-    lib = typed("relbias_attention_bwd", "relbias_attention_bwd", 13)
+    lib = typed("relbias_attention_bwd", "relbias_attention_bwd", 15)
     status = lib.relbias_attention_bwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask.data_ptr(),
         table.data_ptr(), do4.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), 0 if dmask is None else dmask.data_ptr(),
-        de.data_ptr(), ds_scratch.data_ptr(), wd_scratch.data_ptr(),
+        de.data_ptr(), de_partial.data_ptr(), ds_scratch.data_ptr(),
+        wd_scratch.data_ptr(), 0 if sc_scratch is None else sc_scratch.data_ptr(),
         strides(q4, k4, do4, dq4, dk4), b, h, t, s, d, in_bf16, bf16_dots,
         int(seed) & MASK32, threshold, inv, drop,
         torch.cuda.current_stream(q.device).cuda_stream)

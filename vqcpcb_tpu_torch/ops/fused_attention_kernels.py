@@ -29,7 +29,8 @@ seed + h*B + b.
 Each wrapper routes by device: a CPU tensor takes the plain PyTorch version,
 a CUDA tensor launches csrc/fused_attention.cu (K4 and K6-fwd) or
 csrc/fused_attention_bwd.cu (K6-bwd with a real bias, K6-bwd-nobias
-otherwise) or raises. `FusedAttentionTrain` is the autograd Function pairing
+otherwise: tensor-core kernels with bf16 dots, CUDA-core ones with f32
+dots) or raises. `FusedAttentionTrain` is the autograd Function pairing
 the K6 forward and backward.
 """
 from __future__ import annotations
@@ -39,8 +40,8 @@ from typing import Optional
 import torch
 
 from vqcpcb_tpu_torch.ops._kernel_io import (
-    MASK32, check_inputs, empty_like_layout, finite_mask, heads, kernel_args,
-    raise_status, strides, typed, unheads)
+    MASK32, bwd_scratch, check_inputs, empty_like_layout, finite_mask, heads,
+    kernel_args, raise_status, score_grads_plain, strides, typed, unheads)
 from vqcpcb_tpu_torch.ops.attention_kernels import dropout_keep_plain
 
 # Launches since the last reset: K4; K6's forward; K6's backward with a real
@@ -109,6 +110,21 @@ def fused_attention_plain(q, k, v, mask, bias=None) -> torch.Tensor:
     return fused_attention_train_fwd_plain(q, k, v, mask, bias, torch.float32)
 
 
+def fused_attention_train_bwd_weights_plain(q, k, v, mask, bias, dout,
+                                            dot_dtype=torch.bfloat16, *,
+                                            num_heads: Optional[int] = None,
+                                            dropout: float = 0.0, seed: int = 0):
+    """The f32 (B, H, T, S) dropped weights w_drop and score gradient ds of
+    fused_attention_train_bwd_plain, which the bf16-dot kernels round to
+    bf16 into their scratch before dv and dq, dk."""
+    q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
+    b, h, t, _ = q4.shape
+    rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
+    w = _plain_weights(rd(q4), rd(k4), mask, bias)
+    keep, inv = _plain_keep(b, h, t, k4.shape[2], dropout, seed, q.device)
+    return score_grads_plain(w, rd(do4), rd(v4), keep, inv)
+
+
 def fused_attention_train_bwd_plain(q, k, v, mask, bias, dout,
                                     dot_dtype=torch.bfloat16, *,
                                     num_heads: Optional[int] = None,
@@ -119,20 +135,15 @@ def fused_attention_train_bwd_plain(q, k, v, mask, bias, dout,
     in the inputs' layout and dtype; dmask (T, S) f32 summed over (b, h), or
     None; dbias the f32 (B*H, T, S) score gradient for a real bias, None for
     the placeholder."""
-    q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
+    q4, k4, do4 = (heads(x, num_heads) for x in (q, k, dout))
     b, h, t, _ = q4.shape
     s = k4.shape[2]
     rd = lambda x: x.to(dot_dtype).float()                 # noqa: E731
-    qd, kd, vd, dod = rd(q4), rd(k4), rd(v4), rd(do4)
-    w = _plain_weights(qd, kd, mask, bias)
-    keep, inv = _plain_keep(b, h, t, s, dropout, seed, q.device)
-    dw = torch.einsum("bhtd,bhsd->bhts", dod, vd)
-    w_drop = w
-    if keep is not None:
-        w_drop = torch.where(keep, w * inv, 0.0)
-        dw = torch.where(keep, dw * inv, 0.0)
+    qd, kd, dod = rd(q4), rd(k4), rd(do4)
+    w_drop, ds = fused_attention_train_bwd_weights_plain(
+        q, k, v, mask, bias, dout, dot_dtype, num_heads=num_heads,
+        dropout=dropout, seed=seed)
     dv = torch.einsum("bhts,bhtd->bhsd", rd(w_drop), dod)
-    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
     ds_d = rd(ds)
     dq = torch.einsum("bhts,bhsd->bhtd", ds_d, kd)
     dk = torch.einsum("bhts,bhtd->bhsd", ds_d, qd)
@@ -208,9 +219,12 @@ def fused_attention_train_bwd_cuda(q, k, v, mask, bias, dout,
                                    dot_dtype=torch.bfloat16, *,
                                    num_heads: Optional[int] = None,
                                    dropout: float = 0.0, seed: int = 0,
-                                   need_dmask: bool = True):
+                                   need_dmask: bool = True, scratch=None):
     """K6's backward: launch csrc/fused_attention_bwd.cu; returns what
-    fused_attention_train_bwd_plain returns."""
+    fused_attention_train_bwd_plain returns. `scratch` is bwd_scratch's
+    triple for these shapes, or None to allocate one; with bf16 dots its ds
+    and w_drop hold the bf16 values of
+    fused_attention_train_bwd_weights_plain's results afterwards."""
     global train_bwd_launches, train_bwd_nobias_launches
     q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
     bias3 = _check_cuda(q4, k4, v4, mask, bias, dot_dtype, extra=(("dout", do4),))
@@ -227,17 +241,19 @@ def fused_attention_train_bwd_cuda(q, k, v, mask, bias, dout,
              if need_dmask else None)
     dbias = (torch.empty((b * h, t, s), dtype=torch.float32, device=q.device)
              if real else None)
-    ds_scratch = torch.empty(b * h * t * s, dtype=dot_dtype, device=q.device)
-    wd_scratch = torch.empty_like(ds_scratch)
+    if scratch is None:
+        scratch = bwd_scratch(b, h, t, s, dot_dtype, q.device)
+    ds_scratch, wd_scratch, sc_scratch = scratch
     in_bf16, bf16_dots, threshold, inv, drop = kernel_args(q4, dot_dtype, dropout)
-    lib = typed("fused_attention_bwd", "fused_attention_bwd", 13)
+    lib = typed("fused_attention_bwd", "fused_attention_bwd", 14)
     status = lib.fused_attention_bwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask.data_ptr(),
         0 if bias3 is None else bias3.data_ptr(), do4.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         0 if dbias is None else dbias.data_ptr(),
         0 if dmask is None else dmask.data_ptr(), ds_scratch.data_ptr(),
-        wd_scratch.data_ptr(), strides(q4, k4, do4, dq4, dk4, bias3),
+        wd_scratch.data_ptr(), 0 if sc_scratch is None else sc_scratch.data_ptr(),
+        strides(q4, k4, do4, dq4, dk4, bias3),
         b, h, t, s, d, in_bf16, bf16_dots, int(seed) & MASK32, threshold,
         inv, drop, torch.cuda.current_stream(q.device).cuda_stream)
     raise_status(status, "fused_attention_bwd", q4, s, dot_dtype)

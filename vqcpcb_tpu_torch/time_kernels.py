@@ -1,0 +1,173 @@
+"""Time attention kernels of one checkout on one CUDA card.
+
+    python3 vqcpcb_tpu_torch/time_kernels.py [--root DIR] [--label NAME]
+                                             [--kernels NAME,NAME,...] [--profile]
+
+DIR is the root of the checkout whose vqcpcb_tpu_torch package is timed
+(default: the one holding this file); its kernels are built there, into
+DIR/build/kernels/. The inputs are the same in every process (from a seeded
+generator; H = 8, d = 64, bf16 dots). The kernels (default: all):
+
+  K3-fwd          the relative-bias forward at the serving prefill's shape:
+                  f32 q, k, v and tables, B = 512, T = S = 384, causal mask
+  K3-fwd-encoder  the same at the code encoder's T = S = 24, anticausal mask
+  K2-bwd          the relative-bias backward at the training shape: bf16
+                  q, k, v, dout packed (B, L, H*d), B = 32, T = S = 384,
+                  causal mask, dropout 0.2
+  K3-bwd          K2-bwd on (B, H, L, d) views
+  K6-bwd-nobias   the fused backward without a bias, as K2-bwd
+  K6-bwd          the fused backward with a real (B*H, T, S) bias
+
+Prints one JSON line: for each kernel the ms per call from CUDA events over
+its repetitions, and the sum and sum of squares of its first output (equal
+across checkouts whose kernels agree bit for bit); and the ptxas registers
+and spills of the head-dim-64 kernels of the libraries used. With
+--profile, also each kernel's launches by name: device ms per call summed by
+torch.profiler over the repetitions. To compare two checkouts, run one
+process per checkout, all in one command on one card, in the order A, B,
+B, A.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+FWD = ("K3-fwd", "K3-fwd-encoder")
+BWD = ("K2-bwd", "K3-bwd", "K6-bwd-nobias", "K6-bwd")
+LIBRARIES = {"K3-fwd": "relbias_attention", "K3-fwd-encoder": "relbias_attention",
+             "K2-bwd": "relbias_attention_bwd", "K3-bwd": "relbias_attention_bwd",
+             "K6-bwd-nobias": "fused_attention_bwd", "K6-bwd": "fused_attention_bwd"}
+
+
+def forward_calls(torch, ak, masks):
+    """(name, repetitions, call) of the relative-bias forward, serving shapes."""
+    b, h, d = 512, 8, 64
+    for name, t in (("K3-fwd", 384), ("K3-fwd-encoder", 24)):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+        q = rnd(b, h, t, d) * d ** -0.5
+        k, v = rnd(b, h, t, d), rnd(b, h, t, d)
+        e1, e2 = rnd(h, t, d), rnd(h, t, d)
+        mask = (masks.causal_mask(t, device="cuda") if t == 384
+                else masks.anticausal_mask(t, device="cuda"))
+        yield name, 10, (lambda q=q, k=k, v=v, mask=mask, e1=e1, e2=e2:
+                         ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2))
+
+
+def backward_calls(torch, ak, fk, masks):
+    """(name, repetitions, call) of the attention backward, training shape."""
+    b, h, t, d = 32, 8, 384, 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    q = (rnd(b, t, h * d) * d ** -0.5).to(torch.bfloat16)
+    k, v, g = (rnd(b, t, h * d).to(torch.bfloat16) for _ in range(3))
+    e1, e2 = rnd(h, t, d), rnd(h, t, d)
+    bias = rnd(b * h, t, t)
+    mask = masks.causal_mask(t, device="cuda")
+    kw = dict(num_heads=h, dropout=0.2, seed=3, need_dmask=False)
+    q4, k4, v4, g4 = (x.unflatten(-1, (h, d)).transpose(1, 2).contiguous()
+                      for x in (q, k, v, g))
+    kw4 = dict(kw, num_heads=None)
+    yield "K2-bwd", 20, lambda: ak.relbias_attention_bwd_cuda(
+        q, k, v, mask, e1, e2, g, **kw)
+    yield "K3-bwd", 20, lambda: ak.relbias_attention_bwd_cuda(
+        q4, k4, v4, mask, e1, e2, g4, **kw4)
+    yield "K6-bwd-nobias", 20, lambda: fk.fused_attention_train_bwd_cuda(
+        q, k, v, mask, None, g, **kw)
+    yield "K6-bwd", 20, lambda: fk.fused_attention_train_bwd_cuda(
+        q, k, v, mask, bias, g, **kw)
+
+
+def time_call(torch, call, reps):
+    """(ms per call by CUDA events after two warm-up calls, first output)."""
+    out = call()
+    out = out[0] if isinstance(out, tuple) else out
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, out
+
+
+def launch_ms(torch, call, reps):
+    """{device kernel name: ms per call} of `call`, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def ptxas_report(build, lib_name):
+    """{kernel entry: [registers / spill lines]} of the head-dim-64 kernels."""
+    lib = build.library_path(lib_name)
+    report, entry = {}, None
+    for line in (lib.parent / (lib.name + ".log")).read_text().splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and "Li64E" in entry and ("registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return report
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--kernels", default=",".join(FWD + BWD))
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+    wanted = args.kernels.split(",")
+    unknown = sorted(set(wanted) - set(FWD + BWD))
+    if unknown:
+        ap.error(f"unknown kernels {unknown}; choose from {list(FWD + BWD)}")
+    sys.path[0] = str(Path(args.root).resolve())   # not this file's folder
+    import torch
+    if not torch.cuda.is_available():
+        print("time_kernels: needs a CUDA card", file=sys.stderr)
+        return 2
+    from vqcpcb_tpu_torch.ops import _build, masks
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+
+    result = {"label": args.label, "root": args.root,
+              "package": str(Path(ak.__file__).resolve().parents[1])}
+    groups = []
+    if set(wanted) & set(FWD):
+        groups.append(forward_calls(torch, ak, masks))
+    if set(wanted) & set(BWD):
+        groups.append(backward_calls(torch, ak, fk, masks))
+    for calls in groups:
+        for name, reps, call in calls:
+            if name not in wanted:
+                continue
+            ms, out = time_call(torch, call, reps)
+            out64 = out.double()
+            result[name] = {"ms": ms, "sum": out64.sum().item(),
+                            "sum_sq": (out64 * out64).sum().item()}
+            if args.profile:
+                result[name]["launches"] = launch_ms(torch, call, reps)
+            del out, out64
+        torch.cuda.empty_cache()
+    result["ptxas"] = {}
+    for lib_name in sorted({LIBRARIES[name] for name in wanted}):
+        result["ptxas"].update(ptxas_report(_build, lib_name))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
