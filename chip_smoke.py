@@ -11,18 +11,21 @@ Phases, in order; any failure raises and the run exits non-zero:
      nvcc per source, all started together;
   3. nearest-codebook kernel vs its plain PyTorch version, timed;
   4. relative-bias attention forward kernel (inference) vs its plain
-     version, timed beside its bound and beside scaled_dot_product_attention
-     as a yardstick;
+     version and, at its three batch-8 shapes, the forward's bf16 weights
+     bit for bit, timed beside its bound and beside
+     scaled_dot_product_attention as a yardstick;
   5. relative-bias attention training kernels (forward and backward, with
      dropout, packed and (B, H, L, d) layouts, T/S = 1, 4 and 16) vs their
-     plain versions, the dropout mask and, at batch 32, the backward's bf16
-     w_drop and ds scratch bit for bit, timed at the flagship training shape
-     beside SDPA's autograd backward by its device time;
+     plain versions, the dropout mask and, at batch 32, the forward's bf16
+     w_drop and the backward's bf16 w_drop and ds scratch bit for bit, timed
+     at the flagship training shape beside SDPA's autograd backward by its
+     device time;
   6. fused attention: K4 at batch 512 at the absolute decoder's three
      shapes, K6's forward and backward at batch 32 with the placeholder and
-     with a real bias (dmask and dbias once), dropout 0 and 0.2, the mask
-     and the backward's bf16 w_drop and ds scratch bit for bit, each vs its
-     plain version and timed (SDPA's backward by its device time);
+     with a real bias (dmask and dbias once), dropout 0 and 0.2, the mask,
+     the forward's bf16 w_drop (T = 384) and the backward's bf16 w_drop and
+     ds scratch bit for bit, each vs its plain version and timed (SDPA's
+     backward by its device time);
   7. the re-harmonisation serving path end to end at full width (random
      weights from a seed), for the flagship AC/D/C decoder and for the
      absolute decoder: encoder codes, KV-cached sampling at batch 512,
@@ -268,6 +271,11 @@ def phase_relbias(gen: torch.Generator) -> dict:
                 and err * RELBIAS_RULE_CONTRAST <= rule_gap):
             raise AssertionError(f"relbias_attention {name}: max abs err {err}, "
                                  f"gap between the dot rules {rule_gap}")
+        _hold_weights(f"relbias_attention {name} (B=8, f32 inputs)",
+                      ak.relbias_attention_fwd_cuda,
+                      ak.relbias_attention_bwd_weights_plain,
+                      (q, k, v, mask, e1, e2, torch.zeros_like(q)),
+                      dict(num_heads=None))
     # f32 dot rule at the code encoder's shape (K, V and the table in f32 fit
     # the block only at short source lengths)
     q, k, v, mask, e1, e2 = _relbias_inputs(gen, 8, 24, 24, "anticausal")
@@ -388,6 +396,43 @@ def _hold_scratch(what, bwd, weights_plain, inputs, kw) -> str:
     return f"bf16 w_drop and ds = the plain version's at all {b * h * t * s} entries"
 
 
+def _hold_weights(what, fwd, weights_plain, inputs, kw) -> str:
+    """The forward's bf16 w_drop against the plain version's f32 w_drop
+    rounded to bf16: equal at every entry (the forward's counterpart of
+    _hold_scratch). With v the one-hot columns of a block of 64 keys, the
+    kernel's out is exactly its bf16 w_drop there: one product of a bf16
+    weight and 1, and zeros, summed in f32. `inputs` is (q, k, v, mask,
+    *extra, dout) as weights_plain takes them; fwd takes them without dout."""
+    from vqcpcb_tpu_torch.ops._kernel_io import heads
+    q, k, v, mask, *extra, g = inputs
+    kw = {key: val for key, val in kw.items() if key != "need_dmask"}
+    w_drop, _ = weights_plain(*inputs, **kw)
+    b, h, t, s = w_drop.shape
+    nh = kw.get("num_heads")
+    d = heads(q, nh).shape[-1]
+    differ = 0
+    for c0 in range(0, s, d):
+        n = min(d, s - c0)
+        one_hot = torch.zeros((b, h, s, d), device="cuda")
+        one_hot[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
+        if nh:
+            one_hot = one_hot.transpose(1, 2).reshape(b, s, h * d)
+        # v shares k's strides, as the kernels ask (k, v may be slices of
+        # one projection)
+        vv = torch.empty_strided(k.shape, k.stride(), dtype=v.dtype, device="cuda")
+        vv.copy_(one_hot)
+        out = heads(fwd(q, k, vv, mask, *extra, **kw), nh)
+        want = w_drop[..., c0:c0 + n].to(torch.bfloat16).float()
+        differ += (out[..., :n].float() != want).sum().item()
+        del out, one_hot
+    log(f"# {what}: forward bf16 w_drop vs the plain version's, {differ} of "
+        f"{b * h * t * s} entries differ (need 0)")
+    if differ:
+        raise AssertionError(f"{what}: {differ} entries of the forward's bf16 "
+                             "w_drop differ from the plain version's")
+    return f"forward bf16 w_drop = the plain version's at all {b * h * t * s} entries"
+
+
 def phase_relbias_train(gen: torch.Generator) -> dict:
     from vqcpcb_tpu_torch.ops import attention_kernels as ak
     import torch.nn.functional as F
@@ -472,10 +517,12 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
         del got, got32
         line_s = _hold_scratch(f"relbias training {name} B={TRAIN_BATCH}", cuda[1],
                                ak.relbias_attention_bwd_weights_plain, inputs, kw)
+        line_w = _hold_weights(f"relbias training {name} B={TRAIN_BATCH}", cuda[0],
+                               ak.relbias_attention_bwd_weights_plain, inputs, kw)
         log(f"# relbias train {name} (B={TRAIN_BATCH}, T=S={t}, packed, dropout "
             f"{TRAIN_DROPOUT}): bf16 inputs err/max|value| {line}; f32 twin "
             f"err/rule gap/max|value| {line32}; bf16 results = the twin's "
-            f"rounded to bf16, bit for bit; {line_s}")
+            f"rounded to bf16, bit for bit; {line_s}; {line_w}")
         del twin
         torch.cuda.empty_cache()
 
@@ -684,6 +731,10 @@ def phase_fused(gen: torch.Generator) -> dict:
         del got, got32, twin
         line_s = _hold_scratch(f"K6 {name} B={TRAIN_BATCH} dropout {rate}", cuda[1],
                                fk.fused_attention_train_bwd_weights_plain, inputs, kw)
+        if t == 384:
+            line_s += "; " + _hold_weights(
+                f"K6 {name} B={TRAIN_BATCH} dropout {rate}", cuda[0],
+                fk.fused_attention_train_bwd_weights_plain, inputs, kw)
         log(f"# K6 {name} (B={TRAIN_BATCH}, T={t}, S={s}, packed bf16, dropout "
             f"{rate}, {'real bias' if real else 'placeholder'}"
             f"{', dmask' if need_dmask else ''}): bf16 inputs err/max|value| "
@@ -1273,11 +1324,14 @@ def main() -> int:
         # top-level times at the serving prefill's shape (B=512, T=S=384, f32
         # inputs), as since the kernel was first ported; the training shape
         # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"
-        entry("relbias_attention_fwd", "vqcpcb_tpu_torch/csrc/relbias_attention.cu",
+        # redesigned: the bf16-dot kernel of attention_fwd_mma.cuh, launched
+        # from relbias_attention.cu (the f32-dot kernel stays there)
+        entry("relbias_attention_fwd", "vqcpcb_tpu_torch/csrc/attention_fwd_mma.cuh",
               f"{pa}:571", f"{pa}:_relbias_fwd_kernel", [f"{pa}:875"],
               dict(rb, max_abs_err=max(rb["max_abs_err"],
                                        rb_train["fwd"]["max_abs_err"])),
-              training={k: rb_train["fwd"][k] for k in train_keys}),
+              training={k: rb_train["fwd"][k] for k in train_keys},
+              redesigned=True, via="vqcpcb_tpu_torch/csrc/relbias_attention.cu"),
         # times at the training shape, the only one the backward runs at
         entry("relbias_attention_bwd",
               "vqcpcb_tpu_torch/csrc/relbias_attention_bwd.cu",
@@ -1290,9 +1344,12 @@ def main() -> int:
               cross=fused["k4"]["cross"], code_encoder=fused["k4"]["code_encoder"]),
         # K6: times at the training batch's decoder self-attention (B=32,
         # T=S=384, packed bf16, dropout 0.2); the cross-attention's beside
-        entry("fused_attention_train_fwd", "vqcpcb_tpu_torch/csrc/fused_attention.cu",
+        # redesigned: the bf16-dot kernel of attention_fwd_mma.cuh, launched
+        # from fused_attention.cu
+        entry("fused_attention_train_fwd", "vqcpcb_tpu_torch/csrc/attention_fwd_mma.cuh",
               f"{pa}:194", f"{pa}:_train_fwd_kernel", [], fused["fwd"],
-              cross=fused["fwd"]["cross"]),
+              cross=fused["fwd"]["cross"], redesigned=True,
+              via="vqcpcb_tpu_torch/csrc/fused_attention.cu"),
         entry("fused_attention_train_bwd_nobias",
               "vqcpcb_tpu_torch/csrc/fused_attention_bwd.cu",
               f"{pa}:244", f"{pa}:_train_bwd_kernel_nobias", [], fused["bwd_nobias"],

@@ -14,7 +14,7 @@ import torch
 from vqcpcb_tpu_torch.ops import attention_kernels as ak
 from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
 from vqcpcb_tpu_torch.ops import vq_kernels as vk
-from vqcpcb_tpu_torch.ops._kernel_io import bwd_scratch, scratch_planes
+from vqcpcb_tpu_torch.ops._kernel_io import bwd_scratch, heads, scratch_planes
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 
 
@@ -123,6 +123,31 @@ def _scratch_differs(scratch, weights_plain, inputs, kw):
             for name, x, want in (("w_drop", scratch[1], w_drop), ("ds", scratch[0], ds))}
 
 
+def _weights_differ(fwd, weights_plain, inputs, kw):
+    """The entries of the forward's bf16 w_drop that differ from the plain
+    version's f32 w_drop rounded to bf16 (must be 0, as for the backward's
+    scratch). With v the one-hot columns of a block of d keys, the kernel's
+    out is exactly its bf16 w_drop there (one product of a bf16 weight and
+    1, and zeros, summed in f32)."""
+    q, k, v, mask, *extra, g = inputs
+    w_drop, _ = weights_plain(*inputs, **kw)
+    b, h, t, s = w_drop.shape
+    d = heads(q, kw["num_heads"]).shape[-1]
+    differ = 0
+    for c0 in range(0, s, d):
+        n = min(d, s - c0)
+        one_hot = torch.zeros((b, h, s, d), device="cuda")
+        one_hot[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
+        if kw["num_heads"]:
+            one_hot = one_hot.transpose(1, 2).reshape(b, s, h * d)
+        vv = torch.empty_strided(k.shape, k.stride(), dtype=v.dtype, device="cuda")
+        vv.copy_(one_hot)                  # v shares k's strides, as the kernels ask
+        out = heads(fwd(q, k, vv, mask, *extra, **kw), kw["num_heads"])
+        want = w_drop[..., c0:c0 + n].to(torch.bfloat16).float()
+        differ += (out[..., :n].float() != want).sum().item()
+    return differ
+
+
 # (B, H, T, S, d, packed, dropout, input dtype, fully masked query row):
 # the layouts and dtypes, ragged T and S, a fully masked row, ratio 16 (the
 # AC/AC/C cross-attention) and every head dim the dispatch takes
@@ -152,7 +177,8 @@ def test_relbias_train_kernels_on_card(gen, b, h, t, s, d, packed, dropout, dtyp
     instead be the plain version's neighbouring bf16 value). The bf16 w_drop
     and ds the kernels keep equal the plain version's. e2's gradient under
     the causal mask is exactly 0. A second backward on the same inputs gives
-    the same dq, dk, dv, de1 and de2 bit for bit (dmask sums by atomics)."""
+    the same dq, dk, dv, de1 and de2 bit for bit (dmask sums by atomics).
+    The forward's bf16 w_drop equals the plain version's too."""
     nh = h if packed else None
     inputs = _train_case(gen, b, h, t, s, d, packed, dtype, masked_row)
     q, k, v, mask, e1, e2, g = inputs
@@ -169,6 +195,8 @@ def test_relbias_train_kernels_on_card(gen, b, h, t, s, d, packed, dropout, dtyp
     differs = _scratch_differs(scratch, ak.relbias_attention_bwd_weights_plain,
                                inputs, kw)
     assert differs == {"w_drop": 0, "ds": 0}, differs
+    assert _weights_differ(ak.relbias_attention_fwd_cuda,
+                           ak.relbias_attention_bwd_weights_plain, inputs, kw) == 0
     want = [ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2, **kw),
             *ak.relbias_attention_bwd_plain(q, k, v, mask, e1, e2, g, **kw)]
     for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "de1", "de2"), got, want):
@@ -274,7 +302,7 @@ def test_fused_attention_train_kernels_on_card(gen, b, h, t, s, d, mask_kind,
     placeholder's cotangent is none; a real bias's is the f32 score gradient
     (K6-bwd). A second backward gives the same dq, dk, dv and dbias bit for
     bit (dmask sums by atomics), and the bf16 w_drop and ds the kernels
-    keep equal the plain version's."""
+    keep (the forward's w_drop too) equal the plain version's."""
     inputs = _fused_case(gen, b, h, t, s, d, mask_kind, bias_kind, packed, dtype)
     q, k, v, mask, bias, g = inputs
     if masked_row is not None:
@@ -296,6 +324,8 @@ def test_fused_attention_train_kernels_on_card(gen, b, h, t, s, d, mask_kind,
     assert (fk.train_fwd_launches, fk.train_bwd_launches,
             fk.train_bwd_nobias_launches) == (before[0] + 1, before[1] + 2 * real,
                                               before[2] + 2 * (not real))
+    assert _weights_differ(fk.fused_attention_train_fwd_cuda,
+                           fk.fused_attention_train_bwd_weights_plain, inputs, kw) == 0
     want = [fk.fused_attention_train_fwd_plain(q, k, v, mask, bias, **kw),
             *fk.fused_attention_train_bwd_plain(q, k, v, mask, bias, g, **kw)]
     for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "dbias"), got, want):

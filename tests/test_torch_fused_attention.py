@@ -179,6 +179,35 @@ def test_k6_plain_backward_is_the_gradient_of_the_plain_forward(rate):
                                    atol=1e-5 * float(x.grad.abs().max()), msg=name)
 
 
+@pytest.mark.parametrize("kernel", ["relbias", "fused"])
+def test_one_hot_v_reads_the_rounded_dropped_weights(kernel):
+    """The premise of the forward kernels' weight check on the card: with v
+    the one-hot columns of a block of keys, the bf16-dot plain forward
+    returns bf16(w_drop) there exactly (one product of a bf16 weight and 1,
+    and zeros, in f32). Causal mask, dropout 0.2, packed bf16 inputs."""
+    t = s = 32
+    q, k, _, g, e1, e2 = (_t(a) for a in _case(t, s, 5))
+    mask = _t(_mask("causal", t, s)).clamp_min(-1e30)
+    pack = lambda x: x.transpose(1, 2).reshape(B, x.shape[2], H * D)  # noqa: E731
+    q, k, g = (pack(x).to(torch.bfloat16) for x in (q, k, g))
+    extra = (e1, e2) if kernel == "relbias" else (None,)
+    fwd, weights = ((ak.relbias_attention_fwd_plain, ak.relbias_attention_bwd_weights_plain)
+                    if kernel == "relbias" else
+                    (fk.fused_attention_train_fwd_plain,
+                     fk.fused_attention_train_bwd_weights_plain))
+    kw = dict(num_heads=H, dropout=0.2, seed=9)
+    for c0 in range(0, s, D):
+        v = torch.zeros((B, H, s, D))
+        v[:, :, c0:c0 + D] = torch.eye(D)
+        v = pack(v).to(torch.bfloat16)
+        out = fwd(q, k, v, mask, *extra, **kw)
+        w_drop, _ = weights(q, k, v, mask, *extra, g, **kw)
+        got = out.unflatten(-1, (H, D)).transpose(1, 2)
+        want = w_drop[..., c0:c0 + D].to(torch.bfloat16)
+        assert (want == 0).any() and (want > 0).any()
+        assert torch.equal(got, want)
+
+
 def test_autograd_function_routes_and_gives_the_bias_its_cotangent():
     """FusedAttentionTrain on CPU tensors: no launch; q, k, v and a real
     bias get the plain backward's gradients, a placeholder zeros, and the

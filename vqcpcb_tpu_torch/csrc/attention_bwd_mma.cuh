@@ -152,16 +152,16 @@ __device__ __forceinline__ void load8(float (&f)[8], const __nv_bfloat16* p) {
 // The thread's accumulator positions of a 16-row by 64-key block, each an
 // f32 dot product over the head dim taken as an f32 dot product is, one fmaf
 // after another in ascending order: rows `at` (the warp's 16) by rows `bt`
-// (the block's 64 keys). Index [nt][x]: row g + 8 * (x >> 1), key
-// nt * 8 + 2c + (x & 1).
-template <int D>
-__device__ __forceinline__ void dots_fma(float (&acc)[kTileTiles][4],
+// (the block's 64 keys; the first 8 kNT of them for kNT < 8). Index
+// [nt][x]: row g + 8 * (x >> 1), key nt * 8 + 2c + (x & 1).
+template <int D, int kNT = kTileTiles>
+__device__ __forceinline__ void dots_fma(float (&acc)[kNT][4],
                                          const __nv_bfloat16* at,
                                          const __nv_bfloat16* bt, int ld) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < kTileTiles; ++nt)
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[nt][x] = 0.f;
 #pragma unroll 1
@@ -170,7 +170,7 @@ __device__ __forceinline__ void dots_fma(float (&acc)[kTileTiles][4],
     load8(a0, at + g * ld + d0);
     load8(a1, at + (g + 8) * ld + d0);
 #pragma unroll
-    for (int nt = 0; nt < kTileTiles; ++nt) {
+    for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float b[8];
@@ -188,8 +188,8 @@ __device__ __forceinline__ void dots_fma(float (&acc)[kTileTiles][4],
 // The relative bias of the thread's positions, q_t . E[s + shift(t)], each
 // as dots_fma takes a dot product; `es` holds the block's table window, and
 // row t reads window row w_off + (s - s0) + (tw + 15)/r - t/r.
-template <int D>
-__device__ __forceinline__ void bias_fma(float (&acc)[kTileTiles][4],
+template <int D, int kNT = kTileTiles>
+__device__ __forceinline__ void bias_fma(float (&acc)[kNT][4],
                                          const __nv_bfloat16* at,
                                          const __nv_bfloat16* es, int ld,
                                          int w_off, int tw, int ratio) {
@@ -200,7 +200,7 @@ __device__ __forceinline__ void bias_fma(float (&acc)[kTileTiles][4],
   for (int half = 0; half < 2; ++half)
     skew[half] = w_off + (tw + 15) / ratio - (tw + g + 8 * half) / ratio;
 #pragma unroll
-  for (int nt = 0; nt < kTileTiles; ++nt)
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[nt][x] = 0.f;
   if (ratio == 1) {
@@ -216,7 +216,7 @@ __device__ __forceinline__ void bias_fma(float (&acc)[kTileTiles][4],
       for (int e = 0; e < 2; ++e)
         load8(prev[e], es + (2 * c + e + skew[1]) * ld + d0);
 #pragma unroll
-      for (int nt = 0; nt < kTileTiles; ++nt) {
+      for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float b[8];
@@ -238,7 +238,7 @@ __device__ __forceinline__ void bias_fma(float (&acc)[kTileTiles][4],
     load8(a[0], at + g * ld + d0);
     load8(a[1], at + (g + 8) * ld + d0);
 #pragma unroll
-    for (int nt = 0; nt < kTileTiles; ++nt) {
+    for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         float b[8];

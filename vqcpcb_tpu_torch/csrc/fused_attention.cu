@@ -25,20 +25,25 @@
 // B = 4096 planes) over the 67 TFLOP/s f32 rate outweigh its bytes (about
 // 0.5 ms at 3.35 TB/s): it is bound by operations. K6-fwd's bf16 products
 // sit below the tensor cores' ridge of ~295 flops per byte (about 190 here),
-// so its bound is its bytes. This first version runs the products on the
-// CUDA cores (no mma, no TMA).
+// so its bound is its bytes.
 //
-// Design: the relative-bias forward's (relbias_attention.cu) without the
-// table. One block of 8 warps per (b, h, tile of 64 query rows) stages K
-// (rows padded by one word against bank conflicts) and V of its plane in
-// shared memory in the dot type; each warp takes one query row at a time:
-// lanes split the keys for the score row (q in registers), keep the row in
-// shared memory, reduce max and sum with shuffles, drop and round the
-// weights, then split the head dimension for w.v. The full score row is
-// normalised before any rounding, so K6's rounded weights are those of the
-// TPU kernel (an online softmax would round unnormalised weights). At f32
-// and S = 384, d = 64 the block takes 210 KB of shared memory; the launcher
-// reports a shape that does not fit.
+// Two kernels, by the dot type:
+//  - bf16 dots (K6-fwd): fwd_mma::fwd_kernel of attention_fwd_mma.cuh --
+//    exact f32 score chains in registers, the full f32 score rows in shared
+//    memory, the softmax in PyTorch's warp order, w.v on the tensor cores,
+//    K and V streamed in blocks of 64 keys, fully masked key blocks skipped
+//    where that is exact. That header says why its weights equal the plain
+//    version's bit for bit.
+//  - f32 dots (K4, and K6 with f32 dots): fused_fwd_kernel below, the
+//    relative-bias forward's f32 kernel (relbias_attention.cu) without the
+//    table. One block of 8 warps per (b, h, tile of 64 query rows) stages K
+//    (rows padded by one word against bank conflicts) and V of its plane in
+//    shared memory; each warp takes one query row at a time: lanes split
+//    the keys for the score row (q in registers), keep the row in shared
+//    memory, reduce max and sum with shuffles, drop the weights, then split
+//    the head dimension for w.v. At S = 384, d = 64 the block takes 210 KB
+//    of shared memory; the launcher reports a shape that does not fit.
+#include "attention_fwd_mma.cuh"
 #include "relbias_common.cuh"
 
 namespace {
@@ -209,12 +214,23 @@ int fused_attention_fwd(const void* q, const void* k, const void* v,
 #define FUSED_FWD_ARGS                                                        \
   D, q, k, v, mask, bv, out, lay, B, H, T, S, seed, threshold, inv_keep,     \
       dropout, st
-  if (in_bf16)
-    return bf16_dots ? dispatch<__nv_bfloat16, __nv_bfloat16>(FUSED_FWD_ARGS)
-                     : dispatch<__nv_bfloat16, float>(FUSED_FWD_ARGS);
-  return bf16_dots ? dispatch<float, __nv_bfloat16>(FUSED_FWD_ARGS)
+  if (!bf16_dots)
+    return in_bf16 ? dispatch<__nv_bfloat16, float>(FUSED_FWD_ARGS)
                    : dispatch<float, float>(FUSED_FWD_ARGS);
 #undef FUSED_FWD_ARGS
+  if (in_bf16) {
+    const fwd_mma::FwdArgs<__nv_bfloat16> a = {
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), mask, nullptr, bv,
+        static_cast<__nv_bfloat16*>(out), lay[0], lay[1], lay[2], B, H, T, S,
+        seed, threshold, inv_keep, dropout, 0};
+    return fwd_mma::dispatch_fwd<__nv_bfloat16, false>(D, a, st);
+  }
+  const fwd_mma::FwdArgs<float> a = {
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mask, nullptr, bv, static_cast<float*>(out),
+      lay[0], lay[1], lay[2], B, H, T, S, seed, threshold, inv_keep, dropout, 0};
+  return fwd_mma::dispatch_fwd<float, false>(D, a, st);
 }
 
 }  // extern "C"

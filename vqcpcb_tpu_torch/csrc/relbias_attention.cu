@@ -18,25 +18,26 @@
 // regenerates the same mask. One kernel reads any layout whose last axis is
 // contiguous through per-tensor (batch, head, row) strides.
 //
-// What bounds it on the H100: at the decoder's self-attention (T = S = 384,
-// d = 64) the three products are 3 * 2*T*S*d flops per (b, h) against
-// 4 * T*d bytes-per-element of q, k, v and out, about 96 flops per byte at
-// f32 and 190 at bf16 -- below the ~295 at which the bf16 tensor cores become
-// the limit, so the bound is the bytes. This first version runs the products
-// on the CUDA cores (no wgmma, no TMA), so it is bound by its shared-memory
-// loads and FMAs instead, well above that bound.
-//
-// Design: one block of 8 warps per (b, h, tile of TQ query rows). The block
-// stages K and V of its (b, h) in shared memory in the dot type, and the rows
-// of E that its tile's shifts can address (S + (TQ-1)/r + 1 rows) beside
-// them: each bias entry is then an indexed read E[s + shift(t)] of shared
-// memory -- the TPU kernel's log-step lane rolls (_row_shift) were a Mosaic
-// workaround and have no counterpart here. Each warp takes one query row at
-// a time: lanes split the keys for the score row (q in registers, q.k and
-// q.E in one pass), keep the row in shared memory, reduce max and sum with
-// shuffles, drop and round the weights, then split the head dimension for
-// w.v. The query tile shrinks until the block fits the card's shared memory;
-// the launcher reports a shape that does not fit even at one row.
+// Two kernels, by the dot type:
+//  - bf16 dots (K2-fwd in training, K3-fwd at serving with f32 inputs):
+//    fwd_mma::fwd_kernel of attention_fwd_mma.cuh -- exact f32 score and
+//    bias chains in registers, the full f32 score rows in shared memory,
+//    the softmax in PyTorch's warp order, w.v on the tensor cores, K, V and
+//    the table window streamed in blocks of 64 keys. That header says what
+//    bounds it and why its weights equal the plain version's bit for bit.
+//  - f32 dots: relbias_fwd_kernel below, on the CUDA cores. One block of 8
+//    warps per (b, h, tile of TQ query rows) stages K and V of its (b, h)
+//    and the rows of E that its tile's shifts can address (S + (TQ-1)/r + 1
+//    rows) in shared memory; each bias entry is an indexed read
+//    E[s + shift(t)] (the TPU kernel's log-step lane rolls, _row_shift,
+//    were a Mosaic workaround and have no counterpart here). Each warp takes
+//    one query row at a time: lanes split the keys for the score row (q in
+//    registers, q.k and q.E in one pass), keep the row in shared memory,
+//    reduce max and sum with shuffles, drop the weights, then split the
+//    head dimension for w.v. The query tile shrinks until the block fits
+//    the card's shared memory; the launcher reports a shape that does not
+//    fit even at one row.
+#include "attention_fwd_mma.cuh"
 #include "relbias_common.cuh"
 
 namespace {
@@ -202,17 +203,23 @@ int relbias_attention_fwd(const void* q, const void* k, const void* v,
                          {strides[6], strides[7], strides[8]}};
   cudaStream_t st = (cudaStream_t)stream;
   if (in_bf16 && !bf16_dots) return kErrDtype;
-  if (in_bf16)
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(
-        D, q, k, v, mask, e, out, lay, B, H, T, S, seed, threshold, inv_keep,
-        dropout, st);
-  return bf16_dots
-             ? dispatch<float, __nv_bfloat16>(D, q, k, v, mask, e, out, lay, B,
-                                              H, T, S, seed, threshold,
-                                              inv_keep, dropout, st)
-             : dispatch<float, float>(D, q, k, v, mask, e, out, lay, B, H, T,
-                                      S, seed, threshold, inv_keep, dropout,
-                                      st);
+  if (!bf16_dots)
+    return dispatch<float, float>(D, q, k, v, mask, e, out, lay, B, H, T, S,
+                                  seed, threshold, inv_keep, dropout, st);
+  if (in_bf16) {
+    const fwd_mma::FwdArgs<__nv_bfloat16> a = {
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), mask, e, {nullptr, 0, 0, 0},
+        static_cast<__nv_bfloat16*>(out), lay[0], lay[1], lay[2], B, H, T, S,
+        seed, threshold, inv_keep, dropout, 0};
+    return fwd_mma::dispatch_fwd<__nv_bfloat16, true>(D, a, st);
+  }
+  const fwd_mma::FwdArgs<float> a = {
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mask, e, {nullptr, 0, 0, 0},
+      static_cast<float*>(out), lay[0], lay[1], lay[2], B, H, T, S, seed,
+      threshold, inv_keep, dropout, 0};
+  return fwd_mma::dispatch_fwd<float, true>(D, a, st);
 }
 
 }  // extern "C"

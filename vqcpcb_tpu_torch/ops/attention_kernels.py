@@ -19,10 +19,12 @@ of the mask is `dropout_keep_plain((T, S), rate, seed + h*B + b)`, bit for
 bit the JAX mask, regenerated by the backward.
 
 Each wrapper routes by device: a CPU tensor takes the plain PyTorch version,
-a CUDA tensor launches csrc/relbias_attention.cu (forward) or
-csrc/relbias_attention_bwd.cu (backward: with bf16 dots the tensor-core
-rows, cols, table and table-sum kernels of csrc/attention_bwd_mma.cuh, with
-f32 dots three CUDA-core kernels) or raises. Both
+a CUDA tensor launches csrc/relbias_attention.cu (forward: with bf16 dots
+the kernel of csrc/attention_fwd_mma.cuh, w.v on the tensor cores, with f32
+dots a CUDA-core kernel) or csrc/relbias_attention_bwd.cu (backward: with
+bf16 dots the tensor-core rows, cols, table and table-sum kernels of
+csrc/attention_bwd_mma.cuh, with f32 dots three CUDA-core kernels) or
+raises. Both
 round q, k, v, E (and do) to `dot_dtype` before the products with f32
 accumulation, keep the softmax in f32, and return the input dtype.
 `RelbiasAttention` is the autograd Function pairing the two.

@@ -11,9 +11,13 @@ generator; H = 8, d = 64, bf16 dots). The kernels (default: all):
   K3-fwd          the relative-bias forward at the serving prefill's shape:
                   f32 q, k, v and tables, B = 512, T = S = 384, causal mask
   K3-fwd-encoder  the same at the code encoder's T = S = 24, anticausal mask
-  K2-bwd          the relative-bias backward at the training shape: bf16
-                  q, k, v, dout packed (B, L, H*d), B = 32, T = S = 384,
-                  causal mask, dropout 0.2
+  K2-fwd          the relative-bias forward at the training shape: bf16
+                  q, k, v packed (B, L, H*d), B = 32, T = S = 384, causal
+                  mask, dropout 0.2
+  K6-fwd          the fused forward without a bias, as K2-fwd
+  K6-fwd-cross    K6-fwd at the absolute decoder's cross-attention: T = 384,
+                  S = 24, no mask
+  K2-bwd          the relative-bias backward at K2-fwd's shape, with dout
   K3-bwd          K2-bwd on (B, H, L, d) views
   K6-bwd-nobias   the fused backward without a bias, as K2-bwd
   K6-bwd          the fused backward with a real (B*H, T, S) bias
@@ -34,9 +38,12 @@ import json
 import sys
 from pathlib import Path
 
-FWD = ("K3-fwd", "K3-fwd-encoder")
-BWD = ("K2-bwd", "K3-bwd", "K6-bwd-nobias", "K6-bwd")
+SERVING = ("K3-fwd", "K3-fwd-encoder")
+TRAIN = ("K2-fwd", "K6-fwd", "K6-fwd-cross", "K2-bwd", "K3-bwd", "K6-bwd-nobias",
+       "K6-bwd")
 LIBRARIES = {"K3-fwd": "relbias_attention", "K3-fwd-encoder": "relbias_attention",
+             "K2-fwd": "relbias_attention", "K6-fwd": "fused_attention",
+             "K6-fwd-cross": "fused_attention",
              "K2-bwd": "relbias_attention_bwd", "K3-bwd": "relbias_attention_bwd",
              "K6-bwd-nobias": "fused_attention_bwd", "K6-bwd": "fused_attention_bwd"}
 
@@ -56,8 +63,9 @@ def forward_calls(torch, ak, masks):
                          ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2))
 
 
-def backward_calls(torch, ak, fk, masks):
-    """(name, repetitions, call) of the attention backward, training shape."""
+def training_calls(torch, ak, fk, masks):
+    """(name, repetitions, call) of the training forwards and the attention
+    backward, training shape."""
     b, h, t, d = 32, 8, 384, 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
@@ -70,6 +78,14 @@ def backward_calls(torch, ak, fk, masks):
     q4, k4, v4, g4 = (x.unflatten(-1, (h, d)).transpose(1, 2).contiguous()
                       for x in (q, k, v, g))
     kw4 = dict(kw, num_heads=None)
+    fkw = dict(num_heads=h, dropout=0.2, seed=3)
+    yield "K2-fwd", 20, lambda: ak.relbias_attention_fwd_cuda(
+        q, k, v, mask, e1, e2, **fkw)
+    yield "K6-fwd", 20, lambda: fk.fused_attention_train_fwd_cuda(
+        q, k, v, mask, None, **fkw)
+    kc, vc = k[:, :24], v[:, :24]
+    yield "K6-fwd-cross", 50, lambda: fk.fused_attention_train_fwd_cuda(
+        q, kc, vc, None, None, **fkw)
     yield "K2-bwd", 20, lambda: ak.relbias_attention_bwd_cuda(
         q, k, v, mask, e1, e2, g, **kw)
     yield "K3-bwd", 20, lambda: ak.relbias_attention_bwd_cuda(
@@ -125,13 +141,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
-    ap.add_argument("--kernels", default=",".join(FWD + BWD))
+    ap.add_argument("--kernels", default=",".join(SERVING + TRAIN))
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     wanted = args.kernels.split(",")
-    unknown = sorted(set(wanted) - set(FWD + BWD))
+    unknown = sorted(set(wanted) - set(SERVING + TRAIN))
     if unknown:
-        ap.error(f"unknown kernels {unknown}; choose from {list(FWD + BWD)}")
+        ap.error(f"unknown kernels {unknown}; choose from {list(SERVING + TRAIN)}")
     sys.path[0] = str(Path(args.root).resolve())   # not this file's folder
     import torch
     if not torch.cuda.is_available():
@@ -146,10 +162,10 @@ def main() -> int:
     result = {"label": args.label, "root": args.root,
               "package": str(Path(ak.__file__).resolve().parents[1])}
     groups = []
-    if set(wanted) & set(FWD):
+    if set(wanted) & set(SERVING):
         groups.append(forward_calls(torch, ak, masks))
-    if set(wanted) & set(BWD):
-        groups.append(backward_calls(torch, ak, fk, masks))
+    if set(wanted) & set(TRAIN):
+        groups.append(training_calls(torch, ak, fk, masks))
     for calls in groups:
         for name, reps, call in calls:
             if name not in wanted:
