@@ -21,7 +21,8 @@ Phases, in order; any failure raises and the run exits non-zero:
      at the flagship training shape beside SDPA's autograd backward by its
      device time;
   6. fused attention: K4 at batch 512 at the absolute decoder's three
-     shapes, K6's forward and backward at batch 32 with the placeholder and
+     shapes and at batch 8 with the explicit-bias prefill's real bias, K6's
+     forward and backward at batch 32 with the placeholder and
      with a real bias (dmask and dbias once), dropout 0 and 0.2, the mask,
      the forward's bf16 w_drop (T = 384) and the backward's bf16 w_drop and
      ds scratch bit for bit, each vs its plain version and timed (SDPA's
@@ -63,6 +64,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+# Products that keep f32 accuracy at the card's fastest: 3xTF32 on the
+# tensor cores, three TF32 products (495 TFLOP/s) for each.
+F32_ACCURATE_FLOPS = 495e12 / 3
 
 # Shapes of the slices at full width: 512 templates of 96 events x 4 voices,
 # 24 codes each (blocks of 16 tokens), decoder d_model 512 / 8 heads;
@@ -631,6 +635,17 @@ def _fused_fwd_bwd(fwd, bwd, q, k, v, mask, bias, g, dot_dtype=torch.bfloat16,
             *bwd(q, k, v, mask, bias, g, dot_dtype, need_dmask=need_dmask, **kw)]
 
 
+def k4_bound(b, t, s, mask, real_bias):
+    """(bound_ms, bound_by) of K4 on these inputs: q, k, v and out read or
+    written once in f32 with the f32 mask (and a real (B*H, T, S) bias);
+    4 d flops for each live (not -inf) mask entry of each plane, at the
+    rate of products that keep f32 accuracy."""
+    n = b * HEADS
+    live = t * s if mask is None else int((mask > -1e29).sum().item())
+    bytes_moved = 4 * (2 * n * HEAD_DIM * (t + s) + t * s + (n * t * s if real_bias else 0))
+    return bound(bytes_moved, 4 * HEAD_DIM * n * live, F32_ACCURATE_FLOPS)
+
+
 def _fused_bounds(b, t, s, real_bias):
     """(fwd, bwd) bounds of K6 at one shape, packed bf16 inputs: bytes of
     q, k, v, out (fwd) and q, k, v, do, dq, dk, dv (bwd), the f32 mask and,
@@ -653,30 +668,37 @@ def phase_fused(gen: torch.Generator) -> dict:
     import torch.nn.functional as F
     worst = {"k4": 0.0, "fwd": 0.0, "bwd": 0.0, "bwd_bias": 0.0}
     k4_times = {}
-    for name, t, s, kind in ABSOLUTE_SHAPES:
-        q, k, v = (_split_heads(x) for x in _projected(gen, BATCH, t, s, torch.float32))
+    # the absolute decoder's three shapes at the serving batch, and the
+    # explicit-bias route's prefill (batch 8) with its real (B*H, T, S) bias
+    for name, b, t, s, kind, real in (
+            *((name, BATCH, t, s, kind, False) for name, t, s, kind in ABSOLUTE_SHAPES),
+            ("explicit relative bias", 8, 384, 384, "causal", True)):
+        q, k, v = (_split_heads(x) for x in _projected(gen, b, t, s, torch.float32))
         mask = _fused_mask(kind, t, s)
-        err = (fk.fused_attention_cuda(q, k, v, mask)
-               - fk.fused_attention_plain(q, k, v, mask)).abs().max().item()
+        bias = (torch.randn((b * HEADS, t, s), generator=gen, device="cuda")
+                if real else None)
+        err = (fk.fused_attention_cuda(q, k, v, mask, bias)
+               - fk.fused_attention_plain(q, k, v, mask, bias)).abs().max().item()
         worst["k4"] = max(worst["k4"], err)
-        long = t == s == 384
-        ms = time_cuda(lambda: fk.fused_attention_cuda(q, k, v, mask), 5 if long else 20)
-        plain_ms = time_cuda(lambda: fk.fused_attention_plain(q, k, v, mask),
+        long = t == s == 384 and not real
+        ms = time_cuda(lambda: fk.fused_attention_cuda(q, k, v, mask, bias),
+                       5 if long else 20)
+        plain_ms = time_cuda(lambda: fk.fused_attention_plain(q, k, v, mask, bias),
                              3 if long else 10, warmup=1)
+        attn = mask if bias is None else mask + bias.view(b, HEADS, t, s)
         library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=1.0), 3 if long else 10, warmup=1)
-        n = BATCH * HEADS
-        bound_ms, bound_by = bound(4 * (2 * n * t * HEAD_DIM + 2 * n * s * HEAD_DIM + t * s),
-                                   2 * 2 * t * s * HEAD_DIM * n, F32_FLOPS)
+            q, k, v, attn_mask=attn, scale=1.0), 3 if long else 10, warmup=1)
+        bound_ms, bound_by = k4_bound(b, t, s, mask, real)
         k4_times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
-        log(f"# fused_attention (K4) {name} (B={BATCH}, H={HEADS}, T={t}, S={s}, "
-            f"d={HEAD_DIM}, f32, strided views): max abs err {err:.3e} (tolerance "
-            f"{K4_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        log(f"# fused_attention (K4) {name} (B={b}, H={HEADS}, T={t}, S={s}, "
+            f"d={HEAD_DIM}, f32, strided views{', real bias' if real else ''}): max "
+            f"abs err {err:.3e} (tolerance {K4_ATOL}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
         if not err <= K4_ATOL:
             raise AssertionError(f"fused_attention {name}: max abs err {err}")
-        del q, k, v
+        del q, k, v, bias, attn
         torch.cuda.empty_cache()
 
     # K6 at the training batch, packed bf16 as the training route gives it:
@@ -826,7 +848,8 @@ def phase_fused(gen: torch.Generator) -> dict:
     return {
         "k4": dict(k4_times["decoder self-attention"], max_abs_err=worst["k4"],
                    cross=k4_times["cross-attention"],
-                   code_encoder=k4_times["code encoder"]),
+                   code_encoder=k4_times["code encoder"],
+                   real_bias=k4_times["explicit relative bias"]),
         "fwd": dict(ms=self_t["fwd_ms"], plain_ms=self_t["fwd_plain"],
                     library_ms=self_t["lib_fwd"], bound_ms=self_t["fwd_bound"][0],
                     bound_by=self_t["fwd_bound"][1], max_abs_err=worst["fwd"],
@@ -1338,10 +1361,15 @@ def main() -> int:
               f"{pa}:895", f"{pa}:_relbias_bwd_kernel_packed", [f"{pa}:582"],
               rb_train["bwd"]),
         # K4: times at the absolute prefill's decoder self-attention (B=512,
-        # T=S=384, f32); the cross-attention's and the code encoder's beside
-        entry("fused_attention", "vqcpcb_tpu_torch/csrc/fused_attention.cu",
+        # T=S=384, f32); the cross-attention's, the code encoder's and the
+        # explicit-bias prefill's (B=8, real bias) beside
+        # redesigned: the f32-dot kernel of attention_fwd_f32.cuh, launched
+        # from fused_attention.cu
+        entry("fused_attention", "vqcpcb_tpu_torch/csrc/attention_fwd_f32.cuh",
               f"{pa}:32", f"{pa}:_kernel", [], fused["k4"],
-              cross=fused["k4"]["cross"], code_encoder=fused["k4"]["code_encoder"]),
+              cross=fused["k4"]["cross"], code_encoder=fused["k4"]["code_encoder"],
+              real_bias=fused["k4"]["real_bias"], redesigned=True,
+              via="vqcpcb_tpu_torch/csrc/fused_attention.cu"),
         # K6: times at the training batch's decoder self-attention (B=32,
         # T=S=384, packed bf16, dropout 0.2); the cross-attention's beside
         # redesigned: the bf16-dot kernel of attention_fwd_mma.cuh, launched

@@ -247,25 +247,60 @@ def _fused_case(gen, b, h, t, s, d, mask_kind, bias_kind, packed=False,
     return q, k, v, mask, bias, g
 
 
+# (T, S, mask, bias, head dim, input dtype, fully masked query row)
+K4_CASES = [
+    (64, 64, "causal", "none", 32, torch.float32, None),
+    (96, 24, "zero", "placeholder", 32, torch.float32, None),
+    (24, 24, "anticausal", "real", 32, torch.float32, None),
+    # several key blocks of 64, dead ones skipped
+    (384, 384, "causal", "none", 64, torch.float32, None),
+    # ragged query tiles and a ragged last key block
+    (100, 100, "causal", "placeholder", 32, torch.float32, None),
+    # a fully masked row: its tile skips nothing (weights 1/S)
+    (160, 160, "causal", "none", 64, torch.float32, 70),
+    (64, 64, "causal", "real", 8, torch.float32, None),
+    (64, 64, "zero", "none", 16, torch.float32, None),
+    (96, 96, "causal", "placeholder", 128, torch.float32, None),
+    # beyond the whole-plane staging of the first K4 kernel (S <= 219 at d = 128)
+    (600, 600, "causal", "none", 128, torch.float32, None),
+    # bf16 inputs, f32 dots
+    (100, 100, "causal", "real", 64, torch.bfloat16, None),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,s,mask_kind,bias_kind", [
-    (64, 64, "causal", "none"), (96, 24, "zero", "placeholder"),
-    (24, 24, "anticausal", "real")])
-def test_fused_attention_kernel_on_card(gen, t, s, mask_kind, bias_kind):
+@pytest.mark.parametrize("t,s,mask_kind,bias_kind,d,dtype,masked_row", K4_CASES)
+def test_fused_attention_kernel_on_card(gen, t, s, mask_kind, bias_kind, d, dtype,
+                                        masked_row):
     """K4 against its plain version: f32 throughout on both sides (TF32
-    off), sums in two orders: 1e-5. Strided (B, H, L, d) views are read in
-    place."""
+    off), sums in other orders: 1e-5. Strided (B, H, L, d) views are read in
+    place, and views whose rows do not start on 16 bytes too. bf16 inputs are
+    widened to f32 in the kernel: the bf16 result equals the f32 kernel's on
+    the widened inputs, rounded to bf16, bit for bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, mask, bias, _ = _fused_case(gen, 2, 2, t, s, 32, mask_kind, bias_kind)
+    q, k, v, mask, bias, _ = _fused_case(gen, 2, 2, t, s, d, mask_kind, bias_kind)
+    if masked_row is not None:
+        mask[masked_row] = float("-inf")
+    q, k, v = (x.to(dtype) for x in (q, k, v))
     before = fk.launches
     got = fk.fused_attention(q, k, v, mask, bias)
     assert fk.launches == before + 1
+    if dtype == torch.bfloat16:
+        q, k, v = (x.float() for x in (q, k, v))
+        wide = fk.fused_attention(q, k, v, mask, bias)
+        assert torch.equal(got, wide.to(torch.bfloat16))
+        got = wide
     torch.testing.assert_close(got, fk.fused_attention_plain(q, k, v, mask, bias),
                                rtol=0, atol=1e-5)
-    kv = torch.randn((2, s, 2, 2, 32), generator=gen, device="cuda")
+    kv = torch.randn((2, s, 2, 2, d), generator=gen, device="cuda")
     k4, v4 = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
     torch.testing.assert_close(fk.fused_attention(q, k4, v4, mask, bias),
                                fk.fused_attention_plain(q, k4, v4, mask, bias),
+                               rtol=0, atol=1e-5)
+    # rows one element off 16 bytes: the synchronous-load instance
+    q1 = torch.randn((2, 2, t, d + 1), generator=gen, device="cuda")[..., 1:] * d ** -0.5
+    torch.testing.assert_close(fk.fused_attention(q1, k4, v4, mask, bias),
+                               fk.fused_attention_plain(q1, k4, v4, mask, bias),
                                rtol=0, atol=1e-5)
 
 

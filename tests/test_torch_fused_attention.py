@@ -74,6 +74,89 @@ def test_fused_attention_plain_matches_jax(t, s, kind, relative):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
+def _tf32(x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 rounds: 10 mantissa bits, to
+    nearest, ties away from zero (on the sign-magnitude bit pattern)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product_3xtf32(a, b):
+    """a (..., M, K) . b (..., K, N) as the kernel's tensor cores take it:
+    each operand split into tf32 halves, hi = tf32(x) and lo = tf32(x - hi);
+    per k-step of 8, the accumulator takes lo.hi, then hi.lo, then hi.hi,
+    each an 8-term f32 sum of exact products."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = acc + x[..., ks] @ y[..., ks, :]
+    return acc
+
+
+def _k4_emulated(q, k, v, mask, bias=None):
+    """The arithmetic of csrc/attention_fwd_f32.cuh in PyTorch: query tiles
+    of 64 rows, key blocks of 64, both products in 3xTF32, an online softmax
+    (running max and sum, the output rescaled, one division at the end), and
+    the exact skip of key blocks whose mask entries over the tile are all
+    the -1e30 clamp, taken only when every row of the tile has an entry
+    above -1e29."""
+    b, h, t, d = q.shape
+    s = k.shape[2]
+    mask = fk.finite_mask(mask, t, s, q.device)
+    bias = None if bias is None else bias.expand(b * h, t, s).reshape(b, h, t, s)
+    out = torch.empty_like(q)
+    for t0 in range(0, t, 64):
+        rows = slice(t0, min(t0 + 64, t))
+        mt = mask[rows]
+        skips = bool((mt > -1e29).any(-1).all())
+        m = torch.full(q[:, :, rows, :1].shape, -float("inf"))
+        l = torch.zeros_like(m)
+        o = torch.zeros_like(q[:, :, rows])
+        for s0 in range(0, s, 64):
+            keys = slice(s0, min(s0 + 64, s))
+            if skips and bool((mt[:, keys] == -1e30).all()):
+                continue
+            sc = _product_3xtf32(q[:, :, rows], k[:, :, keys].transpose(-1, -2))
+            sc = sc + mt[:, keys]
+            if bias is not None:
+                sc = sc + bias[:, :, rows, keys]
+            mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp(m - mx)
+            p = torch.exp(sc - mx)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + _product_3xtf32(p, v[:, :, keys])
+            m = mx
+        out[:, :, rows] = o / l
+    return out
+
+
+@pytest.mark.parametrize("t,s,kind,masked_row", [
+    (384, 384, "causal", None), (384, 24, None, None),
+    (24, 24, "anticausal", None), (100, 100, "causal", 70),
+    (100, 100, "causal", None)])
+def test_k4_kernel_arithmetic_holds_the_plain_bound(t, s, kind, masked_row):
+    """The CUDA kernel's order of sums and its 3xTF32 split, emulated, stay
+    within K4's 1e-5 of the plain version: the absolute decoder's three
+    shapes, a fully masked row (its tile skips nothing: weights 1/S) and
+    ragged tiles and key blocks; q ~ randn * d**-0.5, k, v ~ randn."""
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy((rng.randn(1, 2, t, 64) * 64 ** -0.5).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(1, 2, s, 64).astype(np.float32))
+            for _ in range(2))
+    mask = _mask(kind, t, s)
+    mask = None if mask is None else _t(mask)
+    if masked_row is not None:
+        mask[masked_row] = -float("inf")
+    got = _k4_emulated(q, k, v, mask)
+    want = fk.fused_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if masked_row is not None:
+        torch.testing.assert_close(got[0, :, masked_row],
+                                   v[0].mean(1), rtol=0, atol=1e-5)
+
+
 # ---- K6 ---------------------------------------------------------------------
 
 def test_k6_dropout_stream_is_the_flat_grid_index():

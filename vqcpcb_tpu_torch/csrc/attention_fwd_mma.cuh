@@ -1,8 +1,8 @@
 // The attention forward's bf16-dot instances, Hopper (sm_90a): K2-fwd and
 // K3-fwd (relbias_attention.cu) and K6-fwd (fused_attention.cu), for f32 or
-// bf16 inputs. The f32-dot instances (K4, the f32-dot relative-bias
-// forward) keep the CUDA-core kernels of those files: tensor cores would
-// take f32 operands only as TF32.
+// bf16 inputs. The f32-dot instances are K4 and K6's f32-dot forward
+// (attention_fwd_f32.cuh: 3xTF32 on the tensor cores) and the f32-dot
+// relative-bias forward (the CUDA-core kernel of relbias_attention.cu).
 //
 // Replaces: vqcpcb_tpu/ops/pallas_attention.py:_relbias_fwd_kernel_packed
 // (K2-fwd), :_relbias_fwd_kernel (K3-fwd) and :_train_fwd_kernel (K6-fwd).

@@ -27,8 +27,9 @@ uses stream seed + b*H + h (:203-204), not the relbias kernels'
 seed + h*B + b.
 
 Each wrapper routes by device: a CPU tensor takes the plain PyTorch version,
-a CUDA tensor launches csrc/fused_attention.cu (K4 with f32 dots on the
-CUDA cores; K6-fwd with bf16 dots, the kernel of csrc/attention_fwd_mma.cuh) or
+a CUDA tensor launches csrc/fused_attention.cu (K4, and K6-fwd with f32
+dots: the 3xTF32 tensor-core kernel of csrc/attention_fwd_f32.cuh; K6-fwd
+with bf16 dots, the kernel of csrc/attention_fwd_mma.cuh) or
 csrc/fused_attention_bwd.cu (K6-bwd with a real bias, K6-bwd-nobias
 otherwise: tensor-core kernels with bf16 dots, CUDA-core ones with f32
 dots) or raises. `FusedAttentionTrain` is the autograd Function pairing

@@ -2,6 +2,7 @@
 
     python3 vqcpcb_tpu_torch/time_kernels.py [--root DIR] [--label NAME]
                                              [--kernels NAME,NAME,...] [--profile]
+                                             [--variants FILE]
 
 DIR is the root of the checkout whose vqcpcb_tpu_torch package is timed
 (default: the one holding this file); its kernels are built there, into
@@ -11,6 +12,11 @@ generator; H = 8, d = 64, bf16 dots). The kernels (default: all):
   K3-fwd          the relative-bias forward at the serving prefill's shape:
                   f32 q, k, v and tables, B = 512, T = S = 384, causal mask
   K3-fwd-encoder  the same at the code encoder's T = S = 24, anticausal mask
+  K4              the f32 fused forward (the absolute decoder's attentions
+                  at serving) at B = 512: q a (B, T, H*d) view, k and v the
+                  halves of a (B, S, 2*H*d) projection, T = S = 384, causal
+  K4-cross        K4 at the cross-attention: T = 384, S = 24, zero mask
+  K4-encoder      K4 at the code encoder: T = S = 24, anticausal mask
   K2-fwd          the relative-bias forward at the training shape: bf16
                   q, k, v packed (B, L, H*d), B = 32, T = S = 384, causal
                   mask, dropout 0.2
@@ -25,11 +31,19 @@ generator; H = 8, d = 64, bf16 dots). The kernels (default: all):
 Prints one JSON line: for each kernel the ms per call from CUDA events over
 its repetitions, and the sum and sum of squares of its first output (equal
 across checkouts whose kernels agree bit for bit); and the ptxas registers
-and spills of the head-dim-64 kernels of the libraries used. With
+and spills of the head-dim-64 kernels of the libraries used (of every
+head dim for K4's f32-dot kernel). With
 --profile, also each kernel's launches by name: device ms per call summed by
 torch.profiler over the repetitions. To compare two checkouts, run one
 process per checkout, all in one command on one card, in the order A, B,
 B, A.
+
+--variants FILE (JSON: {variant: [[csrc file, old text, new text], ...]})
+builds each variant, the checkout's csrc/ with those edits (each old text
+found exactly once), into DIR/build/variants/, and times the kernels again
+with each variant's libraries in turn: the checkout, the variants, the
+variants in reverse, the checkout. Variants that remove one part of a
+kernel tell where its time goes (k4_parts.json).
 """
 from __future__ import annotations
 
@@ -38,18 +52,21 @@ import json
 import sys
 from pathlib import Path
 
-SERVING = ("K3-fwd", "K3-fwd-encoder")
+SERVING = ("K3-fwd", "K3-fwd-encoder", "K4", "K4-cross", "K4-encoder")
 TRAIN = ("K2-fwd", "K6-fwd", "K6-fwd-cross", "K2-bwd", "K3-bwd", "K6-bwd-nobias",
        "K6-bwd")
 LIBRARIES = {"K3-fwd": "relbias_attention", "K3-fwd-encoder": "relbias_attention",
+             "K4": "fused_attention", "K4-cross": "fused_attention",
+             "K4-encoder": "fused_attention",
              "K2-fwd": "relbias_attention", "K6-fwd": "fused_attention",
              "K6-fwd-cross": "fused_attention",
              "K2-bwd": "relbias_attention_bwd", "K3-bwd": "relbias_attention_bwd",
              "K6-bwd-nobias": "fused_attention_bwd", "K6-bwd": "fused_attention_bwd"}
 
 
-def forward_calls(torch, ak, masks):
-    """(name, repetitions, call) of the relative-bias forward, serving shapes."""
+def forward_calls(torch, ak, fk, masks):
+    """(name, repetitions, call) of the relative-bias forward and of K4,
+    serving shapes."""
     b, h, d = 512, 8, 64
     for name, t in (("K3-fwd", 384), ("K3-fwd-encoder", 24)):
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -61,6 +78,18 @@ def forward_calls(torch, ak, masks):
                 else masks.anticausal_mask(t, device="cuda"))
         yield name, 10, (lambda q=q, k=k, v=v, mask=mask, e1=e1, e2=e2:
                          ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2))
+    for name, t, s, kind in (("K4", 384, 384, "causal"), ("K4-cross", 384, 24, None),
+                             ("K4-encoder", 24, 24, "anticausal")):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        split = lambda x: x.unflatten(-1, (h, d)).transpose(1, 2)  # noqa: E731
+        q = split(torch.randn((b, t, h * d), generator=gen, device="cuda") * d ** -0.5)
+        kv = torch.randn((b, s, 2 * h * d), generator=gen, device="cuda")
+        k, v = split(kv[..., :h * d]), split(kv[..., h * d:])
+        mask = {"causal": lambda: masks.causal_mask(t, device="cuda"),
+                "anticausal": lambda: masks.anticausal_mask(s, device="cuda"),
+                None: lambda: None}[kind]()
+        yield name, 10 if t == s == 384 else 30, (
+            lambda q=q, k=k, v=v, mask=mask: fk.fused_attention_cuda(q, k, v, mask))
 
 
 def training_calls(torch, ak, fk, masks):
@@ -126,15 +155,65 @@ def launch_ms(torch, call, reps):
 
 
 def ptxas_report(build, lib_name):
-    """{kernel entry: [registers / spill lines]} of the head-dim-64 kernels."""
+    """{kernel entry: [registers / spill lines]} of the head-dim-64 kernels,
+    and of every head dim of the f32-dot forward (fwd_f32)."""
     lib = build.library_path(lib_name)
     report, entry = {}, None
     for line in (lib.parent / (lib.name + ".log")).read_text().splitlines():
         if "Compiling entry" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif entry and "Li64E" in entry and ("registers" in line or "spill" in line):
+        elif (entry and ("Li64E" in entry or "fwd_f32" in entry)
+              and ("registers" in line or "spill" in line)):
             report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return report
+
+
+def build_variants(build, variants, libs):
+    """{variant: {library: loaded library}}: the checkout's csrc/ with each
+    variant's edits, one nvcc per (variant, library), all started together."""
+    import ctypes
+    import shutil
+    import subprocess
+    procs = []
+    for name, edits in variants.items():
+        src = build.BUILD_DIR.parent / "variants" / name
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(build.CSRC_DIR, src)
+        for file, old, new in edits:
+            text = (src / file).read_text()
+            if text.count(old) != 1:
+                raise SystemExit(f"variant {name}: {file} holds {text.count(old)} "
+                                 f"copies of {old[:60]!r}")
+            (src / file).write_text(text.replace(old, new))
+        for lib in libs:
+            so = src / f"{lib}.so"
+            cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(src / f"{lib}.cu")]
+            procs.append((name, lib, so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    built = {}
+    for name, lib, so, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant {name}: nvcc failed for {lib}.cu:\n{log}")
+        built.setdefault(name, {})[lib] = ctypes.CDLL(str(so))
+    return built
+
+
+def time_variants(torch, build, calls, variants, libs):
+    """{variant: {kernel: [ms, ...]}} in the order checkout, variants,
+    variants reversed, checkout, all on the same inputs."""
+    built = build_variants(build, variants, libs)
+    own = {lib: build.library(lib) for lib in libs}
+    times = {}
+    for name in ["checkout", *variants, *reversed(list(variants)), "checkout"]:
+        for lib in libs:
+            build._LIBS[lib] = own[lib] if name == "checkout" else built[name][lib]
+        for kernel, reps, call in calls:
+            times.setdefault(name, {}).setdefault(kernel, []).append(
+                time_call(torch, call, reps)[0])
+    for lib in libs:
+        build._LIBS[lib] = own[lib]
+    return times
 
 
 def main() -> int:
@@ -143,6 +222,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default=",".join(SERVING + TRAIN))
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--variants", default=None)
     args = ap.parse_args()
     wanted = args.kernels.split(",")
     unknown = sorted(set(wanted) - set(SERVING + TRAIN))
@@ -163,9 +243,15 @@ def main() -> int:
               "package": str(Path(ak.__file__).resolve().parents[1])}
     groups = []
     if set(wanted) & set(SERVING):
-        groups.append(forward_calls(torch, ak, masks))
+        groups.append(forward_calls(torch, ak, fk, masks))
     if set(wanted) & set(TRAIN):
         groups.append(training_calls(torch, ak, fk, masks))
+    if args.variants:
+        calls = [c for g in groups for c in g if c[0] in wanted]
+        result["variants"] = time_variants(
+            torch, _build, calls, json.loads(Path(args.variants).read_text()),
+            sorted({LIBRARIES[name] for name in wanted}))
+        groups = [calls]
     for calls in groups:
         for name, reps, call in calls:
             if name not in wanted:
