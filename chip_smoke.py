@@ -1,15 +1,18 @@
 """Smoke run of the PyTorch + CUDA port (vqcpcb_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py             # the smoke run
-    python3 chip_smoke.py --profile   # plus profiler breakdowns of sampling
-                                      # and of 3 decoder train steps
+    python3 chip_smoke.py --profile   # plus profiler breakdowns of sampling,
+                                      # of 3 decoder train steps and of 3
+                                      # encoder train steps
 
 Phases, in order; any failure raises and the run exits non-zero:
   1. environment: the card's name and power limit, torch / CUDA versions,
      TF32 off for matmuls and cuDNN (the comparisons below are in f32);
   2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a), one
      nvcc per source, all started together;
-  3. nearest-codebook kernel vs its plain PyTorch version, timed;
+  3. nearest-codebook kernel vs its plain PyTorch version, timed by events
+     and by device time at the serving shape and at the encoder-training
+     shapes;
   4. relative-bias attention forward kernel (inference) vs its plain
      version and, at its three batch-8 shapes, the forward's bf16 weights
      bit for bit, timed beside its bound and beside
@@ -40,9 +43,18 @@ Phases, in order; any failure raises and the run exits non-zero:
      flagship with VQCPCB_PALLAS_RELBIAS=0 (the explicit-bias route: K6 in
      training, K4 at inference): a few train steps, one prefill, and its
      loss and gradients vs the in-kernel route at dropout 0;
-  9. one JSON line of per-kernel numbers, then the result line.
-The five runs of phases 7 and 8 are the main paths: each is driven with the
-launch counts set to 0 just before it and read just after.
+  9. VQ-CPC encoder training at bench.py's geometry, full width: the
+     card's eval forward vs the CPU's, then (a) VQCPCEncoderTrainer steps
+     at batch 16 in f32 (5 warm-up, 100 timed as one window ->
+     encoder_train_tokens_per_sec, 30 synced one by one -> median ms/step,
+     3 K1 launches a step), (b) bench.py's trained guard on the port's own
+     data path and EMA quantizer (300 steps on the synthetic corpus:
+     held-out CPC accuracy and codebook perplexity), (c) with --profile, 3
+     profiled steps;
+ 10. one JSON line of per-kernel numbers, then the result line.
+The five runs of phases 7 and 8 and the run of phase 9 (a) are the main
+paths: each is driven with the launch counts set to 0 just before it and
+read just after.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -80,6 +92,19 @@ NUM_CODES = 24
 HEADS = 8
 HEAD_DIM = 64
 CODEBOOK_SIZE = 32
+# VQ-CPC encoder training at bench.py:52-88's geometry: batch 16, 6 + 6
+# blocks of 16 tokens (4 ticks x 4 voices), 15 negatives per block,
+# vocabulary 62 per voice; the negatives' 1,440 windows go through the
+# encoder as one batch.
+ENC_BATCH = 16
+ENC_BLOCKS = 6
+ENC_NEG = 15
+ENC_VOCAB = 62
+ENC_NEG_ROWS = ENC_BATCH * ENC_NEG * ENC_BLOCKS
+ENC_WARMUP = 5
+ENC_STEPS = 100
+ENC_SYNCED = 30
+GUARD_STEPS = 300
 
 
 def log(msg: str) -> None:
@@ -164,10 +189,17 @@ def phase_build() -> None:
 # ---- phase 3 ---------------------------------------------------------------
 
 def phase_vq(gen: torch.Generator) -> dict:
+    """K1 against its plain version at the slices' shapes and at odd ones;
+    timed by events and by device time at the serving shape (512 x 24 codes)
+    and at the encoder-training shapes (the negatives' 16 x 15 x 6 windows,
+    the 16 x 6 left or right blocks). The top-level numbers are the serving
+    shape's, as since the kernel was first ported."""
     from vqcpcb_tpu_torch.ops import vq_kernels as vk
     dev = torch.device("cuda")
-    result = {}
+    timed = {}
     for n, k, d, s in [(BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
+                       (ENC_NEG_ROWS, 1, 3, CODEBOOK_SIZE),
+                       (ENC_BATCH * ENC_BLOCKS, 1, 3, CODEBOOK_SIZE),
                        (300, 2, 8, 16), (7, 1, 130, 200),
                        (1048576, 1, 3, CODEBOOK_SIZE)]:
         x = torch.randn((n, k, d), generator=gen, device=dev)
@@ -190,8 +222,9 @@ def phase_vq(gen: torch.Generator) -> dict:
         if bad:
             raise AssertionError(f"vq_nearest disagrees with its plain version "
                                  f"on {bad} rows at ({n},{k},{d},{s})")
-        if (n, k, d, s) == (BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE):
+        if n in (BATCH * NUM_CODES, ENC_NEG_ROWS, ENC_BATCH * ENC_BLOCKS):
             ms = time_cuda(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
+            dev_ms = device_ms(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
             plain_ms = time_cuda(lambda: vk.nearest_codebook_indices_plain(x, e), 50)
             bytes_moved = 4 * (x.numel() + e.numel() + n * k)
             flops = n * k * s * (2 * d + 3) + n * k * 2 * d
@@ -200,17 +233,20 @@ def phase_vq(gen: torch.Generator) -> dict:
             # than the plain version's (0 when every index agrees)
             err = (dist.gather(-1, got.long()[..., None])
                    - dist.gather(-1, want.long()[..., None])).abs().max().item()
-            result = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
-            log(f"# vq_nearest at the slice shape ({n},{k},{d},{s}): "
-                f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-                f"{bound_ms:.6f} ms ({bound_by})")
+            timed[f"({n},{k},{d},{s})"] = dict(
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            log(f"# vq_nearest at ({n},{k},{d},{s}): kernel {ms:.5f} ms "
+                f"(device {dev_ms:.5f} ms), plain {plain_ms:.5f} ms, bound "
+                f"{bound_ms:.7f} ms ({bound_by})")
         elif n == 1048576:
             ms = time_cuda(lambda: vk.nearest_codebook_indices_cuda(x, e), 50)
             plain_ms = time_cuda(lambda: vk.nearest_codebook_indices_plain(x, e), 10)
             log(f"# vq_nearest at ({n},{k},{d},{s}): kernel {ms:.5f} ms, "
                 f"plain {plain_ms:.5f} ms")
-    return result
+    serving = timed[f"({BATCH * NUM_CODES},1,3,{CODEBOOK_SIZE})"]
+    return dict(serving, max_abs_err=max(t["max_abs_err"] for t in timed.values()),
+                shapes=timed)
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -939,10 +975,11 @@ def init_codebook(encoder, templates, gen) -> None:
     """Data-dependent codebook init (the reference's first-batch init,
     vqcpcb_tpu/ops/quantizer.py:29): codes drawn from the downscaler's
     outputs, so the templates' codes spread over the codebook."""
+    from vqcpcb_tpu_torch.ops.quantizer import initialize_codebooks
     with torch.no_grad():
-        z = encoder.downscaler(encoder.embed_tokens(templates)).reshape(-1, 3)
-        pick = torch.randperm(z.shape[0], generator=gen, device="cuda")[:CODEBOOK_SIZE]
-        encoder.quantizer.embeddings[0].copy_(z[pick])
+        z = encoder.downscale(templates, training=False).reshape(-1, 3)
+        encoder.quantizer.set_codebooks(
+            initialize_codebooks(z, 1, CODEBOOK_SIZE, gen))
 
 
 def random_templates(vocab, gen, batch, events):
@@ -1297,6 +1334,203 @@ def phase_explicit_bias(gen: torch.Generator) -> dict:
     return dict(result, loss_err=loss_err, worst_cos=worst_cos)
 
 
+# ---- phase 9 ---------------------------------------------------------------
+
+# Loss of one eval forward of the full-width VQ-CPC model on the card
+# against the same model on the CPU: f32 on both sides (TF32 off), sums in
+# other orders through two GRUs of 512 and the scorers; the codes must be
+# equal for this to hold, so a wrong K1 index shows here too.
+ENC_LOSS_RTOL = 1e-4
+
+
+def build_cpc_model(ema: bool):
+    """The VQ-CPC model of bench.py:52-88 at full width, random weights from
+    torch's init under a fixed seed: embedding 32, two independent 2-layer
+    GRUs of 512 over blocks of 16 tokens, codebook 32 x 3 (one codebook,
+    commitment 0.25), MLP upscaler 512 -> 32, CModule GRU 512 x 2 -> 32,
+    FksModule k_max 6, dropout 0.1; quantization weighting 0.5. With `ema`,
+    bench.py's trained-guard twin: the EMA quantizer (decay 0.99) and
+    weighting 0.25."""
+    from vqcpcb_tpu_torch.models.cpc import CModule, FksModule, VQCPCModel
+    from vqcpcb_tpu_torch.models.data_processor import BachCPCDataProcessor
+    from vqcpcb_tpu_torch.models.downscalers import GruDownscaler
+    from vqcpcb_tpu_torch.models.encoder import Encoder
+    from vqcpcb_tpu_torch.models.upscalers import MlpUpscaler
+    from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
+                                                ProductVectorQuantizer)
+    torch.manual_seed(1 if ema else 0)
+    ticks = ENC_BLOCKS * 16 // 4
+    quantizer = (EMAProductVectorQuantizer(CODEBOOK_SIZE, 3, 0.25, 1, ema_decay=0.99)
+                 if ema else ProductVectorQuantizer(CODEBOOK_SIZE, 3, 0.25, 1))
+    encoder = Encoder(
+        BachCPCDataProcessor(32, 2 * ticks, [ENC_VOCAB] * 4, num_tokens_per_block=16),
+        GruDownscaler(32, 3, [16], 512, num_layers=2, dropout=0.1, bidirectional=True),
+        quantizer, MlpUpscaler(3, 32, 512, 0.1))
+    return VQCPCModel(encoder, CModule(32, 512, 32, 2, 0.1),
+                      FksModule(32, 32, ENC_BLOCKS),
+                      quantization_weighting=0.25 if ema else 0.5)
+
+
+def random_cpc_batch(gen):
+    """bench.py's random token batch, on the card: x_left / x_right (16, 24,
+    4), negatives (16, 15, 6, 4, 4), tokens in [0, 62)."""
+    ticks = ENC_BLOCKS * 16 // 4
+    shapes = {"x_left": (ENC_BATCH, ticks, 4), "x_right": (ENC_BATCH, ticks, 4),
+              "negative_samples": (ENC_BATCH, ENC_NEG, ENC_BLOCKS, 4, 4)}
+    return {k: torch.randint(ENC_VOCAB, shape, generator=gen, device="cuda",
+                             dtype=torch.int32) for k, shape in shapes.items()}
+
+
+def phase_encoder_training(gen: torch.Generator, profile: bool) -> dict:
+    """(a) Throughput of VQCPCEncoderTrainer.train_step at bench.py's
+    geometry, the counted main path; (b) bench.py's trained guard on the
+    port's own data path; (c) with --profile, 3 profiled steps."""
+    from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
+    batches = [random_cpc_batch(gen) for _ in range(4)]
+    tokens_per_step = sum(batches[0][k].numel() for k in batches[0])
+    trainer = VQCPCEncoderTrainer(build_cpc_model(ema=False), seed=0)
+    trainer.init_state(batches[0], lr=1e-3)
+    codebook = trainer.model.encoder.quantizer.codebooks
+    log(f"# [encoder] codebook init from the negatives' latents: "
+        f"{tuple(codebook.shape)}, {len(codebook.reshape(-1, 3).unique(dim=0))} "
+        f"distinct codewords")
+
+    # kernel route vs the CPU plain route, one eval forward at batch 2
+    small = {k: v[:2] for k, v in batches[0].items()}
+    with torch.no_grad():
+        card = trainer.model(small, training=False)[1]
+        cpu = copy.deepcopy(trainer.model).cpu()(
+            {k: v.cpu() for k, v in small.items()}, training=False)[1]
+    loss_err = abs(card["loss"].item() - cpu["loss"].item()) / abs(cpu["loss"].item())
+    log(f"# [encoder] eval forward at batch 2, card vs CPU f32 plain route: loss "
+        f"{card['loss'].item():.6f} vs {cpu['loss'].item():.6f} (relative "
+        f"{loss_err:.3e}, need <= {ENC_LOSS_RTOL}), codewords "
+        f"{card['num_codewords'].item()} vs {cpu['num_codewords'].item()}")
+    if not (loss_err <= ENC_LOSS_RTOL
+            and card["num_codewords"].item() == cpu["num_codewords"].item()):
+        raise AssertionError("the encoder-training forward differs from the CPU's")
+
+    for i in range(ENC_WARMUP):
+        trainer.train_step(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    # (a) the counted main path: 100 steps timed as one window with one sync
+    # at the end (bench.py:131-136), then 30 steps synced one by one
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(ENC_STEPS):
+        metrics = trainer.train_step(batches[i % len(batches)])
+    window_loss = metrics["loss"].item()
+    window_s = time.perf_counter() - t0
+    tokens_per_s = tokens_per_step * ENC_STEPS / window_s
+    step_s, losses = [], []
+    for i in range(ENC_SYNCED):
+        out, sec = synced_seconds(lambda: trainer.train_step(batches[i % len(batches)]))
+        step_s.append(sec)
+        losses.append(out["loss"])
+    main_counts = counts()
+    losses = torch.stack(losses).cpu().tolist() + [window_loss]
+    steps = ENC_STEPS + ENC_SYNCED
+    want = {k: 3 * steps if k == "vq_nearest" else 0 for k in main_counts}
+    step_ms = float(np.median(step_s)) * 1e3
+    log(f"# [encoder] (a) encoder_train_tokens_per_sec {tokens_per_s:.1f} "
+        f"({ENC_STEPS} steps of {tokens_per_step} tokens in {window_s:.4f} s, one "
+        f"sync at the end); median {step_ms:.3f} ms/step over {ENC_SYNCED} synced "
+        f"steps (min {min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}); loss "
+        f"{losses[0]:.4f} .. {losses[-2]:.4f}")
+    log(f"# [encoder] (a) launches over {steps} steps: {json.dumps(main_counts)} "
+        f"(need {json.dumps(want)}: K1 on the negatives, the left and the right "
+        "windows of every step)")
+    if main_counts != want:
+        raise AssertionError(f"encoder-training launches {main_counts}, not {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite encoder-training loss: {losses}")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_s = synced_seconds(lambda: [trainer.train_step(batches[i])
+                                                for i in range(3)])
+        _log_profile(prof, wall_s, f"[encoder] 3 encoder train steps at batch "
+                     f"{ENC_BATCH}", 20)
+    guard = phase_trained_guard()
+    return dict(launches=main_counts, tokens_per_s=tokens_per_s, step_ms=step_ms,
+                **guard)
+
+
+def phase_trained_guard() -> dict:
+    """bench.py:187-278 on the port: the EMA twin trained for 300 steps on
+    the synthetic corpus must beat max(3 / 16, untrained + 0.05) CPC
+    accuracy over 8 held-out batches, with codebook perplexity >= 3 over 64
+    held-out windows."""
+    import shutil
+    from vqcpcb_tpu_torch.data.corpora import SyntheticChoraleCorpus
+    from vqcpcb_tpu_torch.data.dataloaders import BachCPCDataloaderGenerator
+    from vqcpcb_tpu_torch.models.cpc import codebook_usage
+    from vqcpcb_tpu_torch.models.encoder import merge_codes
+    from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "cpc_data")
+    shutil.rmtree(cache, ignore_errors=True)      # build the windows anew
+    t0 = time.perf_counter()
+    data = BachCPCDataloaderGenerator(
+        num_tokens_per_block=16, num_blocks_left=ENC_BLOCKS,
+        num_blocks_right=ENC_BLOCKS, negative_sampling_method="random",
+        num_negative_samples=ENC_NEG,
+        corpus=SyntheticChoraleCorpus(num_chorales=24, min_beats=16,
+                                      max_beats=48, seed=0),
+        cache_root=cache, seed=7)
+
+    def corpus_batches(split, limit):
+        """split 0 (train, fresh loaders until `limit`) or 1 (val, one pass),
+        as bench.py:corpus_batches."""
+        count = 0
+        while count < limit:
+            for b in data.dataloaders(batch_size=ENC_BATCH)[split]:
+                if count >= limit:
+                    return
+                yield b
+                count += 1
+            if split:
+                return
+
+    first = next(corpus_batches(0, 1))
+    log(f"# [encoder] (b) synthetic corpus: {len(data.dataset_positive.windows)} "
+        f"positive and {len(data.dataset_negative.windows)} negative windows, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    trainer = VQCPCEncoderTrainer(build_cpc_model(ema=True), seed=1)
+    trainer.init_state(first, lr=1e-3)
+    quantizer = trainer.model.encoder.quantizer
+
+    def heldout():
+        accs, windows = [], []
+        for b in corpus_batches(1, 8):
+            accs.append(trainer.eval_step(b)["accuracy"].cpu().numpy())
+            windows += [b["x_left"], b["x_right"]]
+        codes = merge_codes(trainer.encode(np.concatenate(windows)[:64])[1],
+                            quantizer.codebook_size)
+        return (float(np.mean(accs)), len(accs),
+                codebook_usage(codes, quantizer.codebook_size)[1].item())
+
+    untrained_acc, n_val, _ = heldout()
+    t0 = time.perf_counter()
+    for b in corpus_batches(0, GUARD_STEPS):
+        metrics = trainer.train_step(b)
+    last_loss = metrics["loss"].item()
+    train_s = time.perf_counter() - t0
+    acc, _, ppl = heldout()
+    chance = 1.0 / (1 + ENC_NEG)
+    need = max(3 * chance, untrained_acc + 0.05)
+    ok = acc > need and ppl >= 3.0
+    log(f"# [encoder] (b) trained guard: {GUARD_STEPS} steps in {train_s:.2f} s "
+        f"(last loss {last_loss:.4f}); held-out CPC accuracy {acc:.4f} over "
+        f"{n_val} val batches (untrained {untrained_acc:.4f}, need > {need:.4f}), "
+        f"codebook perplexity {ppl:.4f} over 64 held-out windows (need >= 3.0)")
+    if not ok:
+        raise AssertionError("the trained guard failed")
+    return dict(heldout_cpc_accuracy=acc, untrained_cpc_accuracy=untrained_acc,
+                trained_codebook_perplexity=ppl)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -1322,6 +1556,7 @@ def main() -> int:
     by_path["absolute_serving"] = phase_serving(gen, profile, "absolute")["launches"]
     by_path["absolute_training"] = phase_decoder_training(gen, profile, "absolute")["launches"]
     by_path["explicit_bias"] = phase_explicit_bias(gen)["launches"]
+    by_path["encoder_training"] = phase_encoder_training(gen, profile)["launches"]
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
 
@@ -1341,9 +1576,11 @@ def main() -> int:
     train_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "ms_bhld")
     pa = "vqcpcb_tpu/ops/pallas_attention.py"
     kernels = [
+        # top-level times at the serving shape; every timed shape, the
+        # encoder-training ones among them, under "shapes"
         entry("vq_nearest", "vqcpcb_tpu_torch/csrc/vq_nearest.cu",
               "vqcpcb_tpu/ops/pallas_vq.py:28", "vqcpcb_tpu/ops/pallas_vq.py:_kernel",
-              [], vq),
+              [], vq, shapes=vq["shapes"]),
         # top-level times at the serving prefill's shape (B=512, T=S=384, f32
         # inputs), as since the kernel was first ported; the training shape
         # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"

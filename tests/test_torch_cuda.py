@@ -38,6 +38,78 @@ def test_nearest_codebook_kernel_on_card(gen, n, k, d, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1440, 96])
+def test_nearest_codebook_kernel_at_encoder_training_shapes(gen, n):
+    """The encoder-training step's K1 shapes (the negatives' 1,440 windows,
+    the 96 left or right blocks), codebook 32 x 3: equal to the plain
+    version on every row whose two smallest distances lie more than 1e-6
+    relative apart (nearer rows may round either way between two summation
+    orders)."""
+    x = torch.randn((n, 1, 3), generator=gen, device="cuda") * 4
+    e = torch.randn((1, 32, 3), generator=gen, device="cuda") * 4
+    got = vk.nearest_codebook_indices(x, e)
+    want = vk.nearest_codebook_indices_plain(x, e)
+    dist = ((x * x).sum(-1, keepdim=True) - 2.0 * torch.einsum("nkd,ksd->nks", x, e)
+            + (e * e).sum(-1)[None])
+    two = dist.topk(2, dim=-1, largest=False).values
+    margin = (two[..., 1] - two[..., 0]) > 1e-6 * two.abs().amax(-1).clamp_min(1.0)
+    assert not ((got != want) & margin).any()
+
+
+@pytest.fixture
+def f32_matmuls():
+    """Matmuls and cuDNN (the GRUs) in f32, as on the CPU."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ema", [False, True])
+def test_encoder_train_step_on_card_matches_the_cpu(gen, f32_matmuls, ema):
+    """One VQCPCEncoderTrainer step of a small VQ-CPC model (GRU 16, batch
+    3, 2 + 2 blocks, 3 negatives, dropout 0) on the card and on the CPU
+    from the same weights, batch and codebook-init permutation: the loss
+    within 1e-4 relative, the codes' metrics equal, and three K1 launches
+    on the card (negatives, left, right)."""
+    import copy
+    import numpy as np
+    from vqcpcb_tpu_torch.models.cpc import CModule, FksModule, VQCPCModel
+    from vqcpcb_tpu_torch.models.data_processor import BachCPCDataProcessor
+    from vqcpcb_tpu_torch.models.downscalers import GruDownscaler
+    from vqcpcb_tpu_torch.models.encoder import Encoder
+    from vqcpcb_tpu_torch.models.upscalers import MlpUpscaler
+    from vqcpcb_tpu_torch.ops import quantizer
+    from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
+    torch.manual_seed(0)
+    quant = (quantizer.EMAProductVectorQuantizer(8, 3, 0.25, 1) if ema
+             else quantizer.ProductVectorQuantizer(8, 3, 0.25, 1))
+    model = VQCPCModel(
+        Encoder(BachCPCDataProcessor(8, 16, [7, 9, 6, 8], num_tokens_per_block=16),
+                GruDownscaler(8, 3, [16], 16, 2, 0.0, bidirectional=True), quant,
+                MlpUpscaler(3, 8, 16, 0.0)),
+        CModule(8, 16, 8, 2, 0.0), FksModule(8, 8, 2))
+    rng = np.random.RandomState(0)
+    batch = {"x_left": rng.randint(0, 6, (3, 8, 4)), "x_right": rng.randint(0, 6, (3, 8, 4)),
+             "negative_samples": rng.randint(0, 6, (3, 3, 2, 4, 4))}
+    perms = [rng.permutation(18)]
+    results = []
+    for device in ("cuda", "cpu"):
+        trainer = VQCPCEncoderTrainer(copy.deepcopy(model), device=device)
+        trainer.init_state(batch, lr=1e-3, perms=perms)
+        before = vk.launches
+        metrics = trainer.train_step(batch)
+        results.append({k: v.cpu() for k, v in metrics.items()})
+        if device == "cuda":
+            assert vk.launches == before + 3
+    card, cpu = results
+    assert abs(card["loss"].item() - cpu["loss"].item()) <= 1e-4 * abs(cpu["loss"].item())
+    for name in ("num_codewords", "num_codewords_negative"):
+        assert card[name].item() == cpu[name].item(), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t,s,dot_dtype", [(96, 24, torch.bfloat16),
                                            (64, 64, torch.bfloat16),
                                            (24, 24, torch.float32)])

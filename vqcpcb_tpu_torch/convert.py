@@ -14,10 +14,13 @@ becomes g_enc_fwd / g_enc_bwd; codebooks are (K, S, d) and become
 embeddings.{k}; sos and the positional embeddings (relative: target
 channel and event features; absolute: source and target positions) are raw
 params; an attention decoder layer's cross-attention is multihead_attn.
+The VQ-CPC model's non-parameter collections (flax `batch_stats`: the
+quantizer BatchNorm's mean / var; `ema`: the EMA quantizer's codebooks,
+cluster_size and ema_sums) become buffers of the same state_dict.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -103,8 +106,13 @@ def encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     else:
         sd.update(_gru(ds["g_enc_fwd"], "downscaler.g_enc_fwd."))
     sd.update(_dense(ds["output_linear"], "downscaler.output_linear."))
-    for k, table in enumerate(np.asarray(params["quantizer"]["codebooks"])):
-        sd[f"quantizer.embeddings.{k}"] = _tensor(table)
+    quantizer = params.get("quantizer", {})       # none for EMA / pass-through
+    if "codebooks" in quantizer:
+        for k, table in enumerate(np.asarray(quantizer["codebooks"])):
+            sd[f"quantizer.embeddings.{k}"] = _tensor(table)
+    if "batch_norm" in quantizer:
+        sd["quantizer.batch_norm.weight"] = _tensor(quantizer["batch_norm"]["scale"])
+        sd["quantizer.batch_norm.bias"] = _tensor(quantizer["batch_norm"]["bias"])
     if "upscaler" in params:
         sd.update(_dense(params["upscaler"]["fc1"], "upscaler.mlp.0."))
         sd.update(_dense(params["upscaler"]["fc2"], "upscaler.mlp.3."))
@@ -136,4 +144,30 @@ def decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     while f"pre_softmax_{c}" in params:
         sd.update(_dense(params[f"pre_softmax_{c}"], f"pre_softmaxes.{c}."))
         c += 1
+    return sd
+
+
+def vqcpc_state_dict(params: Mapping, collections: Optional[Mapping] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """flax VQCPCModel 'params' and its other variable collections (the JAX
+    trainer's state.batch_stats: {'batch_stats': ..., 'ema': ...}) -> the
+    state_dict, parameters and buffers, of
+    vqcpcb_tpu_torch.models.cpc.VQCPCModel."""
+    sd = {f"encoder.{k}": v for k, v in encoder_state_dict(params["encoder"]).items()}
+    for name in ("c_module", "c_module_back"):
+        if name in params:
+            sd.update(_gru(params[name]["g_ar_fwd"], f"{name}.g_ar_fwd."))
+            sd.update(_dense(params[name]["output_linear"], f"{name}.output_linear."))
+    for name in ("fks_module", "fks_module_back"):
+        if name in params:
+            sd[f"{name}.W"] = _tensor(params[name]["W"])
+    collections = collections or {}
+    quantizer = collections.get("batch_stats", {}).get("encoder", {}).get("quantizer", {})
+    if "batch_norm" in quantizer:
+        sd["encoder.quantizer.batch_norm.running_mean"] = _tensor(quantizer["batch_norm"]["mean"])
+        sd["encoder.quantizer.batch_norm.running_var"] = _tensor(quantizer["batch_norm"]["var"])
+    ema = collections.get("ema", {}).get("encoder", {}).get("quantizer", {})
+    for name in ("codebooks", "cluster_size", "ema_sums"):
+        if name in ema:
+            sd[f"encoder.quantizer.{name}"] = _tensor(ema[name])
     return sd

@@ -1,1 +1,3 @@
-"""Data helpers of the port (a port-local vocabulary)."""
+"""Data of the port: port-local NumPy copies of the JAX package's
+vocabulary, tokenizer, synthetic corpus, window dataset and CPC data
+loaders."""

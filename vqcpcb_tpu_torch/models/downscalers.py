@@ -3,7 +3,7 @@ vqcpcb_tpu/models/downscalers.py; the GRU downscaler only -- the transformer
 downscalers come with a later slice)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -33,7 +33,10 @@ class GruDownscaler(nn.Module):
         self.output_linear = nn.Linear(
             hidden_size * (2 if bidirectional else 1), output_dim)
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, training: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`training` (None: the module's mode) applies the GRUs' dropout
+        between layers, drawn from `generator`."""
         block = self.downscale_factors[0]
         b, seq_len, dim = inputs.shape
         if seq_len % block:
@@ -41,7 +44,8 @@ class GruDownscaler(nn.Module):
         num_blocks = seq_len // block
         x = inputs.reshape(b * num_blocks, block, dim)
         if self.bidirectional:
-            z = bigru_last_hidden(self.g_enc_fwd, self.g_enc_bwd, x)
+            z = bigru_last_hidden(self.g_enc_fwd, self.g_enc_bwd, x, training,
+                                  generator)
         else:
-            z = self.g_enc_fwd(x)[:, -1]
+            z = self.g_enc_fwd(x, training, generator)[:, -1]
         return self.output_linear(z).reshape(b, num_blocks, -1)

@@ -1,11 +1,12 @@
-"""Cross-entropy losses of the decoder (counterpart of
-vqcpcb_tpu/ops/losses.py:categorical_crossentropy :54 and
-stacked_categorical_crossentropy :91).
+"""Losses (counterpart of vqcpcb_tpu/ops/losses.py): the CPC losses of the
+encoder, nce_loss :16 and quantization_loss_aggregate :33, and the decoder's
+cross entropies, categorical_crossentropy :54 and
+stacked_categorical_crossentropy :91.
 
-Both accumulate in f32 and normalise each channel by its own count of
-masked positions. The JAX versions contract with a one-hot because a TPU
-executes the gather's transpose as a serial scatter; a GPU gathers, so these
-pick the target's log-probability with `gather`.
+All accumulate in f32. The cross entropies normalise each channel by its own
+count of masked positions. The JAX versions contract with a one-hot because a
+TPU executes the gather's transpose as a serial scatter; a GPU gathers, so
+these pick the target's log-probability with `gather`.
 """
 from __future__ import annotations
 
@@ -13,6 +14,30 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+
+def nce_loss(positive: torch.Tensor, negatives: torch.Tensor) -> torch.Tensor:
+    """InfoNCE: -(positive - logsumexp([negatives, positive])), summed over
+    the prediction steps k and averaged over the batch.
+
+    positive (B, k); negatives (B, k, num_negatives)."""
+    positive = positive.float()
+    stacked = torch.cat([negatives.float(), positive[..., None]], dim=2)
+    return -(positive - torch.logsumexp(stacked, dim=2)).sum(1).mean(0)
+
+
+def quantization_loss_aggregate(loss_left: torch.Tensor,
+                                loss_negative: torch.Tensor,
+                                loss_right: torch.Tensor,
+                                loss_negative_back: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Mean over the streams and the batch of each window's summed
+    commitment loss: loss_left (B, blocks_l), loss_right (B, blocks_r),
+    loss_negative[_back] (B, num_neg, k, blocks_neg)."""
+    parts = [loss_left.sum(1), loss_right.sum(1), loss_negative.sum((1, 2, 3))]
+    if loss_negative_back is not None:
+        parts.append(loss_negative_back.sum((1, 2, 3)))
+    return torch.cat(parts, dim=0).mean()
 
 
 def _nll(logp: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

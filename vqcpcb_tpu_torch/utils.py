@@ -26,6 +26,18 @@ def unflatten(sequence: torch.Tensor, num_channels: int) -> torch.Tensor:
                             + tuple(sequence.shape[2:]))
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout whose mask is drawn from `generator` (torch's default
+    generator of x's device when None): each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), as flax's nn.Dropout
+    does. The identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep / (1.0 - rate)
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """Entry-point device rule: the card unless the caller names another.
