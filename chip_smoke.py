@@ -51,10 +51,20 @@ Phases, in order; any failure raises and the run exits non-zero:
      data path and EMA quantizer (300 steps on the synthetic corpus:
      held-out CPC accuracy and codebook perplexity), (c) with --profile, 3
      profiled steps;
- 10. one JSON line of per-kernel numbers, then the result line.
-The five runs of phases 7 and 8 and the run of phase 9 (a) are the main
-paths: each is driven with the launch counts set to 0 just before it and
-read just after.
+ 10. the entry points, the CLIs as a user calls them, in process in
+     build/entry_points: the encoder CLI -t on
+     configs/encoder_random_synthetic.py (60 batches, then the cluster
+     dumps), the decoder CLI -t on configs/decoder_synthetic.py (the
+     flagship, 40 batches at 64) over that encoder, -l -r and -l
+     --num_examples 1, and the AC/AC/C decoder (decoder_type
+     'transformer_relative') -t (10 batches) and -l -r; then the checks:
+     exit codes, model directories and metrics rows, written tokens inside
+     the vocabulary, the reloaded decoder's eval loss equal to the trained
+     one's, one AC/AC/C step on the kernel route vs the f32 plain route;
+ 11. one JSON line of per-kernel numbers, then the result line.
+The five runs of phases 7 and 8, the run of phase 9 (a) and the CLI calls of
+phase 10 are the main paths: each is driven with the launch counts set to 0
+just before it and read just after.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -1531,6 +1541,233 @@ def phase_trained_guard() -> dict:
                 trained_codebook_perplexity=ppl)
 
 
+# ---- phase 10 --------------------------------------------------------------
+
+# The entry points as a user calls them, at full width: the encoder CLI on
+# configs/encoder_random_synthetic.py (GRU 512 x 2, codebook 32 x 3, batch
+# 16), the decoder CLI on copies of configs/decoder_synthetic.py (the
+# flagship AC/D/C: d_model 512, 3+3 layers, 8 heads, 384 tokens from 24
+# codes, batch 64) and of it with decoder_type 'transformer_relative' (the
+# AC/AC/C decoder, cross relbias at ratio 16), each over the encoder the
+# first call trained. Epochs and batches are cut; widths are not.
+ENTRY_ENCODER_BATCHES = 60
+ENTRY_DECODER_BATCHES = 40
+ENTRY_RELATIVE_BATCHES = 10
+# the CLI calls of the counted main path, and the kernels each must launch
+# (K1 = vq_nearest; K2-fwd / K3-fwd = relbias_attention_fwd, in training /
+# at inference; K2-bwd = relbias_attention_bwd)
+ENTRY_KERNELS = {
+    "encoder -t": ("vq_nearest",),
+    "decoder -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    "decoder -l -r": ("vq_nearest", "relbias_attention_fwd"),
+    "decoder -l --num_examples 1": ("vq_nearest", "relbias_attention_fwd"),
+    "AC/AC/C -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    "AC/AC/C -l -r": ("vq_nearest", "relbias_attention_fwd"),
+}
+TRAINING_CALLS = ("encoder -t", "decoder -t", "AC/AC/C -t")
+
+
+def _decoder_config_copy(work: str, name: str, encoder_config: str,
+                         decoder_type: str) -> str:
+    """configs/decoder_synthetic.py copied to {work}/configs/{name}.py (its
+    savename), its config_encoder the trained encoder's config.py."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "decoder_synthetic.py")) as f:
+        text = f.read()
+    for old, new in (("'configs/encoder_random_synthetic.py'", repr(encoder_config)),
+                     ("'transformer_relative_diagonal'", repr(decoder_type))):
+        if old not in text:
+            raise AssertionError(f"configs/decoder_synthetic.py has no {old}")
+        text = text.replace(old, new)
+    path = os.path.join(work, "configs", f"{name}.py")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _check_model_dir(model_dir: str, epochs: int) -> list:
+    """config.py, both slots and one finite metrics row per epoch; returns
+    the rows."""
+    for name in ("config.py", "overfitted", "early_stopped", "metrics.jsonl"):
+        if not os.path.exists(os.path.join(model_dir, name)):
+            raise AssertionError(f"{model_dir} holds no {name}")
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["epoch"] for r in rows] != list(range(epochs)) or not all(
+            np.isfinite(r["loss/train"]) and np.isfinite(r["loss/val"])
+            for r in rows):
+        raise AssertionError(f"{model_dir}/metrics.jsonl: {rows}")
+    return rows
+
+
+def phase_entry_points(card: str) -> dict:
+    """The port's CLIs in process (main([...])) in a fresh working directory
+    under build/: (a) encoder -t, with the cluster dumps; (b) the flagship
+    decoder -t over that encoder, -l -r, -l --num_examples 1; (c) the
+    AC/AC/C decoder -t, -l -r; (d) the checks: every call returns 0, the
+    model directories, the written grids' tokens, the reloaded decoder's
+    eval loss, and one AC/AC/C step on the kernel route against the f32
+    plain route. The launches of the calls are counted from zero (the main
+    path); the trainers the calls build are recorded for (d)."""
+    import glob
+    import shutil
+    from vqcpcb_tpu_torch import main_decoder, main_encoder
+    from vqcpcb_tpu_torch.data.dataloaders import BachDataloaderGenerator
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "entry_points")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "configs"))
+
+    trainers, grids, reharm_s = {}, [], []
+    originals = {name: getattr(cls, name) for cls, name in (
+        (DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
+        (DecoderTrainer, "generate_reharmonisation"),
+        (BachDataloaderGenerator, "write"))}
+
+    # the trainers by model directory, the first of each kind kept
+    def train_model(self, **kw):
+        trainers.setdefault("trained", {}).setdefault(
+            os.path.abspath(self.model_dir), self)
+        return originals["train_model"](self, **kw)
+
+    def load(self, early_stopped):
+        trainers.setdefault("loaded", {}).setdefault(
+            os.path.abspath(self.model_dir), self)
+        return originals["load"](self, early_stopped)
+
+    def generate_reharmonisation(self, *args, **kw):
+        out, sec = synced_seconds(
+            lambda: originals["generate_reharmonisation"](self, *args, **kw))
+        reharm_s.append(sec)
+        return out
+
+    def write(self, x, path):
+        grids.append((self.dataset.vocabulary.num_tokens_per_channel,
+                      np.asarray(x)))
+        return originals["write"](self, x, path)
+
+    calls, per_call = {}, {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    DecoderTrainer.train_model, DecoderTrainer.load = train_model, load
+    DecoderTrainer.generate_reharmonisation = generate_reharmonisation
+    BachDataloaderGenerator.write = write
+    try:
+        def run(label, cli, argv):
+            before = counts()
+            code, sec = synced_seconds(lambda: cli.main(argv))
+            per_call[label] = _delta(counts(), before)
+            calls[label] = sec
+            log(f"# [entry] {label}: exit {code} in {sec:.2f} s, launches "
+                f"{json.dumps({k: v for k, v in per_call[label].items() if v})}")
+            if code != 0:
+                raise AssertionError(f"{label} returned {code}")
+
+        reset_counts()
+        run("encoder -t", main_encoder, [
+            "-t", "-c", os.path.join(root, "configs", "encoder_random_synthetic.py"),
+            "--num_epochs", "1", "--num_batches", str(ENTRY_ENCODER_BATCHES)])
+        (encoder_dir,) = glob.glob(os.path.join(work, "models",
+                                                "encoder_random_synthetic_*"))
+        encoder_config = os.path.join(encoder_dir, "config.py")
+        dirs = {"encoder": encoder_dir}
+        for kind, decoder_type, batches in (
+                ("decoder", "transformer_relative_diagonal", ENTRY_DECODER_BATCHES),
+                ("AC/AC/C", "transformer_relative", ENTRY_RELATIVE_BATCHES)):
+            name = ("decoder_synthetic" if kind == "decoder"
+                    else "decoder_relative_AC_AC_C_synthetic")
+            config = _decoder_config_copy(work, name, encoder_config, decoder_type)
+            run(f"{kind} -t", main_decoder, ["-t", "-c", config, "--num_epochs",
+                                             "1", "--num_batches", str(batches)])
+            (dirs[kind],) = glob.glob(os.path.join(work, "models", f"{name}_*"))
+            model_config = os.path.join(dirs[kind], "config.py")
+            run(f"{kind} -l -r", main_decoder, ["-l", "-r", "-c", model_config])
+            if kind == "decoder":
+                run(f"{kind} -l --num_examples 1", main_decoder,
+                    ["-l", "--num_examples", "1", "-c", model_config])
+        main_counts = counts()
+    finally:
+        os.chdir(cwd)
+        for (cls, name) in ((DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
+                            (DecoderTrainer, "generate_reharmonisation"),
+                            (BachDataloaderGenerator, "write")):
+            setattr(cls, name, originals[name])
+
+    # (d) the checks
+    for label, kernels in ENTRY_KERNELS.items():
+        missing = [k for k in kernels if not per_call[label][k]]
+        others = [k for k, c in per_call[label].items() if c and k not in kernels]
+        if missing or others:
+            raise AssertionError(f"{label}: launched {per_call[label]}: "
+                                 f"missing {missing}, unexpected {others}")
+    rows = {kind: _check_model_dir(d, 1) for kind, d in dirs.items()}
+    for kind in ("decoder", "AC/AC/C"):
+        written = glob.glob(os.path.join(dirs[kind], "reharmonisations", "*.mid"))
+        if len(written) < 3:
+            raise AssertionError(f"{kind}: {len(written)} re-harmonisations")
+    if not glob.glob(os.path.join(dirs["encoder"], "clusters_train", "*.mid")):
+        raise AssertionError("the encoder CLI wrote no cluster dump")
+    if len(glob.glob(os.path.join(dirs["decoder"], "generations", "*.mid"))) != 6:
+        raise AssertionError("--num_examples 1 did not write 6 scores")
+    for vocab, grid in grids:
+        if grid.min() < 0 or (grid >= np.asarray(vocab)).any():
+            raise AssertionError(f"a written grid's tokens leave the vocabulary "
+                                 f"{vocab}")
+    log(f"# [entry] (d) every call returned 0; {len(grids)} written grids "
+        f"(cluster dumps, re-harmonisations, generations), every token inside "
+        f"its voice's vocabulary")
+
+    # the reloaded decoders against the trained ones, one fixed val batch
+    trained, reloaded = trainers["trained"], trainers["loaded"]
+    for kind in ("decoder", "AC/AC/C"):
+        a, b = trained[dirs[kind]], reloaded[dirs[kind]]
+        x = next(a.dataloader_generator.dataloaders(batch_size=64)[1])["x"]
+        la, lb = a.eval_step(x)["loss"].item(), b.eval_step(x)["loss"].item()
+        log(f"# [entry] (d) {kind}: eval loss of val batch 0, trained in memory "
+            f"{la!r}, reloaded by -l {lb!r} (need equal)")
+        if la != lb:
+            raise AssertionError(f"{kind}: the reloaded decoder's eval loss differs")
+
+    # one AC/AC/C step, kernel route vs the CPU f32 plain route, dropout 0
+    acac = trained[dirs["AC/AC/C"]]
+    dec = acac.decoder
+    set_dropout(dec, 0.0)
+    small = torch.as_tensor(next(acac.dataloader_generator.dataloaders(
+        batch_size=2)[0])["x"], device=acac.device)
+    codes = acac.encode_codes(small)
+    kernel = loss_and_grads(dec, codes, small, autocast=True)
+    plain = loss_and_grads(copy.deepcopy(dec).cpu(), codes.cpu(), small.cpu(),
+                           autocast=False)
+    loss_err, worst_cos, _ = compare_routes(
+        "[entry] (d) AC/AC/C (cross relbias at ratio 16), batch 2, dropout 0, "
+        "kernel route vs CPU f32 plain route", kernel, plain)
+
+    # (e) the numbers
+    tokens = {kind: r[0]["tokens_per_sec/train"] for kind, r in rows.items()}
+    log(f"# [entry] (e) {card}: encoder epoch {tokens['encoder']:.1f} tokens/s "
+        f"({ENTRY_ENCODER_BATCHES} steps at batch 16), flagship decoder epoch "
+        f"{tokens['decoder']:.1f} tokens/s ({ENTRY_DECODER_BATCHES} steps at batch "
+        f"64), AC/AC/C epoch {tokens['AC/AC/C']:.1f} tokens/s "
+        f"({ENTRY_RELATIVE_BATCHES} steps); re-harmonisation (3 variants of the "
+        f"corpus's first score) {reharm_s[0]:.3f} s flagship, {reharm_s[1]:.3f} s "
+        f"AC/AC/C; CLI seconds {json.dumps({k: round(v, 2) for k, v in calls.items()})}")
+    # one counter serves the training forward (K2-fwd) and the inference
+    # forward (K3-fwd: val epochs and -l); each training forward has one
+    # backward, so K2-fwd = K2-bwd launches and K3-fwd the rest
+    by_kernel = {"K1": {l: c["vq_nearest"] for l, c in per_call.items()},
+                 "K2-fwd": {l: c["relbias_attention_bwd"] for l, c in per_call.items()},
+                 "K2-bwd": {l: c["relbias_attention_bwd"] for l, c in per_call.items()},
+                 "K3-fwd": {l: c["relbias_attention_fwd"] - c["relbias_attention_bwd"]
+                            for l, c in per_call.items()}}
+    for name, calls_ in by_kernel.items():
+        log(f"# [entry] (e) {card}: {name} launches {sum(calls_.values())} on this "
+            f"path: {json.dumps({l: n for l, n in calls_.items() if n})}")
+    return dict(launches=main_counts, tokens_per_s=tokens, reharm_s=reharm_s,
+                cli_s=calls, by_kernel=by_kernel, acac_loss_err=loss_err,
+                acac_worst_cos=worst_cos)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -1542,7 +1779,7 @@ def main() -> int:
         print(f"chip_smoke: the vqcpcb_tpu_torch package is missing ({exc}); "
               "run from the root of the repository", file=sys.stderr)
         return 2
-    phase_environment()
+    card = phase_environment()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     vq = phase_vq(gen)
@@ -1557,6 +1794,7 @@ def main() -> int:
     by_path["absolute_training"] = phase_decoder_training(gen, profile, "absolute")["launches"]
     by_path["explicit_bias"] = phase_explicit_bias(gen)["launches"]
     by_path["encoder_training"] = phase_encoder_training(gen, profile)["launches"]
+    by_path["entry_points"] = phase_entry_points(card)["launches"]
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
 

@@ -472,3 +472,78 @@ def test_fused_attention_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fk.fused_attention(q4, q4, q4, None)
     with pytest.raises(ValueError, match="bias must be"):
         fk.fused_attention(q4, q4, q4, None, torch.zeros((2, 3, 1), device="cuda"))
+
+
+# ---- checkpoints on the card (twins of tests/test_torch_checkpoints.py) ----
+
+def _checkpoint_helpers():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_checkpoints
+    return test_torch_checkpoints
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+def test_resume_from_step_checkpoint_on_card(gen, tmp_path, kind):
+    """A run killed at batch 3 of epoch 0 (step checkpoints every 2 batches)
+    and resumed by train_model on the card ends where the uninterrupted run
+    on the card does: parameters, buffers, optimizer, step and generators
+    equal, bit for bit, and the same metrics rows. Dropout on (and label
+    corruption with BatchNorm for the encoder)."""
+    tc = _checkpoint_helpers()
+    if kind == "encoder":
+        build, config = tc.build_encoder_trainer, tc.encoder_config("commitment")
+        kwargs = dict(batch_size=16, num_batches=5, num_epochs=2, lr=1e-3,
+                      schedule_lr=True, corrupt_labels=True,
+                      checkpoint_every_steps=2)
+    else:
+        build, config = tc.build_decoder_trainer, tc.decoder_config(dropout=0.1)
+        kwargs = dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
+                      schedule_lr=True, checkpoint_every_steps=2)
+
+    def on_card(tmp, name, cfg, **kw):
+        return build(tmp, name, cfg, device="cuda", **kw)
+    tc._resume_matches_uninterrupted(tmp_path, on_card, config, kwargs)
+
+
+@pytest.mark.cuda
+def test_decoder_reload_on_card_gives_the_trained_eval_loss(gen, tmp_path):
+    """save, then a fresh trainer's init_state + load on the card: the whole
+    state equal, and the eval loss of one batch equal to the trained
+    model's in memory."""
+    tc = _checkpoint_helpers()
+    config = tc.decoder_config(dropout=0.1)
+    a = tc.build_decoder_trainer(tmp_path, "d", config, device="cuda")
+    a.train_model(batch_size=8, num_batches=3, num_epochs=1, lr=1e-3)
+    x = next(a.dataloader_generator.dataloaders(batch_size=8)[1])["x"]
+    trained = a.eval_step(x)["loss"].item()
+    b = tc.build_decoder_trainer(tmp_path, "d", config, init_seed=1, seed=5,
+                                 device="cuda")
+    b.init_state(lr=1e-3)
+    b.load(early_stopped=False)
+    tc.assert_states_equal(b.state_dict(), a.state_dict())
+    assert b.eval_step(x)["loss"].item() == trained
+
+
+@pytest.mark.cuda
+def test_dropout_on_card_draws_from_the_generator(gen):
+    """utils.dropout on a CUDA tensor (torch's fused dropout kernel with the
+    caller's generator): the same seed gives the same mask, another seed
+    another; about 1 - rate of the elements kept, scaled by 1 / (1 - rate);
+    the gradient is the mask over (1 - rate)."""
+    from vqcpcb_tpu_torch.utils import dropout
+    x = torch.randn((256, 512), generator=gen, device="cuda", requires_grad=True)
+
+    def run(seed):
+        return dropout(x, 0.2, True, torch.Generator(device="cuda").manual_seed(seed))
+
+    a = run(1)
+    assert torch.equal(a, run(1)) and not torch.equal(a, run(2))
+    kept = a != 0
+    assert abs(kept.float().mean().item() - 0.8) < 0.01
+    torch.testing.assert_close(a[kept], x[kept] / 0.8)
+    a.sum().backward()
+    torch.testing.assert_close(x.grad, kept.float() / 0.8)
+    assert dropout(x, 0.2, False) is x

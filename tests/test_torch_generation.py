@@ -229,3 +229,39 @@ def test_trainer_epoch_means_the_step_losses(pair):
     trained = ours.epoch(batches, train=True, num_batches=1)
     assert ours.step == 1 and np.isfinite(trained["loss"])
     assert ours.epoch([], train=True) == {}
+
+
+def test_trainer_reharmonisation_from_a_score_matches_jax(pair, tmp_path):
+    """The port DecoderTrainer's generate_reharmonisation from a synthetic
+    score, greedy (top_k=1), against the JAX trainer's with the same
+    weights: the grids equal, and the written .mid and .json files the same
+    bytes."""
+    import copy
+    from vqcpcb_tpu_torch.data.corpora import SyntheticChoraleCorpus
+    from vqcpcb_tpu_torch.data.dataloaders import BachDataloaderGenerator
+    trainer, port, _ = pair
+    ours = PortDecoderTrainer(
+        copy.deepcopy(port.encoder), copy.deepcopy(port.decoder), CODEBOOK,
+        device="cpu", model_dir=str(tmp_path / "port"),
+        dataloader_generator=BachDataloaderGenerator(
+            4, corpus=SyntheticChoraleCorpus(num_chorales=5, min_beats=10,
+                                             max_beats=14, seed=0),
+            cache_root=str(tmp_path / "port_data")))
+    ours.init_state(lr=1e-3)
+    jax_score = next(iter(trainer.dataloader_generator.dataset.corpus))
+    score = next(iter(ours.dataloader_generator.dataset.corpus))
+    want = trainer.generate_reharmonisation(
+        2, temperature=1.0, top_k=1, scores=[jax_score],
+        write_dir=str(tmp_path / "jax_out"))
+    got = ours.generate_reharmonisation(2, temperature=1.0, top_k=1,
+                                        scores=[score])
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] >= 40
+        np.testing.assert_array_equal(g, w)
+    for k in range(2):
+        for ext in (".mid", ".json"):
+            with open(tmp_path / "port" / "reharmonisations" / f"score0_{k}{ext}",
+                      "rb") as f, \
+                    open(tmp_path / "jax_out" / f"score0_{k}{ext}", "rb") as g:
+                assert f.read() == g.read()

@@ -11,7 +11,11 @@ Ported so far: the re-harmonisation serving path (the frozen encoder's
 codes through the nearest-codebook kernel, `ops/vq_kernels.py`; the
 decoders' prefill through the attention kernels; the KV-cached sampler,
 `models/decoder.py`, `training/decoder_trainer.py`), decoder training for
-the relative and the absolute decoder, and VQ-CPC encoder training
+the relative and the absolute decoder, VQ-CPC encoder training
 (`models/cpc.py`, `training/encoder_trainer.py`, the quantizers of
-`ops/quantizer.py`, the CPC data path of `data/`).
+`ops/quantizer.py`, the CPC data path of `data/`), and the entry points:
+`getters.py` (config dict -> modules), the epoch loop with its two-slot and
+step checkpoints and metrics (`training/loop.py`, `checkpoints.py`,
+`metrics.py`), score writing (`data/midi.py`) and the CLIs
+`python -m vqcpcb_tpu_torch.main_encoder` / `main_decoder`.
 """

@@ -1,30 +1,98 @@
-"""CPC batches for the encoder: a port-local NumPy copy of
-BachCPCDataloaderGenerator (vqcpcb_tpu/data/dataloaders.py:135-329), with
-both negative-sampling methods.
+"""Batches for the encoder and the decoders: port-local NumPy copies of
+vqcpcb_tpu/data/dataloaders.py -- `BachDataloaderGenerator` (:47-133, plain
+token windows and score writing) and `BachCPCDataloaderGenerator`
+(:135-329, CPC batches with both negative-sampling methods).
 
-Each batch is a dict of NumPy int32 arrays {'x_left', 'x_right',
-'negative_samples', 'negative_samples_back'}; the trainer moves them to its
+Each batch is a dict of NumPy int32 arrays; the trainer moves them to its
 device. The shuffles draw from np.random.RandomState, as in the JAX package,
-so the same corpus and seed give the JAX generator's batches element for
+so the same corpus and seed give the JAX generators' batches element for
 element ('random': independent negative window streams; 'same_sequence':
 the other blocks of the same excerpt; reference:
-VQCPCB/dataloaders/bach_cpc_dataloader.py).
+VQCPCB/dataloaders/bach_cpc_dataloader.py). `reseed(epoch_id)` makes the
+next dataloaders() call a pure function of (seed, epoch_id), which the
+step-checkpoint resume of training/loop.py relies on.
 """
 from __future__ import annotations
 
+import json
 from typing import Iterator, Tuple
 
 import numpy as np
 
 from vqcpcb_tpu_torch.data.dataset import ChoraleBeatsDataset, batch_iterator
+from vqcpcb_tpu_torch.data.tokenizer import ticks_to_neutral_events
 
 SUBDIVISION = 4
 NUM_VOICES = 4
 
 
-class BachCPCDataloaderGenerator:
-    """Train / val / test CPC batch iterators over a corpus's windows; every
-    dataloaders() call draws its shuffles from the one RandomState(seed)."""
+class DataloaderGenerator:
+    """Train / val / test batch iterators whose shuffles draw from one
+    RandomState(seed) (dataloaders.py:28)."""
+
+    def __init__(self, seed: int = 0):
+        self._seed = seed
+        self._rng = np.random.RandomState(seed)
+
+    def reseed(self, epoch_id: int) -> None:
+        """Make the next dataloaders() call a pure function of (seed,
+        epoch_id), with the JAX package's formula (dataloaders.py:37-44): a
+        resumed epoch then replays the stream the interrupted one drew."""
+        self._rng = np.random.RandomState(
+            (self._seed * 1000003 + epoch_id) % (2 ** 31))
+
+
+class BachDataloaderGenerator(DataloaderGenerator):
+    """{'x': (B, num_events, num_channels)} token windows of
+    `sequences_size` beats, and score writing (dataloaders.py:47)."""
+
+    def __init__(self, sequences_size: int, corpus, cache_root=None,
+                 seed: int = 0):
+        super().__init__(seed)
+        self.dataset = ChoraleBeatsDataset(
+            corpus, sequences_size=sequences_size, subdivision=SUBDIVISION,
+            cache_root=cache_root)
+        self.sequences_size = sequences_size
+
+    def dataloaders(self, batch_size, num_workers=0, shuffle_train=True,
+                    shuffle_val=False) -> Tuple[Iterator, Iterator, Iterator]:
+        """num_workers is accepted for the JAX signature; batches are made
+        in this process."""
+        train, val, test = self.dataset.splits()
+
+        def gen(split, shuffle):
+            rng = self._rng if shuffle else None
+            for batch in batch_iterator(split, batch_size, rng):
+                # (B, voices, ticks) -> (B, num_events, num_channels)
+                yield {"x": np.ascontiguousarray(batch.transpose(0, 2, 1))}
+
+        return (gen(train, shuffle_train), gen(val, shuffle_val),
+                gen(test, False))
+
+    def to_neutral(self, x: np.ndarray):
+        """x: (num_events, num_channels) -> per voice, a list of (name,
+        offset, duration) in beats."""
+        return ticks_to_neutral_events(
+            np.asarray(x).T, self.dataset.vocabulary, SUBDIVISION)
+
+    def write(self, x: np.ndarray, path_no_extension: str) -> str:
+        """Write a token grid as what the JAX package writes without music21
+        (dataloaders.py:80-100): a Standard MIDI File, plus the JSON note
+        list that keeps the rest / START / END / PAD symbols the MIDI file
+        renders as silence. Returns the .mid path."""
+        from vqcpcb_tpu_torch.data.midi import neutral_events_to_smf
+        events = self.to_neutral(x)
+        with open(f"{path_no_extension}.json", "w") as f:
+            json.dump(events, f)
+        out = f"{path_no_extension}.mid"
+        with open(out, "wb") as f:
+            f.write(neutral_events_to_smf(events))
+        return out
+
+
+class BachCPCDataloaderGenerator(DataloaderGenerator):
+    """Train / val / test CPC batch iterators over a corpus's windows
+    (dataloaders.py:135)."""
 
     def __init__(self,
                  num_tokens_per_block: int,
@@ -36,12 +104,12 @@ class BachCPCDataloaderGenerator:
                  cache_root=None,
                  seed: int = 0):
         assert num_tokens_per_block % (SUBDIVISION * NUM_VOICES) == 0
+        super().__init__(seed)
         self.num_tokens_per_block = num_tokens_per_block
         self.num_blocks_left = num_blocks_left
         self.num_blocks_right = num_blocks_right
         self.negative_sampling_method = negative_sampling_method
         self.num_negative_samples = num_negative_samples
-        self._rng = np.random.RandomState(seed)
         num_tokens_per_beat = SUBDIVISION * NUM_VOICES
         num_tokens = num_tokens_per_block * (num_blocks_left + num_blocks_right)
         assert num_tokens % num_tokens_per_beat == 0
@@ -59,8 +127,15 @@ class BachCPCDataloaderGenerator:
         else:
             raise NotImplementedError(negative_sampling_method)
 
-    def dataloaders(self, batch_size, shuffle_train=True, shuffle_val=False
-                    ) -> Tuple[Iterator, Iterator, Iterator]:
+    # the encoder CLI's cluster dumps read the positive windows' dataset
+    @property
+    def dataset(self) -> ChoraleBeatsDataset:
+        return self.dataset_positive
+
+    def dataloaders(self, batch_size, num_workers=0, shuffle_train=True,
+                    shuffle_val=False) -> Tuple[Iterator, Iterator, Iterator]:
+        """num_workers is accepted for the JAX signature; batches are made
+        in this process."""
         if self.negative_sampling_method == "random":
             return self._dataloader_random(batch_size, shuffle_train, shuffle_val)
         return self._dataloader_same_sequence(batch_size, shuffle_train, shuffle_val)

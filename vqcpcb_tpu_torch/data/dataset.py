@@ -82,7 +82,12 @@ class ChoraleBeatsDataset:
                 self._windows = make_window_dataset(
                     self.corpus, self.vocabulary,
                     self.sequences_size, self.subdivision)
-                np.savez_compressed(self.tensor_path, windows=self._windows)
+                # through a temporary file, so a process reading the cache
+                # while another builds it never sees a partial file
+                tmp = f"{self.tensor_path}.{os.getpid()}.tmp"
+                with open(tmp, "wb") as f:
+                    np.savez_compressed(f, windows=self._windows)
+                os.replace(tmp, self.tensor_path)
         return self._windows
 
     def splits(self, split=(0.85, 0.10)) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

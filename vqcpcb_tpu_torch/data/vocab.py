@@ -74,9 +74,11 @@ class Vocabulary:
 
     def save(self, path: str) -> None:
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as f:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             json.dump({"note2index_dicts": self.note2index_dicts,
                        "voice_ranges": [list(r) for r in self.voice_ranges]}, f)
+        os.replace(tmp, path)
 
     @classmethod
     def load(cls, path: str) -> "Vocabulary":

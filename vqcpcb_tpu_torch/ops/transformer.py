@@ -13,7 +13,9 @@ Training: in train mode a layer runs its self-attention on the training
 route (attention.py) and applies dropout after the attention (drop1), the
 cross branch (drop2 of the decoder layer), the FFN (drop2 / drop3) and on
 the FFN's hidden activation, as the JAX layers do (transformer.py:53-109,
-318-327). The rate defaults to 0; the Decoder passes its own. Under bf16
+318-327). The rate defaults to 0; the Decoder passes its own. Those
+dropouts draw their masks from the generator set on them (`Dropout`), the
+trainer's, so a run's every draw has a source it can save. Under bf16
 autocast the aligned cross branch stays in f32, as its JAX Dense layers
 carry no compute dtype.
 """
@@ -27,12 +29,23 @@ from torch import nn
 
 from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
 from vqcpcb_tpu_torch.ops.kv_cache import Cache
+from vqcpcb_tpu_torch.utils import dropout
 
 LAYER_NORM_EPS = 1e-6
 
 
+class Dropout(nn.Dropout):
+    """nn.Dropout whose mask is drawn from `generator`, set by the owner
+    (torch's default generator of the input's device while it is None)."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.p, self.training, self.generator)
+
+
 def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
-                 activation: str, dropout: nn.Dropout) -> torch.Tensor:
+                 activation: str, dropout: Dropout) -> torch.Tensor:
     """The FeedForward block (transformer.py:53): linear1, relu or gelu
     (flax's gelu is the tanh approximation), dropout, linear2. Its modules
     live on the layer, the Linears under the reference's names."""
@@ -63,9 +76,9 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
-        self.drop1 = nn.Dropout(dropout)
-        self.drop2 = nn.Dropout(dropout)
-        self.ff_dropout = nn.Dropout(dropout)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
+        self.ff_dropout = Dropout(dropout)
         self.activation = activation
 
     def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None
@@ -145,10 +158,10 @@ class TransformerAlignedDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
-        self.drop1 = nn.Dropout(dropout)
-        self.drop2 = nn.Dropout(dropout)
-        self.drop3 = nn.Dropout(dropout)
-        self.ff_dropout = nn.Dropout(dropout)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
+        self.drop3 = Dropout(dropout)
+        self.ff_dropout = Dropout(dropout)
         self.num_channels_encoder = num_channels_encoder
         self.num_channels_decoder = num_channels_decoder
         self.activation = activation
@@ -225,10 +238,10 @@ class TransformerDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
-        self.drop1 = nn.Dropout(dropout)
-        self.drop2 = nn.Dropout(dropout)
-        self.drop3 = nn.Dropout(dropout)
-        self.ff_dropout = nn.Dropout(dropout)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
+        self.drop3 = Dropout(dropout)
+        self.ff_dropout = Dropout(dropout)
         self.activation = activation
 
     def _ff_block(self, x):

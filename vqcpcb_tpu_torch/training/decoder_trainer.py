@@ -1,21 +1,27 @@
 """The decoder trainer (counterpart of vqcpcb_tpu/training/decoder_trainer.py):
-its training steps (:120-160, 204-230) and its generation half (:55-65,
-250-471).
+its training steps (:120-160, 204-230), its epoch loop and checkpoints
+(training/loop.py) and its generation surface (:55-65, 250-549).
 
 `DecoderTrainer` trains a decoder on the codes of a frozen encoder: one step
 encodes the batch (the nearest-codebook kernel on the card), runs the
 decoder in train mode under the compute dtype (bf16 autocast on CUDA, f32 on
 the CPU), and applies the clipped Adam of training/optim.py. It holds the
 model, the optimizer and the step count, the counterpart of the JAX
-TrainState. `DecoderGenerator` holds a frozen encoder and a decoder on one
+TrainState, and two generators every random draw comes from: one on the
+device (the decoder's dropout layers and sampling) and one on the host (the
+attention layers' dropout seeds); `save` / `load` keep them with the rest.
+Its generation methods write scores (`generate`, `generate_reharmonisation`
+from scores, `generate_alla_mano`) through a `DecoderGenerator` over its
+modules. `DecoderGenerator` holds a frozen encoder and a decoder on one
 device and an explicit torch.Generator for the draws: frozen-encoder codes
-for a template, then sliding-window KV-cached decoding of the code sequence.
-Both run on the card unless the caller names another device. The training
-loop, checkpoints, score writing and the CLI come with a later slice.
+for a template, then sliding-window KV-cached decoding of the code
+sequence. Both run on the card unless the caller names another device.
 """
 from __future__ import annotations
 
+import os
 import time
+from datetime import datetime
 from itertools import islice
 from typing import Dict, Iterable, List, Optional
 
@@ -27,8 +33,11 @@ from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, START_SYMBOL,
 from vqcpcb_tpu_torch.models.decoder import Decoder
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
 from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
+from vqcpcb_tpu_torch.ops.transformer import Dropout
+from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
-                                             trapezoid_schedule)
+                                             trapezoid_schedule,
+                                             warmup_steps_from_env)
 from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 
@@ -45,25 +54,34 @@ def compute_start_end_times(t: int, num_blocks: int, num_blocks_model: int):
     return t_begin, t_begin + num_blocks_model, t_relative
 
 
-class DecoderTrainer:
-    """Decoder training on frozen-encoder codes.
+class DecoderTrainer(TrainLoopMixin):
+    """Decoder training on frozen-encoder codes, and generation that writes
+    scores.
 
-    seed: seeds the host generator the attention layers draw their dropout
-    seeds from; the other dropout layers draw from torch's default
-    generator of the device."""
+    seed: seeds the device generator the decoder's dropout layers and the
+    sampler draw from, and the host generator the attention layers draw
+    their dropout seeds from. model_dir and dataloader_generator serve
+    train_model, save / load and the generation methods; the steps need
+    neither."""
 
     def __init__(self, encoder: Encoder, decoder: Decoder, codebook_size: int,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, model_dir: Optional[str] = None,
+                 dataloader_generator=None):
+        self.model_dir = model_dir
+        self.dataloader_generator = dataloader_generator
         self.device = resolve_device(device)
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
         self.decoder = decoder.to(self.device)
         self.codebook_size = codebook_size
         self.compute_dtype = (torch.bfloat16 if self.device.type == "cuda"
                               else torch.float32)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.seed_generator = torch.Generator().manual_seed(seed)
         for m in self.decoder.modules():
             if isinstance(m, MultiheadAttention):
                 m.seed_generator = self.seed_generator
+            elif isinstance(m, Dropout):
+                m.generator = self.generator
         self.optimizer: Optional[Adam] = None
         self.step = 0
 
@@ -127,6 +145,163 @@ class DecoderTrainer:
         mean = total.item() / count
         return {"loss": mean,
                 "tokens_per_sec": tokens / max(time.perf_counter() - t0, 1e-9)}
+
+    # ---- the epoch loop (training/loop.py) and its state --------------------
+
+    def _init_from_first(self, first, lr, schedule_lr, initialize):
+        self.init_state(lr=lr, schedule_lr=schedule_lr,
+                        warmup_steps=warmup_steps_from_env())
+
+    def _checkpointed(self):
+        """The decoder; the frozen encoder is the encoder's checkpoint."""
+        return self.decoder
+
+    def _generators(self) -> Dict[str, torch.Generator]:
+        return {"generator": self.generator,
+                "seed_generator": self.seed_generator}
+
+    # ---- generation that writes scores (decoder_trainer.py:281-549) ---------
+
+    @property
+    def _vocab(self):
+        return self.dataloader_generator.dataset.vocabulary
+
+    def _generation(self) -> "DecoderGenerator":
+        """A DecoderGenerator over this trainer's modules (which puts the
+        decoder in eval mode), drawing from the trainer's device
+        generator."""
+        sampler = DecoderGenerator(self.encoder, self.decoder, self._vocab,
+                                   self.codebook_size, device=self.device)
+        sampler.generator = self.generator
+        return sampler
+
+    def generate(self, temperature: float, batch_size: int = 1, top_k: int = 0,
+                 top_p: float = 1.0, seed_set: str = "val",
+                 exclude_meta_symbols: bool = False,
+                 code_juxtaposition: bool = False) -> List[str]:
+        """Seed-excerpt generation (decoder_trainer.py:281): the codes of one
+        excerpt of `seed_set` (with code_juxtaposition, the first half of
+        one and the second half of another), every position sampled
+        `batch_size` times; writes the originals and the samples under
+        generations/ (or juxtapositions/) and returns the written paths."""
+        sampler = self._generation()
+        generator_train, generator_val, _ = \
+            self.dataloader_generator.dataloaders(batch_size=1, shuffle_val=True)
+        pick = {"train": generator_train, "val": generator_val}[seed_set]
+        if code_juxtaposition:
+            a = next(iter(pick))["x"]
+            b = next(iter(pick))["x"]
+            half = a.shape[1] // 2
+            x_original_single = np.concatenate([a[:, :half], b[:, half:]], axis=1)
+        else:
+            x_original_single = next(iter(pick))["x"]
+        x_original = np.tile(x_original_single, (batch_size, 1, 1))
+        codes = sampler.encode_codes(x_original)
+        sampled = self.decoder.sample_range(
+            codes, np.zeros_like(x_original), 0,
+            self.decoder.data_processor.num_tokens, self.generator,
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p),
+            forbidden_indices=sampler._forbidden(exclude_meta_symbols),
+            device=self.device).cpu().numpy()
+
+        timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        save_dir = os.path.join(
+            self.model_dir,
+            "juxtapositions" if code_juxtaposition else "generations")
+        os.makedirs(save_dir, exist_ok=True)
+        scores = [self.dataloader_generator.write(
+                      grid, os.path.join(save_dir, f"{timestamp}_{k}"))
+                  for k, grid in enumerate(np.concatenate([x_original, sampled]))]
+        print(f"Saved in {save_dir}/{timestamp}")
+        return scores
+
+    def generate_reharmonisation(self, num_reharmonisations: int,
+                                 temperature: float, top_k: int = 0,
+                                 top_p: float = 1.0, scores=None,
+                                 write_dir: Optional[str] = None
+                                 ) -> List[np.ndarray]:
+        """Re-harmonise whole scores (decoder_trainer.py:407-471): each score
+        (a NeutralScore; default: the corpus's first) is tokenized and
+        re-harmonised `num_reharmonisations` times by
+        DecoderGenerator.generate_reharmonisation; variant k of score i is
+        written as score{i}_{k} under write_dir (default
+        {model_dir}/reharmonisations). Returns the grids."""
+        from vqcpcb_tpu_torch.data.tokenizer import score_to_ticks
+        sampler = self._generation()
+        dataset = self.dataloader_generator.dataset
+        if scores is None:
+            scores = [next(iter(dataset.corpus))]
+        write_dir = write_dir or os.path.join(self.model_dir, "reharmonisations")
+        os.makedirs(write_dir, exist_ok=True)
+        all_outputs = []
+        for score_id, score in enumerate(scores):
+            ticks = score_to_ticks(score, dataset.vocabulary, dataset.subdivision)
+            outs = sampler.generate_reharmonisation(
+                ticks.T[None], num_reharmonisations, temperature=temperature,
+                top_k=top_k, top_p=top_p)
+            for k, grid in enumerate(outs):
+                self.dataloader_generator.write(
+                    grid, os.path.join(write_dir, f"score{score_id}_{k}"))
+            all_outputs.extend(outs)
+        return all_outputs
+
+    def generate_alla_mano(self, start_codes, end_codes, body_codes,
+                           temperature: float, num_decodings: int = 3
+                           ) -> List[np.ndarray]:
+        """Decode hand-written codes (decoder_trainer.py:473): the body
+        between start and end codes, written under alla_mano/."""
+        code_index_start = len(start_codes)
+        codes = list(start_codes) + list(body_codes)
+        code_index_end = len(codes)
+        codes = np.asarray(codes + list(end_codes), dtype=np.int32)[None]
+        outs = self._generation().generate_from_code_long(
+            codes, temperature=temperature, num_decodings=num_decodings,
+            code_index_start=code_index_start, code_index_end=code_index_end)
+        save_dir = os.path.join(self.model_dir, "alla_mano")
+        os.makedirs(save_dir, exist_ok=True)
+        for k, grid in enumerate(outs):
+            self.dataloader_generator.write(grid, os.path.join(save_dir, str(k)))
+        return outs
+
+    # ---- plagiarism check (decoder_trainer.py:515-549) ----------------------
+
+    def _token_width(self) -> int:
+        """Chars per token id in the dump: fixed width, so the
+        longest-common-substring arithmetic holds for vocabularies of 100
+        tokens or more."""
+        vmax = max(self.decoder.data_processor.num_tokens_per_channel)
+        return max(2, len(str(vmax - 1)))
+
+    def _dump(self, x) -> str:
+        w = self._token_width()
+        return "_".join(str(int(c)).zfill(w) for c in np.asarray(x).reshape(-1))
+
+    def check_duplicate(self, generation, original) -> float:
+        """Tokens in the longest run `generation` shares with `original`."""
+        from difflib import SequenceMatcher
+        s1, s2 = self._dump(generation), self._dump(original)
+        match = SequenceMatcher(None, s1, s2).find_longest_match(
+            0, len(s1), 0, len(s2))
+        return (match.size - 1) / (self._token_width() + 1)
+
+    def check_duplicate_all_corpus(self, generation):
+        """The training excerpt sharing the longest run with `generation`;
+        prints that run's length in tokens."""
+        from difflib import SequenceMatcher
+        s1 = self._dump(generation)
+        generator_train, _, _ = self.dataloader_generator.dataloaders(
+            batch_size=1, shuffle_train=False)
+        best_x, best_size = None, 0
+        for tensor_dict in generator_train:
+            s2 = self._dump(tensor_dict["x"][0])
+            match = SequenceMatcher(None, s1, s2, autojunk=False) \
+                .find_longest_match(0, len(s1), 0, len(s2))
+            if match.size > best_size:
+                best_x, best_size = tensor_dict["x"], match.size
+        print("Num tokens plagiarisms: "
+              f"{(best_size - 1) / (self._token_width() + 1)}")
+        return best_x
 
 
 class DecoderGenerator:

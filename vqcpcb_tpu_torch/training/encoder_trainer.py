@@ -1,14 +1,16 @@
 """The VQ-CPC encoder trainer (counterpart of
 vqcpcb_tpu/training/encoder_trainer.py): the data-dependent codebook init
 (:65-120), the train and eval steps (:133-188), the epoch with its
-tokens/s (:191-238) and `encode`.
+tokens/s (:191-238), the epoch loop with its checkpoints (training/loop.py)
+and `encode`.
 
 `VQCPCEncoderTrainer` holds a VQCPCModel on one device (the card unless the
 caller names another), the clipped Adam of training/optim.py, the step count
 and one torch.Generator on that device for every random draw: dropout,
 label corruption and the codebook-init permutation. Steps run in f32, as
-the JAX steps do (the GRU recurrence is f32 there by design). Checkpoints,
-the training loop and the CLI come with a later slice.
+the JAX steps do (the GRU recurrence is f32 there by design). `save` /
+`load` (training/loop.py) keep the whole state: parameters, the BatchNorm
+and EMA buffers, the optimizer, the step and the generator.
 """
 from __future__ import annotations
 
@@ -23,16 +25,26 @@ from vqcpcb_tpu_torch.models.cpc import VQCPCModel
 from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
                                             ProductVectorQuantizer,
                                             initialize_codebooks)
+from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
-                                             trapezoid_schedule)
+                                             trapezoid_schedule,
+                                             warmup_steps_from_env)
 from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 # batch keys whose elements count as the step's tokens (encoder_trainer.py:227)
 TOKEN_KEYS = ("x_left", "x_right", "negative_samples")
 
 
-class VQCPCEncoderTrainer:
-    def __init__(self, model: VQCPCModel, device=None, seed: int = 0):
+class VQCPCEncoderTrainer(TrainLoopMixin):
+    """model_dir and dataloader_generator serve train_model, save and load
+    (training/loop.py); the steps need neither."""
+
+    monitor_key = "loss_monitor"
+
+    def __init__(self, model: VQCPCModel, device=None, seed: int = 0,
+                 model_dir: Optional[str] = None, dataloader_generator=None):
+        self.model_dir = model_dir
+        self.dataloader_generator = dataloader_generator
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -48,16 +60,19 @@ class VQCPCEncoderTrainer:
     def init_state(self, sample_batch: Dict, lr: float,
                    schedule_lr: bool = False,
                    perms: Optional[Sequence] = None,
-                   warmup_steps: int = WARMUP_STEPS) -> "VQCPCEncoderTrainer":
-        """Fresh optimizer state at step 0 and the data-dependent codebook
-        init (product quantizers) from the batch's negatives stream, the
-        first tensor to reach the quantizer (vector_quantizer.py:101-102 of
-        the reference): the downscaler's latents of all negatives, in eval
-        mode, permuted by `perms` (one per sub-codebook) or by permutations
-        from the trainer's generator. The weights are the module's own."""
+                   warmup_steps: int = WARMUP_STEPS,
+                   initialize: bool = True) -> "VQCPCEncoderTrainer":
+        """Fresh optimizer state at step 0 and, when `initialize`, the
+        data-dependent codebook init (product quantizers) from the batch's
+        negatives stream, the first tensor to reach the quantizer
+        (vector_quantizer.py:101-102 of the reference): the downscaler's
+        latents of all negatives, in eval mode, permuted by `perms` (one per
+        sub-codebook) or by permutations from the trainer's generator. A
+        trainer about to load a checkpoint passes initialize=False. The
+        weights are the module's own."""
         quantizer = self.model.encoder.quantizer
-        if isinstance(quantizer, (ProductVectorQuantizer,
-                                  EMAProductVectorQuantizer)):
+        if initialize and isinstance(quantizer, (ProductVectorQuantizer,
+                                                 EMAProductVectorQuantizer)):
             neg = to_device(sample_batch["negative_samples"], self.device)
             b, n, k, ticks, voices = neg.shape
             z = self.model.encoder.downscale(
@@ -121,6 +136,24 @@ class VQCPCEncoderTrainer:
         if "accuracy" in means:
             means["loss_monitor"] = -float(np.mean(means["accuracy"]))
         return means
+
+    # ---- the epoch loop (training/loop.py) and its state --------------------
+
+    def _init_from_first(self, first, lr, schedule_lr, initialize):
+        self.init_state(first, lr=lr, schedule_lr=schedule_lr,
+                        warmup_steps=warmup_steps_from_env(),
+                        initialize=initialize)
+
+    def _epoch_kwargs(self, corrupt_labels):
+        return {"corrupt_labels": corrupt_labels}
+
+    def _checkpointed(self):
+        """The whole VQ-CPC model, its BatchNorm statistics and EMA
+        codebooks included."""
+        return self.model
+
+    def _generators(self) -> Dict[str, torch.Generator]:
+        return {"generator": self.generator}
 
     @torch.no_grad()
     def encode(self, x):

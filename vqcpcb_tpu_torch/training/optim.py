@@ -15,7 +15,8 @@ does not wait for the device.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Union
+import os
+from typing import Callable, Dict, Iterable, List, Union
 
 import torch
 
@@ -40,6 +41,12 @@ def trapezoid_schedule(lr: float, warmup_steps: int = WARMUP_STEPS
         return lr * max(min(up, down), MIN_SCALING)
 
     return schedule
+
+
+def warmup_steps_from_env() -> int:
+    """The schedule's warmup as the JAX package reads it:
+    VQCPCB_WARMUP_STEPS, else WARMUP_STEPS (optim.py:22-26)."""
+    return int(os.environ.get("VQCPCB_WARMUP_STEPS", str(WARMUP_STEPS)))
 
 
 def clip_by_global_norm(grads: List[torch.Tensor],
@@ -94,3 +101,22 @@ class Adam:
         torch._foreach_mul_(update, -lr)
         torch._foreach_add_(self.params, update)
         return norm
+
+    def state_dict(self) -> Dict:
+        """The moments and the step count, which is also the schedule's
+        position: an optimizer built by the same init_state and given this
+        state takes the step, at the learning rate, that this one would."""
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a state_dict() in place (onto this optimizer's devices)."""
+        if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(self.nu):
+            raise ValueError(f"optimizer state for {len(state['mu'])} "
+                             f"parameters, not {len(self.mu)}")
+        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            if dst.shape != src.shape:
+                raise ValueError(f"optimizer moment of shape {tuple(src.shape)}, "
+                                 f"not {tuple(dst.shape)}")
+            dst.copy_(src)
+        self.count = int(state["count"])

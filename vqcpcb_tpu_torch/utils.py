@@ -1,8 +1,10 @@
 """Cross-cutting helpers (counterpart of vqcpcb_tpu/utils.py)."""
 from __future__ import annotations
 
+import importlib.util
 import os
-from typing import Optional, Union
+import sys
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -31,9 +33,16 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     """Inverted dropout whose mask is drawn from `generator` (torch's default
     generator of x's device when None): each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate), as flax's nn.Dropout
-    does. The identity outside training or at rate 0."""
+    does. The identity outside training or at rate 0.
+
+    On CUDA this is torch's fused dropout kernel, one launch forward and one
+    backward as nn.Dropout's, through `torch._fused_dropout`, the variant
+    that takes a generator (it has no CPU kernel); on the CPU, a mask from
+    torch.rand."""
     if not training or rate == 0.0:
         return x
+    if x.is_cuda:
+        return torch._fused_dropout(x, 1.0 - rate, generator)[0]
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return x * keep / (1.0 - rate)
 
@@ -94,3 +103,30 @@ def relbias_in_kernel() -> bool:
     (vqcpcb_tpu/ops/pallas_attention.py:use_pallas_relbias): "1" (default)
     is the in-kernel route, "0" the explicit-bias route."""
     return os.environ.get("VQCPCB_PALLAS_RELBIAS", "1") == "1"
+
+
+def dict_pretty_print(d: Dict[str, Any], endstr: str = "\n") -> None:
+    """Console pretty printer of a metrics dict (vqcpcb_tpu/utils.py:67)."""
+    for key, value in d.items():
+        if isinstance(value, (list, tuple)):
+            print(f"{key.capitalize()}: [{', '.join(map(str, value))}]",
+                  end=endstr)
+        else:
+            try:
+                print(f"{key.capitalize()}: {float(value):.6}", end=endstr)
+            except (TypeError, ValueError):
+                print(f"{key.capitalize()}: {value}", end=endstr)
+
+
+def load_config_module(config_path: str) -> Dict[str, Any]:
+    """Import an executable-Python config file by path and return its
+    `config` dict (vqcpcb_tpu/utils.py:80), so a config copied into a model
+    directory loads from there."""
+    config_path = os.path.abspath(config_path)
+    module_name = ("_vqcpcb_config_"
+                   + os.path.splitext(os.path.basename(config_path))[0])
+    spec = importlib.util.spec_from_file_location(module_name, config_path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = module
+    spec.loader.exec_module(module)
+    return module.config
