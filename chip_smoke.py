@@ -2,17 +2,18 @@
 
     python3 chip_smoke.py             # the smoke run
     python3 chip_smoke.py --profile   # plus profiler breakdowns of sampling,
-                                      # of 3 decoder train steps and of 3
-                                      # encoder train steps
+                                      # of 3 decoder train steps, of 3
+                                      # encoder train steps and of 3 student
+                                      # train steps
 
 Phases, in order; any failure raises and the run exits non-zero:
   1. environment: the card's name and power limit, torch / CUDA versions,
      TF32 off for matmuls and cuDNN (the comparisons below are in f32);
   2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a), one
      nvcc per source, all started together;
-  3. nearest-codebook kernel vs its plain PyTorch version, timed by events
-     and by device time at the serving shape and at the encoder-training
-     shapes;
+  3. nearest-codebook kernel vs its plain PyTorch version at every main
+     path's shape, timed by events and by device time at the serving shape
+     and at the encoder-training shapes;
   4. relative-bias attention forward kernel (inference) vs its plain
      version and, at its three batch-8 shapes, the forward's bf16 weights
      bit for bit, timed beside its bound and beside
@@ -22,7 +23,11 @@ Phases, in order; any failure raises and the run exits non-zero:
      plain versions, the dropout mask and, at batch 32, the forward's bf16
      w_drop and the backward's bf16 w_drop and ds scratch bit for bit, timed
      at the flagship training shape beside SDPA's autograd backward by its
-     device time;
+     device time; then with no mask at the student's lengths T = S = 384,
+     96, 24, 16 and 4 (packed, dropout 0 and 0.2, the dropout mask at 16),
+     and K2-fwd, K2-bwd and K3-fwd held and timed at every batch the main
+     paths give them with no mask (the student's, the transformer
+     downscaler's in VQ-CPC training, the decoder CLI's encode);
   6. fused attention: K4 at batch 512 at the absolute decoder's three
      shapes and at batch 8 with the explicit-bias prefill's real bias, K6's
      forward and backward at batch 32 with the placeholder and
@@ -51,20 +56,35 @@ Phases, in order; any failure raises and the run exits non-zero:
      data path and EMA quantizer (300 steps on the synthetic corpus:
      held-out CPC accuracy and codebook perplexity), (c) with --profile, 3
      profiled steps;
- 10. the entry points, the CLIs as a user calls them, in process in
+ 10. the student (distilled VQ-VAE) at configs/encoder_student_synthetic.py's
+     full width and the VQ-CPC encoder with the relative-transformer
+     downscaler: (a) StudentEncoderTrainer steps at batch 8 in f32 (5
+     warm-up, 30 synced -> median ms/step, student_train_tokens_per_sec,
+     launches per step, a falling teacher loss), (b) kernel-route vs CPU
+     f32 plain-route losses and gradients at batch 8, dropout 0, the CPU
+     route decoding the card's codes, (c) the
+     same with the absolute auxiliary decoder (K6 in training, K4 in its
+     eval step), (d) VQCPCEncoderTrainer steps with the transformer
+     downscaler at bench.py's geometry (median ms/step, tokens/s, launches
+     per step), (e) with --profile, 3 profiled student steps;
+ 11. the entry points, the CLIs as a user calls them, in process in
      build/entry_points: the encoder CLI -t on
      configs/encoder_random_synthetic.py (60 batches, then the cluster
      dumps), the decoder CLI -t on configs/decoder_synthetic.py (the
      flagship, 40 batches at 64) over that encoder, -l -r and -l
-     --num_examples 1, and the AC/AC/C decoder (decoder_type
-     'transformer_relative') -t (10 batches) and -l -r; then the checks:
-     exit codes, model directories and metrics rows, written tokens inside
-     the vocabulary, the reloaded decoder's eval loss equal to the trained
-     one's, one AC/AC/C step on the kernel route vs the f32 plain route;
- 11. one JSON line of per-kernel numbers, then the result line.
-The five runs of phases 7 and 8, the run of phase 9 (a) and the CLI calls of
-phase 10 are the main paths: each is driven with the launch counts set to 0
-just before it and read just after.
+     --num_examples 1, the AC/AC/C decoder (decoder_type
+     'transformer_relative') -t (10 batches) and -l -r, the encoder CLI -t
+     (20 batches) and -l on configs/encoder_student_synthetic.py (the
+     student), and the flagship decoder -t (10 batches) and -l -r over the
+     student's encoder; then the checks: exit codes, model directories and
+     metrics rows, written tokens inside the vocabulary, the reloaded
+     decoders' and student's eval losses equal to the trained ones', one
+     AC/AC/C step on the kernel route vs the f32 plain route;
+ 12. one JSON line of per-kernel numbers, then the result line.
+The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
+phase 10 (a), (c) and (d) and the CLI calls of phase 11 are the main paths:
+each is driven with the launch counts set to 0 just before it and read just
+after.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -111,6 +131,11 @@ ENC_BLOCKS = 6
 ENC_NEG = 15
 ENC_VOCAB = 62
 ENC_NEG_ROWS = ENC_BATCH * ENC_NEG * ENC_BLOCKS
+# the decoder CLI's batch (configs/decoder_synthetic.py): its encode of 64 x
+# 24 blocks
+DECODER_CLI_BATCH = 64
+# the student's batch (configs/encoder_student_synthetic.py)
+STUDENT_BATCH = 8
 ENC_WARMUP = 5
 ENC_STEPS = 100
 ENC_SYNCED = 30
@@ -199,10 +224,11 @@ def phase_build() -> None:
 # ---- phase 3 ---------------------------------------------------------------
 
 def phase_vq(gen: torch.Generator) -> dict:
-    """K1 against its plain version at the slices' shapes and at odd ones;
-    timed by events and by device time at the serving shape (512 x 24 codes)
-    and at the encoder-training shapes (the negatives' 16 x 15 x 6 windows,
-    the 16 x 6 left or right blocks). The top-level numbers are the serving
+    """K1 against its plain version at the slices' shapes (the serving
+    batch, the VQ-CPC step's, the student's 8 x 24 codes, the decoder CLI's
+    64 x 24) and at odd ones; timed by events and by device time at the
+    serving shape (512 x 24 codes) and at the encoder-training shapes (the
+    negatives' 16 x 15 x 6 windows, the 16 x 6 left or right blocks). The top-level numbers are the serving
     shape's, as since the kernel was first ported."""
     from vqcpcb_tpu_torch.ops import vq_kernels as vk
     dev = torch.device("cuda")
@@ -210,6 +236,8 @@ def phase_vq(gen: torch.Generator) -> dict:
     for n, k, d, s in [(BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
                        (ENC_NEG_ROWS, 1, 3, CODEBOOK_SIZE),
                        (ENC_BATCH * ENC_BLOCKS, 1, 3, CODEBOOK_SIZE),
+                       (STUDENT_BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
+                       (DECODER_CLI_BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
                        (300, 2, 8, 16), (7, 1, 130, 200),
                        (1048576, 1, 3, CODEBOOK_SIZE)]:
         x = torch.randn((n, k, d), generator=gen, device=dev)
@@ -292,7 +320,8 @@ def _relbias_inputs(gen, b, t, s, mask_kind):
     v = torch.randn((b, HEADS, s, HEAD_DIM), generator=gen, device=dev)
     e1 = torch.randn((HEADS, s, HEAD_DIM), generator=gen, device=dev)
     e2 = torch.randn((HEADS, s, HEAD_DIM), generator=gen, device=dev)
-    mask = (causal_mask(t, device=dev) if mask_kind == "causal"
+    mask = (None if mask_kind == "unmasked"
+            else causal_mask(t, device=dev) if mask_kind == "causal"
             else anticausal_mask(s, sz_tgt=t if t != s else None, device=dev))
     return q, k, v, mask, e1, e2
 
@@ -483,6 +512,31 @@ def _hold_weights(what, fwd, weights_plain, inputs, kw) -> str:
     return f"forward bf16 w_drop = the plain version's at all {b * h * t * s} entries"
 
 
+def _hold_dropout_mask(gen, name, t, s, kind) -> None:
+    """The relative-bias forward's dropout mask, bit for bit: with v the
+    one-hot columns of a block of 64 keys, the kernel's output is its
+    dropped weight row there, kept where the hash keeps it."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    q, k, _, mask, e1, e2, _ = _train_inputs(gen, 4, t, s, kind, False)
+    keep = ak.dropout_keep_plain((t, s), TRAIN_DROPOUT,
+                                 ak._stream_seeds(99, 4, HEADS, "cuda"))
+    mismatched = 0
+    for c0 in range(0, s, HEAD_DIM):
+        n = min(HEAD_DIM, s - c0)
+        v = torch.zeros((4, HEADS, s, HEAD_DIM), device="cuda")
+        v[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
+        out = ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
+                                            dropout=TRAIN_DROPOUT, seed=99)
+        w = ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2)
+        live = w[..., :n] > 0
+        mismatched += (((out[..., :n] != 0) & live)
+                       != (keep[..., c0:c0 + n] & live)).sum().item()
+    log(f"# relbias train {name}: dropout mask vs the hash, {mismatched} "
+        f"of {4 * HEADS * t * s} entries differ (need 0)")
+    if mismatched:
+        raise AssertionError(f"dropout mask differs at {mismatched} entries")
+
+
 def phase_relbias_train(gen: torch.Generator) -> dict:
     from vqcpcb_tpu_torch.ops import attention_kernels as ak
     import torch.nn.functional as F
@@ -519,26 +573,7 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
                 log(f"# relbias train {name} (B=4, T={t}, S={s}, "
                     f"{'packed' if packed else '(B,H,L,d)'}, dropout {rate}): "
                     f"err/rule gap/max|value| {line}")
-        # the dropout mask, bit for bit: with v the one-hot columns of a block
-        # of 64 keys, the kernel's output is its dropped weight row there
-        q, k, _, mask, e1, e2, _ = _train_inputs(gen, 4, t, s, kind, False)
-        keep = ak.dropout_keep_plain((t, s), TRAIN_DROPOUT,
-                                     ak._stream_seeds(99, 4, HEADS, "cuda"))
-        mismatched = 0
-        for c0 in range(0, s, HEAD_DIM):
-            n = min(HEAD_DIM, s - c0)
-            v = torch.zeros((4, HEADS, s, HEAD_DIM), device="cuda")
-            v[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
-            out = ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
-                                                dropout=TRAIN_DROPOUT, seed=99)
-            w = ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2)
-            live = w[..., :n] > 0
-            mismatched += (((out[..., :n] != 0) & live)
-                           != (keep[..., c0:c0 + n] & live)).sum().item()
-        log(f"# relbias train {name}: dropout mask vs the hash, {mismatched} "
-            f"of {4 * HEADS * t * s} entries differ (need 0)")
-        if mismatched:
-            raise AssertionError(f"dropout mask differs at {mismatched} entries")
+        _hold_dropout_mask(gen, name, t, s, kind)
 
     # the main path's calls: packed bf16 at B=32, dropout 0.2, at both of its
     # shapes. The bf16-input results are held against the plain versions on
@@ -633,6 +668,151 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
                         library_event_ms=lib_bwd_events,
                         bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
                         max_abs_err=worst["bwd"], ms_bhld=bwd_bhld)}
+
+
+# The student slice's attentions carry no mask at all (T = S): the teacher
+# over 384 tokens, the relative auxiliary decoder's stages at 24 and 96
+# tokens, the transformer downscalers' stages over a block of 16 tokens and
+# of 4. Held at B=4 with dropout 0 and 0.2, then held again and timed at the
+# main paths' batches (the rows of attention the kernels see): the
+# student's 8 sequences and its 8 x 24 blocks, the VQ-CPC step's 16 x 15 x 6
+# negative blocks and 16 x 6 left or right blocks, and the decoder CLI's
+# encode of 64 x 24 blocks through a student's encoder (K3-fwd only there).
+UNMASKED_LENGTHS = (384, 96, 24, 16, 4)
+STUDENT_SHAPES = (("teacher", STUDENT_BATCH, 384),
+                  ("aux decoder stage 1", STUDENT_BATCH, 96),
+                  ("aux decoder stage 0", STUDENT_BATCH, 24),
+                  ("downscaler stage 0", STUDENT_BATCH * NUM_CODES, 16),
+                  ("downscaler stage 1", STUDENT_BATCH * NUM_CODES, 4),
+                  ("CPC negatives, downscaler stage 0", ENC_NEG_ROWS, 16),
+                  ("CPC negatives, downscaler stage 1", ENC_NEG_ROWS, 4),
+                  ("CPC blocks, downscaler stage 0", ENC_BATCH * ENC_BLOCKS, 16),
+                  ("CPC blocks, downscaler stage 1", ENC_BATCH * ENC_BLOCKS, 4),
+                  ("decoder encode, downscaler stage 0",
+                   DECODER_CLI_BATCH * NUM_CODES, 16),
+                  ("decoder encode, downscaler stage 1",
+                   DECODER_CLI_BATCH * NUM_CODES, 4))
+
+
+def _relbias_bounds(b, t, s, elem_bytes, masked):
+    """(fwd, bwd) bounds of the relative-bias kernels at one shape, inputs
+    of `elem_bytes` bytes: q, k, v, out (fwd) and q, k, v, do, dq, dk, dv
+    (bwd) once each, the (H, 2S-1, d) f32 table, and the f32 (T, S) mask
+    where the call passes one (a call without a mask needs none; the zeros
+    the wrapper makes for it are its own); 3 and 8 T x S x d products (fwd:
+    q.k, q.E, w.v; bwd: q.k, q.E, do.v, ds.k, dc.E, ds.q, w.do, dc.q) at
+    the bf16 tensor-core rate, the dots' type."""
+    n, e = b * HEADS, HEADS * HEAD_DIM
+    act = elem_bytes * b * t * e
+    side = 4 * t * s * masked + 4 * HEADS * (2 * s - 1) * HEAD_DIM
+    prod = 2 * t * s * HEAD_DIM * n
+    return (bound(4 * act + side, 3 * prod, BF16_FLOPS),
+            bound(7 * act + 2 * side, 8 * prod, BF16_FLOPS))
+
+
+def phase_relbias_unmasked(gen: torch.Generator) -> dict:
+    """Phase 5, continued: the relative-bias training kernels with no mask,
+    packed, dropout 0 and 0.2, at the student's five lengths (B=4), held as
+    phase 5's cases are, and the dropout mask against the hash at T=S=16;
+    then, at each of STUDENT_SHAPES on f32 inputs (the student trains and
+    evaluates in f32; bf16 dots), K2-fwd and K2-bwd (packed, the configs'
+    dropout 0.1) and K3-fwd (the inference route's (B, H, L, d) call, no
+    dropout) held by the same rules against their plain versions, and timed
+    beside the plain versions, their bounds and scaled_dot_product_attention
+    with the relative bias as its mask (SDPA's backward by its device
+    time)."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    import torch.nn.functional as F
+    from vqcpcb_tpu_torch.ops.relative_attention import subsampled_relative_bias
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    cuda = (ak.relbias_attention_fwd_cuda, ak.relbias_attention_bwd_cuda)
+    plain = (ak.relbias_attention_fwd_plain, ak.relbias_attention_bwd_plain)
+    for t in UNMASKED_LENGTHS:
+        for rate in (0.0, TRAIN_DROPOUT):
+            inputs = _train_inputs(gen, 4, t, t, "unmasked", True)
+            kw = dict(num_heads=HEADS, dropout=rate, seed=1234)
+            got = _fwd_bwd(*cuda, *inputs, **kw)
+            want = _fwd_bwd(*plain, *inputs, **kw)
+            want32 = _fwd_bwd(*plain, *inputs, dot_dtype=torch.float32, **kw)
+            torch.cuda.synchronize()
+            line = _hold(f"relbias training unmasked T=S={t} dropout={rate}", got,
+                         want, want32, worst)
+            if not (got[-2].any() and got[-1].any()):
+                raise AssertionError("unmasked: a half of the table got no gradient")
+            log(f"# relbias train unmasked (B=4, T=S={t}, packed, dropout {rate}): "
+                f"err/rule gap/max|value| {line}")
+    _hold_dropout_mask(gen, "unmasked T=S=16", 16, 16, "unmasked")
+
+    times = {}
+    kw = dict(num_heads=HEADS, dropout=0.1, seed=3)     # the configs' dropout
+    for label, b, t in STUDENT_SHAPES:
+        q, k, v = _projected(gen, b, t, t, torch.float32)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        e1, e2 = (torch.randn((HEADS, t, HEAD_DIM), generator=gen, device="cuda")
+                  for _ in range(2))
+        inputs = (q, k, v, None, e1, e2, g)
+        q4, k4, v4, g4 = (_split_heads(x).contiguous() for x in (q, k, v, g))
+        inputs4 = (q4, k4, v4, None, e1, e2)
+        got = _fwd_bwd(*cuda, *inputs, **kw)
+        got_inf = [cuda[0](*inputs4)]
+        torch.cuda.synchronize()
+        line = _hold(f"relbias training unmasked {label}", got,
+                     _fwd_bwd(*plain, *inputs, **kw),
+                     _fwd_bwd(*plain, *inputs, dot_dtype=torch.float32, **kw), worst)
+        line_inf = _hold(f"relbias inference unmasked {label}", got_inf,
+                         [plain[0](*inputs4)],
+                         [plain[0](*inputs4, dot_dtype=torch.float32)], worst,
+                         names=("out",))
+        del got, got_inf
+        reps = 20 if b * t <= 8 * 384 else 10
+        fwd = lambda: cuda[0](q, k, v, None, e1, e2, **kw)       # noqa: E731
+        bwd = lambda: cuda[1](                                  # noqa: E731
+            q, k, v, None, e1, e2, g, need_dmask=False, **kw)
+        # by events (the wrapper's host time shows at the small shapes) and
+        # by device time (the kernels' own)
+        fwd_ms, fwd_dev = time_cuda(fwd, reps), device_ms(fwd, reps)
+        bwd_ms, bwd_dev = time_cuda(bwd, reps), device_ms(bwd, reps)
+        fwd_plain = time_cuda(lambda: plain[0](q, k, v, None, e1, e2, **kw), 5,
+                              warmup=1)
+        bwd_plain = time_cuda(lambda: plain[1](
+            q, k, v, None, e1, e2, g, need_dmask=False, **kw), 3, warmup=1)
+        inf = lambda: cuda[0](*inputs4)                         # noqa: E731
+        inf_ms, inf_dev = time_cuda(inf, reps), device_ms(inf, reps)
+        inf_plain = time_cuda(lambda: plain[0](*inputs4), 5, warmup=1)
+        bias = subsampled_relative_bias(q4, e1, e2).contiguous()
+        inf_lib = time_cuda(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=bias, scale=1.0), reps, warmup=2)
+        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4, bias)]
+        sdpa = lambda: F.scaled_dot_product_attention(       # noqa: E731
+            *leaves[:3], attn_mask=leaves[3], dropout_p=0.1, scale=1.0)
+        lib_fwd = time_cuda(sdpa, reps, warmup=2)
+        out = sdpa()
+        sdpa_bwd = lambda: torch.autograd.grad(              # noqa: E731
+            out, leaves, g4, retain_graph=True)
+        lib_bwd = device_ms(sdpa_bwd, reps)
+        del out, leaves, bias
+        fwd_b, bwd_b = _relbias_bounds(b, t, t, 4, masked=False)
+        inf_b = fwd_b          # the same bytes and products, no dropout
+        times[label] = dict(
+            batch=b, t=t,
+            k2_fwd=dict(ms=fwd_ms, device_ms=fwd_dev, plain_ms=fwd_plain,
+                        library_ms=lib_fwd, bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+            k2_bwd=dict(ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain,
+                        library_ms=lib_bwd, bound_ms=bwd_b[0], bound_by=bwd_b[1]),
+            k3_fwd=dict(ms=inf_ms, device_ms=inf_dev, plain_ms=inf_plain,
+                        library_ms=inf_lib, bound_ms=inf_b[0], bound_by=inf_b[1]))
+        log(f"# relbias unmasked {label} (B={b}, H={HEADS}, T=S={t}, f32 inputs, "
+            f"bf16 dots): K2 err/rule gap/max|value| {line}; K3-fwd {line_inf}; "
+            f"K2-fwd {fwd_ms:.4f} ms (device {fwd_dev:.4f}; plain "
+            f"{fwd_plain:.4f}, sdpa {lib_fwd:.4f}, bound {fwd_b[0]:.5f} {fwd_b[1]}); "
+            f"K2-bwd {bwd_ms:.4f} ms (device {bwd_dev:.4f}; plain {bwd_plain:.4f}, "
+            f"sdpa bwd {lib_bwd:.4f} device time, bound {bwd_b[0]:.5f} "
+            f"{bwd_b[1]}); K3-fwd (B,H,L,d) {inf_ms:.4f} ms (device {inf_dev:.4f}; "
+            f"plain {inf_plain:.4f}, sdpa {inf_lib:.4f}, bound {inf_b[0]:.5f} "
+            f"{inf_b[1]})")
+        del q, k, v, g, q4, k4, v4, g4, inputs, inputs4
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, shapes=times)
 
 
 # ---- phase 6 ---------------------------------------------------------------
@@ -1353,17 +1533,21 @@ def phase_explicit_bias(gen: torch.Generator) -> dict:
 ENC_LOSS_RTOL = 1e-4
 
 
-def build_cpc_model(ema: bool):
+def build_cpc_model(ema: bool, transformer: bool = False):
     """The VQ-CPC model of bench.py:52-88 at full width, random weights from
     torch's init under a fixed seed: embedding 32, two independent 2-layer
     GRUs of 512 over blocks of 16 tokens, codebook 32 x 3 (one codebook,
     commitment 0.25), MLP upscaler 512 -> 32, CModule GRU 512 x 2 -> 32,
     FksModule k_max 6, dropout 0.1; quantization weighting 0.5. With `ema`,
     bench.py's trained-guard twin: the EMA quantizer (decay 0.99) and
-    weighting 0.25."""
+    weighting 0.25. With `transformer`, the downscaler of
+    configs/encoder_random_transfo_config.py instead of the GRUs: the
+    strided relative-transformer downscaler, factors [4, 4], d_model 512, 8
+    heads, 4 + 4 layers, ff 2048."""
     from vqcpcb_tpu_torch.models.cpc import CModule, FksModule, VQCPCModel
     from vqcpcb_tpu_torch.models.data_processor import BachCPCDataProcessor
-    from vqcpcb_tpu_torch.models.downscalers import GruDownscaler
+    from vqcpcb_tpu_torch.models.downscalers import (GruDownscaler,
+                                                     RelativeTransformerDownscaler)
     from vqcpcb_tpu_torch.models.encoder import Encoder
     from vqcpcb_tpu_torch.models.upscalers import MlpUpscaler
     from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
@@ -1372,10 +1556,14 @@ def build_cpc_model(ema: bool):
     ticks = ENC_BLOCKS * 16 // 4
     quantizer = (EMAProductVectorQuantizer(CODEBOOK_SIZE, 3, 0.25, 1, ema_decay=0.99)
                  if ema else ProductVectorQuantizer(CODEBOOK_SIZE, 3, 0.25, 1))
+    downscaler = (RelativeTransformerDownscaler(32, 3, [4, 4], 4, 512, HEADS, [4, 4],
+                                                2048, 0.1)
+                  if transformer else
+                  GruDownscaler(32, 3, [16], 512, num_layers=2, dropout=0.1,
+                                bidirectional=True))
     encoder = Encoder(
         BachCPCDataProcessor(32, 2 * ticks, [ENC_VOCAB] * 4, num_tokens_per_block=16),
-        GruDownscaler(32, 3, [16], 512, num_layers=2, dropout=0.1, bidirectional=True),
-        quantizer, MlpUpscaler(3, 32, 512, 0.1))
+        downscaler, quantizer, MlpUpscaler(3, 32, 512, 0.1))
     return VQCPCModel(encoder, CModule(32, 512, 32, 2, 0.1),
                       FksModule(32, 32, ENC_BLOCKS),
                       quantization_weighting=0.25 if ema else 0.5)
@@ -1543,16 +1731,266 @@ def phase_trained_guard() -> dict:
 
 # ---- phase 10 --------------------------------------------------------------
 
+# The student of configs/encoder_student_synthetic.py at full width (its
+# widths are configs/encoder_student_config.py's): batch 8 of 96 events x 4
+# voices from the synthetic corpus, teacher 8 x 512 / ff 2048, the linear
+# transformer downscaler [4, 4] layers, the relative auxiliary decoder [4, 4]
+# layers, 8 heads, dropout 0.1, f32, Adam lr 1e-5 (both optimizers).
+STUDENT_CONFIG = os.path.join("configs", "encoder_student_synthetic.py")
+STUDENT_WARMUP = 5
+STUDENT_SYNCED = 30
+# The masked event of the route comparisons. They run at the training
+# batch: at batch 2 two small gradients (the relative auxiliary decoder's
+# stage-0 table, a linear bias) read cosines down to 0.9937 on an H100, the
+# bf16 dot rule's own spread that close to GRAD_COSINE; four times the
+# events sum their signal further above it.
+STUDENT_INDEX = 40
+TRANSFO_WARMUP = 5
+TRANSFO_SYNCED = 30
+# Launches of one step: K1 once in the quantizer (three times in the VQ-CPC
+# step: negatives, left, right), the relative-bias forward and backward in
+# every relative layer (teacher 8, downscaler 4 + 4, auxiliary decoder 4 +
+# 4; the VQ-CPC step's three downscaler calls 3 x 8), and with the absolute
+# auxiliary decoder K6 in its 8 layers.
+STEP_LAUNCHES.update({
+    "student": {"vq_nearest": 1, "relbias_attention_fwd": 24,
+                "relbias_attention_bwd": 24},
+    "student_absolute": {"vq_nearest": 1, "relbias_attention_fwd": 16,
+                         "relbias_attention_bwd": 16,
+                         "fused_attention_train_fwd": 8,
+                         "fused_attention_train_bwd_nobias": 8},
+    "transfo_encoder": {"vq_nearest": 3, "relbias_attention_fwd": 24,
+                        "relbias_attention_bwd": 24}})
+# one eval step with the absolute auxiliary decoder: K3-fwd in the teacher
+# and the downscaler, K4 in the decoder
+STUDENT_ABSOLUTE_EVAL = {"vq_nearest": 1, "relbias_attention_fwd": 16,
+                         "fused_attention": 8}
+
+
+def student_at_full_width(aux_type: str = "relative"):
+    """(trainer, 4 batches on the card): the StudentEncoderTrainer the
+    encoder CLI builds from STUDENT_CONFIG (weights from torch's init under
+    seed 0), with the auxiliary decoder `aux_type`, and 4 batches of its
+    data loader (the corpus windows built into build/student_data)."""
+    from vqcpcb_tpu_torch import getters, main_encoder
+    from vqcpcb_tpu_torch.utils import load_config_module
+    root = os.path.dirname(os.path.abspath(__file__))
+    config = load_config_module(os.path.join(root, STUDENT_CONFIG))
+    config["auxiliary_networks_kwargs"]["auxiliary_decoder_type"] = aux_type
+    data = getters.get_dataloader_generator(
+        config["dataset"], "student", config["dataloader_generator_kwargs"], config,
+        cache_root=os.path.join(root, "build", "student_data"))
+    torch.manual_seed(0)
+    trainer = main_encoder.student_trainer(
+        config, data, getters.get_encoder(data, config), None, None)
+    train = data.dataloaders(batch_size=STUDENT_BATCH)[0]
+    batches = [torch.as_tensor(next(train)["x"], device="cuda") for _ in range(4)]
+    trainer.init_state(batches[0], lr=config["lr"])
+    return trainer, batches
+
+
+def student_loss_and_grads(trainer, x, index: int):
+    """One training forward and backward at the masked event `index` (no
+    update): ((teacher loss, encoder-decoder loss), every parameter's
+    gradient on the CPU, zeros where none)."""
+    trainer.model.zero_grad(set_to_none=True)
+    loss_t, loss_e, _ = trainer.losses(x, index)
+    (loss_t + loss_e).backward()
+    return (loss_t.item(), loss_e.item()), {
+        n: (torch.zeros(p.shape) if p.grad is None else p.grad.float().cpu())
+        for n, p in trainer.model.named_parameters()}
+
+
+def card_codes(trainer, run):
+    """(run()'s result, the indices of every quantizer forward in it), read
+    from the quantizer's output by a forward hook."""
+    found = []
+    handle = trainer.model["encoder"].quantizer.register_forward_hook(
+        lambda module, args, out: found.append(out[1].reshape(-1, module.num_codebooks)))
+    try:
+        return run(), found
+    finally:
+        handle.remove()
+
+
+def _cpu_twin(trainer, codes):
+    """The trainer's modules copied to the CPU, in a trainer there (the
+    plain route, f32), its quantizer decoding `codes`, the card's indices
+    of the same call, one forward each: the CPU route then decodes the
+    card's codes, as phase 8 (b) feeds both decoders the card's codes, so a
+    latent that the bf16 dots move across a Voronoi boundary does not
+    stand for a kernel's error (K1 is held in phase 3 at these shapes)."""
+    from vqcpcb_tpu_torch.training.student_trainer import StudentEncoderTrainer
+    model = copy.deepcopy(trainer.model).cpu()
+    pinned = iter(codes)
+
+    def search(x, codebooks):
+        indices = next(pinned).cpu()
+        if indices.shape != x.shape[:2]:
+            raise AssertionError(f"the card's codes {tuple(indices.shape)} do not "
+                                 f"fit the CPU route's latents {tuple(x.shape)}")
+        return indices
+
+    model["encoder"].quantizer.search = search
+    return StudentEncoderTrainer(model["encoder"], model["teacher"],
+                                 model["auxiliary_decoder"],
+                                 trainer.num_events_masked,
+                                 trainer.quantization_weighting, device="cpu")
+
+
+def compare_student_routes(what, trainer, x) -> tuple:
+    """One training forward and backward of `trainer` on the card and of its
+    CPU twin (on the card's codes) at dropout 0 and STUDENT_INDEX: each
+    loss within LOSS_RTOL, every parameter's gradient within cosine
+    GRAD_COSINE."""
+    set_dropout(trainer.model, 0.0)
+    kernel, codes = card_codes(
+        trainer, lambda: student_loss_and_grads(trainer, x, STUDENT_INDEX))
+    plain = student_loss_and_grads(_cpu_twin(trainer, codes), x.cpu(), STUDENT_INDEX)
+    for name, a, b in zip(("teacher", "encoder-decoder"), kernel[0], plain[0]):
+        err = abs(a - b) / abs(b)
+        log(f"# {what}: {name} loss {a:.6f} vs {b:.6f} (relative {err:.3e}, "
+            f"need <= {LOSS_RTOL})")
+        if not err <= LOSS_RTOL:
+            raise AssertionError(f"{what}: the {name} losses disagree")
+    return compare_routes(what, (sum(kernel[0]), kernel[1]),
+                          (sum(plain[0]), plain[1]))
+
+
+def student_steps(trainer, batches, steps: int, kind: str) -> tuple:
+    """`steps` synced train steps, counted from zero launches (checked
+    against STEP_LAUNCHES[kind]); returns (counts, per-step seconds, the
+    steps' metrics on the host)."""
+    reset_counts()
+    step_s, metrics = [], []
+    for i in range(steps):
+        out, sec = synced_seconds(lambda: trainer.train_step(batches[i % len(batches)]))
+        step_s.append(sec)
+        metrics.append(out)
+    main_counts = counts()
+    want = {k: STEP_LAUNCHES[kind].get(k, 0) * steps for k in main_counts}
+    log(f"# [{kind}] train steps: launches {json.dumps(main_counts)} over {steps} "
+        f"steps (need {json.dumps(want)})")
+    if main_counts != want:
+        raise AssertionError(f"{kind} launches {main_counts}, not {want}")
+    host = [{k: v.tolist() for k, v in m.items()} for m in metrics]
+    for m in host:
+        if not all(np.isfinite(v).all() for v in m.values()):
+            raise AssertionError(f"{kind}: non-finite metrics {m}")
+    return main_counts, step_s, host
+
+
+def phase_student(gen: torch.Generator, profile: bool, card: str) -> dict:
+    """(a) StudentEncoderTrainer at full width: 5 warm-up steps, then 30
+    synced (median ms/step, student_train_tokens_per_sec, launches per
+    step, finite losses, the teacher's loss lower over the last 5 of the 35
+    steps than over the first 5), the counted main path; (b) one training
+    forward and backward at batch 8, dropout 0, kernel route vs the CPU f32
+    plain route; (c) the same with the absolute auxiliary decoder (K6 in
+    training, after 2 counted steps), and one of its eval steps vs the
+    plain route (K4); (d) VQCPCEncoderTrainer with the relative-transformer
+    downscaler at bench.py's geometry (5 warm-up, 30 synced steps, counted);
+    (e) with --profile, 3 profiled student steps."""
+    from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
+    trainer, batches = student_at_full_width()
+    warm = [trainer.train_step(batches[i % 4]) for i in range(STUDENT_WARMUP)]
+    torch.cuda.synchronize()
+    warm = [{k: v.item() for k, v in m.items()} for m in warm]
+    main_counts, step_s, synced = student_steps(trainer, batches, STUDENT_SYNCED,
+                                                "student")
+    teacher = [m["loss_teacher"] for m in warm + synced]
+    first, last = np.mean(teacher[:5]), np.mean(teacher[-5:])
+    step_ms = float(np.median(step_s)) * 1e3
+    tokens_per_s = STUDENT_BATCH * NUM_EVENTS * 4 / (step_ms / 1e3)
+    log(f"# [student] (a) {card}: student_train_tokens_per_sec {tokens_per_s:.1f} "
+        f"(batch {STUDENT_BATCH} x {NUM_EVENTS * 4} tokens, f32, dropout 0.1, two "
+        f"Adams lr 1e-5); median {step_ms:.3f} ms/step over {STUDENT_SYNCED} synced "
+        f"steps (min {min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}); "
+        f"loss_teacher mean of the first 5 of {len(teacher)} steps {first:.4f}, of "
+        f"the last 5 {last:.4f}; last step {json.dumps(synced[-1])}")
+    if not last < first:
+        raise AssertionError(f"the teacher's loss did not fall: {teacher}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_s = synced_seconds(lambda: [trainer.train_step(batches[i])
+                                                for i in range(3)])
+        _log_profile(prof, wall_s, f"[student] 3 student train steps at batch "
+                     f"{STUDENT_BATCH}", 20)
+    loss_err, worst_cos, _ = compare_student_routes(
+        f"[student] (b) batch {STUDENT_BATCH}, dropout 0, kernel route vs CPU f32 "
+        "plain route", trainer, batches[0])
+    del trainer
+    torch.cuda.empty_cache()
+
+    absolute, abs_batches = student_at_full_width("absolute")
+    absolute.train_step(abs_batches[0])               # warm-up
+    torch.cuda.synchronize()
+    abs_counts, abs_step_s, _ = student_steps(absolute, abs_batches, 2,
+                                              "student_absolute")
+    abs_err, abs_cos, _ = compare_student_routes(
+        f"[student] (c) absolute auxiliary decoder, batch {STUDENT_BATCH}, dropout "
+        "0, kernel route vs CPU f32 plain route", absolute, abs_batches[0])
+    reset_counts()
+    card_eval, codes = card_codes(
+        absolute, lambda: absolute.eval_step(abs_batches[0], STUDENT_INDEX))
+    torch.cuda.synchronize()
+    eval_counts = counts()
+    want = {k: STUDENT_ABSOLUTE_EVAL.get(k, 0) for k in eval_counts}
+    plain_eval = _cpu_twin(absolute, codes).eval_step(abs_batches[0].cpu(),
+                                                      STUDENT_INDEX)
+    errs = {k: abs(card_eval[k].item() - v.item()) / abs(v.item())
+            for k, v in plain_eval.items() if v.item() != 0}
+    log(f"# [student] (c) eval step, kernel route vs CPU f32 plain route: "
+        f"relative differences {json.dumps(errs)} (need <= {LOSS_RTOL}); "
+        f"launches {json.dumps(eval_counts)} (need {json.dumps(want)})")
+    if eval_counts != want or not all(e <= LOSS_RTOL for e in errs.values()):
+        raise AssertionError("the absolute auxiliary decoder's eval step disagrees")
+    del absolute
+    torch.cuda.empty_cache()
+
+    cpc_batches = [random_cpc_batch(gen) for _ in range(4)]
+    tokens_per_step = sum(cpc_batches[0][k].numel() for k in cpc_batches[0])
+    cpc = VQCPCEncoderTrainer(build_cpc_model(ema=False, transformer=True), seed=0)
+    cpc.init_state(cpc_batches[0], lr=1e-4)        # the transfo configs' lr
+    for i in range(TRANSFO_WARMUP):
+        cpc.train_step(cpc_batches[i % 4])
+    torch.cuda.synchronize()
+    cpc_counts, cpc_step_s, cpc_metrics = student_steps(
+        cpc, cpc_batches, TRANSFO_SYNCED, "transfo_encoder")
+    cpc_ms = float(np.median(cpc_step_s)) * 1e3
+    cpc_tokens = tokens_per_step / (cpc_ms / 1e3)
+    log(f"# [transfo encoder] (d) {card}: VQ-CPC with the relative-transformer "
+        f"downscaler, batch {ENC_BATCH}, {tokens_per_step} tokens a step, f32: "
+        f"median {cpc_ms:.3f} ms/step over {TRANSFO_SYNCED} synced steps (min "
+        f"{min(cpc_step_s) * 1e3:.3f}, max {max(cpc_step_s) * 1e3:.3f}), "
+        f"{cpc_tokens:.1f} tokens/s; loss {cpc_metrics[0]['loss']:.4f} .. "
+        f"{cpc_metrics[-1]['loss']:.4f}")
+    del cpc
+    torch.cuda.empty_cache()
+    return dict(launches=main_counts, absolute_launches=abs_counts,
+                transfo_launches=cpc_counts, step_ms=step_ms,
+                tokens_per_s=tokens_per_s, loss_err=loss_err, worst_cos=worst_cos,
+                absolute_loss_err=abs_err, absolute_worst_cos=abs_cos,
+                transfo_step_ms=cpc_ms, transfo_tokens_per_s=cpc_tokens)
+
+
+# ---- phase 11 --------------------------------------------------------------
+
 # The entry points as a user calls them, at full width: the encoder CLI on
 # configs/encoder_random_synthetic.py (GRU 512 x 2, codebook 32 x 3, batch
 # 16), the decoder CLI on copies of configs/decoder_synthetic.py (the
 # flagship AC/D/C: d_model 512, 3+3 layers, 8 heads, 384 tokens from 24
 # codes, batch 64) and of it with decoder_type 'transformer_relative' (the
 # AC/AC/C decoder, cross relbias at ratio 16), each over the encoder the
-# first call trained. Epochs and batches are cut; widths are not.
+# first call trained; then the encoder CLI on STUDENT_CONFIG (the student)
+# and the flagship decoder over the student's encoder. Epochs and batches
+# are cut; widths are not.
 ENTRY_ENCODER_BATCHES = 60
 ENTRY_DECODER_BATCHES = 40
 ENTRY_RELATIVE_BATCHES = 10
+ENTRY_STUDENT_BATCHES = 20
+ENTRY_STUDENT_DECODER_BATCHES = 10
 # the CLI calls of the counted main path, and the kernels each must launch
 # (K1 = vq_nearest; K2-fwd / K3-fwd = relbias_attention_fwd, in training /
 # at inference; K2-bwd = relbias_attention_bwd)
@@ -1563,8 +2001,12 @@ ENTRY_KERNELS = {
     "decoder -l --num_examples 1": ("vq_nearest", "relbias_attention_fwd"),
     "AC/AC/C -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
     "AC/AC/C -l -r": ("vq_nearest", "relbias_attention_fwd"),
+    "student -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    "student -l": ("vq_nearest", "relbias_attention_fwd"),
+    "student decoder -t": ("vq_nearest", "relbias_attention_fwd",
+                           "relbias_attention_bwd"),
+    "student decoder -l -r": ("vq_nearest", "relbias_attention_fwd"),
 }
-TRAINING_CALLS = ("encoder -t", "decoder -t", "AC/AC/C -t")
 
 
 def _decoder_config_copy(work: str, name: str, encoder_config: str,
@@ -1585,16 +2027,16 @@ def _decoder_config_copy(work: str, name: str, encoder_config: str,
     return path
 
 
-def _check_model_dir(model_dir: str, epochs: int) -> list:
-    """config.py, both slots and one finite metrics row per epoch; returns
-    the rows."""
+def _check_model_dir(model_dir: str, epochs: int, loss: str = "loss") -> list:
+    """config.py, both slots and one metrics row per epoch, its `loss`
+    finite; returns the rows."""
     for name in ("config.py", "overfitted", "early_stopped", "metrics.jsonl"):
         if not os.path.exists(os.path.join(model_dir, name)):
             raise AssertionError(f"{model_dir} holds no {name}")
     with open(os.path.join(model_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     if [r["epoch"] for r in rows] != list(range(epochs)) or not all(
-            np.isfinite(r["loss/train"]) and np.isfinite(r["loss/val"])
+            np.isfinite(r[f"{loss}/train"]) and np.isfinite(r[f"{loss}/val"])
             for r in rows):
         raise AssertionError(f"{model_dir}/metrics.jsonl: {rows}")
     return rows
@@ -1604,53 +2046,56 @@ def phase_entry_points(card: str) -> dict:
     """The port's CLIs in process (main([...])) in a fresh working directory
     under build/: (a) encoder -t, with the cluster dumps; (b) the flagship
     decoder -t over that encoder, -l -r, -l --num_examples 1; (c) the
-    AC/AC/C decoder -t, -l -r; (d) the checks: every call returns 0, the
-    model directories, the written grids' tokens, the reloaded decoder's
-    eval loss, and one AC/AC/C step on the kernel route against the f32
-    plain route. The launches of the calls are counted from zero (the main
-    path); the trainers the calls build are recorded for (d)."""
+    AC/AC/C decoder -t, -l -r; (d) the student encoder -t and -l, and the
+    flagship decoder -t and -l -r over the student's encoder; (e) the
+    checks: every call returns 0, the model directories, the written grids'
+    tokens, the reloaded decoders' and student's eval losses, and one
+    AC/AC/C step on the kernel route against the f32 plain route. The
+    launches of the calls are counted from zero (the main path); the
+    trainers the calls build are recorded for (e)."""
     import glob
     import shutil
     from vqcpcb_tpu_torch import main_decoder, main_encoder
     from vqcpcb_tpu_torch.data.dataloaders import BachDataloaderGenerator
     from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    from vqcpcb_tpu_torch.training.student_trainer import StudentEncoderTrainer
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(root, "build", "entry_points")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(os.path.join(work, "configs"))
 
     trainers, grids, reharm_s = {}, [], []
-    originals = {name: getattr(cls, name) for cls, name in (
-        (DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
-        (DecoderTrainer, "generate_reharmonisation"),
-        (BachDataloaderGenerator, "write"))}
+    patched = ((DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
+               (DecoderTrainer, "generate_reharmonisation"),
+               (StudentEncoderTrainer, "train_model"),
+               (StudentEncoderTrainer, "load"), (BachDataloaderGenerator, "write"))
+    originals = {(cls, name): getattr(cls, name) for cls, name in patched}
 
     # the trainers by model directory, the first of each kind kept
-    def train_model(self, **kw):
-        trainers.setdefault("trained", {}).setdefault(
-            os.path.abspath(self.model_dir), self)
-        return originals["train_model"](self, **kw)
-
-    def load(self, early_stopped):
-        trainers.setdefault("loaded", {}).setdefault(
-            os.path.abspath(self.model_dir), self)
-        return originals["load"](self, early_stopped)
+    def recording(cls, name, key):
+        def method(self, *args, **kw):
+            trainers.setdefault(key, {}).setdefault(
+                os.path.abspath(self.model_dir), self)
+            return originals[(cls, name)](self, *args, **kw)
+        return method
 
     def generate_reharmonisation(self, *args, **kw):
-        out, sec = synced_seconds(
-            lambda: originals["generate_reharmonisation"](self, *args, **kw))
+        out, sec = synced_seconds(lambda: originals[(
+            DecoderTrainer, "generate_reharmonisation")](self, *args, **kw))
         reharm_s.append(sec)
         return out
 
     def write(self, x, path):
         grids.append((self.dataset.vocabulary.num_tokens_per_channel,
                       np.asarray(x)))
-        return originals["write"](self, x, path)
+        return originals[(BachDataloaderGenerator, "write")](self, x, path)
 
     calls, per_call = {}, {}
     cwd = os.getcwd()
     os.chdir(work)
-    DecoderTrainer.train_model, DecoderTrainer.load = train_model, load
+    for cls in (DecoderTrainer, StudentEncoderTrainer):
+        cls.train_model = recording(cls, "train_model", "trained")
+        cls.load = recording(cls, "load", "loaded")
     DecoderTrainer.generate_reharmonisation = generate_reharmonisation
     BachDataloaderGenerator.write = write
     try:
@@ -1686,48 +2131,72 @@ def phase_entry_points(card: str) -> dict:
             if kind == "decoder":
                 run(f"{kind} -l --num_examples 1", main_decoder,
                     ["-l", "--num_examples", "1", "-c", model_config])
+        # (d) the student, and the flagship decoder over its encoder
+        run("student -t", main_encoder, [
+            "-t", "-c", os.path.join(root, STUDENT_CONFIG), "--num_epochs", "1",
+            "--num_batches", str(ENTRY_STUDENT_BATCHES)])
+        (dirs["student"],) = glob.glob(os.path.join(
+            work, "models", "encoder_student_synthetic_*"))
+        student_config = os.path.join(dirs["student"], "config.py")
+        run("student -l", main_encoder, ["-l", "-c", student_config])
+        config = _decoder_config_copy(work, "decoder_student_synthetic",
+                                      student_config, "transformer_relative_diagonal")
+        run("student decoder -t", main_decoder, [
+            "-t", "-c", config, "--num_epochs", "1", "--num_batches",
+            str(ENTRY_STUDENT_DECODER_BATCHES)])
+        (dirs["student decoder"],) = glob.glob(os.path.join(
+            work, "models", "decoder_student_synthetic_*"))
+        run("student decoder -l -r", main_decoder,
+            ["-l", "-r", "-c", os.path.join(dirs["student decoder"], "config.py")])
         main_counts = counts()
     finally:
         os.chdir(cwd)
-        for (cls, name) in ((DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
-                            (DecoderTrainer, "generate_reharmonisation"),
-                            (BachDataloaderGenerator, "write")):
-            setattr(cls, name, originals[name])
+        for (cls, name), method in originals.items():
+            setattr(cls, name, method)
 
-    # (d) the checks
+    # (e) the checks
     for label, kernels in ENTRY_KERNELS.items():
         missing = [k for k in kernels if not per_call[label][k]]
         others = [k for k, c in per_call[label].items() if c and k not in kernels]
         if missing or others:
             raise AssertionError(f"{label}: launched {per_call[label]}: "
                                  f"missing {missing}, unexpected {others}")
-    rows = {kind: _check_model_dir(d, 1) for kind, d in dirs.items()}
-    for kind in ("decoder", "AC/AC/C"):
+    rows = {kind: _check_model_dir(d, 1, "loss_monitor" if kind == "student"
+                                   else "loss") for kind, d in dirs.items()}
+    for kind in ("decoder", "AC/AC/C", "student decoder"):
         written = glob.glob(os.path.join(dirs[kind], "reharmonisations", "*.mid"))
         if len(written) < 3:
             raise AssertionError(f"{kind}: {len(written)} re-harmonisations")
-    if not glob.glob(os.path.join(dirs["encoder"], "clusters_train", "*.mid")):
-        raise AssertionError("the encoder CLI wrote no cluster dump")
+    for kind in ("encoder", "student"):
+        if not glob.glob(os.path.join(dirs[kind], "clusters_train", "*.mid")):
+            raise AssertionError(f"the {kind} CLI wrote no cluster dump")
     if len(glob.glob(os.path.join(dirs["decoder"], "generations", "*.mid"))) != 6:
         raise AssertionError("--num_examples 1 did not write 6 scores")
     for vocab, grid in grids:
         if grid.min() < 0 or (grid >= np.asarray(vocab)).any():
             raise AssertionError(f"a written grid's tokens leave the vocabulary "
                                  f"{vocab}")
-    log(f"# [entry] (d) every call returned 0; {len(grids)} written grids "
+    log(f"# [entry] (e) every call returned 0; {len(grids)} written grids "
         f"(cluster dumps, re-harmonisations, generations), every token inside "
         f"its voice's vocabulary")
 
-    # the reloaded decoders against the trained ones, one fixed val batch
+    # the reloaded decoders and student against the trained ones, one fixed
+    # val batch (the student's at a fixed masked event)
     trained, reloaded = trainers["trained"], trainers["loaded"]
-    for kind in ("decoder", "AC/AC/C"):
+    for kind in ("decoder", "AC/AC/C", "student decoder", "student"):
         a, b = trained[dirs[kind]], reloaded[dirs[kind]]
-        x = next(a.dataloader_generator.dataloaders(batch_size=64)[1])["x"]
-        la, lb = a.eval_step(x)["loss"].item(), b.eval_step(x)["loss"].item()
-        log(f"# [entry] (d) {kind}: eval loss of val batch 0, trained in memory "
+        if kind == "student":
+            x = next(a.dataloader_generator.dataloaders(batch_size=STUDENT_BATCH)[1])["x"]
+            la, lb = (t.eval_step(x, STUDENT_INDEX)["loss_encdec"].item()
+                      for t in (a, b))
+        else:
+            x = next(a.dataloader_generator.dataloaders(
+                batch_size=DECODER_CLI_BATCH)[1])["x"]
+            la, lb = a.eval_step(x)["loss"].item(), b.eval_step(x)["loss"].item()
+        log(f"# [entry] (e) {kind}: eval loss of val batch 0, trained in memory "
             f"{la!r}, reloaded by -l {lb!r} (need equal)")
         if la != lb:
-            raise AssertionError(f"{kind}: the reloaded decoder's eval loss differs")
+            raise AssertionError(f"{kind}: the reloaded model's eval loss differs")
 
     # one AC/AC/C step, kernel route vs the CPU f32 plain route, dropout 0
     acac = trained[dirs["AC/AC/C"]]
@@ -1740,18 +2209,23 @@ def phase_entry_points(card: str) -> dict:
     plain = loss_and_grads(copy.deepcopy(dec).cpu(), codes.cpu(), small.cpu(),
                            autocast=False)
     loss_err, worst_cos, _ = compare_routes(
-        "[entry] (d) AC/AC/C (cross relbias at ratio 16), batch 2, dropout 0, "
+        "[entry] (e) AC/AC/C (cross relbias at ratio 16), batch 2, dropout 0, "
         "kernel route vs CPU f32 plain route", kernel, plain)
 
-    # (e) the numbers
+    # (f) the numbers
     tokens = {kind: r[0]["tokens_per_sec/train"] for kind, r in rows.items()}
-    log(f"# [entry] (e) {card}: encoder epoch {tokens['encoder']:.1f} tokens/s "
+    log(f"# [entry] (f) {card}: encoder epoch {tokens['encoder']:.1f} tokens/s "
         f"({ENTRY_ENCODER_BATCHES} steps at batch 16), flagship decoder epoch "
         f"{tokens['decoder']:.1f} tokens/s ({ENTRY_DECODER_BATCHES} steps at batch "
         f"64), AC/AC/C epoch {tokens['AC/AC/C']:.1f} tokens/s "
-        f"({ENTRY_RELATIVE_BATCHES} steps); re-harmonisation (3 variants of the "
-        f"corpus's first score) {reharm_s[0]:.3f} s flagship, {reharm_s[1]:.3f} s "
-        f"AC/AC/C; CLI seconds {json.dumps({k: round(v, 2) for k, v in calls.items()})}")
+        f"({ENTRY_RELATIVE_BATCHES} steps), student epoch {tokens['student']:.1f} "
+        f"tokens/s ({ENTRY_STUDENT_BATCHES} steps at batch {STUDENT_BATCH}), "
+        f"decoder over the student's encoder {tokens['student decoder']:.1f} "
+        f"tokens/s ({ENTRY_STUDENT_DECODER_BATCHES} steps); re-harmonisation (3 "
+        f"variants of the corpus's first score) {reharm_s[0]:.3f} s flagship, "
+        f"{reharm_s[1]:.3f} s AC/AC/C, {reharm_s[2]:.3f} s over the student's "
+        f"encoder; CLI seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in calls.items()})}")
     # one counter serves the training forward (K2-fwd) and the inference
     # forward (K3-fwd: val epochs and -l); each training forward has one
     # backward, so K2-fwd = K2-bwd launches and K3-fwd the rest
@@ -1761,7 +2235,7 @@ def phase_entry_points(card: str) -> dict:
                  "K3-fwd": {l: c["relbias_attention_fwd"] - c["relbias_attention_bwd"]
                             for l, c in per_call.items()}}
     for name, calls_ in by_kernel.items():
-        log(f"# [entry] (e) {card}: {name} launches {sum(calls_.values())} on this "
+        log(f"# [entry] (f) {card}: {name} launches {sum(calls_.values())} on this "
             f"path: {json.dumps({l: n for l, n in calls_.items() if n})}")
     return dict(launches=main_counts, tokens_per_s=tokens, reharm_s=reharm_s,
                 cli_s=calls, by_kernel=by_kernel, acac_loss_err=loss_err,
@@ -1785,6 +2259,7 @@ def main() -> int:
     vq = phase_vq(gen)
     rb = phase_relbias(gen)
     rb_train = phase_relbias_train(gen)
+    rb_unmasked = phase_relbias_unmasked(gen)
     fused = phase_fused(gen)
     profile = "--profile" in sys.argv[1:]
     by_path = {}
@@ -1794,6 +2269,10 @@ def main() -> int:
     by_path["absolute_training"] = phase_decoder_training(gen, profile, "absolute")["launches"]
     by_path["explicit_bias"] = phase_explicit_bias(gen)["launches"]
     by_path["encoder_training"] = phase_encoder_training(gen, profile)["launches"]
+    student = phase_student(gen, profile, card)
+    by_path["student_training"] = student["launches"]
+    by_path["student_absolute_training"] = student["absolute_launches"]
+    by_path["transfo_encoder_training"] = student["transfo_launches"]
     by_path["entry_points"] = phase_entry_points(card)["launches"]
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
@@ -1824,17 +2303,27 @@ def main() -> int:
         # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"
         # redesigned: the bf16-dot kernel of attention_fwd_mma.cuh, launched
         # from relbias_attention.cu (the f32-dot kernel stays there)
+        # the student slice's unmasked shapes (f32 inputs) under
+        # "student_shapes": K2-fwd (training) and K3-fwd (inference) each
         entry("relbias_attention_fwd", "vqcpcb_tpu_torch/csrc/attention_fwd_mma.cuh",
               f"{pa}:571", f"{pa}:_relbias_fwd_kernel", [f"{pa}:875"],
               dict(rb, max_abs_err=max(rb["max_abs_err"],
-                                       rb_train["fwd"]["max_abs_err"])),
+                                       rb_train["fwd"]["max_abs_err"],
+                                       rb_unmasked["max_abs_err"]["fwd"])),
               training={k: rb_train["fwd"][k] for k in train_keys},
+              student_shapes={label: dict(batch=v["batch"], t=v["t"],
+                                          training=v["k2_fwd"], inference=v["k3_fwd"])
+                              for label, v in rb_unmasked["shapes"].items()},
               redesigned=True, via="vqcpcb_tpu_torch/csrc/relbias_attention.cu"),
-        # times at the training shape, the only one the backward runs at
+        # times at the flagship training shape; the student slice's
+        # unmasked shapes under "student_shapes"
         entry("relbias_attention_bwd",
               "vqcpcb_tpu_torch/csrc/relbias_attention_bwd.cu",
               f"{pa}:895", f"{pa}:_relbias_bwd_kernel_packed", [f"{pa}:582"],
-              rb_train["bwd"]),
+              dict(rb_train["bwd"], max_abs_err=max(
+                  rb_train["bwd"]["max_abs_err"], rb_unmasked["max_abs_err"]["bwd"])),
+              student_shapes={label: dict(batch=v["batch"], t=v["t"], **v["k2_bwd"])
+                              for label, v in rb_unmasked["shapes"].items()}),
         # K4: times at the absolute prefill's decoder self-attention (B=512,
         # T=S=384, f32); the cross-attention's, the code encoder's and the
         # explicit-bias prefill's (B=8, real bias) beside

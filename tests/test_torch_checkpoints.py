@@ -1,8 +1,9 @@
 """The port's checkpoints, epoch loop and metrics on the CPU, at the smoke
 configs' sizes: a save / load round trip of the whole trainer state, exact
-mid-epoch resume from a step checkpoint (encoder trainer, and decoder
-trainer with dropout on), the stale-sidecar rule, and the JAX package's
-readers on the port's metrics.jsonl, TensorBoard events and MIDI bytes."""
+mid-epoch resume from a step checkpoint (encoder trainer, decoder trainer
+with dropout on, and the student trainer with its two optimizers and
+dropout on), the stale-sidecar rule, and the JAX package's readers on the
+port's metrics.jsonl, TensorBoard events and MIDI bytes."""
 import glob
 import json
 import os
@@ -10,7 +11,7 @@ import os
 import pytest
 import torch
 
-from vqcpcb_tpu_torch import getters
+from vqcpcb_tpu_torch import getters, main_encoder
 from vqcpcb_tpu_torch.training import checkpoints
 from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
 from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
@@ -20,6 +21,7 @@ from vqcpcb_tpu_torch.utils import load_config_module
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODER_CONFIG = os.path.join(REPO, "tests", "configs", "encoder_smoke.py")
 DECODER_CONFIG = os.path.join(REPO, "tests", "configs", "decoder_smoke.py")
+STUDENT_CONFIG = os.path.join(REPO, "tests", "configs", "encoder_student_smoke.py")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,6 +53,17 @@ def encoder_config(quantizer="commitment"):
 def decoder_config(dropout=0.1):
     config = load_config_module(DECODER_CONFIG)
     config["decoder_kwargs"]["dropout"] = dropout
+    return config
+
+
+def student_config(dropout=0.1):
+    """encoder_student_smoke.py with dropout `dropout` in the downscaler, the
+    teacher and the auxiliary decoder."""
+    config = load_config_module(STUDENT_CONFIG)
+    aux = config["auxiliary_networks_kwargs"]
+    for kwargs in (config["downscaler_kwargs"], aux["teacher_kwargs"],
+                   aux["auxiliary_decoder_kwargs"]):
+        kwargs["dropout"] = dropout
     return config
 
 
@@ -120,6 +133,24 @@ def build_decoder_trainer(tmp_path, name, config, crash_after=None,
                           enc_config["quantizer_kwargs"]["codebook_size"],
                           device=device, seed=seed, model_dir=str(tmp_path / name),
                           dataloader_generator=gen)
+
+
+def build_student_trainer(tmp_path, name, config, crash_after=None,
+                          init_seed=0, seed=0, device="cpu"):
+    """The student trainer of a student config, built as the encoder CLI
+    builds it."""
+    gen = getters.get_dataloader_generator(
+        config["dataset"], "student", config["dataloader_generator_kwargs"],
+        config, cache_root=str(tmp_path / "data"))
+    if crash_after is not None:
+        gen = CrashingGenerator(gen, crash_after)
+    torch.manual_seed(init_seed)
+    trainer = main_encoder.student_trainer(
+        config, gen, getters.get_encoder(gen, config), device,
+        str(tmp_path / name))
+    trainer.generator.manual_seed(seed)
+    trainer.seed_generator.manual_seed(seed)
+    return trainer
 
 
 def assert_states_equal(a, b, path="state"):
@@ -260,6 +291,17 @@ def test_decoder_resume_from_step_checkpoint_is_exact(tmp_path):
     """Dropout 0.1 in every layer and in the attention weights."""
     _resume_matches_uninterrupted(
         tmp_path, build_decoder_trainer, decoder_config(dropout=0.1),
+        dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
+             schedule_lr=True, checkpoint_every_steps=2))
+
+
+def test_student_resume_from_step_checkpoint_is_exact(tmp_path):
+    """Dropout 0.1 in the downscaler, the teacher and the auxiliary decoder:
+    the resumed run ends with the uninterrupted run's parameters, both
+    optimizers, step and generators, bit for bit, and the same metrics
+    rows."""
+    _resume_matches_uninterrupted(
+        tmp_path, build_student_trainer, student_config(),
         dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
              schedule_lr=True, checkpoint_every_steps=2))
 

@@ -1,14 +1,16 @@
 """The port's CLIs end to end on the CPU (`--device cpu`), on copies of the
 smoke configs in an isolated working directory (the pattern of
-tests/test_cli.py): encoder -t, -l, -t -l; decoder -t over the trained
-encoder, -l -r, -l --num_examples 1; and the device rule: without CUDA, no
---device means an error. (The score-writing re-harmonisation is held
+tests/test_cli.py): encoder -t, -l, -t -l; the student encoder -t, -l and
+-t -l resuming a mid-epoch step checkpoint exactly; decoder -t over the
+trained encoder, -l -r, -l --num_examples 1; and the device rule: without
+CUDA, no --device means an error. (The score-writing re-harmonisation is held
 against the JAX trainer's in tests/test_torch_generation.py, beside the JAX
 trainer whose sampler is compiled there.)"""
 import glob
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from vqcpcb_tpu_torch import main_decoder, main_encoder
 from vqcpcb_tpu_torch.data import dataset as port_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tests"))
+import test_torch_checkpoints  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,7 +119,71 @@ def test_clis_need_the_card_unless_told_cpu(workdir, monkeypatch):
     assert not os.path.exists(workdir / "models")
 
 
-def test_student_encoder_waits_for_its_slice(workdir):
-    with pytest.raises(NotImplementedError, match=r"M6 \(c\)"):
-        main_encoder.main(["-t", "-c", "configs/encoder_student_smoke.py",
+def _student_rows(model_dir):
+    """metrics.jsonl's rows, each with the student's four losses finite."""
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for row in rows:
+        for name in ("loss_teacher", "loss_quantization", "loss_reconstruction",
+                     "loss_encdec"):
+            assert np.isfinite(row[f"{name}/train"]) and np.isfinite(row[f"{name}/val"])
+    return rows
+
+
+def test_student_encoder_cli_train_load_and_resume(workdir, monkeypatch, capsys):
+    """-t on encoder_student_smoke.py (step checkpoints every batch): the
+    model directory, one metrics row with the student's losses, the cluster
+    dumps; -l reloads it, and the decoder CLI's load_encoder_stack reads its
+    encoder. A second run under another savename crashes in
+    its second train step, leaving a step checkpoint; -t -l on its model
+    directory resumes there and ends in the state of the first run's
+    overfitted slot, both optimizers and every generator included, bit for
+    bit."""
+    from vqcpcb_tpu_torch.training import checkpoints
+    from vqcpcb_tpu_torch.training.student_trainer import StudentEncoderTrainer
+    monkeypatch.setenv("VQCPCB_CKPT_EVERY_STEPS", "1")
+    cfg = workdir / "configs" / "encoder_student_smoke.py"
+    shutil.copy(cfg, workdir / "configs" / "encoder_student_smoke_crash.py")
+    assert main_encoder.main(["-t", "-c", "configs/encoder_student_smoke.py",
+                              "--device", "cpu"]) == 0
+    model_dir = _model_dir(workdir, "encoder_student_smoke")
+    for name in ("config.py", "overfitted", "early_stopped", "clusters_train"):
+        assert os.path.exists(os.path.join(model_dir, name)), name
+    (row,) = _student_rows(model_dir)
+    assert row["epoch"] == 0
+    capsys.readouterr()
+    assert main_encoder.main(["-l", "-c", os.path.join(model_dir, "config.py"),
+                              "--device", "cpu"]) == 0
+    assert "Nearest neighbours list:" in capsys.readouterr().out
+    # the decoder CLI's frozen encoder: the student's encoder entries
+    encoder, _ = main_decoder.load_encoder_stack(
+        {"config_encoder": os.path.join(model_dir, "config.py")})
+    saved = checkpoints.load_state(model_dir, early_stopped=False)["model"]
+    for name, value in encoder.state_dict().items():
+        assert torch.equal(value, saved[f"encoder.{name}"]), name
+
+    step = StudentEncoderTrainer.train_step
+    calls = []
+
+    def crashing(self, *args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("simulated crash")
+        return step(self, *args, **kwargs)
+
+    monkeypatch.setattr(StudentEncoderTrainer, "train_step", crashing)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        main_encoder.main(["-t", "-c", "configs/encoder_student_smoke_crash.py",
                            "--device", "cpu"])
+    monkeypatch.setattr(StudentEncoderTrainer, "train_step", step)
+    crashed = _model_dir(workdir, "encoder_student_smoke_crash")
+    assert checkpoints.read_step_sidecar(crashed)["batches_done"] == 1
+    assert main_encoder.main(["-t", "-l", "-c", os.path.join(crashed, "config.py"),
+                              "--device", "cpu"]) == 0
+    assert [r["epoch"] for r in _student_rows(crashed)] == [0]
+    want, got = (checkpoints.load_state(d, early_stopped=False)
+                 for d in (model_dir, crashed))
+    assert set(got) == {"model", "optimizer_teacher", "optimizer_encdec", "step",
+                        "generators"}
+    assert got["step"] == want["step"] == 2
+    test_torch_checkpoints.assert_states_equal(got, want)

@@ -16,6 +16,8 @@ from vqcpcb_tpu.models.cpc import FksModule as JaxFksModule
 from vqcpcb_tpu.models.cpc import VQCPCModel as JaxVQCPCModel
 from vqcpcb_tpu.models.data_processor import BachCPCDataProcessor as JaxCPCProcessor
 from vqcpcb_tpu.models.downscalers import GruDownscaler as JaxGruDownscaler
+from vqcpcb_tpu.models.downscalers import (
+    RelativeTransformerDownscaler as JaxTransformerDownscaler)
 from vqcpcb_tpu.models.encoder import Encoder as JaxEncoder
 from vqcpcb_tpu.models.upscalers import MlpUpscaler as JaxMlpUpscaler
 from vqcpcb_tpu.ops import losses as jax_losses
@@ -27,6 +29,8 @@ from vqcpcb_tpu_torch import convert
 from vqcpcb_tpu_torch.models.cpc import CModule, FksModule, VQCPCModel
 from vqcpcb_tpu_torch.models.data_processor import BachCPCDataProcessor
 from vqcpcb_tpu_torch.models.downscalers import GruDownscaler
+from vqcpcb_tpu_torch.models.downscalers import (
+    RelativeTransformerDownscaler as TransformerDownscaler)
 from vqcpcb_tpu_torch.models.encoder import Encoder
 from vqcpcb_tpu_torch.models.upscalers import MlpUpscaler
 from vqcpcb_tpu_torch.ops import losses, quantizer
@@ -85,9 +89,28 @@ def _port_quantizer(kind, dim=3, num_codebooks=1):
                                             use_batch_norm=kind == "bn")
 
 
-def _models(kind, bidirectional, layers=2):
+def _downscalers(layers, transformer):
+    """The JAX and the port downscaler: the bidirectional GRU of `layers`
+    layers, or (transformer) the strided relative-transformer downscaler,
+    factors [4, 4] over the block, d_model 16, 2 heads, `layers` layers a
+    stage."""
+    if transformer:
+        kwargs = dict(downscale_factors=[4, 4], num_channels=4, d_model=16,
+                      n_head=2, list_of_num_layers=[layers, layers],
+                      dim_feedforward=24, dropout=0.0, positional_embedding_size=4)
+        return (JaxTransformerDownscaler(output_dim=3, **kwargs),
+                TransformerDownscaler(EMB, 3, **kwargs))
+    return (JaxGruDownscaler(output_dim=3, downscale_factors=[BLOCK],
+                             hidden_size=HIDDEN, num_layers=layers, dropout=0.0,
+                             bidirectional=True),
+            GruDownscaler(EMB, 3, [BLOCK], HIDDEN, layers, 0.0, bidirectional=True))
+
+
+def _models(kind, bidirectional, layers=2, transformer=False):
     """The JAX and the port VQCPCModel of one configuration (random init),
-    GRUs of `layers` layers."""
+    GRUs of `layers` layers, the downscaler of _downscalers."""
+    jax_downscaler, downscaler = _downscalers(layers, transformer)
+
     def jax_c():
         return JaxCModule(hidden_size=HIDDEN, output_dim=Z, num_layers=layers,
                           dropout=0.0)
@@ -97,9 +120,7 @@ def _models(kind, bidirectional, layers=2):
             data_processor=JaxCPCProcessor(
                 embedding_size=EMB, num_events=2 * BLOCKS * BLOCK // 4,
                 num_tokens_per_channel=VOCABS, num_tokens_per_block=BLOCK),
-            downscaler=JaxGruDownscaler(
-                output_dim=3, downscale_factors=[BLOCK], hidden_size=HIDDEN,
-                num_layers=layers, dropout=0.0, bidirectional=True),
+            downscaler=jax_downscaler,
             quantizer=_jax_quantizer(kind),
             upscaler=JaxMlpUpscaler(output_dim=Z, hidden_size=HIDDEN, dropout=0.0)),
         c_module=jax_c(),
@@ -111,8 +132,7 @@ def _models(kind, bidirectional, layers=2):
     model = VQCPCModel(
         Encoder(BachCPCDataProcessor(EMB, 2 * BLOCKS * BLOCK // 4, VOCABS,
                                      num_tokens_per_block=BLOCK),
-                GruDownscaler(EMB, 3, [BLOCK], HIDDEN, layers, 0.0,
-                              bidirectional=True),
+                downscaler,
                 _port_quantizer(kind), MlpUpscaler(3, Z, HIDDEN, 0.0)),
         CModule(Z, HIDDEN, Z, layers, 0.0), FksModule(Z, Z, BLOCKS),
         CModule(Z, HIDDEN, Z, layers, 0.0) if bidirectional else None,
@@ -497,7 +517,19 @@ def test_encoder_trainer_step_matches_jax():
     test_vqcpc_model_matches_jax, the clipped Adam against optax in
     test_torch_training.py); one-layer GRUs, the two-layer stacks being
     held in the model tests."""
-    jmodel, model = _models("ema", False, layers=1)
+    _trainer_step_matches_jax(*_models("ema", False, layers=1))
+
+
+def test_encoder_trainer_step_with_transformer_downscaler_matches_jax():
+    """test_encoder_trainer_step_matches_jax's step and checks with the
+    strided relative-transformer downscaler (one layer a stage; the
+    configs/encoder_*_transfo_config.py geometry of factors [4, 4] over
+    blocks of 16 tokens, narrowed): its attention layers take the training
+    route of the port in the step."""
+    _trainer_step_matches_jax(*_models("ema", False, layers=1, transformer=True))
+
+
+def _trainer_step_matches_jax(jmodel, model):
     batch = _batch(3)
     jtrainer = _jax_trainer(jmodel, batch, seed=4)
     state = jax.tree.map(np.asarray, jax.device_get(jtrainer.state))

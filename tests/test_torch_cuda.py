@@ -485,11 +485,11 @@ def _checkpoint_helpers():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+@pytest.mark.parametrize("kind", ["encoder", "decoder", "student"])
 def test_resume_from_step_checkpoint_on_card(gen, tmp_path, kind):
     """A run killed at batch 3 of epoch 0 (step checkpoints every 2 batches)
     and resumed by train_model on the card ends where the uninterrupted run
-    on the card does: parameters, buffers, optimizer, step and generators
+    on the card does: parameters, buffers, optimizers, step and generators
     equal, bit for bit, and the same metrics rows. Dropout on (and label
     corruption with BatchNorm for the encoder)."""
     tc = _checkpoint_helpers()
@@ -498,6 +498,10 @@ def test_resume_from_step_checkpoint_on_card(gen, tmp_path, kind):
         kwargs = dict(batch_size=16, num_batches=5, num_epochs=2, lr=1e-3,
                       schedule_lr=True, corrupt_labels=True,
                       checkpoint_every_steps=2)
+    elif kind == "student":
+        build, config = tc.build_student_trainer, tc.student_config(dropout=0.1)
+        kwargs = dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
+                      schedule_lr=True, checkpoint_every_steps=2)
     else:
         build, config = tc.build_decoder_trainer, tc.decoder_config(dropout=0.1)
         kwargs = dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
@@ -506,6 +510,47 @@ def test_resume_from_step_checkpoint_on_card(gen, tmp_path, kind):
     def on_card(tmp, name, cfg, **kw):
         return build(tmp, name, cfg, device="cuda", **kw)
     tc._resume_matches_uninterrupted(tmp_path, on_card, config, kwargs)
+
+
+@pytest.mark.cuda
+def test_student_train_step_on_card_matches_the_cpu(gen, tmp_path, f32_matmuls):
+    """One StudentEncoderTrainer step of encoder_student_smoke.py (dropout
+    0) on the card and on the CPU from the same weights, batch, masked event
+    and codebook-init permutation: the four losses within 2e-2 relative
+    (the card's attention kernels round their dot inputs to bf16), each of
+    the four groups' updates (Adam's first step, about lr times the
+    gradient's sign) within cosine 0.9 of the CPU's, and the step's
+    launches on the card: K1 once, the relative-bias forward and backward
+    once per relative layer (teacher 1, downscaler 2, auxiliary decoder 2)."""
+    import numpy as np
+    tc = _checkpoint_helpers()
+    config = tc.student_config(dropout=0.0)
+    results = []
+    for device in ("cuda", "cpu"):
+        trainer = tc.build_student_trainer(tmp_path, device, config, device=device)
+        x = next(trainer.dataloader_generator.dataloaders(batch_size=8)[0])["x"]
+        trainer.init_state(x, lr=1e-3, perms=[np.random.RandomState(0).permutation(32)])
+        old = {k: v.cpu().clone() for k, v in trainer.model.state_dict().items()}
+        before = (vk.launches, ak.launches, ak.bwd_launches)
+        metrics = trainer.train_step(x, masked_event_index=7)
+        if device == "cuda":
+            assert (vk.launches - before[0], ak.launches - before[1],
+                    ak.bwd_launches - before[2]) == (1, 5, 5)
+        groups = {}
+        for name, value in trainer.model.state_dict().items():
+            group = ("teacher_data_processor" if name.startswith("teacher.data_processor.")
+                     else name.split(".")[0])
+            groups.setdefault(group, []).append((value.cpu() - old[name]).flatten())
+        results.append(({k: v.item() for k, v in metrics.items()},
+                        {k: torch.cat(v) for k, v in groups.items()}))
+    (card, card_updates), (cpu, cpu_updates) = results
+    for name, value in cpu.items():
+        assert abs(card[name] - value) <= 2e-2 * abs(value), name
+    assert len(cpu_updates) == 4
+    for group, want in cpu_updates.items():
+        got = card_updates[group]
+        cos = float((got * want).sum() / (got.norm() * want.norm()))
+        assert cos >= 0.9, (group, cos)
 
 
 @pytest.mark.cuda

@@ -6,8 +6,13 @@ vqcpcb_tpu_torch.convert (strict loads: the same structure); code indices
 must be equal, encoder outputs within 1e-5, decoder loss and logits within
 1e-4. Weights are seeded random values of the JAX params' shapes
 (jax.eval_shape: no compiled init). Also: the decoder and CPC data loaders give the JAX loaders' batches
-bit for bit over two reseeded epochs, and what the port does not have yet
-raises NotImplementedError naming its ROADMAP item."""
+bit for bit over two reseeded epochs; the student's modules (the teacher
+and the auxiliary decoder of tests/configs/encoder_student_smoke.py as the
+encoder CLIs derive them) and the relative-transformer downscalers (the
+*transfo* configs' downscalers on encoder_smoke.py's geometry) take the
+converted JAX params in strict loads and give JAX's outputs (1e-5); and
+what the port does not have yet raises NotImplementedError naming its
+ROADMAP item."""
 import functools
 import os
 
@@ -18,13 +23,15 @@ import pytest
 import torch
 
 from vqcpcb_tpu import getters as jax_getters
-from vqcpcb_tpu_torch import convert, getters
+from vqcpcb_tpu.training.student_trainer import mask_batch as jax_mask_batch
+from vqcpcb_tpu_torch import convert, getters, main_encoder
 from vqcpcb_tpu_torch.models.encoder import merge_codes
 from vqcpcb_tpu_torch.utils import load_config_module
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODER_CONFIG = os.path.join(REPO, "tests", "configs", "encoder_smoke.py")
 DECODER_CONFIG = os.path.join(REPO, "tests", "configs", "decoder_smoke.py")
+STUDENT_CONFIG = os.path.join(REPO, "tests", "configs", "encoder_student_smoke.py")
 KEY = jax.random.PRNGKey(0)
 RNGS = {"params": KEY, "dropout": KEY, "corrupt": KEY, "corrupt_mask": KEY}
 
@@ -205,6 +212,99 @@ def test_batches_equal_jax_over_reseeded_epochs(tmp_path, training_method,
         assert not np.array_equal(firsts[0][key], firsts[1][key])
 
 
+# ---- the student's modules and the transformer downscalers -----------------------
+
+def _jax_student_modules(jgen, config):
+    """The JAX encoder, teacher and auxiliary decoder of a student config,
+    with the widths the JAX encoder CLI derives (main_encoder.py:75-103)."""
+    jencoder = jax_getters.get_encoder(jgen, config)
+    aux = config["auxiliary_networks_kwargs"]
+    dp = jencoder.data_processor
+    factors = config["downscaler_kwargs"]["downscale_factors"]
+    teacher = jax_getters.get_teacher(
+        dict(aux["teacher_kwargs"], num_tokens_per_channel=dp.num_tokens_per_channel,
+             num_tokens=dp.num_tokens), jgen)
+    decoder = jax_getters.get_auxiliary_decoder(aux["auxiliary_decoder_type"], dict(
+        aux["auxiliary_decoder_kwargs"], num_tokens_per_channel=dp.num_tokens_per_channel,
+        codebook_dim=config["quantizer_kwargs"]["codebook_dim"],
+        upscale_factors=list(reversed(factors)),
+        num_tokens_bottleneck=dp.num_tokens // int(np.prod(factors))))
+    return jencoder, teacher, decoder
+
+
+def _transfo_config(downscaler_type):
+    """encoder_smoke.py with the *transfo* configs' downscaler (factors
+    [4, 4] over its blocks of 16 tokens), narrowed as the smoke configs
+    are."""
+    config = load_config_module(ENCODER_CONFIG)
+    config["downscaler_type"] = downscaler_type
+    config["downscaler_kwargs"] = dict(downscale_factors=[4, 4], d_model=32,
+                                       n_head=2, list_of_num_layers=[1, 1],
+                                       dim_feedforward=48, dropout=0.0)
+    return config
+
+
+@pytest.mark.parametrize("what", ["relative_downscaler", "relative_downscaler_linear",
+                                  "teacher", "aux_decoder"])
+def test_student_modules_from_getters_load_converted_jax_params(tmp_path, what):
+    """The getters' modules take the converted params of the JAX getters'
+    modules in a strict load (the same structure), and give JAX's outputs
+    within 1e-5: the VQ-CPC encoder's codes (equal) and z, the teacher's
+    and the auxiliary decoder's logits."""
+    if what.startswith("relative_downscaler"):
+        config = _transfo_config(what.replace("relative_downscaler",
+                                              "relative_transformer_downscaler"))
+        jgen, gen = _loaders(config, "vqcpc", tmp_path)
+        jmodel = jax_getters.get_vqcpc_model(jgen, config)
+        model = getters.get_vqcpc_model(gen, config).eval()
+        batch = next(gen.dataloaders(batch_size=4)[0])
+        params = random_params(jmodel.init, RNGS,
+                               {k: jnp.asarray(v) for k, v in batch.items()},
+                               training=False)
+        model.load_state_dict(convert.vqcpc_state_dict(params), strict=True)
+        x = jnp.asarray(batch["x_left"])
+        want = jax.jit(lambda p, inp: jmodel.apply(
+            {"params": p}, inp, method=lambda m, i: m.encoder(i)))(params, x)
+        with torch.no_grad():
+            got = model.encoder(_t(x))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   rtol=1e-5, atol=1e-5)
+        return
+    config = load_config_module(STUDENT_CONFIG)
+    jgen, gen = _loaders(config, "student", tmp_path)
+    _, jteacher, jdecoder = _jax_student_modules(jgen, config)
+    trainer = main_encoder.student_trainer(config, gen, getters.get_encoder(gen, config),
+                                           "cpu", None)
+    x = next(gen.dataloaders(batch_size=2)[0])["x"]
+    if what == "teacher":
+        masked, _ = jax_mask_batch(jnp.asarray(x), jnp.int32(3), 2,
+                                   jteacher.data_processor.num_tokens_per_channel)
+        dp_params = random_params(jteacher.data_processor.init, RNGS, masked, seed=1)
+        embedded = jteacher.data_processor.apply({"params": dp_params}, masked)
+        params = random_params(jteacher.init, RNGS, embedded)
+        module = trainer.teacher.eval()
+        module.load_state_dict(convert.teacher_state_dict(params, dp_params),
+                               strict=True)
+        want = jax.jit(jteacher.apply)({"params": params}, embedded)
+        with torch.no_grad():
+            got = module(module.data_processor(_t(masked)))
+    else:
+        z = jnp.asarray(np.random.RandomState(0).randn(
+            2, jdecoder.num_tokens_bottleneck, 3).astype(np.float32))
+        params = random_params(jdecoder.init, RNGS, z)
+        module = trainer.auxiliary_decoder.eval()
+        module.load_state_dict(convert.auxiliary_decoder_state_dict(params),
+                               strict=True)
+        want = jax.jit(jdecoder.apply)({"params": params}, z)
+        with torch.no_grad():
+            got = module(_t(z))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
 # ---- what waits ------------------------------------------------------------------
 
 def _bach_config():
@@ -216,11 +316,8 @@ def _bach_config():
         "bach", "vqcpc", {}, _bach_config()), "M6 (h)"),
     (lambda: getters.get_dataloader_generator(
         "midi", "decoder", {}, {"dataset": "midi"}), "M6 (h)"),
-    (lambda: getters.get_downscaler("relative_transformer_downscaler", {}), "M6 (b)"),
-    (lambda: getters.get_teacher({}, None), "M6 (c)"),
-    (lambda: getters.get_auxiliary_decoder("relative", {}), "M6 (c)"),
     (lambda: getters.get_prior(None, None, {}, "transformer_relative", {}), "M6 (d)"),
-], ids=["bach", "midi", "relative_downscaler", "teacher", "aux_decoder", "prior"])
+], ids=["bach", "midi", "prior"])
 def test_what_waits_raises_naming_its_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):

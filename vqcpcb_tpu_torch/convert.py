@@ -13,10 +13,14 @@ the fused BiGRU stacks its two directions on axis 0 of (2, in, 3h) and
 becomes g_enc_fwd / g_enc_bwd; codebooks are (K, S, d) and become
 embeddings.{k}; sos and the positional embeddings (relative: target
 channel and event features; absolute: source and target positions) are raw
-params; an attention decoder layer's cross-attention is multihead_attn.
-The VQ-CPC model's non-parameter collections (flax `batch_stats`: the
-quantizer BatchNorm's mean / var; `ema`: the EMA quantizer's codebooks,
-cluster_size and ema_sums) become buffers of the same state_dict.
+params; an attention decoder layer's cross-attention is multihead_attn; a
+flax stack's layer_{i} is layers.{i}, and the student modules' numbered
+names (transformer_{i}, linear_agg_{i}, upscale_embeddings_{i},
+pre_softmax_{c}) become the reference's lists (transformers.{i},
+linear_aggs.{i}, upscale_embeddings.{i}, pre_softmaxes.{c}).
+The non-parameter collections (flax `batch_stats`: the quantizer
+BatchNorm's mean / var; `ema`: the EMA quantizer's codebooks, cluster_size
+and ema_sums) become buffers of the same state_dict.
 """
 from __future__ import annotations
 
@@ -95,16 +99,59 @@ def _transformer_layer(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _transformer_stack(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax TransformerEncoder's layer_{i} -> {prefix}layers.{i}."""
+    out = {}
+    i = 0
+    while f"layer_{i}" in params:
+        out.update(_transformer_layer(params[f"layer_{i}"], f"{prefix}layers.{i}."))
+        i += 1
+    return out
+
+
+def _stages(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """transformer_{i} (and linear_agg_{i}, upscale_embeddings_{i}) of the
+    staged student modules -> transformers.{i} (linear_aggs.{i},
+    upscale_embeddings.{i})."""
+    out = {}
+    i = 0
+    while f"transformer_{i}" in params:
+        out.update(_transformer_stack(params[f"transformer_{i}"],
+                                      f"{prefix}transformers.{i}."))
+        if f"linear_agg_{i}" in params:
+            out.update(_dense(params[f"linear_agg_{i}"], f"{prefix}linear_aggs.{i}."))
+        if f"upscale_embeddings_{i}" in params:
+            out[f"{prefix}upscale_embeddings.{i}"] = _tensor(
+                params[f"upscale_embeddings_{i}"])
+        i += 1
+    return out
+
+
+def _pre_softmaxes(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    c = 0
+    while f"pre_softmax_{c}" in params:
+        out.update(_dense(params[f"pre_softmax_{c}"], f"{prefix}pre_softmaxes.{c}."))
+        c += 1
+    return out
+
+
 def encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax Encoder 'params' (GRU downscaler, product quantizer, optional MLP
-    upscaler) -> state_dict of vqcpcb_tpu_torch.models.encoder.Encoder."""
+    """flax Encoder 'params' (GRU or relative-transformer downscaler, product
+    quantizer, optional MLP upscaler) -> state_dict of
+    vqcpcb_tpu_torch.models.encoder.Encoder."""
     sd = _embeddings(params["data_processor"], "data_processor.")
     ds = params["downscaler"]
     if "bigru" in ds:
         sd.update(_gru(ds["bigru"], "downscaler.g_enc_fwd.", direction=0))
         sd.update(_gru(ds["bigru"], "downscaler.g_enc_bwd.", direction=1))
-    else:
+    elif "g_enc_fwd" in ds:
         sd.update(_gru(ds["g_enc_fwd"], "downscaler.g_enc_fwd."))
+    else:
+        sd.update(_dense(ds["input_linear"], "downscaler.input_linear."))
+        for name in ("target_channel_embeddings", "events_positioning_embeddings"):
+            sd[f"downscaler.{name}"] = _tensor(ds[name])
+        sd.update(_stages(ds, "downscaler."))
     sd.update(_dense(ds["output_linear"], "downscaler.output_linear."))
     quantizer = params.get("quantizer", {})       # none for EMA / pass-through
     if "codebooks" in quantizer:
@@ -135,15 +182,64 @@ def decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd.update(_embeddings(params["data_processor"], "data_processor."))
     for stack, name in (("encoder_transformer", "encoder"),
                         ("decoder_transformer", "decoder")):
-        i = 0
-        while f"layer_{i}" in params[stack]:
-            sd.update(_transformer_layer(params[stack][f"layer_{i}"],
-                                         f"transformer.{name}.layers.{i}."))
-            i += 1
-    c = 0
-    while f"pre_softmax_{c}" in params:
-        sd.update(_dense(params[f"pre_softmax_{c}"], f"pre_softmaxes.{c}."))
-        c += 1
+        sd.update(_transformer_stack(params[stack], f"transformer.{name}."))
+    sd.update(_pre_softmaxes(params))
+    return sd
+
+
+def teacher_state_dict(params: Mapping, data_processor_params: Mapping
+                       ) -> Dict[str, torch.Tensor]:
+    """flax TeacherRelative 'params' and its data processor's (the student
+    trainer's 'teacher' and 'teacher_data_processor' groups) -> state_dict
+    of vqcpcb_tpu_torch.models.teacher.TeacherRelative."""
+    sd = _embeddings(data_processor_params, "data_processor.")
+    sd.update(_dense(params["linear_to_input_transformer"],
+                     "linear_to_input_transformer."))
+    sd["channel_embeddings"] = _tensor(params["channel_embeddings"])
+    sd.update(_transformer_stack(params["transformer"], "transformer."))
+    sd.update(_pre_softmaxes(params))
+    return sd
+
+
+def auxiliary_decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax AuxiliaryDecoder[Relative] 'params' -> state_dict of
+    vqcpcb_tpu_torch.models.auxiliary_decoder.AuxiliaryDecoder[Relative]."""
+    sd = _dense(params["linear"], "linear.")
+    if "positional_embeddings" in params:
+        sd["positional_embeddings"] = _tensor(params["positional_embeddings"])
+    sd.update(_stages(params, ""))
+    sd.update(_pre_softmaxes(params))
+    return sd
+
+
+def _encoder_buffers(collections: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """An encoder's variable collections ({'batch_stats': {'quantizer':
+    ...}, 'ema': {'quantizer': ...}}) -> its quantizer's buffers."""
+    sd = {}
+    quantizer = collections.get("batch_stats", {}).get("quantizer", {})
+    if "batch_norm" in quantizer:
+        sd[f"{prefix}quantizer.batch_norm.running_mean"] = _tensor(quantizer["batch_norm"]["mean"])
+        sd[f"{prefix}quantizer.batch_norm.running_var"] = _tensor(quantizer["batch_norm"]["var"])
+    ema = collections.get("ema", {}).get("quantizer", {})
+    for name in ("codebooks", "cluster_size", "ema_sums"):
+        if name in ema:
+            sd[f"{prefix}quantizer.{name}"] = _tensor(ema[name])
+    return sd
+
+
+def student_state_dict(params: Mapping, collections: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The JAX student trainer's params (groups 'encoder', 'teacher',
+    'auxiliary_decoder', 'teacher_data_processor') and its encoder's
+    variable collections (state.batch_stats) -> the state_dict of the
+    StudentEncoderTrainer's `model` (encoder.*, teacher.*,
+    auxiliary_decoder.*)."""
+    sd = {f"encoder.{k}": v for k, v in encoder_state_dict(params["encoder"]).items()}
+    sd.update({f"teacher.{k}": v for k, v in teacher_state_dict(
+        params["teacher"], params["teacher_data_processor"]).items()})
+    sd.update({f"auxiliary_decoder.{k}": v for k, v in
+               auxiliary_decoder_state_dict(params["auxiliary_decoder"]).items()})
+    sd.update(_encoder_buffers(collections or {}, "encoder."))
     return sd
 
 
@@ -162,12 +258,6 @@ def vqcpc_state_dict(params: Mapping, collections: Optional[Mapping] = None
         if name in params:
             sd[f"{name}.W"] = _tensor(params[name]["W"])
     collections = collections or {}
-    quantizer = collections.get("batch_stats", {}).get("encoder", {}).get("quantizer", {})
-    if "batch_norm" in quantizer:
-        sd["encoder.quantizer.batch_norm.running_mean"] = _tensor(quantizer["batch_norm"]["mean"])
-        sd["encoder.quantizer.batch_norm.running_var"] = _tensor(quantizer["batch_norm"]["var"])
-    ema = collections.get("ema", {}).get("encoder", {}).get("quantizer", {})
-    for name in ("codebooks", "cluster_size", "ema_sums"):
-        if name in ema:
-            sd[f"encoder.quantizer.{name}"] = _tensor(ema[name])
+    sd.update(_encoder_buffers({k: v.get("encoder", {}) for k, v in collections.items()},
+                               "encoder."))
     return sd

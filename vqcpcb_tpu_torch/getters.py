@@ -4,7 +4,7 @@ the same derived dimensions, so one config builds the same model in either
 package.
 
 The port's modules take their input widths explicitly where flax infers
-them (the GRU downscaler's, the upscaler's and the CPC context network's
+them (the downscalers', the upscaler's and the CPC context network's
 input); the getters fill them in from the config. What the port does not
 have yet raises NotImplementedError naming the ROADMAP item that ports it.
 """
@@ -16,12 +16,17 @@ import numpy as np
 
 from vqcpcb_tpu_torch.data.dataloaders import (BachCPCDataloaderGenerator,
                                                BachDataloaderGenerator)
+from vqcpcb_tpu_torch.models.auxiliary_decoder import (AuxiliaryDecoder,
+                                                       AuxiliaryDecoderRelative)
 from vqcpcb_tpu_torch.models.cpc import CModule, FksModule, VQCPCModel
 from vqcpcb_tpu_torch.models.data_processor import (BachCPCDataProcessor,
                                                     BachDataProcessor)
 from vqcpcb_tpu_torch.models.decoder import Decoder
-from vqcpcb_tpu_torch.models.downscalers import GruDownscaler
+from vqcpcb_tpu_torch.models.downscalers import (
+    GruDownscaler, RelativeTransformerDownscaler,
+    RelativeTransformerDownscalerLinear)
 from vqcpcb_tpu_torch.models.encoder import Encoder
+from vqcpcb_tpu_torch.models.teacher import TeacherRelative
 from vqcpcb_tpu_torch.models.upscalers import MlpUpscaler
 from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
                                             NoQuantization,
@@ -94,7 +99,8 @@ def get_data_processor(dataloader_generator, data_processor_type: str,
 
 def get_downscaler(downscaler_type: str, downscaler_kwargs: Dict):
     """(getters.py:116) downscaler_kwargs carries `input_dim`, the data
-    processor's embedding size, as get_encoder fills it in."""
+    processor's embedding size, and `num_channels`, as get_encoder fills
+    them in."""
     if downscaler_type == "lstm_downscaler":
         return GruDownscaler(
             input_dim=downscaler_kwargs["input_dim"],
@@ -106,7 +112,21 @@ def get_downscaler(downscaler_type: str, downscaler_kwargs: Dict):
             bidirectional=downscaler_kwargs["bidirectional"])
     if downscaler_type in ("relative_transformer_downscaler",
                            "relative_transformer_downscaler_linear"):
-        raise _not_yet(f"the {downscaler_type!r}", "item 5, M6 (b)")
+        cls = (RelativeTransformerDownscaler
+               if downscaler_type == "relative_transformer_downscaler"
+               else RelativeTransformerDownscalerLinear)
+        return cls(
+            input_dim=downscaler_kwargs["input_dim"],
+            output_dim=downscaler_kwargs["output_dim"],
+            downscale_factors=downscaler_kwargs["downscale_factors"],
+            num_channels=downscaler_kwargs["num_channels"],
+            d_model=downscaler_kwargs["d_model"],
+            n_head=downscaler_kwargs["n_head"],
+            list_of_num_layers=downscaler_kwargs["list_of_num_layers"],
+            dim_feedforward=downscaler_kwargs["dim_feedforward"],
+            dropout=downscaler_kwargs["dropout"],
+            positional_embedding_size=downscaler_kwargs.get(
+                "positional_embedding_size", 8))
     raise NotImplementedError(downscaler_type)
 
 
@@ -196,15 +216,45 @@ def get_vqcpc_model(dataloader_generator, config: Dict) -> VQCPCModel:
         quantization_weighting=aux["quantization_weighting"])
 
 
-def get_teacher(teacher_kwargs: Dict, dataloader_generator):
-    """(getters.py:243)"""
-    raise _not_yet("the student's teacher", "item 5, M6 (c)")
+def get_teacher(teacher_kwargs: Dict, dataloader_generator) -> TeacherRelative:
+    """(getters.py:243) The teacher with its own data processor (tables with
+    the mask token's row); teacher_kwargs carries `num_tokens_per_channel`
+    and `num_tokens`, as the encoder CLI fills them in."""
+    dp_config = teacher_kwargs["data_processor_config"]
+    data_processor = get_data_processor(
+        dataloader_generator=dataloader_generator,
+        data_processor_type=dp_config["data_processor_type"],
+        data_processor_kwargs=dp_config["data_processor_kwargs"])
+    return TeacherRelative(
+        data_processor=data_processor,
+        num_layers=teacher_kwargs["num_layers"],
+        num_tokens_per_channel=teacher_kwargs["num_tokens_per_channel"],
+        positional_embedding_size=teacher_kwargs["positional_embedding_size"],
+        d_model=teacher_kwargs["d_model"],
+        dim_feedforward=teacher_kwargs["dim_feedforward"],
+        n_head=teacher_kwargs["n_head"],
+        num_tokens=teacher_kwargs["num_tokens"],
+        dropout=teacher_kwargs["dropout"])
 
 
 def get_auxiliary_decoder(auxiliary_decoder_type: str,
-                          auxiliary_decoder_kwargs: Dict):
-    """(getters.py:262)"""
-    raise _not_yet("the student's auxiliary decoder", "item 5, M6 (c)")
+                          auxiliary_decoder_kwargs: Dict) -> AuxiliaryDecoder:
+    """(getters.py:262) 'absolute' or 'relative'; the kwargs carry the
+    derived num_tokens_per_channel, codebook_dim, upscale_factors and
+    num_tokens_bottleneck, as the encoder CLI fills them in."""
+    cls = {"absolute": AuxiliaryDecoder,
+           "relative": AuxiliaryDecoderRelative}[auxiliary_decoder_type]
+    kw = auxiliary_decoder_kwargs
+    return cls(
+        num_tokens_per_channel=kw["num_tokens_per_channel"],
+        codebook_dim=kw["codebook_dim"],
+        upscale_factors=kw["upscale_factors"],
+        list_of_num_layers=kw["list_of_num_layers"],
+        n_head=kw["n_head"],
+        d_model=kw["d_model"],
+        dim_feedforward=kw["dim_feedforward"],
+        num_tokens_bottleneck=kw["num_tokens_bottleneck"],
+        dropout=kw["dropout"])
 
 
 DECODER_TYPES = {

@@ -34,8 +34,9 @@ DEFAULT_ENCODER_CONFIG = "configs/encoder_random_16C.py"
 
 def load_encoder_stack(config: Dict, cache_root: Optional[str] = None
                        ) -> Tuple["Encoder", Dict]:
-    """The frozen encoder of config['config_encoder'] with the weights of
-    its model directory's checkpoint (main_decoder.py:16-71): the latest
+    """The frozen encoder of config['config_encoder'] (a VQ-CPC or a
+    student encoder) with the weights of its model directory's checkpoint
+    (main_decoder.py:16-71): the latest
     slot, `overfitted` first. Without a config_encoder it builds
     DEFAULT_ENCODER_CONFIG's encoder; without a checkpoint it warns and keeps
     the fresh weights. Returns (encoder, encoder_config)."""
@@ -61,7 +62,8 @@ def load_encoder_stack(config: Dict, cache_root: Optional[str] = None
         if slot is not None:
             model = checkpoints.load_state(
                 model_dir_encoder, early_stopped=slot == "early_stopped")["model"]
-            # the encoder's entries of the VQ-CPC trainer's model state
+            # the encoder's entries of the VQ-CPC or the student trainer's
+            # model state
             encoder.load_state_dict({k[len("encoder."):]: v
                                      for k, v in model.items()
                                      if k.startswith("encoder.")})

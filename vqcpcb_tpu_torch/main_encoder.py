@@ -3,6 +3,7 @@
     python -m vqcpcb_tpu_torch.main_encoder -t -c configs/encoder_random_synthetic.py
     python -m vqcpcb_tpu_torch.main_encoder -l -c models/<savename>_<timestamp>/config.py
     python -m vqcpcb_tpu_torch.main_encoder -t -c tests/configs/encoder_smoke.py --device cpu
+    python -m vqcpcb_tpu_torch.main_encoder -t -c configs/encoder_student_synthetic.py
 
 The flags of the JAX CLI (main_encoder.py:18-26): -t/--train, -l/--load
 (from the model directory holding the given config.py; with -t, training
@@ -11,6 +12,9 @@ module defining `config`), --num_workers, --num_epochs and --num_batches
 (-1: the whole corpus) overriding the config; plus --device (default: the
 card; without CUDA the CLI raises unless given --device cpu). A new model
 directory is models/{savename}_{timestamp}, with the config copied in.
+The config's training_method picks the trainer: 'vqcpc'
+(VQCPCEncoderTrainer) or 'student' (StudentEncoderTrainer, with the teacher
+and the auxiliary decoder the config describes, main_encoder.py:75-103).
 After training or loading, the per-code excerpt dumps (clusters_train/,
 clusters_val/) and the codebook's nearest neighbours follow
 (main_encoder.py:146-184).
@@ -71,27 +75,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         config["num_batches"] = None if args.num_batches < 0 else args.num_batches
 
     training_method = config["training_method"].lower()
-    if training_method == "student":
-        raise NotImplementedError(
-            "the student encoder is not ported to vqcpcb_tpu_torch yet "
-            "(ROADMAP.md Queue 1, item 5, M6 (c))")
-    if training_method != "vqcpc":
+    if training_method not in ("vqcpc", "student"):
         raise NotImplementedError(training_method)
     dataloader_generator = getters.get_dataloader_generator(
         dataset=config["dataset"], training_method=training_method,
         dataloader_generator_kwargs=config["dataloader_generator_kwargs"],
         config=config)
     torch.manual_seed(0)                      # the fresh weights
-    model = getters.get_vqcpc_model(dataloader_generator, config)
-    trainer = VQCPCEncoderTrainer(model, device=device, model_dir=model_dir,
-                                  dataloader_generator=dataloader_generator)
+    if training_method == "vqcpc":
+        model = getters.get_vqcpc_model(dataloader_generator, config)
+        encoder = model.encoder
+        trainer = VQCPCEncoderTrainer(model, device=device, model_dir=model_dir,
+                                      dataloader_generator=dataloader_generator)
+    else:
+        encoder = getters.get_encoder(dataloader_generator, config)
+        trainer = student_trainer(config, dataloader_generator, encoder,
+                                  device, model_dir)
     schedule_lr = config.get("schedule_lr", False)
 
     if args.load:
         gen_train, _, _ = dataloader_generator.dataloaders(
             batch_size=config["batch_size"], num_workers=args.num_workers)
-        trainer.init_state(next(iter(gen_train)), lr=config["lr"],
-                           schedule_lr=schedule_lr,
+        first = next(iter(gen_train))
+        trainer.init_state(first if training_method == "vqcpc" else first["x"],
+                           lr=config["lr"], schedule_lr=schedule_lr,
                            warmup_steps=warmup_steps_from_env(),
                            initialize=False)
         sidecar = checkpoints.read_step_sidecar(model_dir)
@@ -120,8 +127,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             checkpoint_every_steps=config.get("checkpoint_every_steps"))
 
     # ---- cluster exploration (main_encoder.py:146-184) ----------------------
-    if trainer.optimizer is None or config["quantizer_type"] not in ("commitment",
-                                                                     "ema"):
+    if (not trainer.initialized
+            or config["quantizer_type"] not in ("commitment", "ema")):
         return 0          # nothing trained or loaded, or no discrete codes
     clusters_loader = getters.get_dataloader_generator(
         dataset=config["dataset"], training_method="decoder",
@@ -135,13 +142,46 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     num_events_for_one_index = int(
         np.prod(config["downscaler_kwargs"]["downscale_factors"])
-        // model.encoder.data_processor.num_channels)
+        // encoder.data_processor.num_channels)
     for split in ("train", "val"):
         analysis.plot_clusters(encode_fn, clusters_loader, split, model_dir,
                                num_events_for_one_index, num_batches=64)
-    codebooks = model.encoder.quantizer.codebooks.detach().cpu().numpy()
+    codebooks = encoder.quantizer.codebooks.detach().cpu().numpy()
     analysis.show_nn_clusters(codebooks)
     return 0
+
+
+def student_trainer(config, dataloader_generator, encoder, device, model_dir):
+    """The StudentEncoderTrainer of a 'student' config, its teacher and
+    auxiliary decoder built with the widths JAX derives
+    (main_encoder.py:75-103): the vocabulary and token counts of the
+    encoder's data processor, the codebook dimension, the downscale factors
+    reversed as upscale factors, and the bottleneck's token count."""
+    import numpy as np
+
+    from vqcpcb_tpu_torch import getters
+    from vqcpcb_tpu_torch.training.student_trainer import StudentEncoderTrainer
+    aux = config["auxiliary_networks_kwargs"]
+    processor = encoder.data_processor
+    teacher_kwargs = dict(aux["teacher_kwargs"],
+                          num_tokens_per_channel=processor.num_tokens_per_channel,
+                          num_tokens=processor.num_tokens)
+    factors = config["downscaler_kwargs"]["downscale_factors"]
+    decoder_kwargs = dict(
+        aux["auxiliary_decoder_kwargs"],
+        num_tokens_per_channel=processor.num_tokens_per_channel,
+        codebook_dim=config["quantizer_kwargs"]["codebook_dim"],
+        upscale_factors=list(reversed(factors)),
+        num_tokens_bottleneck=processor.num_tokens // int(np.prod(factors)))
+    return StudentEncoderTrainer(
+        encoder=encoder,
+        teacher=getters.get_teacher(teacher_kwargs, dataloader_generator),
+        auxiliary_decoder=getters.get_auxiliary_decoder(
+            aux["auxiliary_decoder_type"], decoder_kwargs),
+        num_events_masked=aux["num_events_masked"],
+        quantization_weighting=aux["quantization_weighting"],
+        device=device, model_dir=model_dir,
+        dataloader_generator=dataloader_generator)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Losses (counterpart of vqcpcb_tpu/ops/losses.py): the CPC losses of the
 encoder, nce_loss :16 and quantization_loss_aggregate :33, and the decoder's
 cross entropies, categorical_crossentropy :54 and
-stacked_categorical_crossentropy :91.
+stacked_categorical_crossentropy :91, and the student's soft-target
+distilled_categorical_crossentropy :141.
 
 All accumulate in f32. The cross entropies normalise each channel by its own
 count of masked positions. The JAX versions contract with a one-hot because a
@@ -81,3 +82,21 @@ def stacked_categorical_crossentropy(stacked_logits: torch.Tensor,
     nll = _nll(F.log_softmax(logits, dim=-1), target.long() + offsets)  # (B, E, C)
     per_channel = (nll * mask).sum((0, 1))
     return (per_channel / mask.sum((0, 1)).clamp_min(1.0)).sum()
+
+
+def distilled_categorical_crossentropy(value: Sequence[torch.Tensor],
+                                       target: Sequence[torch.Tensor],
+                                       mask: torch.Tensor) -> torch.Tensor:
+    """Soft-target cross entropy -softmax(target) . log_softmax(value),
+    summed over channels and over the events whose batch-mean mask exceeds
+    0.5 (the reference masks whole events), averaged over the batch. The
+    teacher's logits `target` give the distribution.
+
+    value, target: per channel, logits (B, E, vocab_c); mask (B, E, C)."""
+    total = 0.0
+    for c, (v_logits, t_logits) in enumerate(zip(value, target)):
+        p = torch.softmax(t_logits.float(), dim=-1)
+        ce = -(p * F.log_softmax(v_logits.float(), dim=-1)).sum(-1)   # (B, E)
+        event_mask = (mask[..., c].float().mean(0) > 0.5).float()     # (E,)
+        total = total + (ce * event_mask).sum(1)
+    return total.mean()

@@ -3,8 +3,11 @@ the commitment quantizer `ProductVectorQuantizer` (:57), its EMA twin
 `EMAProductVectorQuantizer` (:144), the pass-through `NoQuantization` (:233)
 and the data-dependent codebook init `initialize_codebooks` (:29).
 
-Every nearest-codebook search goes through `nearest_codebook_indices`: the
-plain version for CPU tensors, the hand-written kernel for CUDA tensors.
+Every nearest-codebook search goes through the quantizer's `search`, which
+is `nearest_codebook_indices`: the plain version for CPU tensors, the
+hand-written kernel for CUDA tensors. An instance's `search` may be set to
+another function of (x (n, K, d), codebooks (K, S, d)) -> (n, K) indices,
+as a route comparison does to decode given codes.
 Parameters keep the reference layout: `embeddings.{k}` is sub-codebook k of
 shape (codebook_size, codebook_dim // num_codebooks). The EMA quantizer
 keeps its (K, S, d) `codebooks`, `cluster_size` and `ema_sums` as buffers:
@@ -123,6 +126,7 @@ class ProductVectorQuantizer(nn.Module):
             nn.Parameter(torch.randn(codebook_size, sub_dim) * 4.0)
             for _ in range(num_codebooks))
         self.batch_norm = BatchNorm(codebook_dim) if use_batch_norm else None
+        self.search = nearest_codebook_indices
 
     @property
     def codebooks(self) -> torch.Tensor:
@@ -145,8 +149,8 @@ class ProductVectorQuantizer(nn.Module):
         n = flat.shape[0]
         e = self.codebooks                                       # (K, S, d)
         x = search.reshape(n, self.num_codebooks, -1)
-        indices = nearest_codebook_indices(x.detach().contiguous(),
-                                           e.detach().contiguous())   # (n, K)
+        indices = self.search(x.detach().contiguous(),
+                              e.detach().contiguous())               # (n, K)
         if training and corrupt_labels:
             random_indices = torch.randint(
                 0, self.codebook_size, indices.shape, generator=generator,
@@ -198,6 +202,7 @@ class EMAProductVectorQuantizer(nn.Module):
         self.register_buffer("cluster_size",
                              torch.ones((num_codebooks, codebook_size)))
         self.register_buffer("ema_sums", codebooks.clone())
+        self.search = nearest_codebook_indices
 
     @torch.no_grad()
     def set_codebooks(self, codebooks: torch.Tensor) -> None:
@@ -236,7 +241,7 @@ class EMAProductVectorQuantizer(nn.Module):
         flat = inputs.reshape(-1, self.codebook_dim)
         n = flat.shape[0]
         x = flat.reshape(n, self.num_codebooks, -1).detach()
-        indices = nearest_codebook_indices(x.contiguous(), self.codebooks)
+        indices = self.search(x.contiguous(), self.codebooks)
         quantized = _lookup(self.codebooks, indices).reshape(n, self.codebook_dim)
         quantized = quantized.to(inputs.dtype)
         if training:

@@ -15,13 +15,16 @@ cross branch (drop2 of the decoder layer), the FFN (drop2 / drop3) and on
 the FFN's hidden activation, as the JAX layers do (transformer.py:53-109,
 318-327). The rate defaults to 0; the Decoder passes its own. Those
 dropouts draw their masks from the generator set on them (`Dropout`), the
-trainer's, so a run's every draw has a source it can save. Under bf16
-autocast the aligned cross branch stays in f32, as its JAX Dense layers
-carry no compute dtype.
+trainer's, so a run's every draw has a source it can save
+(`wire_generators`). Under bf16 autocast the aligned cross branch stays in
+f32, as its JAX Dense layers carry no compute dtype. `train_mode` runs a
+block with a module in the mode a caller's `training` argument names, for
+the modules that take one as the JAX modules do.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,36 @@ class Dropout(nn.Dropout):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dropout(x, self.p, self.training, self.generator)
+
+
+def wire_generators(module: nn.Module, generator: torch.Generator,
+                    seed_generator: torch.Generator) -> None:
+    """Every `Dropout` under `module` draws its masks from `generator` (on the
+    module's device) and every attention layer its dropout seeds from
+    `seed_generator` (on the host): the trainer's generators, which it
+    saves with its state."""
+    for m in module.modules():
+        if isinstance(m, MultiheadAttention):
+            m.seed_generator = seed_generator
+        elif isinstance(m, Dropout):
+            m.generator = generator
+
+
+@contextlib.contextmanager
+def train_mode(module: nn.Module, training: Optional[bool]) -> Iterator[None]:
+    """Runs the block with `module` and its submodules in train mode
+    (training True) or eval mode (False), then gives each its mode back;
+    None keeps the modes as they are."""
+    if training is None:
+        yield
+        return
+    saved = [(m, m.training) for m in module.modules()]
+    module.train(training)
+    try:
+        yield
+    finally:
+        for m, mode in saved:
+            m.training = mode
 
 
 def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,

@@ -32,8 +32,7 @@ from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, START_SYMBOL,
                                          Vocabulary)
 from vqcpcb_tpu_torch.models.decoder import Decoder
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
-from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
-from vqcpcb_tpu_torch.ops.transformer import Dropout
+from vqcpcb_tpu_torch.ops.transformer import wire_generators
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
@@ -77,11 +76,7 @@ class DecoderTrainer(TrainLoopMixin):
                               else torch.float32)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.seed_generator = torch.Generator().manual_seed(seed)
-        for m in self.decoder.modules():
-            if isinstance(m, MultiheadAttention):
-                m.seed_generator = self.seed_generator
-            elif isinstance(m, Dropout):
-                m.generator = self.generator
+        wire_generators(self.decoder, self.generator, self.seed_generator)
         self.optimizer: Optional[Adam] = None
         self.step = 0
 

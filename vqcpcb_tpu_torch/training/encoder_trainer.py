@@ -6,11 +6,13 @@ and `encode`.
 
 `VQCPCEncoderTrainer` holds a VQCPCModel on one device (the card unless the
 caller names another), the clipped Adam of training/optim.py, the step count
-and one torch.Generator on that device for every random draw: dropout,
-label corruption and the codebook-init permutation. Steps run in f32, as
-the JAX steps do (the GRU recurrence is f32 there by design). `save` /
-`load` (training/loop.py) keep the whole state: parameters, the BatchNorm
-and EMA buffers, the optimizer, the step and the generator.
+and two generators every random draw comes from: one on that device
+(dropout, label corruption and the codebook-init permutation) and one on
+the host (the dropout seeds of a transformer downscaler's attention
+layers). Steps run in f32, as the JAX steps do (the GRU recurrence is f32
+there by design). `save` / `load` (training/loop.py) keep the whole state:
+parameters, the BatchNorm and EMA buffers, the optimizer, the step and the
+generators.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from vqcpcb_tpu_torch.models.cpc import VQCPCModel
 from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
                                             ProductVectorQuantizer,
                                             initialize_codebooks)
+from vqcpcb_tpu_torch.ops.transformer import wire_generators
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
@@ -48,6 +51,8 @@ class VQCPCEncoderTrainer(TrainLoopMixin):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed_generator = torch.Generator().manual_seed(seed)
+        wire_generators(self.model, self.generator, self.seed_generator)
         self.optimizer: Optional[Adam] = None
         self.step = 0
 
@@ -153,7 +158,8 @@ class VQCPCEncoderTrainer(TrainLoopMixin):
         return self.model
 
     def _generators(self) -> Dict[str, torch.Generator]:
-        return {"generator": self.generator}
+        return {"generator": self.generator,
+                "seed_generator": self.seed_generator}
 
     @torch.no_grad()
     def encode(self, x):

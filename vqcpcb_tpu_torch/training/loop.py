@@ -18,7 +18,9 @@ A trainer provides `epoch()`, `init_state()`, `_init_from_first()`,
 `_checkpointed()` (the module whose state_dict is saved), `_generators()`
 (name -> every torch.Generator it draws from), `model_dir`,
 `dataloader_generator`, `optimizer` (None before init_state) and `step`,
-and may override `monitor_key` and `_epoch_kwargs`.
+and may override `monitor_key`, `_epoch_kwargs` and `_optimizers()` (name
+-> every optimizer it steps, each saved under its name; by default
+`optimizer`, saved as "optimizer").
 """
 from __future__ import annotations
 
@@ -74,23 +76,34 @@ class TrainLoopMixin:
     def _epoch_kwargs(self, corrupt_labels: bool) -> dict:
         return {}
 
+    def _optimizers(self) -> Dict:
+        return {"optimizer": self.optimizer}
+
+    @property
+    def initialized(self) -> bool:
+        """Whether init_state has built the optimizers."""
+        return all(opt is not None for opt in self._optimizers().values())
+
     # ---- the trainer's state ----------------------------------------------------
 
     def state_dict(self) -> Dict:
-        """The module's parameters and buffers, the optimizer, the step and
+        """The module's parameters and buffers, each optimizer, the step and
         every generator's state (with its device type)."""
         return {"model": self._checkpointed().state_dict(),
-                "optimizer": self.optimizer.state_dict(), "step": self.step,
+                **{name: opt.state_dict()
+                   for name, opt in self._optimizers().items()},
+                "step": self.step,
                 "generators": {name: {"device": g.device.type,
                                       "state": g.get_state()}
                                for name, g in self._generators().items()}}
 
     def load_state_dict(self, state: Dict) -> None:
         """Restore a state_dict(); init_state first (it builds the
-        optimizer). A generator state saved on another device type (a
+        optimizers). A generator state saved on another device type (a
         card's generator read on the CPU) leaves that generator as it is."""
         self._checkpointed().load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        for name, opt in self._optimizers().items():
+            opt.load_state_dict(state[name])
         self.step = int(state["step"])
         generators = self._generators()
         for name, saved in state["generators"].items():
@@ -106,7 +119,7 @@ class TrainLoopMixin:
     def load(self, early_stopped: bool) -> None:
         """The whole state of a slot; init_state first (it builds the
         optimizer whose moments this restores, as the JAX load does)."""
-        if self.optimizer is None:
+        if not self.initialized:
             raise RuntimeError("call init_state before load, so the optimizer "
                                "exists")
         self.load_state_dict(checkpoints.load_state(self.model_dir, early_stopped))
@@ -196,7 +209,7 @@ class TrainLoopMixin:
             generator_train, generator_val, _ = \
                 self.dataloader_generator.dataloaders(
                     batch_size=batch_size, num_workers=num_workers)
-            if self.optimizer is None:
+            if not self.initialized:
                 generator_train = iter(generator_train)
                 first = next(generator_train)
                 self._init_from_first(first, lr, schedule_lr, initialize)
