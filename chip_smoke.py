@@ -3,8 +3,9 @@
     python3 chip_smoke.py             # the smoke run
     python3 chip_smoke.py --profile   # plus profiler breakdowns of sampling,
                                       # of 3 decoder train steps, of 3
-                                      # encoder train steps and of 3 student
-                                      # train steps
+                                      # encoder train steps, of 3 student
+                                      # train steps and of 3 prior train
+                                      # steps
 
 Phases, in order; any failure raises and the run exits non-zero:
   1. environment: the card's name and power limit, torch / CUDA versions,
@@ -12,8 +13,9 @@ Phases, in order; any failure raises and the run exits non-zero:
   2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a), one
      nvcc per source, all started together;
   3. nearest-codebook kernel vs its plain PyTorch version at every main
-     path's shape, timed by events and by device time at the serving shape
-     and at the encoder-training shapes;
+     path's shape, timed there by events and by device time beside an empty
+     kernel launched on its grid (the launch floor) and beside one that only
+     loads x and the codebook and stores an int a row (the I/O floor);
   4. relative-bias attention forward kernel (inference) vs its plain
      version and, at its three batch-8 shapes, the forward's bf16 weights
      bit for bit, timed beside its bound and beside
@@ -27,7 +29,10 @@ Phases, in order; any failure raises and the run exits non-zero:
      96, 24, 16 and 4 (packed, dropout 0 and 0.2, the dropout mask at 16),
      and K2-fwd, K2-bwd and K3-fwd held and timed at every batch the main
      paths give them with no mask (the student's, the transformer
-     downscaler's in VQ-CPC training, the decoder CLI's encode);
+     downscaler's in VQ-CPC training, the decoder CLI's encode); then the
+     prior's causal T = S = 24: K2 at its batch of 64 (dropout 0 and 0.1,
+     the dropout mask), K3-fwd there and at the sampling batch 512 and the
+     CLI's generation batch 1, held and timed;
   6. fused attention: K4 at batch 512 at the absolute decoder's three
      shapes and at batch 8 with the explicit-bias prefill's real bias, K6's
      forward and backward at batch 32 with the placeholder and
@@ -79,12 +84,24 @@ Phases, in order; any failure raises and the run exits non-zero:
      student's encoder; then the checks: exit codes, model directories and
      metrics rows, written tokens inside the vocabulary, the reloaded
      decoders' and student's eval losses equal to the trained ones', one
-     AC/AC/C step on the kernel route vs the f32 plain route;
- 12. one JSON line of per-kernel numbers, then the result line.
+     AC/AC/C step on the kernel route vs the f32 plain route; after the
+     flagship decoder's calls, the prior CLI (configs/prior_config.py on the
+     synthetic corpus over that encoder) -t (20 batches at 64) and -l -g
+     through that decoder, its reloaded eval loss equal to the trained one;
+ 12. the prior of configs/prior_config.py at full width: (a) PriorTrainer
+     steps at batch 64 in f32 (5 warm-up, 30 synced -> median ms/step,
+     prior_train_tokens_per_sec, codes/s, launches per step, a falling
+     loss), (b) kernel-route vs CPU f32 plain-route loss and gradients at
+     batch 8, dropout 0, (c) generate_codes at batch 512, 96 codes a row
+     (codes/s, the launches of one prefill) and greedy KV-cached codes,
+     from position 0 and from 12 after a fixed prefix, vs the
+     teacher-forced argmax, (d) with --profile, 3 profiled steps and
+     one profiled sampling window;
+ 13. one JSON line of per-kernel numbers, then the result line.
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
-phase 10 (a), (c) and (d) and the CLI calls of phase 11 are the main paths:
-each is driven with the launch counts set to 0 just before it and read just
-after.
+phase 10 (a), (c) and (d), the CLI calls of phase 11 and the runs of phase
+12 (a) and (c) are the main paths: each is driven with the launch counts set
+to 0 just before it and read just after.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -132,7 +149,7 @@ ENC_NEG = 15
 ENC_VOCAB = 62
 ENC_NEG_ROWS = ENC_BATCH * ENC_NEG * ENC_BLOCKS
 # the decoder CLI's batch (configs/decoder_synthetic.py): its encode of 64 x
-# 24 blocks
+# 24 blocks; the prior's batch (configs/prior_config.py) is the same
 DECODER_CLI_BATCH = 64
 # the student's batch (configs/encoder_student_synthetic.py)
 STUDENT_BATCH = 8
@@ -226,10 +243,13 @@ def phase_build() -> None:
 def phase_vq(gen: torch.Generator) -> dict:
     """K1 against its plain version at the slices' shapes (the serving
     batch, the VQ-CPC step's, the student's 8 x 24 codes, the decoder CLI's
-    64 x 24) and at odd ones; timed by events and by device time at the
-    serving shape (512 x 24 codes) and at the encoder-training shapes (the
-    negatives' 16 x 15 x 6 windows, the 16 x 6 left or right blocks). The top-level numbers are the serving
-    shape's, as since the kernel was first ported."""
+    and the prior's 64 x 24) and at odd ones; timed by events and by device
+    time at each of those main-path shapes, beside the device time of an
+    empty kernel launched on K1's grid there (the launch floor) and of one
+    that only loads x and the codebook and stores an int a row (the I/O
+    floor of any correct K1). The
+    top-level numbers are the serving shape's, as since the kernel was
+    first ported."""
     from vqcpcb_tpu_torch.ops import vq_kernels as vk
     dev = torch.device("cuda")
     timed = {}
@@ -260,9 +280,14 @@ def phase_vq(gen: torch.Generator) -> dict:
         if bad:
             raise AssertionError(f"vq_nearest disagrees with its plain version "
                                  f"on {bad} rows at ({n},{k},{d},{s})")
-        if n in (BATCH * NUM_CODES, ENC_NEG_ROWS, ENC_BATCH * ENC_BLOCKS):
+        if n in (BATCH * NUM_CODES, ENC_NEG_ROWS, ENC_BATCH * ENC_BLOCKS,
+                 STUDENT_BATCH * NUM_CODES, DECODER_CLI_BATCH * NUM_CODES):
             ms = time_cuda(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
             dev_ms = device_ms(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
+            floor_dev = device_ms(lambda: vk.launch_floor_cuda(n, k, dev), 200)
+            floor_ms = time_cuda(lambda: vk.launch_floor_cuda(n, k, dev), 200)
+            io_out = torch.empty((n, k), dtype=torch.int32, device=dev)
+            io_dev = device_ms(lambda: vk.io_floor_cuda(x, e, io_out), 200)
             plain_ms = time_cuda(lambda: vk.nearest_codebook_indices_plain(x, e), 50)
             bytes_moved = 4 * (x.numel() + e.numel() + n * k)
             flops = n * k * s * (2 * d + 3) + n * k * 2 * d
@@ -273,10 +298,17 @@ def phase_vq(gen: torch.Generator) -> dict:
                    - dist.gather(-1, want.long()[..., None])).abs().max().item()
             timed[f"({n},{k},{d},{s})"] = dict(
                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                empty_kernel_device_ms=floor_dev, empty_kernel_ms=floor_ms,
+                io_floor_device_ms=io_dev)
             log(f"# vq_nearest at ({n},{k},{d},{s}): kernel {ms:.5f} ms "
                 f"(device {dev_ms:.5f} ms), plain {plain_ms:.5f} ms, bound "
-                f"{bound_ms:.7f} ms ({bound_by})")
+                f"{bound_ms:.7f} ms ({bound_by}); an empty kernel on its grid "
+                f"{floor_ms:.5f} ms (device {floor_dev:.5f} ms): K1's device "
+                f"time is {dev_ms / floor_dev:.2f}x the launch floor's; a kernel "
+                f"on its grid that only loads x and the codebook and stores an "
+                f"int a row: device {io_dev:.5f} ms, K1 {dev_ms / io_dev:.2f}x "
+                f"that I/O floor")
         elif n == 1048576:
             ms = time_cuda(lambda: vk.nearest_codebook_indices_cuda(x, e), 50)
             plain_ms = time_cuda(lambda: vk.nearest_codebook_indices_plain(x, e), 10)
@@ -710,20 +742,106 @@ def _relbias_bounds(b, t, s, elem_bytes, masked):
             bound(7 * act + 2 * side, 8 * prod, BF16_FLOPS))
 
 
+def _hold_and_time(gen, label, b, t, worst, causal=False, train=True):
+    """At one shape (B x 8 heads, T = S = t) on f32 inputs (the student and
+    the prior train and evaluate in f32; bf16 dots), with no mask or the
+    causal one: K3-fwd (the inference route's (B, H, L, d) call, no
+    dropout) and, with `train`, K2-fwd and K2-bwd (packed, the configs'
+    dropout 0.1), held by _hold against their plain versions and timed
+    beside the plain versions, their bounds (the mask's bytes counted where
+    a mask is passed) and scaled_dot_product_attention with the relative
+    bias (plus the mask) as its mask, SDPA's backward by its device time.
+    Events time the wrappers' host time too; device time the kernels' own."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    import torch.nn.functional as F
+    from vqcpcb_tpu_torch.ops.masks import causal_mask
+    from vqcpcb_tpu_torch.ops.relative_attention import subsampled_relative_bias
+    cuda = (ak.relbias_attention_fwd_cuda, ak.relbias_attention_bwd_cuda)
+    plain = (ak.relbias_attention_fwd_plain, ak.relbias_attention_bwd_plain)
+    mask = causal_mask(t, device="cuda") if causal else None
+    q, k, v = _projected(gen, b, t, t, torch.float32)
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    e1, e2 = (torch.randn((HEADS, t, HEAD_DIM), generator=gen, device="cuda")
+              for _ in range(2))
+    q4, k4, v4, g4 = (_split_heads(x).contiguous() for x in (q, k, v, g))
+    inputs4 = (q4, k4, v4, mask, e1, e2)
+    got_inf = [cuda[0](*inputs4)]
+    torch.cuda.synchronize()
+    line_inf = _hold(f"relbias inference {label}", got_inf, [plain[0](*inputs4)],
+                     [plain[0](*inputs4, dot_dtype=torch.float32)], worst,
+                     names=("out",))
+    del got_inf
+    reps = 20 if b * t <= 8 * 384 else 10
+    bias = subsampled_relative_bias(q4, e1, e2)
+    bias = (bias if mask is None else bias + mask).contiguous()
+    inf = lambda: cuda[0](*inputs4)                             # noqa: E731
+    inf_ms, inf_dev = time_cuda(inf, reps), device_ms(inf, reps)
+    inf_plain = time_cuda(lambda: plain[0](*inputs4), 5, warmup=1)
+    inf_lib = time_cuda(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=bias, scale=1.0), reps, warmup=2)
+    fwd_b, bwd_b = _relbias_bounds(b, t, t, 4, masked=causal)
+    # K3-fwd: K2-fwd's bytes and products, no dropout
+    result = dict(batch=b, t=t, causal=causal,
+                  k3_fwd=dict(ms=inf_ms, device_ms=inf_dev, plain_ms=inf_plain,
+                              library_ms=inf_lib, bound_ms=fwd_b[0],
+                              bound_by=fwd_b[1]))
+    text = (f"K3-fwd {line_inf}; K3-fwd (B,H,L,d) {inf_ms:.4f} ms (device "
+            f"{inf_dev:.4f}; plain {inf_plain:.4f}, sdpa {inf_lib:.4f}, bound "
+            f"{fwd_b[0]:.5f} {fwd_b[1]})")
+    if train:
+        kw = dict(num_heads=HEADS, dropout=0.1, seed=3)
+        inputs = (q, k, v, mask, e1, e2, g)
+        got = _fwd_bwd(*cuda, *inputs, **kw)
+        torch.cuda.synchronize()
+        line = _hold(f"relbias training {label}", got,
+                     _fwd_bwd(*plain, *inputs, **kw),
+                     _fwd_bwd(*plain, *inputs, dot_dtype=torch.float32, **kw), worst)
+        if causal and got[-1].any():
+            raise AssertionError(f"{label}: e2 gradient under the causal mask is not 0")
+        del got
+        fwd = lambda: cuda[0](q, k, v, mask, e1, e2, **kw)      # noqa: E731
+        bwd = lambda: cuda[1](                                  # noqa: E731
+            q, k, v, mask, e1, e2, g, need_dmask=False, **kw)
+        fwd_ms, fwd_dev = time_cuda(fwd, reps), device_ms(fwd, reps)
+        bwd_ms, bwd_dev = time_cuda(bwd, reps), device_ms(bwd, reps)
+        fwd_plain = time_cuda(lambda: plain[0](q, k, v, mask, e1, e2, **kw), 5,
+                              warmup=1)
+        bwd_plain = time_cuda(lambda: plain[1](
+            q, k, v, mask, e1, e2, g, need_dmask=False, **kw), 3, warmup=1)
+        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4, bias)]
+        sdpa = lambda: F.scaled_dot_product_attention(       # noqa: E731
+            *leaves[:3], attn_mask=leaves[3], dropout_p=0.1, scale=1.0)
+        lib_fwd = time_cuda(sdpa, reps, warmup=2)
+        out = sdpa()
+        sdpa_bwd = lambda: torch.autograd.grad(              # noqa: E731
+            out, leaves, g4, retain_graph=True)
+        lib_bwd = device_ms(sdpa_bwd, reps)
+        del out, leaves
+        result.update(
+            k2_fwd=dict(ms=fwd_ms, device_ms=fwd_dev, plain_ms=fwd_plain,
+                        library_ms=lib_fwd, bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+            k2_bwd=dict(ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain,
+                        library_ms=lib_bwd, bound_ms=bwd_b[0], bound_by=bwd_b[1]))
+        text = (f"K2 err/rule gap/max|value| {line}; {text}; K2-fwd {fwd_ms:.4f} "
+                f"ms (device {fwd_dev:.4f}; plain {fwd_plain:.4f}, sdpa "
+                f"{lib_fwd:.4f}, bound {fwd_b[0]:.5f} {fwd_b[1]}); K2-bwd "
+                f"{bwd_ms:.4f} ms (device {bwd_dev:.4f}; plain {bwd_plain:.4f}, "
+                f"sdpa bwd {lib_bwd:.4f} device time, bound {bwd_b[0]:.5f} "
+                f"{bwd_b[1]})")
+    log(f"# relbias {'causal' if causal else 'unmasked'} {label} (B={b}, "
+        f"H={HEADS}, T=S={t}, f32 inputs, bf16 dots): {text}")
+    del q, k, v, g, q4, k4, v4, g4, bias
+    torch.cuda.empty_cache()
+    return result
+
+
 def phase_relbias_unmasked(gen: torch.Generator) -> dict:
     """Phase 5, continued: the relative-bias training kernels with no mask,
     packed, dropout 0 and 0.2, at the student's five lengths (B=4), held as
     phase 5's cases are, and the dropout mask against the hash at T=S=16;
-    then, at each of STUDENT_SHAPES on f32 inputs (the student trains and
-    evaluates in f32; bf16 dots), K2-fwd and K2-bwd (packed, the configs'
-    dropout 0.1) and K3-fwd (the inference route's (B, H, L, d) call, no
-    dropout) held by the same rules against their plain versions, and timed
-    beside the plain versions, their bounds and scaled_dot_product_attention
-    with the relative bias as its mask (SDPA's backward by its device
-    time)."""
+    then K2-fwd, K2-bwd and K3-fwd held and timed at each of
+    STUDENT_SHAPES (_hold_and_time)."""
     from vqcpcb_tpu_torch.ops import attention_kernels as ak
-    import torch.nn.functional as F
-    from vqcpcb_tpu_torch.ops.relative_attention import subsampled_relative_bias
     worst = {"fwd": 0.0, "bwd": 0.0}
     cuda = (ak.relbias_attention_fwd_cuda, ak.relbias_attention_bwd_cuda)
     plain = (ak.relbias_attention_fwd_plain, ak.relbias_attention_bwd_plain)
@@ -742,76 +860,53 @@ def phase_relbias_unmasked(gen: torch.Generator) -> dict:
             log(f"# relbias train unmasked (B=4, T=S={t}, packed, dropout {rate}): "
                 f"err/rule gap/max|value| {line}")
     _hold_dropout_mask(gen, "unmasked T=S=16", 16, 16, "unmasked")
+    times = {label: _hold_and_time(gen, label, b, t, worst)
+             for label, b, t in STUDENT_SHAPES}
+    return dict(max_abs_err=worst, shapes=times)
 
-    times = {}
-    kw = dict(num_heads=HEADS, dropout=0.1, seed=3)     # the configs' dropout
-    for label, b, t in STUDENT_SHAPES:
-        q, k, v = _projected(gen, b, t, t, torch.float32)
-        g = torch.randn(q.shape, generator=gen, device="cuda")
-        e1, e2 = (torch.randn((HEADS, t, HEAD_DIM), generator=gen, device="cuda")
-                  for _ in range(2))
-        inputs = (q, k, v, None, e1, e2, g)
-        q4, k4, v4, g4 = (_split_heads(x).contiguous() for x in (q, k, v, g))
-        inputs4 = (q4, k4, v4, None, e1, e2)
+
+# The prior (configs/prior_config.py) runs its 6 relative layers causally
+# over T = S = 24 codes: K2 at its training batch of 64, K3-fwd there in
+# eval epochs, at the sampling batch of phase 12 (512) and at the prior
+# CLI's generation batch (num_generated_codes, 1). At 24 rows the launcher
+# rounds up to two row groups and the one key block is partly masked in
+# every row group.
+PRIOR_BATCH = 64
+PRIOR_SAMPLE_BATCH = 512
+PRIOR_CODES = 24
+PRIOR_SHAPES = (("prior training and eval", PRIOR_BATCH, True),
+                ("prior sampling", PRIOR_SAMPLE_BATCH, False),
+                ("prior CLI generation", 1, False))
+
+
+def phase_relbias_prior(gen: torch.Generator) -> dict:
+    """Phase 5, continued: the prior's causal T = S = 24. K2-fwd and K2-bwd
+    at B = 64, packed, dropout 0 and 0.1, held as phase 5's cases are (the
+    e2 gradient 0 under the causal mask), the dropout mask against the hash
+    at T = S = 24 causal; then each of PRIOR_SHAPES held and timed
+    (_hold_and_time)."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    cuda = (ak.relbias_attention_fwd_cuda, ak.relbias_attention_bwd_cuda)
+    plain = (ak.relbias_attention_fwd_plain, ak.relbias_attention_bwd_plain)
+    for rate in (0.0, 0.1):
+        inputs = _train_inputs(gen, PRIOR_BATCH, PRIOR_CODES, PRIOR_CODES,
+                               "causal", True)
+        kw = dict(num_heads=HEADS, dropout=rate, seed=1234)
         got = _fwd_bwd(*cuda, *inputs, **kw)
-        got_inf = [cuda[0](*inputs4)]
         torch.cuda.synchronize()
-        line = _hold(f"relbias training unmasked {label}", got,
+        line = _hold(f"relbias training prior dropout={rate}", got,
                      _fwd_bwd(*plain, *inputs, **kw),
                      _fwd_bwd(*plain, *inputs, dot_dtype=torch.float32, **kw), worst)
-        line_inf = _hold(f"relbias inference unmasked {label}", got_inf,
-                         [plain[0](*inputs4)],
-                         [plain[0](*inputs4, dot_dtype=torch.float32)], worst,
-                         names=("out",))
-        del got, got_inf
-        reps = 20 if b * t <= 8 * 384 else 10
-        fwd = lambda: cuda[0](q, k, v, None, e1, e2, **kw)       # noqa: E731
-        bwd = lambda: cuda[1](                                  # noqa: E731
-            q, k, v, None, e1, e2, g, need_dmask=False, **kw)
-        # by events (the wrapper's host time shows at the small shapes) and
-        # by device time (the kernels' own)
-        fwd_ms, fwd_dev = time_cuda(fwd, reps), device_ms(fwd, reps)
-        bwd_ms, bwd_dev = time_cuda(bwd, reps), device_ms(bwd, reps)
-        fwd_plain = time_cuda(lambda: plain[0](q, k, v, None, e1, e2, **kw), 5,
-                              warmup=1)
-        bwd_plain = time_cuda(lambda: plain[1](
-            q, k, v, None, e1, e2, g, need_dmask=False, **kw), 3, warmup=1)
-        inf = lambda: cuda[0](*inputs4)                         # noqa: E731
-        inf_ms, inf_dev = time_cuda(inf, reps), device_ms(inf, reps)
-        inf_plain = time_cuda(lambda: plain[0](*inputs4), 5, warmup=1)
-        bias = subsampled_relative_bias(q4, e1, e2).contiguous()
-        inf_lib = time_cuda(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=bias, scale=1.0), reps, warmup=2)
-        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4, bias)]
-        sdpa = lambda: F.scaled_dot_product_attention(       # noqa: E731
-            *leaves[:3], attn_mask=leaves[3], dropout_p=0.1, scale=1.0)
-        lib_fwd = time_cuda(sdpa, reps, warmup=2)
-        out = sdpa()
-        sdpa_bwd = lambda: torch.autograd.grad(              # noqa: E731
-            out, leaves, g4, retain_graph=True)
-        lib_bwd = device_ms(sdpa_bwd, reps)
-        del out, leaves, bias
-        fwd_b, bwd_b = _relbias_bounds(b, t, t, 4, masked=False)
-        inf_b = fwd_b          # the same bytes and products, no dropout
-        times[label] = dict(
-            batch=b, t=t,
-            k2_fwd=dict(ms=fwd_ms, device_ms=fwd_dev, plain_ms=fwd_plain,
-                        library_ms=lib_fwd, bound_ms=fwd_b[0], bound_by=fwd_b[1]),
-            k2_bwd=dict(ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain,
-                        library_ms=lib_bwd, bound_ms=bwd_b[0], bound_by=bwd_b[1]),
-            k3_fwd=dict(ms=inf_ms, device_ms=inf_dev, plain_ms=inf_plain,
-                        library_ms=inf_lib, bound_ms=inf_b[0], bound_by=inf_b[1]))
-        log(f"# relbias unmasked {label} (B={b}, H={HEADS}, T=S={t}, f32 inputs, "
-            f"bf16 dots): K2 err/rule gap/max|value| {line}; K3-fwd {line_inf}; "
-            f"K2-fwd {fwd_ms:.4f} ms (device {fwd_dev:.4f}; plain "
-            f"{fwd_plain:.4f}, sdpa {lib_fwd:.4f}, bound {fwd_b[0]:.5f} {fwd_b[1]}); "
-            f"K2-bwd {bwd_ms:.4f} ms (device {bwd_dev:.4f}; plain {bwd_plain:.4f}, "
-            f"sdpa bwd {lib_bwd:.4f} device time, bound {bwd_b[0]:.5f} "
-            f"{bwd_b[1]}); K3-fwd (B,H,L,d) {inf_ms:.4f} ms (device {inf_dev:.4f}; "
-            f"plain {inf_plain:.4f}, sdpa {inf_lib:.4f}, bound {inf_b[0]:.5f} "
-            f"{inf_b[1]})")
-        del q, k, v, g, q4, k4, v4, g4, inputs, inputs4
-        torch.cuda.empty_cache()
+        if got[-1].any():
+            raise AssertionError("prior: e2 gradient under the causal mask is not 0")
+        log(f"# relbias train prior (B={PRIOR_BATCH}, T=S={PRIOR_CODES}, causal, "
+            f"packed, dropout {rate}): err/rule gap/max|value| {line}")
+    _hold_dropout_mask(gen, f"causal T=S={PRIOR_CODES}", PRIOR_CODES, PRIOR_CODES,
+                       "causal")
+    times = {label: _hold_and_time(gen, label, b, PRIOR_CODES, worst, causal=True,
+                                   train=train)
+             for label, b, train in PRIOR_SHAPES}
     return dict(max_abs_err=worst, shapes=times)
 
 
@@ -1991,6 +2086,7 @@ ENTRY_DECODER_BATCHES = 40
 ENTRY_RELATIVE_BATCHES = 10
 ENTRY_STUDENT_BATCHES = 20
 ENTRY_STUDENT_DECODER_BATCHES = 10
+ENTRY_PRIOR_BATCHES = 20
 # the CLI calls of the counted main path, and the kernels each must launch
 # (K1 = vq_nearest; K2-fwd / K3-fwd = relbias_attention_fwd, in training /
 # at inference; K2-bwd = relbias_attention_bwd)
@@ -2006,6 +2102,9 @@ ENTRY_KERNELS = {
     "student decoder -t": ("vq_nearest", "relbias_attention_fwd",
                            "relbias_attention_bwd"),
     "student decoder -l -r": ("vq_nearest", "relbias_attention_fwd"),
+    # -l -g decodes sampled codes: nothing is encoded
+    "prior -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    "prior -l -g": ("relbias_attention_fwd",),
 }
 
 
@@ -2024,6 +2123,21 @@ def _decoder_config_copy(work: str, name: str, encoder_config: str,
     path = os.path.join(work, "configs", f"{name}.py")
     with open(path, "w") as f:
         f.write(text)
+    return path
+
+
+def _prior_config_copy(work: str, encoder_config: str, decoder_config: str) -> str:
+    """prior_config() written to {work}/configs/prior_synthetic.py (its
+    savename), over the trained encoder's and decoder's config.py, one
+    epoch of ENTRY_PRIOR_BATCHES batches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    config = dict(prior_config(root), config_encoder=encoder_config,
+                  config_decoder=decoder_config, num_batches=ENTRY_PRIOR_BATCHES,
+                  num_epochs=1, savename="prior_synthetic")
+    path = os.path.join(work, "configs", "prior_synthetic.py")
+    with open(path, "w") as f:
+        f.write('"""configs/prior_config.py on the synthetic corpus."""\n'
+                f"config = {config!r}\n")
     return path
 
 
@@ -2055,9 +2169,10 @@ def phase_entry_points(card: str) -> dict:
     trainers the calls build are recorded for (e)."""
     import glob
     import shutil
-    from vqcpcb_tpu_torch import main_decoder, main_encoder
+    from vqcpcb_tpu_torch import main_decoder, main_encoder, main_prior
     from vqcpcb_tpu_torch.data.dataloaders import BachDataloaderGenerator
     from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
     from vqcpcb_tpu_torch.training.student_trainer import StudentEncoderTrainer
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(root, "build", "entry_points")
@@ -2068,7 +2183,8 @@ def phase_entry_points(card: str) -> dict:
     patched = ((DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
                (DecoderTrainer, "generate_reharmonisation"),
                (StudentEncoderTrainer, "train_model"),
-               (StudentEncoderTrainer, "load"), (BachDataloaderGenerator, "write"))
+               (StudentEncoderTrainer, "load"), (PriorTrainer, "train_model"),
+               (PriorTrainer, "load"), (BachDataloaderGenerator, "write"))
     originals = {(cls, name): getattr(cls, name) for cls, name in patched}
 
     # the trainers by model directory, the first of each kind kept
@@ -2093,7 +2209,7 @@ def phase_entry_points(card: str) -> dict:
     calls, per_call = {}, {}
     cwd = os.getcwd()
     os.chdir(work)
-    for cls in (DecoderTrainer, StudentEncoderTrainer):
+    for cls in (DecoderTrainer, StudentEncoderTrainer, PriorTrainer):
         cls.train_model = recording(cls, "train_model", "trained")
         cls.load = recording(cls, "load", "loaded")
     DecoderTrainer.generate_reharmonisation = generate_reharmonisation
@@ -2131,6 +2247,14 @@ def phase_entry_points(card: str) -> dict:
             if kind == "decoder":
                 run(f"{kind} -l --num_examples 1", main_decoder,
                     ["-l", "--num_examples", "1", "-c", model_config])
+                # the prior over the same encoder, generating through this
+                # decoder
+                config = _prior_config_copy(work, encoder_config, model_config)
+                run("prior -t", main_prior, ["-t", "-c", config])
+                (dirs["prior"],) = glob.glob(os.path.join(work, "models",
+                                                          "prior_synthetic_*"))
+                run("prior -l -g", main_prior,
+                    ["-l", "-g", "-c", os.path.join(dirs["prior"], "config.py")])
         # (d) the student, and the flagship decoder over its encoder
         run("student -t", main_encoder, [
             "-t", "-c", os.path.join(root, STUDENT_CONFIG), "--num_epochs", "1",
@@ -2172,18 +2296,20 @@ def phase_entry_points(card: str) -> dict:
             raise AssertionError(f"the {kind} CLI wrote no cluster dump")
     if len(glob.glob(os.path.join(dirs["decoder"], "generations", "*.mid"))) != 6:
         raise AssertionError("--num_examples 1 did not write 6 scores")
+    if len(glob.glob(os.path.join(dirs["prior"], "generations", "*.mid"))) != 1:
+        raise AssertionError("the prior's -l -g did not write 1 score")
     for vocab, grid in grids:
         if grid.min() < 0 or (grid >= np.asarray(vocab)).any():
             raise AssertionError(f"a written grid's tokens leave the vocabulary "
                                  f"{vocab}")
     log(f"# [entry] (e) every call returned 0; {len(grids)} written grids "
-        f"(cluster dumps, re-harmonisations, generations), every token inside "
-        f"its voice's vocabulary")
+        f"(cluster dumps, re-harmonisations, generations, the prior's "
+        f"generation), every token inside its voice's vocabulary")
 
     # the reloaded decoders and student against the trained ones, one fixed
     # val batch (the student's at a fixed masked event)
     trained, reloaded = trainers["trained"], trainers["loaded"]
-    for kind in ("decoder", "AC/AC/C", "student decoder", "student"):
+    for kind in ("decoder", "AC/AC/C", "student decoder", "student", "prior"):
         a, b = trained[dirs[kind]], reloaded[dirs[kind]]
         if kind == "student":
             x = next(a.dataloader_generator.dataloaders(batch_size=STUDENT_BATCH)[1])["x"]
@@ -2221,7 +2347,9 @@ def phase_entry_points(card: str) -> dict:
         f"({ENTRY_RELATIVE_BATCHES} steps), student epoch {tokens['student']:.1f} "
         f"tokens/s ({ENTRY_STUDENT_BATCHES} steps at batch {STUDENT_BATCH}), "
         f"decoder over the student's encoder {tokens['student decoder']:.1f} "
-        f"tokens/s ({ENTRY_STUDENT_DECODER_BATCHES} steps); re-harmonisation (3 "
+        f"tokens/s ({ENTRY_STUDENT_DECODER_BATCHES} steps), prior epoch "
+        f"{tokens['prior']:.1f} tokens/s ({ENTRY_PRIOR_BATCHES} steps at batch "
+        f"{PRIOR_BATCH}); re-harmonisation (3 "
         f"variants of the corpus's first score) {reharm_s[0]:.3f} s flagship, "
         f"{reharm_s[1]:.3f} s AC/AC/C, {reharm_s[2]:.3f} s over the student's "
         f"encoder; CLI seconds "
@@ -2242,6 +2370,211 @@ def phase_entry_points(card: str) -> dict:
                 acac_worst_cos=worst_cos)
 
 
+# ---- phase 12 --------------------------------------------------------------
+
+# The prior of configs/prior_config.py at full width (d_model 512, 6 relative
+# layers, 8 heads, FF 1024, embedding 32, dropout 0.1, lr 1e-4, batch 64 of
+# 24 beats = 384 tokens = 24 codes) on the synthetic corpus of
+# configs/decoder_synthetic.py (the 'bach' corpus waits on M6 (h)), over the
+# encoder of configs/encoder_random_synthetic.py (blocks of 16 tokens, one
+# codebook of 32): random weights from seed 0 and the data-dependent codebook
+# init, as in phase 7. f32, no autocast, as the JAX trainer.
+PRIOR_CONFIG = os.path.join("configs", "prior_config.py")
+PRIOR_WARMUP = 5
+PRIOR_SYNCED = 30
+PRIOR_ROUTE_BATCH = 8
+# codes sampled per row: one window of 24, then six chunks of 12 (half the
+# window, generate_codes' default)
+PRIOR_SAMPLE_CODES = 96
+# the greedy check's second start: codes [0, 12) are a fixed prefix
+PRIOR_GREEDY_START = 12
+# K1 once for the frozen encoder's codes, K2-fwd and K2-bwd in each layer
+STEP_LAUNCHES["prior"] = {"vq_nearest": 1, "relbias_attention_fwd": 6,
+                          "relbias_attention_bwd": 6}
+
+
+def prior_config(root: str) -> dict:
+    """configs/prior_config.py on the synthetic corpus of
+    configs/decoder_synthetic.py, its config_encoder
+    configs/encoder_random_synthetic.py."""
+    from vqcpcb_tpu_torch.utils import load_config_module
+    config = load_config_module(os.path.join(root, PRIOR_CONFIG))
+    config.update(
+        dataset="synthetic",
+        corpus_kwargs=load_config_module(os.path.join(
+            root, "configs", "decoder_synthetic.py"))["corpus_kwargs"],
+        config_encoder=os.path.join(root, "configs", "encoder_random_synthetic.py"))
+    return config
+
+
+def prior_at_full_width(gen):
+    """(trainer, 4 batches on the card): the PriorTrainer the prior CLI
+    builds from prior_config() (weights from torch's init under seed 0, the
+    encoder's codebook initialised from the 4 batches' latents), and 4
+    batches of its data loader (the corpus windows built into
+    build/prior_data)."""
+    from vqcpcb_tpu_torch import getters
+    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
+    from vqcpcb_tpu_torch.utils import load_config_module
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(root, "build", "prior_data")
+    config = prior_config(root)
+    enc_config = load_config_module(config["config_encoder"])
+    data = getters.get_dataloader_generator(
+        config["dataset"], "prior", config["dataloader_generator_kwargs"], config,
+        cache_root=cache)
+    torch.manual_seed(0)
+    encoder = getters.get_encoder(getters.get_dataloader_generator(
+        enc_config["dataset"], "vqcpc", enc_config["dataloader_generator_kwargs"],
+        enc_config, cache_root=cache), enc_config)
+    prior = getters.get_prior(data, encoder, enc_config, config["prior_type"],
+                              config["prior_kwargs"])
+    trainer = PriorTrainer(encoder, prior,
+                           enc_config["quantizer_kwargs"]["codebook_size"], seed=0)
+    train = data.dataloaders(batch_size=config["batch_size"])[0]
+    batches = [torch.as_tensor(next(train)["x"], device="cuda") for _ in range(4)]
+    init_codebook(trainer.encoder, torch.cat(batches), gen)
+    trainer.init_state(lr=config["lr"])
+    return trainer, batches
+
+
+def prior_loss_and_grads(prior, codes):
+    """One training forward and backward (no update): (loss, every
+    parameter's gradient on the CPU, zeros where none)."""
+    prior.train()
+    prior.zero_grad(set_to_none=True)
+    loss = prior(codes)["loss"]
+    loss.backward()
+    return loss.item(), {
+        n: (torch.zeros(p.shape) if p.grad is None else p.grad.float().cpu())
+        for n, p in prior.named_parameters()}
+
+
+def phase_prior(gen: torch.Generator, profile: bool, card: str) -> dict:
+    """(a) PriorTrainer at full width: 5 warm-up steps, then 30 synced
+    (median ms/step, prior_train_tokens_per_sec and codes/s, launches per
+    step, finite losses, the loss lower over the last 5 of the 35 steps
+    than over the first 5), the counted main path; (b) one training
+    forward and backward at batch 8, dropout 0, kernel route vs the CPU f32
+    plain route on the card's codes; (c) generate_codes at batch 512, 96
+    codes a row (a window, then six chunks; int8 caches), the counted main
+    path, with the launches of one prefill, and greedy (top_k 1) f32-cache
+    codes, from position 0 and from 12 after a fixed prefix, against the
+    teacher-forced argmax of the logits on the card; (d)
+    with --profile, 3 profiled steps and one profiled window of sampling."""
+    trainer, batches = prior_at_full_width(gen)
+    warm = [trainer.train_step(batches[i % 4]) for i in range(PRIOR_WARMUP)]
+    torch.cuda.synchronize()
+    warm = [{k: v.item() for k, v in m.items()} for m in warm]
+    main_counts, step_s, synced = student_steps(trainer, batches, PRIOR_SYNCED,
+                                                "prior")
+    losses = [m["loss"] for m in warm + synced]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    step_ms = float(np.median(step_s)) * 1e3
+    tokens_per_s = PRIOR_BATCH * NUM_EVENTS * 4 / (step_ms / 1e3)
+    codes_per_s = PRIOR_BATCH * PRIOR_CODES / (step_ms / 1e3)
+    log(f"# [prior] (a) {card}: prior_train_tokens_per_sec {tokens_per_s:.1f} "
+        f"(batch {PRIOR_BATCH} x {NUM_EVENTS * 4} tokens = {PRIOR_CODES} codes, "
+        f"f32, dropout 0.1, Adam lr 1e-4), {codes_per_s:.1f} codes/s; median "
+        f"{step_ms:.3f} ms/step over {PRIOR_SYNCED} synced steps (min "
+        f"{min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}); loss mean of the "
+        f"first 5 of {len(losses)} steps {first:.4f}, of the last 5 {last:.4f}")
+    if not last < first:
+        raise AssertionError(f"the prior's loss did not fall: {losses}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_s = synced_seconds(lambda: [trainer.train_step(batches[i])
+                                                for i in range(3)])
+        _log_profile(prof, wall_s, f"[prior] 3 prior train steps at batch "
+                     f"{PRIOR_BATCH}", 20)
+
+    # (b) the routes, on the card's codes
+    prior = trainer.prior
+    set_dropout(prior, 0.0)
+    codes = trainer.encode_codes(batches[0][:PRIOR_ROUTE_BATCH])
+    kernel = prior_loss_and_grads(prior, codes)
+    plain = prior_loss_and_grads(copy.deepcopy(prior).cpu(), codes.cpu())
+    loss_err, worst_cos, _ = compare_routes(
+        f"[prior] (b) batch {PRIOR_ROUTE_BATCH}, dropout 0, kernel route vs CPU "
+        "f32 plain route", kernel, plain)
+
+    # (c) sampling
+    prior.eval()
+    reset_counts()
+    sampled, sample_s = synced_seconds(lambda: trainer.generate_codes(
+        PRIOR_SAMPLE_CODES, num_generated_codes=PRIOR_SAMPLE_BATCH))
+    sampling_counts = counts()
+    windows = 1 + (PRIOR_SAMPLE_CODES - PRIOR_CODES) // (PRIOR_CODES // 2)
+    # the first window, sampled from position 0, has no context to prefill
+    want = {k: 6 * (windows - 1) if k == "relbias_attention_fwd" else 0
+            for k in sampling_counts}
+    if sampling_counts != want:
+        raise AssertionError(f"generate_codes launched {sampling_counts}, not {want}")
+    if sampled.shape != (PRIOR_SAMPLE_BATCH, PRIOR_SAMPLE_CODES) or not (
+            (sampled >= 0) & (sampled < CODEBOOK_SIZE)).all():
+        raise AssertionError(f"sampled codes {sampled.shape} outside [0, "
+                             f"{CODEBOOK_SIZE})")
+    reset_counts()
+    with torch.no_grad():
+        prior.prefill(torch.as_tensor(sampled[:, :PRIOR_CODES], device="cuda"),
+                      torch.int8)
+    torch.cuda.synchronize()
+    prefill = counts()
+    if prefill != {k: 6 if k == "relbias_attention_fwd" else 0 for k in prefill}:
+        raise AssertionError(f"one prefill launched {prefill}")
+    sample_codes_per_s = PRIOR_SAMPLE_BATCH * PRIOR_SAMPLE_CODES / sample_s
+    log(f"# [prior] (c) {card}: generate_codes batch {PRIOR_SAMPLE_BATCH} x "
+        f"{PRIOR_SAMPLE_CODES} codes ({windows} windows, int8 caches, T 1.0): "
+        f"{sample_s:.4f} s, {sample_codes_per_s:.1f} codes/s, "
+        f"{len(np.unique(sampled))} distinct codes of {CODEBOOK_SIZE}; launches "
+        f"{json.dumps({k: v for k, v in sampling_counts.items() if v})} (the "
+        f"{windows - 1} windows after the first); one prefill launched "
+        "relbias_attention_fwd 6 times and no other kernel")
+    # greedy from position 0 (zero caches), and from the middle of the
+    # window after a fixed prefix of sampled codes, so that the codes
+    # compared read the prefill's caches
+    os.environ["VQCPCB_KV_DTYPE"] = "float32"
+    try:
+        greedy = prior.sample_window(
+            torch.zeros((PRIOR_SAMPLE_BATCH, PRIOR_CODES), dtype=torch.long,
+                        device="cuda"), 0, PRIOR_CODES, trainer.generator, top_k=1)
+        prefix = torch.as_tensor(sampled[:, :PRIOR_CODES], device="cuda").long()
+        prefix[:, PRIOR_GREEDY_START:] = 0
+        tail = prior.sample_window(prefix, PRIOR_GREEDY_START,
+                                   PRIOR_CODES - PRIOR_GREEDY_START,
+                                   trainer.generator, top_k=1)
+    finally:
+        del os.environ["VQCPCB_KV_DTYPE"]
+    if not torch.equal(tail[:, :PRIOR_GREEDY_START], prefix[:, :PRIOR_GREEDY_START]):
+        raise AssertionError("sample_window changed its fixed prefix")
+    agreement = {}
+    for start, codes in ((0, greedy), (PRIOR_GREEDY_START, tail)):
+        with torch.no_grad():
+            forced = prior.logits(codes).argmax(-1)
+        agreement[start] = (forced == codes)[:, start:].float().mean().item()
+        log(f"# [prior] (c) greedy f32-cache codes from position {start} vs the "
+            f"teacher-forced argmax: {agreement[start] * 100:.3f}% of "
+            f"{codes[:, start:].numel()} positions agree (need >= 99%)")
+    if min(agreement.values()) < 0.99:
+        raise AssertionError(f"greedy agreement {agreement}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_s = synced_seconds(lambda: prior.sample_window(
+                torch.zeros((PRIOR_SAMPLE_BATCH, PRIOR_CODES), dtype=torch.long,
+                            device="cuda"), 0, PRIOR_CODES, trainer.generator))
+        _log_profile(prof, wall_s, f"[prior] sample_window batch "
+                     f"{PRIOR_SAMPLE_BATCH}, {PRIOR_CODES} codes (int8 caches)", 15)
+    del trainer, prior
+    torch.cuda.empty_cache()
+    return dict(launches=main_counts, sampling_launches=sampling_counts,
+                step_ms=step_ms, tokens_per_s=tokens_per_s, codes_per_s=codes_per_s,
+                sample_s=sample_s, sample_codes_per_s=sample_codes_per_s,
+                loss_err=loss_err, worst_cos=worst_cos,
+                agreement=min(agreement.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -2260,6 +2593,7 @@ def main() -> int:
     rb = phase_relbias(gen)
     rb_train = phase_relbias_train(gen)
     rb_unmasked = phase_relbias_unmasked(gen)
+    rb_prior = phase_relbias_prior(gen)
     fused = phase_fused(gen)
     profile = "--profile" in sys.argv[1:]
     by_path = {}
@@ -2274,6 +2608,9 @@ def main() -> int:
     by_path["student_absolute_training"] = student["absolute_launches"]
     by_path["transfo_encoder_training"] = student["transfo_launches"]
     by_path["entry_points"] = phase_entry_points(card)["launches"]
+    prior = phase_prior(gen, profile, card)
+    by_path["prior_training"] = prior["launches"]
+    by_path["prior_sampling"] = prior["sampling_launches"]
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
 
@@ -2294,7 +2631,8 @@ def main() -> int:
     pa = "vqcpcb_tpu/ops/pallas_attention.py"
     kernels = [
         # top-level times at the serving shape; every timed shape, the
-        # encoder-training ones among them, under "shapes"
+        # encoder-training ones among them, under "shapes", each with the
+        # empty kernel's time on K1's grid (the launch floor)
         entry("vq_nearest", "vqcpcb_tpu_torch/csrc/vq_nearest.cu",
               "vqcpcb_tpu/ops/pallas_vq.py:28", "vqcpcb_tpu/ops/pallas_vq.py:_kernel",
               [], vq, shapes=vq["shapes"]),
@@ -2309,11 +2647,16 @@ def main() -> int:
               f"{pa}:571", f"{pa}:_relbias_fwd_kernel", [f"{pa}:875"],
               dict(rb, max_abs_err=max(rb["max_abs_err"],
                                        rb_train["fwd"]["max_abs_err"],
-                                       rb_unmasked["max_abs_err"]["fwd"])),
+                                       rb_unmasked["max_abs_err"]["fwd"],
+                                       rb_prior["max_abs_err"]["fwd"])),
               training={k: rb_train["fwd"][k] for k in train_keys},
               student_shapes={label: dict(batch=v["batch"], t=v["t"],
                                           training=v["k2_fwd"], inference=v["k3_fwd"])
                               for label, v in rb_unmasked["shapes"].items()},
+              prior_shapes={label: dict(batch=v["batch"], t=v["t"], causal=True,
+                                        training=v.get("k2_fwd"),
+                                        inference=v["k3_fwd"])
+                            for label, v in rb_prior["shapes"].items()},
               redesigned=True, via="vqcpcb_tpu_torch/csrc/relbias_attention.cu"),
         # times at the flagship training shape; the student slice's
         # unmasked shapes under "student_shapes"
@@ -2321,9 +2664,14 @@ def main() -> int:
               "vqcpcb_tpu_torch/csrc/relbias_attention_bwd.cu",
               f"{pa}:895", f"{pa}:_relbias_bwd_kernel_packed", [f"{pa}:582"],
               dict(rb_train["bwd"], max_abs_err=max(
-                  rb_train["bwd"]["max_abs_err"], rb_unmasked["max_abs_err"]["bwd"])),
+                  rb_train["bwd"]["max_abs_err"], rb_unmasked["max_abs_err"]["bwd"],
+                  rb_prior["max_abs_err"]["bwd"])),
               student_shapes={label: dict(batch=v["batch"], t=v["t"], **v["k2_bwd"])
-                              for label, v in rb_unmasked["shapes"].items()}),
+                              for label, v in rb_unmasked["shapes"].items()},
+              prior_shapes={label: dict(batch=v["batch"], t=v["t"], causal=True,
+                                        **v["k2_bwd"])
+                            for label, v in rb_prior["shapes"].items()
+                            if "k2_bwd" in v}),
         # K4: times at the absolute prefill's decoder self-attention (B=512,
         # T=S=384, f32); the cross-attention's, the code encoder's and the
         # explicit-bias prefill's (B=8, real bias) beside

@@ -16,12 +16,14 @@ from vqcpcb_tpu_torch.training import checkpoints
 from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
 from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
 from vqcpcb_tpu_torch.training.metrics import MetricsWriter
+from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
 from vqcpcb_tpu_torch.utils import load_config_module
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODER_CONFIG = os.path.join(REPO, "tests", "configs", "encoder_smoke.py")
 DECODER_CONFIG = os.path.join(REPO, "tests", "configs", "decoder_smoke.py")
 STUDENT_CONFIG = os.path.join(REPO, "tests", "configs", "encoder_student_smoke.py")
+PRIOR_CONFIG = os.path.join(REPO, "tests", "configs", "prior_smoke.py")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -110,6 +112,16 @@ def build_encoder_trainer(tmp_path, name, config, crash_after=None,
                                dataloader_generator=gen)
 
 
+def smoke_encoder(tmp_path):
+    """(the fresh encoder of encoder_smoke.py under seed 0, its config)."""
+    enc_config = load_config_module(ENCODER_CONFIG)
+    enc_gen = getters.get_dataloader_generator(
+        enc_config["dataset"], "vqcpc", enc_config["dataloader_generator_kwargs"],
+        enc_config, cache_root=str(tmp_path / "data"))
+    torch.manual_seed(0)
+    return getters.get_encoder(enc_gen, enc_config), enc_config
+
+
 def build_decoder_trainer(tmp_path, name, config, crash_after=None,
                           init_seed=0, seed=0, device="cpu"):
     """A decoder trainer over the fresh (seeded) encoder of
@@ -117,12 +129,7 @@ def build_decoder_trainer(tmp_path, name, config, crash_after=None,
     gen = getters.get_dataloader_generator(
         config["dataset"], "decoder", config["dataloader_generator_kwargs"],
         config, cache_root=str(tmp_path / "data"))
-    enc_config = load_config_module(ENCODER_CONFIG)
-    enc_gen = getters.get_dataloader_generator(
-        enc_config["dataset"], "vqcpc", enc_config["dataloader_generator_kwargs"],
-        enc_config, cache_root=str(tmp_path / "data"))
-    torch.manual_seed(0)
-    encoder = getters.get_encoder(enc_gen, enc_config)
+    encoder, enc_config = smoke_encoder(tmp_path)
     torch.manual_seed(init_seed)
     decoder = getters.get_decoder(
         gen, getters.get_data_processor(gen, "bach", config["data_processor_kwargs"]),
@@ -133,6 +140,31 @@ def build_decoder_trainer(tmp_path, name, config, crash_after=None,
                           enc_config["quantizer_kwargs"]["codebook_size"],
                           device=device, seed=seed, model_dir=str(tmp_path / name),
                           dataloader_generator=gen)
+
+
+def prior_config(dropout=0.1):
+    config = load_config_module(PRIOR_CONFIG)
+    config["prior_kwargs"]["dropout"] = dropout
+    return config
+
+
+def build_prior_trainer(tmp_path, name, config, crash_after=None,
+                        init_seed=0, seed=0, device="cpu"):
+    """A prior trainer over the fresh (seeded) encoder of encoder_smoke.py,
+    built as the prior CLI builds it."""
+    gen = getters.get_dataloader_generator(
+        config["dataset"], "prior", config["dataloader_generator_kwargs"],
+        config, cache_root=str(tmp_path / "data"))
+    encoder, enc_config = smoke_encoder(tmp_path)
+    torch.manual_seed(init_seed)
+    prior = getters.get_prior(gen, encoder, enc_config, config["prior_type"],
+                              config["prior_kwargs"])
+    if crash_after is not None:
+        gen = CrashingGenerator(gen, crash_after)
+    return PriorTrainer(encoder, prior,
+                        enc_config["quantizer_kwargs"]["codebook_size"],
+                        device=device, seed=seed, model_dir=str(tmp_path / name),
+                        dataloader_generator=gen)
 
 
 def build_student_trainer(tmp_path, name, config, crash_after=None,

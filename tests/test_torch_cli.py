@@ -2,8 +2,9 @@
 smoke configs in an isolated working directory (the pattern of
 tests/test_cli.py): encoder -t, -l, -t -l; the student encoder -t, -l and
 -t -l resuming a mid-epoch step checkpoint exactly; decoder -t over the
-trained encoder, -l -r, -l --num_examples 1; and the device rule: without
-CUDA, no --device means an error. (The score-writing re-harmonisation is held
+trained encoder, -l -r, -l --num_examples 1; the prior -t and -l -g through
+a trained decoder; and the device rule: without CUDA, no --device means an
+error. (The score-writing re-harmonisation is held
 against the JAX trainer's in tests/test_torch_generation.py, beside the JAX
 trainer whose sampler is compiled there.)"""
 import glob
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from vqcpcb_tpu_torch import main_decoder, main_encoder
+from vqcpcb_tpu_torch import main_decoder, main_encoder, main_prior
 from vqcpcb_tpu_torch.data import dataset as port_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +41,7 @@ def workdir(tmp_path, monkeypatch):
     cfg_dir = tmp_path / "configs"
     cfg_dir.mkdir()
     for name in ("encoder_smoke.py", "decoder_smoke.py",
-                 "encoder_student_smoke.py"):
+                 "encoder_student_smoke.py", "prior_smoke.py"):
         shutil.copy(os.path.join(REPO, "tests", "configs", name), cfg_dir / name)
     monkeypatch.chdir(tmp_path)
     # the corpus windows are cached here, not in the checkout's data/
@@ -116,7 +117,40 @@ def test_clis_need_the_card_unless_told_cpu(workdir, monkeypatch):
         main_encoder.main(["-t", "-c", "configs/encoder_smoke.py"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main_decoder.main(["-t", "-c", "configs/decoder_smoke.py"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main_prior.main(["-t", "-c", "configs/prior_smoke.py"])
     assert not os.path.exists(workdir / "models")
+
+
+def test_prior_cli_train_load_and_generate(workdir):
+    """decoder -t on decoder_smoke.py, then the prior CLI on prior_smoke.py
+    with config_decoder set to that decoder (both over encoder_smoke.py's
+    fresh encoder): -t writes the model directory, both slots and one
+    metrics row; -l -g reloads the prior, samples 6 codes and decodes them
+    with the decoder's 4-code window, writing one score under
+    generations/."""
+    assert main_decoder.main(["-t", "-c", "configs/decoder_smoke.py",
+                              "--device", "cpu"]) == 0
+    decoder_config = os.path.join(_model_dir(workdir, "decoder_smoke"), "config.py")
+    cfg = workdir / "configs" / "prior_smoke.py"
+    encoder_config = str(workdir / "configs" / "encoder_smoke.py")
+    cfg.write_text(cfg.read_text().replace(
+        "'config_decoder': None", f"'config_decoder': {decoder_config!r}").replace(
+        "os.path.join(os.path.dirname(__file__), 'encoder_smoke.py')",
+        repr(encoder_config)))
+    assert main_prior.main(["-t", "-c", "configs/prior_smoke.py",
+                            "--device", "cpu"]) == 0
+    model_dir = _model_dir(workdir, "prior_smoke")
+    for name in ("config.py", "overfitted", "early_stopped"):
+        assert os.path.exists(os.path.join(model_dir, name)), name
+    assert _epochs(model_dir) == [0]
+    assert main_prior.main(["-l", "-g", "-c", os.path.join(model_dir, "config.py"),
+                            "--device", "cpu"]) == 0
+    (score,) = glob.glob(os.path.join(model_dir, "generations", "*.mid"))
+    with open(score.replace(".mid", ".json")) as f:
+        voices = json.load(f)
+    assert len(voices) == 4 and all(voices)
+    assert _epochs(model_dir) == [0]
 
 
 def _student_rows(model_dir):

@@ -485,7 +485,7 @@ def _checkpoint_helpers():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["encoder", "decoder", "student"])
+@pytest.mark.parametrize("kind", ["encoder", "decoder", "student", "prior"])
 def test_resume_from_step_checkpoint_on_card(gen, tmp_path, kind):
     """A run killed at batch 3 of epoch 0 (step checkpoints every 2 batches)
     and resumed by train_model on the card ends where the uninterrupted run
@@ -502,6 +502,10 @@ def test_resume_from_step_checkpoint_on_card(gen, tmp_path, kind):
         build, config = tc.build_student_trainer, tc.student_config(dropout=0.1)
         kwargs = dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
                       schedule_lr=True, checkpoint_every_steps=2)
+    elif kind == "prior":
+        build, config = tc.build_prior_trainer, tc.prior_config(dropout=0.1)
+        kwargs = dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
+                      checkpoint_every_steps=2)
     else:
         build, config = tc.build_decoder_trainer, tc.decoder_config(dropout=0.1)
         kwargs = dict(batch_size=8, num_batches=5, num_epochs=2, lr=1e-3,
@@ -551,6 +555,73 @@ def test_student_train_step_on_card_matches_the_cpu(gen, tmp_path, f32_matmuls):
         got = card_updates[group]
         cos = float((got * want).sum() / (got.norm() * want.norm()))
         assert cos >= 0.9, (group, cos)
+
+
+@pytest.mark.cuda
+def test_prior_train_step_on_card_matches_the_cpu(gen, tmp_path, f32_matmuls):
+    """The prior of prior_smoke.py (dropout 0) on the card and on the CPU
+    from the same weights, on the card's codes of one batch: the loss
+    within 2e-2 relative and every gradient within cosine 0.99 (the card's
+    attention kernels round their dot inputs to bf16; the causal mask
+    leaves e2 without a gradient on both); then one train step's launches
+    on the card: K1 once, the relative-bias forward and backward once per
+    layer."""
+    import copy
+    tc = _checkpoint_helpers()
+    card = tc.build_prior_trainer(tmp_path, "p", tc.prior_config(dropout=0.0),
+                                  device="cuda")
+    x = next(card.dataloader_generator.dataloaders(batch_size=8)[0])["x"]
+    codes = card.encode_codes(x)
+    results = []
+    for prior, c in ((card.prior, codes), (copy.deepcopy(card.prior).cpu(), codes.cpu())):
+        prior.train()
+        loss = prior(c)["loss"]
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.float().cpu()
+                                      for n, p in prior.named_parameters()}))
+    (card_loss, card_grads), (cpu_loss, cpu_grads) = results
+    assert abs(card_loss - cpu_loss) <= 2e-2 * abs(cpu_loss)
+    for name, want in cpu_grads.items():
+        got = card_grads[name]
+        if name.endswith(".attn_bias.e2"):
+            assert not got.any() and not want.any(), name
+            continue
+        assert float((got * want).sum() / (got.norm() * want.norm())) >= 0.99, name
+    layers = len(card.prior.transformer.layers)
+    card.init_state(lr=1e-3)
+    before = (vk.launches, ak.launches, ak.bwd_launches)
+    card.train_step(x)
+    assert (vk.launches - before[0], ak.launches - before[1],
+            ak.bwd_launches - before[2]) == (1, layers, layers)
+
+
+@pytest.mark.cuda
+def test_prior_greedy_sampler_on_card_matches_teacher_forcing(gen, monkeypatch):
+    """A small prior (2 layers, d_model 32, 12 codes) on the card: greedy
+    KV-cached codes with f32 caches, from position 0 (zero caches) and from
+    6 after a fixed prefix (the relative-bias forward kernel's prefill and
+    the plain decode steps), equal the argmax of the teacher-forced logits
+    (the kernel's bf16 dots) at 99% or more of the sampled positions; one
+    prefill launches the kernel once per layer."""
+    from vqcpcb_tpu_torch.models.prior import PriorRelative
+    monkeypatch.setenv("VQCPCB_KV_DTYPE", "float32")
+    torch.manual_seed(0)
+    prior = PriorRelative(11, 32, 2, 2, 48, 8, 1, 12, 0.0).cuda().eval()
+    x0 = torch.zeros((64, 12), dtype=torch.long, device="cuda")
+    before = ak.launches
+    with torch.no_grad():
+        prior.prefill(x0)
+    assert ak.launches - before == 2
+    greedy = prior.sample_window(x0, 0, 12, gen, top_k=1)
+    prefix = greedy.clone()
+    prefix[:, 6:] = 0
+    tail = prior.sample_window(prefix, 6, 6, gen, top_k=1)
+    assert torch.equal(tail[:, :6], prefix[:, :6])
+    for codes, start in ((greedy, 0), (tail, 6)):
+        with torch.no_grad():
+            forced = prior.logits(codes).argmax(-1)
+        agree = (forced == codes)[:, start:].float().mean().item()
+        assert agree >= 0.99, (start, agree)
 
 
 @pytest.mark.cuda

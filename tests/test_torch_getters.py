@@ -11,8 +11,9 @@ and the auxiliary decoder of tests/configs/encoder_student_smoke.py as the
 encoder CLIs derive them) and the relative-transformer downscalers (the
 *transfo* configs' downscalers on encoder_smoke.py's geometry) take the
 converted JAX params in strict loads and give JAX's outputs (1e-5); and
-what the port does not have yet raises NotImplementedError naming its
-ROADMAP item."""
+the prior of configs/prior_config.py takes the JAX prior's parameter
+shapes; and what the port does not have yet raises NotImplementedError
+naming its ROADMAP item."""
 import functools
 import os
 
@@ -305,6 +306,36 @@ def test_student_modules_from_getters_load_converted_jax_params(tmp_path, what):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 
 
+def test_prior_from_getters_matches_jax_at_full_width(tmp_path):
+    """configs/prior_config.py's prior over the encoder of
+    configs/encoder_random_synthetic.py, on the synthetic corpus of
+    configs/decoder_synthetic.py: 24 events (the prior loader's 24 beats of
+    16 tokens over blocks of 16, not the CPC window), a vocabulary of 32
+    codes, and the JAX prior's parameter shapes (jax.eval_shape) in a strict
+    load."""
+    config = load_config_module(os.path.join(REPO, "configs", "prior_config.py"))
+    config.update(dataset="synthetic", corpus_kwargs=load_config_module(
+        os.path.join(REPO, "configs", "decoder_synthetic.py"))["corpus_kwargs"])
+    enc_config = load_config_module(
+        os.path.join(REPO, "configs", "encoder_random_synthetic.py"))
+    jgen, gen = _loaders(config, "prior", tmp_path)
+    jenc_gen, enc_gen = _loaders(enc_config, "vqcpc", tmp_path)
+    args = ("transformer_relative", config["prior_kwargs"])
+    jprior = jax_getters.get_prior(
+        jgen, jax_getters.get_encoder(jenc_gen, enc_config), enc_config, *args)
+    prior = getters.get_prior(gen, getters.get_encoder(enc_gen, enc_config),
+                              enc_config, *args)
+    assert prior.num_tokens == jprior.num_tokens == 24
+    assert prior.pre_softmax.out_features == jprior.code_vocab_size == 32
+    shapes = jax.eval_shape(jprior.init, RNGS,
+                            jnp.zeros((2, 24), jnp.int32))["params"]
+    params = jax.tree_util.tree_map(
+        lambda leaf: np.zeros(leaf.shape, np.float32), shapes)
+    prior.load_state_dict(convert.prior_state_dict(params), strict=True)
+    assert len(prior.transformer.layers) == 6
+    assert prior.transformer.layers[0].self_attn.attn_bias.e1.shape == (8 * 24, 64)
+
+
 # ---- what waits ------------------------------------------------------------------
 
 def _bach_config():
@@ -316,7 +347,8 @@ def _bach_config():
         "bach", "vqcpc", {}, _bach_config()), "M6 (h)"),
     (lambda: getters.get_dataloader_generator(
         "midi", "decoder", {}, {"dataset": "midi"}), "M6 (h)"),
-    (lambda: getters.get_prior(None, None, {}, "transformer_relative", {}), "M6 (d)"),
+    (lambda: getters.get_prior(None, None, {}, "transformer_relative",
+                               {"n_head_kv": 2}), "M6 (e)"),
 ], ids=["bach", "midi", "prior"])
 def test_what_waits_raises_naming_its_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")

@@ -17,5 +17,10 @@ the relative and the absolute decoder, VQ-CPC encoder training
 `getters.py` (config dict -> modules), the epoch loop with its two-slot and
 step checkpoints and metrics (`training/loop.py`, `checkpoints.py`,
 `metrics.py`), score writing (`data/midi.py`) and the CLIs
-`python -m vqcpcb_tpu_torch.main_encoder` / `main_decoder`.
+`python -m vqcpcb_tpu_torch.main_encoder` / `main_decoder`; the student
+encoder (`models/teacher.py`, `models/auxiliary_decoder.py`,
+`training/student_trainer.py`, the transformer downscalers of
+`models/downscalers.py`); and the code prior (`models/prior.py`, its
+KV-cached sampler, `training/prior_trainer.py` and
+`python -m vqcpcb_tpu_torch.main_prior`).
 """

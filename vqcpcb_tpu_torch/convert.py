@@ -212,6 +212,17 @@ def auxiliary_decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def prior_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax PriorRelative 'params' (or a gradient of the same tree) ->
+    state_dict of vqcpcb_tpu_torch.models.prior.PriorRelative."""
+    sd = {"sos": _tensor(params["sos"]),
+          "embedding.weight": _tensor(params["embedding"]["embedding"])}
+    sd.update(_dense(params["linear"], "linear."))
+    sd.update(_transformer_stack(params["transformer"], "transformer."))
+    sd.update(_dense(params["pre_softmax"], "pre_softmax."))
+    return sd
+
+
 def _encoder_buffers(collections: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     """An encoder's variable collections ({'batch_stats': {'quantizer':
     ...}, 'ema': {'quantizer': ...}}) -> its quantizer's buffers."""

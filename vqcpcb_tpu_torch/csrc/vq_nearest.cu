@@ -81,6 +81,36 @@ __global__ void vq_nearest_kernel(const float* __restrict__ x,
   if (valid) out[(long long)n * k_books + book] = best;
 }
 
+// Does nothing: launched with vq_nearest_kernel's grid and block, its time is
+// the floor any launch of that shape pays (the smoke times the two side by
+// side).
+__global__ void empty_kernel() {}
+
+// The least a correct vq_nearest_kernel does, on its grid and block: the
+// block stages its sub-codebook (its first tile) in shared memory, each
+// thread reads its x row and writes one int that depends on both. No
+// distances, no scan: its time is the floor of a kernel that must load x
+// and the codebook before it can store an index (the smoke times it beside
+// K1 and the empty kernel).
+__global__ void io_floor_kernel(const float* __restrict__ x,
+                                const float* __restrict__ e,
+                                int* __restrict__ out,
+                                int n_rows, int k_books, int s_codes, int d) {
+  __shared__ float tile[kTileFloats];
+  const int book = blockIdx.y;
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  const int count = min(s_codes * d, kTileFloats);
+  const float* eb = e + (long long)book * s_codes * d;
+  for (int i = threadIdx.x; i < count; i += kThreads) tile[i] = __ldg(eb + i);
+  __syncthreads();
+  if (n < n_rows) {
+    const float* xr = x + ((long long)n * k_books + book) * d;
+    float acc = tile[threadIdx.x % count];
+    for (int j = 0; j < d; ++j) acc += __ldg(xr + j);
+    out[(long long)n * k_books + book] = acc > 0.f;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -97,6 +127,24 @@ int vq_nearest_launch(const float* x, const float* e, int* out, int n_rows,
   dim3 grid((n_rows + kThreads - 1) / kThreads, k_books);
   vq_nearest_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       x, e, out, n_rows, k_books, s_codes, d, tile_codes);
+  return (int)cudaGetLastError();
+}
+
+// The empty kernel on vq_nearest_launch's grid for (n_rows, k_books).
+int vq_empty_launch(int n_rows, int k_books, void* stream) {
+  if (n_rows == 0) return 0;
+  dim3 grid((n_rows + kThreads - 1) / kThreads, k_books);
+  empty_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// The I/O floor kernel on vq_nearest_launch's grid, with its arguments.
+int vq_io_floor_launch(const float* x, const float* e, int* out, int n_rows,
+                       int k_books, int s_codes, int d, void* stream) {
+  if (n_rows == 0) return 0;
+  dim3 grid((n_rows + kThreads - 1) / kThreads, k_books);
+  io_floor_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, e, out, n_rows, k_books, s_codes, d);
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,7 @@ from vqcpcb_tpu_torch.models.downscalers import (
     GruDownscaler, RelativeTransformerDownscaler,
     RelativeTransformerDownscalerLinear)
 from vqcpcb_tpu_torch.models.encoder import Encoder
+from vqcpcb_tpu_torch.models.prior import PriorRelative
 from vqcpcb_tpu_torch.models.teacher import TeacherRelative
 from vqcpcb_tpu_torch.models.upscalers import MlpUpscaler
 from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
@@ -309,6 +310,31 @@ def get_decoder(dataloader_generator, data_processor, encoder: Encoder,
 
 
 def get_prior(dataloader_generator, encoder: Encoder, encoder_config: Dict,
-              prior_type: str, prior_kwargs: Dict):
-    """(getters.py:341)"""
-    raise _not_yet("the prior", "item 5, M6 (d)")
+              prior_type: str, prior_kwargs: Dict) -> PriorRelative:
+    """(getters.py:341) The prior over the codes of `encoder`, one code per
+    prod(downscale_factors) tokens of the *prior* loader's sequences (not of
+    the encoder's CPC window, getters.py:350-361), a vocabulary of
+    codebook_size ** num_codebooks merged codes."""
+    if prior_kwargs.get("n_head_kv") is not None:
+        raise _not_yet("grouped-query attention (n_head_kv)", "item 5, M6 (e)")
+    if prior_type != "transformer_relative":
+        raise NotImplementedError(prior_type)
+    num_channels = 1
+    dataset = dataloader_generator.dataset
+    num_target_tokens = (dataset.sequences_size * dataset.subdivision
+                         * len(dataset.vocabulary.num_tokens_per_channel))
+    num_events = int(num_target_tokens
+                     // (np.prod(encoder.downscaler.downscale_factors)
+                         * num_channels))
+    quantizer_kwargs = encoder_config["quantizer_kwargs"]
+    return PriorRelative(
+        code_vocab_size=(quantizer_kwargs["codebook_size"]
+                         ** quantizer_kwargs["num_codebooks"]),
+        d_model=prior_kwargs["d_model"],
+        num_layers=prior_kwargs["num_layers"],
+        n_head=prior_kwargs["n_head"],
+        dim_feedforward=prior_kwargs["dim_feedforward"],
+        embedding_size=prior_kwargs["embedding_size"],
+        num_channels=num_channels,
+        num_events=num_events,
+        dropout=prior_kwargs["dropout"])

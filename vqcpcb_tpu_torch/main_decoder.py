@@ -73,6 +73,39 @@ def load_encoder_stack(config: Dict, cache_root: Optional[str] = None
     return encoder, encoder_config
 
 
+def build_decoder_trainer(config: Dict, encoder: "Encoder",
+                          encoder_config: Dict, device, model_dir: str):
+    """The DecoderTrainer of a decoder config over `encoder` (main_decoder.py:
+    119-155): its data loader, data processor and decoder, on `device`,
+    saving to `model_dir`, with its optimizer state initialised (lr,
+    schedule, warm-up steps)."""
+    from vqcpcb_tpu_torch import getters
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    from vqcpcb_tpu_torch.training.optim import warmup_steps_from_env
+
+    dataloader_generator = getters.get_dataloader_generator(
+        dataset=config["dataset"], training_method=config["training_method"],
+        dataloader_generator_kwargs=config["dataloader_generator_kwargs"],
+        config=config)
+    data_processor = getters.get_data_processor(
+        dataloader_generator=dataloader_generator,
+        data_processor_type=config["data_processor_type"],
+        data_processor_kwargs=config["data_processor_kwargs"])
+    decoder = getters.get_decoder(
+        dataloader_generator=dataloader_generator,
+        data_processor=data_processor, encoder=encoder,
+        encoder_config=encoder_config, decoder_type=config["decoder_type"],
+        decoder_kwargs=config["decoder_kwargs"])
+    trainer = DecoderTrainer(
+        encoder, decoder, encoder_config["quantizer_kwargs"]["codebook_size"],
+        device=device, model_dir=model_dir,
+        dataloader_generator=dataloader_generator)
+    trainer.init_state(lr=config["lr"],
+                       schedule_lr=config.get("schedule_lr", False),
+                       warmup_steps=warmup_steps_from_env())
+    return trainer
+
+
 def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog="python -m vqcpcb_tpu_torch.main_decoder",
@@ -99,10 +132,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     import torch
 
-    from vqcpcb_tpu_torch import getters
     from vqcpcb_tpu_torch.training import checkpoints
-    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
-    from vqcpcb_tpu_torch.training.optim import warmup_steps_from_env
     from vqcpcb_tpu_torch.utils import load_config_module, resolve_device
 
     device = resolve_device(args.device)
@@ -119,28 +149,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.num_batches is not None:
         config["num_batches"] = None if args.num_batches < 0 else args.num_batches
 
-    dataloader_generator = getters.get_dataloader_generator(
-        dataset=config["dataset"], training_method=config["training_method"],
-        dataloader_generator_kwargs=config["dataloader_generator_kwargs"],
-        config=config)
-    data_processor = getters.get_data_processor(
-        dataloader_generator=dataloader_generator,
-        data_processor_type=config["data_processor_type"],
-        data_processor_kwargs=config["data_processor_kwargs"])
     torch.manual_seed(0)                      # the fresh weights
     encoder, encoder_config = load_encoder_stack(config)
-    decoder = getters.get_decoder(
-        dataloader_generator=dataloader_generator,
-        data_processor=data_processor, encoder=encoder,
-        encoder_config=encoder_config, decoder_type=config["decoder_type"],
-        decoder_kwargs=config["decoder_kwargs"])
-    trainer = DecoderTrainer(
-        encoder, decoder, encoder_config["quantizer_kwargs"]["codebook_size"],
-        device=device, model_dir=model_dir,
-        dataloader_generator=dataloader_generator)
-    schedule_lr = config.get("schedule_lr", False)
-    trainer.init_state(lr=config["lr"], schedule_lr=schedule_lr,
-                       warmup_steps=warmup_steps_from_env())
+    trainer = build_decoder_trainer(config, encoder, encoder_config, device,
+                                    model_dir)
     if args.load:
         sidecar = checkpoints.read_step_sidecar(model_dir)
         if checkpoints.latest_slot(model_dir) is not None or sidecar is None:
@@ -161,7 +173,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             num_batches=config["num_batches"],
             num_epochs=config["num_epochs"],
             lr=config["lr"],
-            schedule_lr=schedule_lr,
+            schedule_lr=config.get("schedule_lr", False),
             plot=True,
             num_workers=args.num_workers,
             checkpoint_every_steps=config.get("checkpoint_every_steps"))

@@ -44,7 +44,7 @@ from vqcpcb_tpu_torch.ops.losses import stacked_categorical_crossentropy
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerDecoder, TransformerEncoder
-from vqcpcb_tpu_torch.utils import (flatten, kv_cache_dtype, resolve_device,
+from vqcpcb_tpu_torch.utils import (flatten, kv_cache_dtype, module_device,
                                     to_device)
 
 
@@ -303,12 +303,7 @@ class Decoder(nn.Module):
         caller names another; the module must already live there. Caches
         follow utils.kv_cache_dtype (int8 on the card, f32 on the CPU).
         Returns the updated (B, E, C) tokens on that device."""
-        device = resolve_device(device)
-        here = self.sos.device
-        if here.type != device.type or (device.index is not None
-                                        and here != device):
-            raise ValueError(f"the decoder lives on {here}, not {device}; "
-                             "move it with .to(device)")
+        here = module_device(self, device)
         source = to_device(source, here)
         tokens_init = to_device(tokens_init, here)
         b, num_events, c = tokens_init.shape

@@ -37,6 +37,10 @@ def _lib():
         lib.vq_nearest_launch.restype = ctypes.c_int
         lib.vq_nearest_max_dim.argtypes = []
         lib.vq_nearest_max_dim.restype = ctypes.c_int
+        lib.vq_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.vq_empty_launch.restype = ctypes.c_int
+        lib.vq_io_floor_launch.argtypes = lib.vq_nearest_launch.argtypes
+        lib.vq_io_floor_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -66,6 +70,27 @@ def nearest_codebook_indices_cuda(x: torch.Tensor,
                                        d, stream), "vq_nearest")
     launches += 1
     return out
+
+
+def launch_floor_cuda(n: int, k: int, device: torch.device) -> None:
+    """Launch an empty kernel on nearest_codebook_indices_cuda's grid for
+    (n, k) rows: the launch's own cost at that shape, timed beside the
+    kernel. Not counted in `launches`."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check(_lib().vq_empty_launch(n, k, stream), "vq_empty")
+
+
+def io_floor_cuda(x: torch.Tensor, codebooks: torch.Tensor,
+                  out: torch.Tensor) -> None:
+    """Launch, on nearest_codebook_indices_cuda's grid, a kernel that only
+    loads x's rows and the codebook and writes one int per row into out
+    (N, K) int32: the floor of any kernel that must read both before it
+    stores an index. Its values mean nothing. Not counted in `launches`."""
+    n, k, d = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(_lib().vq_io_floor_launch(
+        x.data_ptr(), codebooks.data_ptr(), out.data_ptr(), n, k,
+        codebooks.shape[1], d, stream), "vq_io_floor")
 
 
 def nearest_codebook_indices(x: torch.Tensor,

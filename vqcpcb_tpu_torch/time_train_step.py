@@ -1,11 +1,13 @@
-"""Decoder train-step times on one CUDA card, with the port's dropout and
-with torch's nn.Dropout in turns, in one process.
+"""Decoder or prior train-step times on one CUDA card, with the port's
+dropout and with torch's nn.Dropout in turns, in one process.
 
-    python3 vqcpcb_tpu_torch/time_train_step.py [--kind flagship|absolute]
+    python3 vqcpcb_tpu_torch/time_train_step.py [--kind flagship|absolute|prior]
                                                 [--rounds 10] [--steps 20]
 
 Builds chip_smoke.py's full-width decoder trainer (d_model 512, 3 + 3
-layers, batch 32 x 384 tokens, dropout 0.2, bf16 autocast, Adam) and times
+layers, batch 32 x 384 tokens, dropout 0.2, bf16 autocast, Adam) or, with
+--kind prior, its full-width prior trainer (configs/prior_config.py: 6
+layers of 512, batch 64 x 24 codes, dropout 0.1, f32, Adam) and times
 rounds of `steps` train steps, each synced and timed on the host clock as
 chip_smoke.py times them. The rounds alternate the forward of the decoder's
 Dropout modules (vqcpcb_tpu_torch/ops/transformer.py) between the port's,
@@ -30,7 +32,8 @@ import torch
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--kind", default="flagship", choices=("flagship", "absolute"))
+    parser.add_argument("--kind", default="flagship",
+                        choices=("flagship", "absolute", "prior"))
     parser.add_argument("--rounds", type=int, default=10)
     parser.add_argument("--steps", type=int, default=20)
     args = parser.parse_args(argv)
@@ -47,7 +50,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    trainer, batches = chip_smoke._trainer(gen, args.kind)
+    if args.kind == "prior":
+        trainer, batches = chip_smoke.prior_at_full_width(gen)
+        for x in batches[:2]:                 # warm-up: cuBLAS plans, caches
+            trainer.train_step(x)
+    else:
+        trainer, batches = chip_smoke._trainer(gen, args.kind)
     forwards = {"port": Dropout.forward, "nn.Dropout": torch.nn.Dropout.forward}
     times = {name: [] for name in forwards}
     order = [("port", "nn.Dropout")[(r + 1) // 2 % 2] for r in range(args.rounds)]

@@ -20,10 +20,8 @@ sequence. Both run on the card unless the caller names another device.
 from __future__ import annotations
 
 import os
-import time
 from datetime import datetime
-from itertools import islice
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -120,26 +118,6 @@ class DecoderTrainer(TrainLoopMixin):
     def eval_step(self, x) -> Dict[str, torch.Tensor]:
         self.decoder.eval()
         return {"loss": self._loss(to_device(x, self.device))}
-
-    def epoch(self, batches: Iterable, train: bool,
-              num_batches: Optional[int] = None) -> Dict[str, float]:
-        """Train or evaluate over up to num_batches batches, each a dict
-        whose 'x' holds a token batch, as the data loaders give them;
-        returns the mean loss and tokens/s, with one read of the device at
-        the end (decoder_trainer.py:204-230)."""
-        total, count, tokens = None, 0, 0
-        t0 = time.perf_counter()
-        for batch in islice(batches, num_batches):
-            x = batch["x"]
-            loss = (self.train_step(x) if train else self.eval_step(x))["loss"]
-            total = loss.float() if total is None else total + loss.float()
-            count += 1
-            tokens += int(np.prod(x.shape))
-        if not count:
-            return {}
-        mean = total.item() / count
-        return {"loss": mean,
-                "tokens_per_sec": tokens / max(time.perf_counter() - t0, 1e-9)}
 
     # ---- the epoch loop (training/loop.py) and its state --------------------
 

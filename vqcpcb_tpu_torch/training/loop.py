@@ -14,19 +14,21 @@ the same model directory then restores it and skips the batches already
 trained: the per-epoch reseed replays the same stream, so the resumed run
 ends where the uninterrupted one does.
 
-A trainer provides `epoch()`, `init_state()`, `_init_from_first()`,
+A trainer provides `init_state()`, `_init_from_first()`,
 `_checkpointed()` (the module whose state_dict is saved), `_generators()`
 (name -> every torch.Generator it draws from), `model_dir`,
 `dataloader_generator`, `optimizer` (None before init_state) and `step`,
-and may override `monitor_key`, `_epoch_kwargs` and `_optimizers()` (name
+and may override `monitor_key`, `_epoch_kwargs`, `_optimizers()` (name
 -> every optimizer it steps, each saved under its name; by default
-`optimizer`, saved as "optimizer").
+`optimizer`, saved as "optimizer") and `epoch()` (by default the mean of
+the {'loss'} that `train_step(x)` / `eval_step(x)` return).
 """
 from __future__ import annotations
 
 import itertools
 import os
-from typing import Dict, Optional
+import time
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -72,6 +74,28 @@ def _sums_to_means(sums: dict, count: int) -> dict:
 
 class TrainLoopMixin:
     monitor_key = "loss"
+
+    def epoch(self, batches: Iterable, train: bool,
+              num_batches: Optional[int] = None) -> Dict[str, float]:
+        """Train or evaluate over up to num_batches batches, each a dict
+        whose 'x' holds a token batch, as the data loaders give them, with
+        train_step / eval_step returning {'loss'} as a device scalar;
+        returns the mean loss and tokens/s (the elements of 'x'), with one
+        read of the device at the end (decoder_trainer.py:204-230,
+        prior_trainer.py:139-167)."""
+        total, count, tokens = None, 0, 0
+        t0 = time.perf_counter()
+        for batch in itertools.islice(batches, num_batches):
+            x = batch["x"]
+            loss = (self.train_step(x) if train else self.eval_step(x))["loss"]
+            total = loss.float() if total is None else total + loss.float()
+            count += 1
+            tokens += int(np.prod(x.shape))
+        if not count:
+            return {}
+        mean = total.item() / count
+        return {"loss": mean,
+                "tokens_per_sec": tokens / max(time.perf_counter() - t0, 1e-9)}
 
     def _epoch_kwargs(self, corrupt_labels: bool) -> dict:
         return {}

@@ -65,6 +65,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return device
 
 
+def module_device(module: torch.nn.Module, device=None) -> torch.device:
+    """The device `module` lives on, which must be `device` under
+    resolve_device's rule (the card unless the caller names another); a
+    sampler runs there rather than moving the module."""
+    device = resolve_device(device)
+    here = next(module.parameters()).device
+    if here.type != device.type or (device.index is not None and here != device):
+        raise ValueError(f"the {type(module).__name__} lives on {here}, not "
+                         f"{device}; move it with .to(device)")
+    return here
+
+
 def to_device(x, device: torch.device) -> torch.Tensor:
     """A tensor, or anything numpy reads (array, list), as a tensor on device."""
     if torch.is_tensor(x):
