@@ -12,10 +12,13 @@ Phases, in order; any failure raises and the run exits non-zero:
      TF32 off for matmuls and cuDNN (the comparisons below are in f32);
   2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a), one
      nvcc per source, all started together;
-  3. nearest-codebook kernel vs its plain PyTorch version at every main
-     path's shape, timed there by events and by device time beside an empty
-     kernel launched on its grid (the launch floor) and beside one that only
-     loads x and the codebook and stores an int a row (the I/O floor);
+  3. nearest-codebook kernel (the one the shape picks: a compiled instance
+     at every main path's shape) vs its plain PyTorch version and, for an
+     instance, vs the run-time kernel bit for bit, at every main path's
+     shape and at odd ones; timed at the main paths' shapes by events and by
+     device time beside the run-time kernel, an empty kernel launched on the
+     run-time kernel's grid (the launch floor) and one that only loads x
+     and the codebook and stores an int a row (the I/O floor);
   4. relative-bias attention forward kernel (inference) vs its plain
      version and, at its three batch-8 shapes, the forward's bf16 weights
      bit for bit, timed beside its bound and beside
@@ -88,6 +91,8 @@ Phases, in order; any failure raises and the run exits non-zero:
      flagship decoder's calls, the prior CLI (configs/prior_config.py on the
      synthetic corpus over that encoder) -t (20 batches at 64) and -l -g
      through that decoder, its reloaded eval loss equal to the trained one;
+     and the flagship's -l -r once more with VQCPCB_CODES_PER_WINDOW=2 and
+     VQCPCB_EXACT_TOPP_TIES=1 (exit 0, 3 grids inside the vocabulary);
  12. the prior of configs/prior_config.py at full width: (a) PriorTrainer
      steps at batch 64 in f32 (5 warm-up, 30 synced -> median ms/step,
      prior_train_tokens_per_sec, codes/s, launches per step, a falling
@@ -101,7 +106,8 @@ Phases, in order; any failure raises and the run exits non-zero:
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11 and the runs of phase
 12 (a) and (c) are the main paths: each is driven with the launch counts set
-to 0 just before it and read just after.
+to 0 just before it and read just after. Every K1 launch on them must run a
+compiled instance.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -243,16 +249,20 @@ def phase_build() -> None:
 def phase_vq(gen: torch.Generator) -> dict:
     """K1 against its plain version at the slices' shapes (the serving
     batch, the VQ-CPC step's, the student's 8 x 24 codes, the decoder CLI's
-    and the prior's 64 x 24) and at odd ones; timed by events and by device
-    time at each of those main-path shapes, beside the device time of an
-    empty kernel launched on K1's grid there (the launch floor) and of one
-    that only loads x and the codebook and stores an int a row (the I/O
-    floor of any correct K1). The
-    top-level numbers are the serving shape's, as since the kernel was
-    first ported."""
+    and the prior's 64 x 24) and at odd ones, through the kernel the shape
+    picks; where that is a compiled instance, its indices against the
+    run-time kernel's bit for bit. At each main-path shape (each must pick
+    an instance) timed by events and by device time, beside the run-time
+    kernel's device time and the device time of an empty kernel launched on
+    the run-time kernel's grid there (the launch floor) and of one that only
+    loads x and the codebook and stores an int a row (the I/O floor of any
+    correct K1). The top-level numbers are the serving shape's, as since the
+    kernel was first ported."""
     from vqcpcb_tpu_torch.ops import vq_kernels as vk
     dev = torch.device("cuda")
-    timed = {}
+    main_shapes = (BATCH * NUM_CODES, ENC_NEG_ROWS, ENC_BATCH * ENC_BLOCKS,
+                   STUDENT_BATCH * NUM_CODES, DECODER_CLI_BATCH * NUM_CODES)
+    timed, kinds = {}, {}
     for n, k, d, s in [(BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
                        (ENC_NEG_ROWS, 1, 3, CODEBOOK_SIZE),
                        (ENC_BATCH * ENC_BLOCKS, 1, 3, CODEBOOK_SIZE),
@@ -262,8 +272,13 @@ def phase_vq(gen: torch.Generator) -> dict:
                        (1048576, 1, 3, CODEBOOK_SIZE)]:
         x = torch.randn((n, k, d), generator=gen, device=dev)
         e = torch.randn((k, s, d), generator=gen, device=dev)
+        kind = kinds[f"({n},{k},{d},{s})"] = vk.kernel_kind(d, s)
+        if n in main_shapes and kind == "runtime":
+            raise AssertionError(f"the main-path shape ({n},{k},{d},{s}) picks "
+                                 "the run-time kernel, not a compiled instance")
         got = vk.nearest_codebook_indices_cuda(x, e)
         want = vk.nearest_codebook_indices_plain(x, e)
+        runtime = vk.nearest_codebook_indices_cuda(x, e, kind="runtime")
         torch.cuda.synchronize()
         # rows whose two smallest distances lie within 1e-6 relative of each
         # other may round either way between two summation orders
@@ -274,16 +289,23 @@ def phase_vq(gen: torch.Generator) -> dict:
         margin = (two[..., 1] - two[..., 0]) > 1e-6 * two.abs().amax(-1).clamp_min(1.0)
         bad = ((got != want) & margin).sum().item()
         near = (~margin).sum().item()
-        log(f"# vq_nearest ({n},{k},{d},{s}): mismatches outside the margin "
-            f"{bad}, rows inside the 1e-6 margin {near}, differing there "
-            f"{((got != want) & ~margin).sum().item()}")
+        vs_runtime = (got != runtime).sum().item()
+        log(f"# vq_nearest ({n},{k},{d},{s}): kernel {kind}; mismatches outside "
+            f"the margin {bad}, rows inside the 1e-6 margin {near}, differing "
+            f"there {((got != want) & ~margin).sum().item()}; indices differing "
+            f"from the run-time kernel's {vs_runtime} (need 0)")
         if bad:
             raise AssertionError(f"vq_nearest disagrees with its plain version "
                                  f"on {bad} rows at ({n},{k},{d},{s})")
-        if n in (BATCH * NUM_CODES, ENC_NEG_ROWS, ENC_BATCH * ENC_BLOCKS,
-                 STUDENT_BATCH * NUM_CODES, DECODER_CLI_BATCH * NUM_CODES):
+        if vs_runtime:
+            raise AssertionError(f"the {kind} instance disagrees with the "
+                                 f"run-time kernel on {vs_runtime} rows at "
+                                 f"({n},{k},{d},{s})")
+        if n in main_shapes:
             ms = time_cuda(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
             dev_ms = device_ms(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
+            runtime_dev = device_ms(lambda: vk.nearest_codebook_indices_cuda(
+                x, e, kind="runtime"), 200)
             floor_dev = device_ms(lambda: vk.launch_floor_cuda(n, k, dev), 200)
             floor_ms = time_cuda(lambda: vk.launch_floor_cuda(n, k, dev), 200)
             io_out = torch.empty((n, k), dtype=torch.int32, device=dev)
@@ -297,26 +319,29 @@ def phase_vq(gen: torch.Generator) -> dict:
             err = (dist.gather(-1, got.long()[..., None])
                    - dist.gather(-1, want.long()[..., None])).abs().max().item()
             timed[f"({n},{k},{d},{s})"] = dict(
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                kind=kind, ms=ms, device_ms=dev_ms, runtime_device_ms=runtime_dev,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err,
                 empty_kernel_device_ms=floor_dev, empty_kernel_ms=floor_ms,
-                io_floor_device_ms=io_dev)
-            log(f"# vq_nearest at ({n},{k},{d},{s}): kernel {ms:.5f} ms "
-                f"(device {dev_ms:.5f} ms), plain {plain_ms:.5f} ms, bound "
-                f"{bound_ms:.7f} ms ({bound_by}); an empty kernel on its grid "
-                f"{floor_ms:.5f} ms (device {floor_dev:.5f} ms): K1's device "
-                f"time is {dev_ms / floor_dev:.2f}x the launch floor's; a kernel "
-                f"on its grid that only loads x and the codebook and stores an "
-                f"int a row: device {io_dev:.5f} ms, K1 {dev_ms / io_dev:.2f}x "
-                f"that I/O floor")
+                io_floor_device_ms=io_dev, vs_io_floor=dev_ms / io_dev)
+            log(f"# vq_nearest at ({n},{k},{d},{s}), {kind}: kernel {ms:.5f} ms "
+                f"(device {dev_ms:.5f} ms), the run-time kernel device "
+                f"{runtime_dev:.5f} ms, plain {plain_ms:.5f} ms, bound "
+                f"{bound_ms:.7f} ms ({bound_by}); an empty kernel on the run-time "
+                f"kernel's grid {floor_ms:.5f} ms (device {floor_dev:.5f} ms): "
+                f"K1's device time is {dev_ms / floor_dev:.2f}x the launch "
+                f"floor's; a kernel on that grid that only loads x and the "
+                f"codebook and stores an int a row: device {io_dev:.5f} ms, K1 "
+                f"{dev_ms / io_dev:.2f}x that I/O floor (the run-time kernel "
+                f"{runtime_dev / io_dev:.2f}x)")
         elif n == 1048576:
             ms = time_cuda(lambda: vk.nearest_codebook_indices_cuda(x, e), 50)
             plain_ms = time_cuda(lambda: vk.nearest_codebook_indices_plain(x, e), 10)
-            log(f"# vq_nearest at ({n},{k},{d},{s}): kernel {ms:.5f} ms, "
+            log(f"# vq_nearest at ({n},{k},{d},{s}), {kind}: kernel {ms:.5f} ms, "
                 f"plain {plain_ms:.5f} ms")
     serving = timed[f"({BATCH * NUM_CODES},1,3,{CODEBOOK_SIZE})"]
     return dict(serving, max_abs_err=max(t["max_abs_err"] for t in timed.values()),
-                shapes=timed)
+                shapes=timed, kinds=kinds)
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -1282,21 +1307,31 @@ def reset_counts():
     from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
     from vqcpcb_tpu_torch.ops import vq_kernels as vk
     vk.launches = 0
+    vk.launches_by_kind.update(dict.fromkeys(vk.launches_by_kind, 0))
     ak.launches = ak.bwd_launches = 0
     fk.launches = fk.train_fwd_launches = 0
     fk.train_bwd_launches = fk.train_bwd_nobias_launches = 0
 
 
-def counts():
+class Launches(dict):
+    """Launches by kernel, with K1's split by the kernel the shape picked
+    (vq_kernels.launches_by_kind) beside them as `by_kind`: not a key, so
+    the phases' comparisons of whole counts stay as they are."""
+    by_kind: dict
+
+
+def counts() -> Launches:
     from vqcpcb_tpu_torch.ops import attention_kernels as ak
     from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
     from vqcpcb_tpu_torch.ops import vq_kernels as vk
-    return {"vq_nearest": vk.launches, "relbias_attention_fwd": ak.launches,
-            "relbias_attention_bwd": ak.bwd_launches,
-            "fused_attention": fk.launches,
-            "fused_attention_train_fwd": fk.train_fwd_launches,
-            "fused_attention_train_bwd": fk.train_bwd_launches,
-            "fused_attention_train_bwd_nobias": fk.train_bwd_nobias_launches}
+    out = Launches({"vq_nearest": vk.launches, "relbias_attention_fwd": ak.launches,
+                    "relbias_attention_bwd": ak.bwd_launches,
+                    "fused_attention": fk.launches,
+                    "fused_attention_train_fwd": fk.train_fwd_launches,
+                    "fused_attention_train_bwd": fk.train_bwd_launches,
+                    "fused_attention_train_bwd_nobias": fk.train_bwd_nobias_launches})
+    out.by_kind = dict(vk.launches_by_kind)
+    return out
 
 
 def _delta(after, before):
@@ -2080,13 +2115,15 @@ def phase_student(gen: torch.Generator, profile: bool, card: str) -> dict:
 # AC/AC/C decoder, cross relbias at ratio 16), each over the encoder the
 # first call trained; then the encoder CLI on STUDENT_CONFIG (the student)
 # and the flagship decoder over the student's encoder. Epochs and batches
-# are cut; widths are not.
+# are cut; widths are not. The flagship's -l -r runs a second time with the
+# sampler's two knobs set, as a user sets them (KNOBS).
 ENTRY_ENCODER_BATCHES = 60
 ENTRY_DECODER_BATCHES = 40
 ENTRY_RELATIVE_BATCHES = 10
 ENTRY_STUDENT_BATCHES = 20
 ENTRY_STUDENT_DECODER_BATCHES = 10
 ENTRY_PRIOR_BATCHES = 20
+KNOBS = {"VQCPCB_CODES_PER_WINDOW": "2", "VQCPCB_EXACT_TOPP_TIES": "1"}
 # the CLI calls of the counted main path, and the kernels each must launch
 # (K1 = vq_nearest; K2-fwd / K3-fwd = relbias_attention_fwd, in training /
 # at inference; K2-bwd = relbias_attention_bwd)
@@ -2095,6 +2132,7 @@ ENTRY_KERNELS = {
     "decoder -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
     "decoder -l -r": ("vq_nearest", "relbias_attention_fwd"),
     "decoder -l --num_examples 1": ("vq_nearest", "relbias_attention_fwd"),
+    "decoder -l -r (knobs)": ("vq_nearest", "relbias_attention_fwd"),
     "AC/AC/C -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
     "AC/AC/C -l -r": ("vq_nearest", "relbias_attention_fwd"),
     "student -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
@@ -2179,7 +2217,7 @@ def phase_entry_points(card: str) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(os.path.join(work, "configs"))
 
-    trainers, grids, reharm_s = {}, [], []
+    trainers, grids, reharm_s, current = {}, [], {}, {}
     patched = ((DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
                (DecoderTrainer, "generate_reharmonisation"),
                (StudentEncoderTrainer, "train_model"),
@@ -2198,11 +2236,12 @@ def phase_entry_points(card: str) -> dict:
     def generate_reharmonisation(self, *args, **kw):
         out, sec = synced_seconds(lambda: originals[(
             DecoderTrainer, "generate_reharmonisation")](self, *args, **kw))
-        reharm_s.append(sec)
+        reharm_s[current["label"]] = sec
         return out
 
     def write(self, x, path):
-        grids.append((self.dataset.vocabulary.num_tokens_per_channel,
+        grids.append((current["label"],
+                      self.dataset.vocabulary.num_tokens_per_channel,
                       np.asarray(x)))
         return originals[(BachDataloaderGenerator, "write")](self, x, path)
 
@@ -2216,6 +2255,7 @@ def phase_entry_points(card: str) -> dict:
     BachDataloaderGenerator.write = write
     try:
         def run(label, cli, argv):
+            current["label"] = label
             before = counts()
             code, sec = synced_seconds(lambda: cli.main(argv))
             per_call[label] = _delta(counts(), before)
@@ -2247,6 +2287,16 @@ def phase_entry_points(card: str) -> dict:
             if kind == "decoder":
                 run(f"{kind} -l --num_examples 1", main_decoder,
                     ["-l", "--num_examples", "1", "-c", model_config])
+                # the sampler's knobs, read where JAX reads them: two codes a
+                # window, the exact tie rule at the nucleus boundary (-r
+                # samples at top-p 0.8)
+                os.environ.update(KNOBS)
+                try:
+                    run(f"{kind} -l -r (knobs)", main_decoder,
+                        ["-l", "-r", "-c", model_config])
+                finally:
+                    for name in KNOBS:
+                        del os.environ[name]
                 # the prior over the same encoder, generating through this
                 # decoder
                 config = _prior_config_copy(work, encoder_config, model_config)
@@ -2298,13 +2348,17 @@ def phase_entry_points(card: str) -> dict:
         raise AssertionError("--num_examples 1 did not write 6 scores")
     if len(glob.glob(os.path.join(dirs["prior"], "generations", "*.mid"))) != 1:
         raise AssertionError("the prior's -l -g did not write 1 score")
-    for vocab, grid in grids:
+    for label, vocab, grid in grids:
         if grid.min() < 0 or (grid >= np.asarray(vocab)).any():
-            raise AssertionError(f"a written grid's tokens leave the vocabulary "
-                                 f"{vocab}")
+            raise AssertionError(f"{label}: a written grid's tokens leave the "
+                                 f"vocabulary {vocab}")
+    knob_grids = sum(label == "decoder -l -r (knobs)" for label, _, _ in grids)
+    if knob_grids != 3:
+        raise AssertionError(f"-l -r with {KNOBS} wrote {knob_grids} grids, not 3")
     log(f"# [entry] (e) every call returned 0; {len(grids)} written grids "
-        f"(cluster dumps, re-harmonisations, generations, the prior's "
-        f"generation), every token inside its voice's vocabulary")
+        f"(cluster dumps, re-harmonisations, {knob_grids} of them with "
+        f"{json.dumps(KNOBS)}, generations, the prior's generation), every "
+        f"token inside its voice's vocabulary")
 
     # the reloaded decoders and student against the trained ones, one fixed
     # val batch (the student's at a fixed masked event)
@@ -2350,8 +2404,10 @@ def phase_entry_points(card: str) -> dict:
         f"tokens/s ({ENTRY_STUDENT_DECODER_BATCHES} steps), prior epoch "
         f"{tokens['prior']:.1f} tokens/s ({ENTRY_PRIOR_BATCHES} steps at batch "
         f"{PRIOR_BATCH}); re-harmonisation (3 "
-        f"variants of the corpus's first score) {reharm_s[0]:.3f} s flagship, "
-        f"{reharm_s[1]:.3f} s AC/AC/C, {reharm_s[2]:.3f} s over the student's "
+        f"variants of the corpus's first score) {reharm_s['decoder -l -r']:.3f} s "
+        f"flagship ({reharm_s['decoder -l -r (knobs)']:.3f} s with "
+        f"{json.dumps(KNOBS)}), {reharm_s['AC/AC/C -l -r']:.3f} s AC/AC/C, "
+        f"{reharm_s['student decoder -l -r']:.3f} s over the student's "
         f"encoder; CLI seconds "
         f"{json.dumps({k: round(v, 2) for k, v in calls.items()})}")
     # one counter serves the training forward (K2-fwd) and the inference
@@ -2613,6 +2669,14 @@ def main() -> int:
     by_path["prior_sampling"] = prior["sampling_launches"]
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
+    # every main path's K1 launches run a compiled instance
+    k1_kinds = {kind: sum(path.by_kind[kind] for path in by_path.values())
+                for kind in counts().by_kind}
+    log(f"# main-path K1 launches by kernel: {json.dumps(k1_kinds)}; by path "
+        f"{json.dumps({p: c.by_kind for p, c in by_path.items()})}")
+    if k1_kinds["runtime"] or sum(k1_kinds.values()) != launches["vq_nearest"]:
+        raise AssertionError(f"the main paths' K1 launches {k1_kinds} are not all "
+                             "compiled instances")
 
     def entry(name, source, replaces, counterpart, also, numbers, **extra):
         # ms_bhld: the same call on the (B, H, L, d) layout, where timed
@@ -2632,10 +2696,13 @@ def main() -> int:
     kernels = [
         # top-level times at the serving shape; every timed shape, the
         # encoder-training ones among them, under "shapes", each with the
-        # empty kernel's time on K1's grid (the launch floor)
+        # empty and I/O-floor kernels' times on the run-time kernel's grid;
+        # redesigned: the compiled instances (vq_nearest_instance), the
+        # main paths' launches by kernel under "launches_by_kind"
         entry("vq_nearest", "vqcpcb_tpu_torch/csrc/vq_nearest.cu",
               "vqcpcb_tpu/ops/pallas_vq.py:28", "vqcpcb_tpu/ops/pallas_vq.py:_kernel",
-              [], vq, shapes=vq["shapes"]),
+              [], vq, shapes=vq["shapes"], kinds=vq["kinds"],
+              launches_by_kind=k1_kinds, redesigned=True),
         # top-level times at the serving prefill's shape (B=512, T=S=384, f32
         # inputs), as since the kernel was first ported; the training shape
         # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"

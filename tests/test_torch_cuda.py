@@ -56,6 +56,60 @@ def test_nearest_codebook_kernel_at_encoder_training_shapes(gen, n):
     assert not ((got != want) & margin).any()
 
 
+def _outside_margin(x, e):
+    """Rows whose two smallest distances lie more than 1e-6 relative apart
+    (nearer rows may round either way between two summation orders)."""
+    dist = ((x * x).sum(-1, keepdim=True) - 2.0 * torch.einsum("nkd,ksd->nks", x, e)
+            + (e * e).sum(-1)[None])
+    two = dist.topk(2, dim=-1, largest=False).values
+    return (two[..., 1] - two[..., 0]) > 1e-6 * two.abs().amax(-1).clamp_min(1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,s,kind", [(1, 3, 32, "d3_s32"), (2, 8, 16, "d8_s16")])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 96, 12288])
+def test_nearest_codebook_instances_equal_the_runtime_kernel(gen, n, k, d, s, kind):
+    """The compiled instances at the row-group and block edges: the shape
+    picks the instance, whose indices equal the run-time kernel's bit for
+    bit and the plain version's outside the margin; one launch, counted
+    under the instance's kind."""
+    x = torch.randn((n, k, d), generator=gen, device="cuda") * 4
+    e = torch.randn((k, s, d), generator=gen, device="cuda") * 4
+    assert vk.kernel_kind(d, s) == kind
+    before, before_kind = vk.launches, vk.launches_by_kind[kind]
+    got = vk.nearest_codebook_indices(x, e)
+    assert vk.launches == before + 1
+    assert vk.launches_by_kind[kind] == before_kind + 1
+    runtime = vk.nearest_codebook_indices_cuda(x, e, kind="runtime")
+    assert torch.equal(got, runtime)
+    want = vk.nearest_codebook_indices_plain(x, e)
+    assert not ((got != want) & _outside_margin(x, e)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s", [(3, 32), (8, 16), (5, 40)])
+def test_nearest_codebook_duplicated_codes_give_the_lowest_index(gen, d, s):
+    """Codes duplicated within a lane's share, across lanes and everywhere:
+    rows that sit on a duplicated code take its lowest index, in the
+    instances and in the run-time kernel."""
+    e = torch.randn((1, s, d), generator=gen, device="cuda")
+    e[0, 2] = e[0, 3] = e[0, s - 1] = e[0, 1]
+    x = e[0, torch.tensor([1, 2, 3, s - 1, 0], device="cuda")][:, None].contiguous()
+    for kind in (vk.kernel_kind(d, s), "runtime"):
+        got = vk.nearest_codebook_indices_cuda(x, e, kind=kind)
+        assert got[:, 0].tolist() == [1, 1, 1, 1, 0], kind
+        same = e[:, :1].expand(1, s, d).contiguous()
+        assert (vk.nearest_codebook_indices_cuda(x, same, kind=kind) == 0).all(), kind
+
+
+@pytest.mark.cuda
+def test_nearest_codebook_instance_refuses_another_shape(gen):
+    x = torch.randn((8, 1, 3), generator=gen, device="cuda")
+    e = torch.randn((1, 16, 3), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="no K1 kernel"):
+        vk.nearest_codebook_indices_cuda(x, e, kind="d3_s32")
+
+
 @pytest.fixture
 def f32_matmuls():
     """Matmuls and cuDNN (the GRUs) in f32, as on the CPU."""

@@ -144,6 +144,26 @@ def test_generate_from_code_long_greedy_matches_jax(pair):
         np.testing.assert_array_equal(g, w)
 
 
+def test_generate_from_code_long_reads_codes_per_window_env_like_jax(
+        pair, monkeypatch):
+    """With codes_per_window left out, both read VQCPCB_CODES_PER_WINDOW=2:
+    greedy tokens exactly equal, and equal to an explicit
+    codes_per_window=2."""
+    trainer, port, _ = pair
+    monkeypatch.setenv("VQCPCB_CODES_PER_WINDOW", "2")
+    codes = np.random.RandomState(1).randint(0, CODEBOOK, size=(1, 9)).astype(np.int32)
+    kwargs = dict(temperature=1.0, top_k=1, num_decodings=2,
+                  code_index_start=1, code_index_end=8,
+                  exclude_meta_symbols=True)
+    want = trainer.generate_from_code_long(codes, **kwargs)
+    got = port.generate_from_code_long(codes, **kwargs)
+    named = port.generate_from_code_long(codes, codes_per_window=2, **kwargs)
+    assert len(got) == len(want) == 2
+    for g, w, n in zip(got, want, named):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, n)
+
+
 def test_generate_reharmonisation_greedy_matches_jax(pair, monkeypatch):
     """Re-harmonisation of a synthetic 20-event template: the JAX trainer
     reads the template from a score, so its tokenizer is replaced by one that
@@ -184,6 +204,31 @@ def test_generator_needs_the_card_unless_told_cpu(pair, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DecoderGenerator(port.encoder, port.decoder, port.vocabulary, CODEBOOK)
+
+
+@pytest.mark.parametrize("env,want", [
+    (None, torch.float32), ("", torch.float32), ("float32", torch.float32),
+    ("bfloat16", torch.bfloat16), ("float16", torch.float32)])
+def test_trainer_compute_dtype_reads_the_env_like_jax(pair, monkeypatch, env,
+                                                      want):
+    """DecoderTrainer.compute_dtype on the CPU: f32 unless
+    VQCPCB_COMPUTE_DTYPE=bfloat16 (an explicit '', 'float32' or unknown value
+    is f32), as JAX's compute_dtype() inside the trainer's default scope;
+    autocast only at bf16."""
+    from vqcpcb_tpu.ops import compute_dtype as jax_compute_dtype
+    from vqcpcb_tpu.ops import default_compute_dtype
+    from vqcpcb_tpu.training.decoder_trainer import _train_compute_default
+    _, port, _ = pair
+    if env is None:
+        monkeypatch.delenv("VQCPCB_COMPUTE_DTYPE", raising=False)
+    else:
+        monkeypatch.setenv("VQCPCB_COMPUTE_DTYPE", env)
+    with default_compute_dtype(_train_compute_default()):
+        jax_dtype = jax_compute_dtype()
+    assert want == (torch.bfloat16 if jax_dtype == jnp.bfloat16 else torch.float32)
+    trainer = PortDecoderTrainer(port.encoder, port.decoder, CODEBOOK,
+                                 device="cpu")
+    assert trainer.compute_dtype == want
 
 
 def test_train_step_matches_jax(pair):

@@ -126,6 +126,63 @@ def test_top_k_top_p_filtering_matches_jax(exact_ties, top_k, top_p):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _tied_logits():
+    """test_top_k_top_p_filtering_matches_jax's logits: bit-equal ties at the
+    nucleus boundary."""
+    rng = np.random.RandomState(0)
+    logits = rng.randn(16, 20).astype(np.float32)
+    logits[:, 3] = logits[:, 7]
+    logits[:4, :6] = 1.25
+    return logits
+
+
+@pytest.mark.parametrize("env", ["1", "0", None])
+def test_top_k_top_p_filtering_reads_exact_ties_env_like_jax(env, monkeypatch):
+    """With exact_ties left out, both read VQCPCB_EXACT_TOPP_TIES: filtered
+    logits exactly equal, and the tie rule the variable names."""
+    if env is None:
+        monkeypatch.delenv("VQCPCB_EXACT_TOPP_TIES", raising=False)
+    else:
+        monkeypatch.setenv("VQCPCB_EXACT_TOPP_TIES", env)
+    logits = _tied_logits()
+    differs = False
+    for top_k, top_p in [(0, 0.8), (5, 0.6), (0, 0.3)]:
+        want = np.asarray(jax_sampling.top_k_top_p_filtering(
+            jnp.asarray(logits), top_k=top_k, top_p=top_p))
+        got = sampling.top_k_top_p_filtering(torch.from_numpy(logits),
+                                             top_k=top_k, top_p=top_p)
+        np.testing.assert_array_equal(got.numpy(), want)
+        named = sampling.top_k_top_p_filtering(
+            torch.from_numpy(logits), top_k=top_k, top_p=top_p,
+            exact_ties=env == "1")
+        np.testing.assert_array_equal(got.numpy(), named.numpy())
+        other = sampling.top_k_top_p_filtering(
+            torch.from_numpy(logits), top_k=top_k, top_p=top_p,
+            exact_ties=env != "1")
+        differs |= not torch.equal(got, other)
+    assert differs, "the logits carry no tie that tells the two rules apart"
+
+
+@pytest.mark.parametrize("env", [None, "", "float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("scope", ["bfloat16", ""])
+def test_compute_dtype_maps_the_env_like_jax(env, scope, monkeypatch):
+    """utils.compute_dtype(default) against JAX's compute_dtype() inside
+    default_compute_dtype(scope), the trainer's default (bf16 on the
+    accelerator, '' = f32 elsewhere): an explicit variable, even '' or an
+    unknown value, wins."""
+    from vqcpcb_tpu.ops import compute_dtype as jax_compute_dtype
+    from vqcpcb_tpu.ops import default_compute_dtype
+    if env is None:
+        monkeypatch.delenv("VQCPCB_COMPUTE_DTYPE", raising=False)
+    else:
+        monkeypatch.setenv("VQCPCB_COMPUTE_DTYPE", env)
+    with default_compute_dtype(scope):
+        want = jax_compute_dtype()
+    default = torch.bfloat16 if scope == "bfloat16" else torch.float32
+    assert utils.compute_dtype(default) == (
+        torch.bfloat16 if want == jnp.bfloat16 else torch.float32)
+
+
 def test_sample_categorical_is_seeded_and_respects_filters():
     logits = torch.randn(64, 10, generator=torch.Generator().manual_seed(1))
     a = sampling.sample_categorical(torch.Generator().manual_seed(5), logits,

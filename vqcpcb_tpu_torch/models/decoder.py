@@ -292,7 +292,7 @@ class Decoder(nn.Module):
     def sample_range(self, source, tokens_init, start: int, num_steps: int,
                      generator: torch.Generator, temperature: float = 1.0,
                      top_k: int = 0, top_p: float = 0.0,
-                     forbidden_indices=None, exact_ties: bool = False,
+                     forbidden_indices=None, exact_ties: Optional[bool] = None,
                      device=None) -> torch.Tensor:
         """Sample flat positions [start, start + num_steps) autoregressively
         (decoder.py:421).

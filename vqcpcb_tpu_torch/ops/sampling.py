@@ -2,12 +2,15 @@
 vqcpcb_tpu/ops/sampling.py). Draws come from an explicit torch.Generator."""
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import torch
 
 
 def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,
                           top_p: float = 0.0,
-                          exact_ties: bool = False) -> torch.Tensor:
+                          exact_ties: Optional[bool] = None) -> torch.Tensor:
     """logits (..., vocab) with the filtered entries set to -inf.
 
     top_k keeps the k highest logits (0 disables). top_p keeps the smallest
@@ -16,7 +19,11 @@ def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,
     disables). Tie rule at the nucleus boundary: by default every token whose
     logit equals the smallest kept one stays (the JAX default); with
     exact_ties the boundary is by sorted position, ties ordered by index
-    (the reference's rule, sampling.py:54-76)."""
+    (the reference's rule, sampling.py:54-76). exact_ties=None reads
+    VQCPCB_EXACT_TOPP_TIES ('1' turns it on), as JAX does
+    (sampling.py:41-42)."""
+    if exact_ties is None:
+        exact_ties = os.environ.get("VQCPCB_EXACT_TOPP_TIES", "0") == "1"
     neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
                            device=logits.device)
     if top_k > 0:
@@ -55,7 +62,7 @@ def _shift_right(remove: torch.Tensor) -> torch.Tensor:
 def sample_categorical(generator: torch.Generator, logits: torch.Tensor,
                        temperature: float = 1.0, top_k: int = 0,
                        top_p: float = 0.0,
-                       exact_ties: bool = False) -> torch.Tensor:
+                       exact_ties: Optional[bool] = None) -> torch.Tensor:
     """Temperature + top-k/top-p sampling over the last axis by the Gumbel-max
     rule, argmax(logits - log E) with E ~ Exp(1) from `generator` (the rule
     of jax.random.categorical; the two generators' numbers differ)."""

@@ -1,4 +1,5 @@
-"""Time attention kernels of one checkout on one CUDA card.
+"""Time the attention kernels and the nearest-codebook kernel of one
+checkout on one CUDA card.
 
     python3 vqcpcb_tpu_torch/time_kernels.py [--root DIR] [--label NAME]
                                              [--kernels NAME,NAME,...] [--profile]
@@ -27,12 +28,17 @@ generator; H = 8, d = 64, bf16 dots). The kernels (default: all):
   K3-bwd          K2-bwd on (B, H, L, d) views
   K6-bwd-nobias   the fused backward without a bias, as K2-bwd
   K6-bwd          the fused backward with a real (B*H, T, S) bias
+  vq_nearest      K1 at the five main-path shapes (VQ_SHAPES), codebook
+                  32 x 3: ms per call by CUDA events and device ms by
+                  torch.profiler, beside the device ms of the empty and
+                  I/O-floor kernels on the run-time kernel's grid, and the
+                  kernel the shape picks
 
 Prints one JSON line: for each kernel the ms per call from CUDA events over
 its repetitions, and the sum and sum of squares of its first output (equal
 across checkouts whose kernels agree bit for bit); and the ptxas registers
 and spills of the head-dim-64 kernels of the libraries used (of every
-head dim for K4's f32-dot kernel). With
+head dim for K4's f32-dot kernel, of every kernel of vq_nearest). With
 --profile, also each kernel's launches by name: device ms per call summed by
 torch.profiler over the repetitions. To compare two checkouts, run one
 process per checkout, all in one command on one card, in the order A, B,
@@ -61,7 +67,15 @@ LIBRARIES = {"K3-fwd": "relbias_attention", "K3-fwd-encoder": "relbias_attention
              "K2-fwd": "relbias_attention", "K6-fwd": "fused_attention",
              "K6-fwd-cross": "fused_attention",
              "K2-bwd": "relbias_attention_bwd", "K3-bwd": "relbias_attention_bwd",
-             "K6-bwd-nobias": "fused_attention_bwd", "K6-bwd": "fused_attention_bwd"}
+             "K6-bwd-nobias": "fused_attention_bwd", "K6-bwd": "fused_attention_bwd",
+             "vq_nearest": "vq_nearest"}
+VQ = ("vq_nearest",)
+# K1's main-path shapes (N, K, d, S): the serving batch's 512 x 24 codes, the
+# VQ-CPC step's 1,440 negative windows and 96 blocks, the student's 8 x 24
+# codes, the decoder CLI's and the prior's 64 x 24
+VQ_SHAPES = ((12288, 1, 3, 32), (1440, 1, 3, 32), (96, 1, 3, 32),
+             (192, 1, 3, 32), (1536, 1, 3, 32))
+VQ_REPS = 200
 
 
 def forward_calls(torch, ak, fk, masks):
@@ -154,15 +168,53 @@ def launch_ms(torch, call, reps):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def device_ms(torch, call, reps):
+    """Device ms per call of `call` (every kernel it launches), by
+    torch.profiler over `reps` calls after one warm-up call."""
+    call()
+    torch.cuda.synchronize()
+    return sum(launch_ms(torch, call, reps).values())
+
+
+def time_vq(torch, vk):
+    """{shape: numbers} of K1 at VQ_SHAPES on seeded inputs: ms by events,
+    device ms, the empty and I/O-floor kernels' device ms, K1 / I/O floor,
+    the kernel the shape picks (a checkout that has one kernel names none)
+    and the indices' sum and sum of squares."""
+    result = {}
+    for n, k, d, s in VQ_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn((n, k, d), generator=gen, device="cuda")
+        e = torch.randn((k, s, d), generator=gen, device="cuda")
+        io_out = torch.empty((n, k), dtype=torch.int32, device="cuda")
+
+        def call(x=x, e=e):
+            return vk.nearest_codebook_indices_cuda(x, e)
+        ms, idx = time_call(torch, call, VQ_REPS)
+        dev = device_ms(torch, call, VQ_REPS)
+        io = device_ms(torch, lambda: vk.io_floor_cuda(x, e, io_out), VQ_REPS)
+        idx = idx.double()
+        result[f"({n},{k},{d},{s})"] = {
+            "kind": vk.kernel_kind(d, s) if hasattr(vk, "kernel_kind") else None,
+            "ms": ms, "device_ms": dev, "io_floor_device_ms": io,
+            "vs_io_floor": dev / io,
+            "empty_device_ms": device_ms(
+                torch, lambda: vk.launch_floor_cuda(n, k, x.device), VQ_REPS),
+            "sum": idx.sum().item(), "sum_sq": (idx * idx).sum().item()}
+    return result
+
+
 def ptxas_report(build, lib_name):
     """{kernel entry: [registers / spill lines]} of the head-dim-64 kernels,
-    and of every head dim of the f32-dot forward (fwd_f32)."""
+    of every head dim of the f32-dot forward (fwd_f32) and of every kernel
+    of vq_nearest."""
     lib = build.library_path(lib_name)
     report, entry = {}, None
     for line in (lib.parent / (lib.name + ".log")).read_text().splitlines():
         if "Compiling entry" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif (entry and ("Li64E" in entry or "fwd_f32" in entry)
+        elif (entry and ("Li64E" in entry or "fwd_f32" in entry
+                         or lib_name == "vq_nearest")
               and ("registers" in line or "spill" in line)):
             report.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return report
@@ -220,14 +272,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
-    ap.add_argument("--kernels", default=",".join(SERVING + TRAIN))
+    ap.add_argument("--kernels", default=",".join(SERVING + TRAIN + VQ))
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--variants", default=None)
     args = ap.parse_args()
     wanted = args.kernels.split(",")
-    unknown = sorted(set(wanted) - set(SERVING + TRAIN))
+    unknown = sorted(set(wanted) - set(SERVING + TRAIN + VQ))
     if unknown:
-        ap.error(f"unknown kernels {unknown}; choose from {list(SERVING + TRAIN)}")
+        ap.error(f"unknown kernels {unknown}; choose from "
+                 f"{list(SERVING + TRAIN + VQ)}")
     sys.path[0] = str(Path(args.root).resolve())   # not this file's folder
     import torch
     if not torch.cuda.is_available():
@@ -236,6 +289,7 @@ def main() -> int:
     from vqcpcb_tpu_torch.ops import _build, masks
     from vqcpcb_tpu_torch.ops import attention_kernels as ak
     from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    from vqcpcb_tpu_torch.ops import vq_kernels as vk
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
 
@@ -246,6 +300,8 @@ def main() -> int:
         groups.append(forward_calls(torch, ak, fk, masks))
     if set(wanted) & set(TRAIN):
         groups.append(training_calls(torch, ak, fk, masks))
+    if "vq_nearest" in wanted:
+        result["vq_nearest"] = time_vq(torch, vk)
     if args.variants:
         calls = [c for g in groups for c in g if c[0] in wanted]
         result["variants"] = time_variants(

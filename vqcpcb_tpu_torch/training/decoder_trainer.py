@@ -5,7 +5,8 @@ its training steps (:120-160, 204-230), its epoch loop and checkpoints
 `DecoderTrainer` trains a decoder on the codes of a frozen encoder: one step
 encodes the batch (the nearest-codebook kernel on the card), runs the
 decoder in train mode under the compute dtype (bf16 autocast on CUDA, f32 on
-the CPU), and applies the clipped Adam of training/optim.py. It holds the
+the CPU, unless VQCPCB_COMPUTE_DTYPE says otherwise: utils.compute_dtype),
+and applies the clipped Adam of training/optim.py. It holds the
 model, the optimizer and the step count, the counterpart of the JAX
 TrainState, and two generators every random draw comes from: one on the
 device (the decoder's dropout layers and sampling) and one on the host (the
@@ -35,7 +36,7 @@ from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
                                              warmup_steps_from_env)
-from vqcpcb_tpu_torch.utils import resolve_device, to_device
+from vqcpcb_tpu_torch.utils import compute_dtype, resolve_device, to_device
 
 
 def compute_start_end_times(t: int, num_blocks: int, num_blocks_model: int):
@@ -70,8 +71,8 @@ class DecoderTrainer(TrainLoopMixin):
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
         self.decoder = decoder.to(self.device)
         self.codebook_size = codebook_size
-        self.compute_dtype = (torch.bfloat16 if self.device.type == "cuda"
-                              else torch.float32)
+        self.compute_dtype = compute_dtype(
+            torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.seed_generator = torch.Generator().manual_seed(seed)
         wire_generators(self.decoder, self.generator, self.seed_generator)
@@ -331,12 +332,14 @@ class DecoderGenerator:
                                 code_index_start: Optional[int] = None,
                                 code_index_end: Optional[int] = None,
                                 exclude_meta_symbols: bool = False,
-                                codes_per_window: int = 1) -> List[np.ndarray]:
+                                codes_per_window: Optional[int] = None
+                                ) -> List[np.ndarray]:
         """Sliding-window decoding of a long code sequence (1 or more rows,
         (B, n_codes)); one sample_range call -- one prefill -- per window,
         batched over decodings. codes_per_window codes are decoded per window
         before it slides (1 is the reference's placement,
-        decoder_trainer.py:322). Returns the token grids of codes
+        decoder_trainer.py:322); None reads VQCPCB_CODES_PER_WINDOW (default
+        1), as JAX does (:365-368). Returns the token grids of codes
         [code_index_start, code_index_end), one per row and decoding."""
         encoding_indices = np.asarray(encoding_indices)
         size_encoding = encoding_indices.shape[1]
@@ -352,6 +355,8 @@ class DecoderGenerator:
                 "sequence to at least one window")
         code_index_start = 0 if code_index_start is None else code_index_start
         code_index_end = size_encoding if code_index_end is None else code_index_end
+        if codes_per_window is None:
+            codes_per_window = int(os.environ.get("VQCPCB_CODES_PER_WINDOW", "1"))
         codes_per_window = max(1, codes_per_window)
 
         num_events_full = size_encoding * events_per_code
@@ -388,7 +393,8 @@ class DecoderGenerator:
                                  temperature: float, top_k: int = 0,
                                  top_p: float = 1.0,
                                  exclude_meta_symbols: bool = False,
-                                 codes_per_window: int = 1) -> List[np.ndarray]:
+                                 codes_per_window: Optional[int] = None
+                                 ) -> List[np.ndarray]:
         """Re-harmonise one template given as a tick grid (1, events, voices)
         (decoder_trainer.py:407, which reads it from a score): frame it with
         START/END/PAD chunks, encode, decode `num_reharmonisations` variants.

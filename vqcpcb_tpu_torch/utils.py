@@ -84,6 +84,23 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=device)
 
 
+# VQCPCB_COMPUTE_DTYPE's values, as vqcpcb_tpu/ops/__init__.py:7 maps them
+# (its None, no bf16 compute, is f32); any other value is f32 too
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                   "": torch.float32}
+
+
+def compute_dtype(default: torch.dtype) -> torch.dtype:
+    """The dtype a decoder trainer computes in: `default` while
+    VQCPCB_COMPUTE_DTYPE is unset; otherwise the variable wins, even as '',
+    as in JAX (ops/__init__.py:16-31): 'bfloat16' is bf16, '', 'float32' and
+    any other value f32."""
+    env = os.environ.get("VQCPCB_COMPUTE_DTYPE")
+    if env is None:
+        return default
+    return _COMPUTE_DTYPES.get(env, torch.float32)
+
+
 def kv_cache_dtype(device: torch.device) -> Optional[torch.dtype]:
     """Sampler KV-cache dtype policy (None = keep f32).
 
