@@ -50,7 +50,7 @@ Phases, in order; any failure raises and the run exits non-zero:
      and kernel-route vs plain-route logits plus greedy KV-cached tokens vs
      the teacher-forced argmax;
   8. decoder training at full width, flagship and absolute: DecoderTrainer
-     steps at batch 32 with bf16 autocast and dropout 0.2 (falling loss,
+     steps at batch 32 with bf16 transformer layers and dropout 0.2 (falling loss,
      ms/step, tokens/s, launches per step), and kernel-route vs CPU f32
      plain-route loss and gradients at batch 2, dropout 0; then the
      flagship with VQCPCB_PALLAS_RELBIAS=0 (the explicit-bias route: K6 in
@@ -102,12 +102,27 @@ Phases, in order; any failure raises and the run exits non-zero:
      from position 0 and from 12 after a fixed prefix, vs the
      teacher-forced argmax, (d) with --profile, 3 profiled steps and
      one profiled sampling window;
- 13. one JSON line of per-kernel numbers, then the result line.
+ 13. one JSON line of per-kernel numbers, then the result line (printed
+     last, after phase 14);
+ 14. the scale-up MIDI chain (scripts/r5_chain9.sh) through the CLIs in
+     process in build/scaleup_midi, at the configs' full width: (a) 512
+     .mid files from the port's writer (make_midi_corpus.py), their cache
+     key, the encoder's and the decoder's windows built (count, seconds);
+     (b) the encoder CLI -t on configs/encoder_scaleup_midi.py (40 batches)
+     as configured, again with VQCPCB_REMAT=1, and 6 batches with
+     VQCPCB_COMPUTE_DTYPE=bfloat16: epoch tokens/s, CLI seconds, median
+     ms/step, peak memory of the train steps; (c) the decoder CLI -t on
+     configs/decoder_scaleup_midi.py (20 batches) over the remat run's
+     config.py, then -l -r --num_examples 1; (d) the prior CLI -t on
+     configs/prior_scaleup_midi.py (20 batches), then -l -g; (e) the
+     checks: exit codes, model directories, tokens inside the vocabulary,
+     codes below 256, every written .mid parsed back, reloaded eval losses
+     equal to the trained ones, every K1 launch on the d4_s16 instance.
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
-phase 10 (a), (c) and (d), the CLI calls of phase 11 and the runs of phase
-12 (a) and (c) are the main paths: each is driven with the launch counts set
-to 0 just before it and read just after. Every K1 launch on them must run a
-compiled instance.
+phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
+(a) and (c) and the CLI calls of phase 14 are the main paths: each is driven
+with the launch counts set to 0 just before it and read just after. Every
+K1 launch on them must run a compiled instance.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -159,6 +174,16 @@ ENC_NEG_ROWS = ENC_BATCH * ENC_NEG * ENC_BLOCKS
 DECODER_CLI_BATCH = 64
 # the student's batch (configs/encoder_student_synthetic.py)
 STUDENT_BATCH = 8
+# the scale-up MIDI chain's K1 (configs/*_scaleup_midi.py, phase 14): (C, d,
+# S) = (2, 4, 16) (codebook_dim 8 over 2 sub-codebooks), the d4_s16
+# instance, on the encoder's 64 x 15 x 6 negative windows and 64 x 6 left
+# or right blocks, the decoder's encode of 32 x 24 blocks and the prior's
+# of 64 x 24
+SCALEUP_K1 = (2, 4, 16)
+SCALEUP_BATCH = 64
+SCALEUP_NEG_ROWS = SCALEUP_BATCH * ENC_NEG * ENC_BLOCKS
+SCALEUP_K1_ROWS = (SCALEUP_NEG_ROWS, SCALEUP_BATCH * ENC_BLOCKS,
+                   TRAIN_BATCH * NUM_CODES, SCALEUP_BATCH * NUM_CODES)
 ENC_WARMUP = 5
 ENC_STEPS = 100
 ENC_SYNCED = 30
@@ -249,7 +274,8 @@ def phase_build() -> None:
 def phase_vq(gen: torch.Generator) -> dict:
     """K1 against its plain version at the slices' shapes (the serving
     batch, the VQ-CPC step's, the student's 8 x 24 codes, the decoder CLI's
-    and the prior's 64 x 24) and at odd ones, through the kernel the shape
+    and the prior's 64 x 24, the scale-up MIDI chain's four) and at odd
+    ones, through the kernel the shape
     picks; where that is a compiled instance, its indices against the
     run-time kernel's bit for bit. At each main-path shape (each must pick
     an instance) timed by events and by device time, beside the run-time
@@ -260,20 +286,20 @@ def phase_vq(gen: torch.Generator) -> dict:
     kernel was first ported."""
     from vqcpcb_tpu_torch.ops import vq_kernels as vk
     dev = torch.device("cuda")
-    main_shapes = (BATCH * NUM_CODES, ENC_NEG_ROWS, ENC_BATCH * ENC_BLOCKS,
-                   STUDENT_BATCH * NUM_CODES, DECODER_CLI_BATCH * NUM_CODES)
+    main_shapes = [(BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
+                   (ENC_NEG_ROWS, 1, 3, CODEBOOK_SIZE),
+                   (ENC_BATCH * ENC_BLOCKS, 1, 3, CODEBOOK_SIZE),
+                   (STUDENT_BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
+                   (DECODER_CLI_BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE)]
+    main_shapes += [(n, SCALEUP_K1[0], SCALEUP_K1[1], SCALEUP_K1[2])
+                    for n in SCALEUP_K1_ROWS]
     timed, kinds = {}, {}
-    for n, k, d, s in [(BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
-                       (ENC_NEG_ROWS, 1, 3, CODEBOOK_SIZE),
-                       (ENC_BATCH * ENC_BLOCKS, 1, 3, CODEBOOK_SIZE),
-                       (STUDENT_BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
-                       (DECODER_CLI_BATCH * NUM_CODES, 1, 3, CODEBOOK_SIZE),
-                       (300, 2, 8, 16), (7, 1, 130, 200),
-                       (1048576, 1, 3, CODEBOOK_SIZE)]:
+    for n, k, d, s in main_shapes + [(300, 2, 8, 16), (7, 1, 130, 200),
+                                     (1048576, 1, 3, CODEBOOK_SIZE)]:
         x = torch.randn((n, k, d), generator=gen, device=dev)
         e = torch.randn((k, s, d), generator=gen, device=dev)
         kind = kinds[f"({n},{k},{d},{s})"] = vk.kernel_kind(d, s)
-        if n in main_shapes and kind == "runtime":
+        if (n, k, d, s) in main_shapes and kind == "runtime":
             raise AssertionError(f"the main-path shape ({n},{k},{d},{s}) picks "
                                  "the run-time kernel, not a compiled instance")
         got = vk.nearest_codebook_indices_cuda(x, e)
@@ -301,7 +327,7 @@ def phase_vq(gen: torch.Generator) -> dict:
             raise AssertionError(f"the {kind} instance disagrees with the "
                                  f"run-time kernel on {vs_runtime} rows at "
                                  f"({n},{k},{d},{s})")
-        if n in main_shapes:
+        if (n, k, d, s) in main_shapes:
             ms = time_cuda(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
             dev_ms = device_ms(lambda: vk.nearest_codebook_indices_cuda(x, e), 200)
             runtime_dev = device_ms(lambda: vk.nearest_codebook_indices_cuda(
@@ -734,7 +760,9 @@ def phase_relbias_train(gen: torch.Generator) -> dict:
 # main paths' batches (the rows of attention the kernels see): the
 # student's 8 sequences and its 8 x 24 blocks, the VQ-CPC step's 16 x 15 x 6
 # negative blocks and 16 x 6 left or right blocks, and the decoder CLI's
-# encode of 64 x 24 blocks through a student's encoder (K3-fwd only there).
+# encode of 64 x 24 blocks through a student's encoder (K3-fwd only there);
+# the scale-up MIDI chain's (phase 14): its encoder's 64 x 15 x 6 negative
+# blocks and 64 x 6 left or right blocks, its decoder's encode of 32 x 24.
 UNMASKED_LENGTHS = (384, 96, 24, 16, 4)
 STUDENT_SHAPES = (("teacher", STUDENT_BATCH, 384),
                   ("aux decoder stage 1", STUDENT_BATCH, 96),
@@ -748,7 +776,17 @@ STUDENT_SHAPES = (("teacher", STUDENT_BATCH, 384),
                   ("decoder encode, downscaler stage 0",
                    DECODER_CLI_BATCH * NUM_CODES, 16),
                   ("decoder encode, downscaler stage 1",
-                   DECODER_CLI_BATCH * NUM_CODES, 4))
+                   DECODER_CLI_BATCH * NUM_CODES, 4),
+                  ("scale-up CPC negatives, downscaler stage 0", SCALEUP_NEG_ROWS, 16),
+                  ("scale-up CPC negatives, downscaler stage 1", SCALEUP_NEG_ROWS, 4),
+                  ("scale-up CPC blocks, downscaler stage 0",
+                   SCALEUP_BATCH * ENC_BLOCKS, 16),
+                  ("scale-up CPC blocks, downscaler stage 1",
+                   SCALEUP_BATCH * ENC_BLOCKS, 4),
+                  ("scale-up decoder encode, downscaler stage 0",
+                   TRAIN_BATCH * NUM_CODES, 16),
+                  ("scale-up decoder encode, downscaler stage 1",
+                   TRAIN_BATCH * NUM_CODES, 4))
 
 
 def _relbias_bounds(b, t, s, elem_bytes, masked):
@@ -772,7 +810,8 @@ def _hold_and_time(gen, label, b, t, worst, causal=False, train=True):
     the prior train and evaluate in f32; bf16 dots), with no mask or the
     causal one: K3-fwd (the inference route's (B, H, L, d) call, no
     dropout) and, with `train`, K2-fwd and K2-bwd (packed, the configs'
-    dropout 0.1), held by _hold against their plain versions and timed
+    dropout 0.1), held by _hold against their plain versions (and the
+    forwards' bf16 weights by _hold_weights, bit for bit) and timed
     beside the plain versions, their bounds (the mask's bytes counted where
     a mask is passed) and scaled_dot_product_attention with the relative
     bias (plus the mask) as its mask, SDPA's backward by its device time.
@@ -796,6 +835,8 @@ def _hold_and_time(gen, label, b, t, worst, causal=False, train=True):
                      [plain[0](*inputs4, dot_dtype=torch.float32)], worst,
                      names=("out",))
     del got_inf
+    _hold_weights(f"relbias inference {label}", cuda[0],
+                  ak.relbias_attention_bwd_weights_plain, (*inputs4, g4), {})
     reps = 20 if b * t <= 8 * 384 else 10
     bias = subsampled_relative_bias(q4, e1, e2)
     bias = (bias if mask is None else bias + mask).contiguous()
@@ -824,6 +865,8 @@ def _hold_and_time(gen, label, b, t, worst, causal=False, train=True):
         if causal and got[-1].any():
             raise AssertionError(f"{label}: e2 gradient under the causal mask is not 0")
         del got
+        _hold_weights(f"relbias training {label}", cuda[0],
+                      ak.relbias_attention_bwd_weights_plain, inputs, kw)
         fwd = lambda: cuda[0](q, k, v, mask, e1, e2, **kw)      # noqa: E731
         bwd = lambda: cuda[1](                                  # noqa: E731
             q, k, v, mask, e1, e2, g, need_dmask=False, **kw)
@@ -1489,11 +1532,11 @@ def phase_profile(decoder, codes, generator: torch.Generator, kind: str) -> None
 
 # ---- phase 8 ---------------------------------------------------------------
 
-# Decoder loss and gradients, kernel route (bf16 autocast, bf16 dots in the
-# attention kernels) against the CPU f32 plain route at dropout 0: every
-# product of the layers rounds its inputs to bf16 (2**-9 relative), which
-# moves the loss by well under 2% and leaves each gradient's direction within
-# cosine 0.99 of the f32 one.
+# Decoder loss and gradients, kernel route (bf16 transformer layers, bf16
+# dots in the attention kernels) against the CPU f32 plain route at dropout
+# 0: every product of the layers rounds its inputs to bf16 (2**-9
+# relative), which moves the loss by well under 2% and leaves each
+# gradient's direction within cosine 0.99 of the f32 one.
 LOSS_RTOL = 2e-2
 GRAD_COSINE = 0.99
 EXPLICIT_STEPS = 6
@@ -1508,10 +1551,13 @@ def set_dropout(model, rate: float) -> None:
             m.dropout = rate
 
 
-def loss_and_grads(decoder, codes, x, autocast: bool):
+def loss_and_grads(decoder, codes, x, bf16: bool):
+    """The decoder's loss and gradients in train mode, its transformer
+    layers in bf16 (the decoder trainer's scope on the card) or in f32."""
+    from vqcpcb_tpu_torch.utils import default_compute_dtype
     decoder.train()
     decoder.zero_grad(set_to_none=True)
-    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+    with default_compute_dtype(torch.bfloat16 if bf16 else torch.float32):
         loss = decoder(codes, x)["loss"]
     loss.backward()
     return loss.item(), {
@@ -1567,7 +1613,7 @@ def train_steps(trainer, batches, steps: int, kind: str, must_fall: bool) -> dic
     step_ms = float(np.median(step_s)) * 1e3
     tokens_per_s = TRAIN_BATCH * NUM_EVENTS * 4 / (step_ms / 1e3)
     log(f"# [{kind}] decoder training batch {TRAIN_BATCH} x {NUM_EVENTS * 4} "
-        f"tokens, bf16 autocast, dropout {TRAIN_DROPOUT}, Adam lr 1e-4 clip 5: "
+        f"tokens, bf16 transformer layers, dropout {TRAIN_DROPOUT}, Adam lr 1e-4 clip 5: "
         f"median {step_ms:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
         f"{max(step_s) * 1e3:.3f}), {tokens_per_s:.1f} tokens/s; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 4 {first:.4f}, "
@@ -1612,9 +1658,9 @@ def phase_decoder_training(gen: torch.Generator, profile: bool, kind: str) -> di
     set_dropout(dec, 0.0)
     small = batches[0][:2]
     codes = trainer.encode_codes(small)
-    kernel = loss_and_grads(dec, codes, small, autocast=True)
+    kernel = loss_and_grads(dec, codes, small, bf16=True)
     plain = loss_and_grads(copy.deepcopy(dec).cpu(), codes.cpu(), small.cpu(),
-                           autocast=False)
+                           bf16=False)
     loss_err, worst_cos, _ = compare_routes(
         f"[{kind}] (b) batch 2, dropout 0, kernel route vs CPU f32 plain route",
         kernel, plain)
@@ -1644,10 +1690,10 @@ def phase_explicit_bias(gen: torch.Generator) -> dict:
             raise AssertionError(f"explicit-bias prefill launched {prefill}")
         set_dropout(dec, 0.0)
         small, small_codes = batches[0][:2], codes[:2]
-        explicit = loss_and_grads(dec, small_codes, small, autocast=True)
+        explicit = loss_and_grads(dec, small_codes, small, bf16=True)
     finally:
         del os.environ["VQCPCB_PALLAS_RELBIAS"]
-    in_kernel = loss_and_grads(dec, small_codes, small, autocast=True)
+    in_kernel = loss_and_grads(dec, small_codes, small, bf16=True)
     loss_err, worst_cos, _ = compare_routes(
         "[explicit_bias] batch 2, dropout 0, explicit-bias route vs in-kernel "
         "relbias route, same weights", explicit, in_kernel)
@@ -2385,9 +2431,9 @@ def phase_entry_points(card: str) -> dict:
     small = torch.as_tensor(next(acac.dataloader_generator.dataloaders(
         batch_size=2)[0])["x"], device=acac.device)
     codes = acac.encode_codes(small)
-    kernel = loss_and_grads(dec, codes, small, autocast=True)
+    kernel = loss_and_grads(dec, codes, small, bf16=True)
     plain = loss_and_grads(copy.deepcopy(dec).cpu(), codes.cpu(), small.cpu(),
-                           autocast=False)
+                           bf16=False)
     loss_err, worst_cos, _ = compare_routes(
         "[entry] (e) AC/AC/C (cross relbias at ratio 16), batch 2, dropout 0, "
         "kernel route vs CPU f32 plain route", kernel, plain)
@@ -2434,7 +2480,7 @@ def phase_entry_points(card: str) -> dict:
 # configs/decoder_synthetic.py (the 'bach' corpus waits on M6 (h)), over the
 # encoder of configs/encoder_random_synthetic.py (blocks of 16 tokens, one
 # codebook of 32): random weights from seed 0 and the data-dependent codebook
-# init, as in phase 7. f32, no autocast, as the JAX trainer.
+# init, as in phase 7. f32, as the JAX trainer.
 PRIOR_CONFIG = os.path.join("configs", "prior_config.py")
 PRIOR_WARMUP = 5
 PRIOR_SYNCED = 30
@@ -2631,6 +2677,331 @@ def phase_prior(gen: torch.Generator, profile: bool, card: str) -> dict:
                 agreement=min(agreement.values()))
 
 
+# ---- phase 14 --------------------------------------------------------------
+
+# The scale-up MIDI chain of scripts/r5_chain9.sh, through the CLIs, at the
+# configs' full width: configs/encoder_scaleup_midi.py (the linear
+# relative-transformer downscaler, d_model 512, [4, 4] layers, FF 2048, 8
+# heads; the EMA product quantizer of 2 x 16 codes of dimension 4; batch
+# 64, 6 + 6 blocks, 15 random negatives), configs/decoder_scaleup_midi.py
+# (the flagship AC/D/C over its 256 merged codes, batch 32) and
+# configs/prior_scaleup_midi.py (d_model 512, 6 layers, batch 64), over the
+# 512 .mid files the port's writer gives with its defaults. Only batches and epochs are cut. The
+# encoder runs three times: as configured, with VQCPCB_REMAT=1 (the decoder
+# and the prior then run over this one, REMAT on, as the chain runs them),
+# and a few steps with VQCPCB_COMPUTE_DTYPE=bfloat16.
+SCALEUP_FILES = 512
+SCALEUP_ENCODER_BATCHES = 40
+SCALEUP_BF16_BATCHES = 6
+SCALEUP_DECODER_BATCHES = 20
+SCALEUP_PRIOR_BATCHES = 20
+# VQCPCB_WARMUP_STEPS as the chain sets it: the encoder's config asks for
+# 2000, scripts/r5_chain9.sh sets 300 for the decoder and the prior
+SCALEUP_ENCODER_WARMUP = "2000"
+SCALEUP_WARMUP = "300"
+SCALEUP_CODES = 16 ** 2
+# the calls of the chain and the kernels each must launch
+SCALEUP_KERNELS = {
+    "encoder -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    "encoder -t (remat)": ("vq_nearest", "relbias_attention_fwd",
+                           "relbias_attention_bwd"),
+    "encoder -t (bf16)": ("vq_nearest", "relbias_attention_fwd",
+                          "relbias_attention_bwd"),
+    "decoder -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    "decoder -l -r --num_examples 1": ("vq_nearest", "relbias_attention_fwd"),
+    "prior -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    # -l -g decodes sampled codes: nothing is encoded
+    "prior -l -g": ("relbias_attention_fwd",),
+}
+
+
+def _scaleup_copy(work: str, name: str, savename: str, midi_root: str,
+                  num_batches: int) -> str:
+    """configs/{name} copied to {work}/configs/{savename}.py (its savename),
+    midi_root pointing at the written corpus, one epoch of num_batches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", name)) as f:
+        text = f.read()
+    batches = ("'num_batches': None" if name.startswith("encoder")
+               else "'num_batches':                 512")
+    epochs = ("'num_epochs': 6" if name.startswith("encoder")
+              else "'num_epochs':                  3")
+    for old, new in (("'data/midi_corpus'", repr(midi_root)),
+                     (batches, f"'num_batches': {num_batches}"),
+                     (epochs, "'num_epochs': 1")):
+        if old not in text:
+            raise AssertionError(f"configs/{name} has no {old}")
+        text = text.replace(old, new)
+    path = os.path.join(work, "configs", f"{savename}.py")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_scaleup_midi(card: str) -> dict:
+    """(a) the corpus: the port's writer, its cache key, the windows built
+    (count, seconds); (b) encoder -t three times (as configured, remat, bf16)
+    with the epoch tokens/s, the CLI seconds, the median ms/step (CUDA
+    events between consecutive steps) and the peak memory of the training
+    steps; (c) decoder -t and -l -r --num_examples 1 over the remat run's
+    copied config.py (VQCPCB_MIDI_ENCODER_CONFIG); (d) prior -t and -l -g
+    (VQCPCB_MIDI_DECODER_CONFIG too); (e) the checks: exit codes, model
+    directories and metrics rows, written tokens in the vocabulary, codes <
+    256, every written .mid parsed back, reloaded eval losses equal to the
+    trained ones, the launches of each call (K1 only as d4_s16)."""
+    import gc
+    import glob
+    import shutil
+    from vqcpcb_tpu_torch import getters, main_decoder, main_encoder, main_prior
+    from vqcpcb_tpu_torch.data import dataset as port_dataset
+    from vqcpcb_tpu_torch.data import midi
+    from vqcpcb_tpu_torch.data.dataloaders import BachDataloaderGenerator
+    from vqcpcb_tpu_torch.make_midi_corpus import write_corpus
+    from vqcpcb_tpu_torch.models.decoder import Decoder
+    from vqcpcb_tpu_torch.models.prior import PriorRelative
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
+    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
+    from vqcpcb_tpu_torch.utils import load_config_module
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "scaleup_midi")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "configs"))
+    corpus_dir = os.path.join(work, "midi_corpus")
+
+    # (a) the corpus, and its windows built into the work directory
+    t0 = time.perf_counter()
+    n_files = write_corpus(corpus_dir, num=SCALEUP_FILES)
+    write_s = time.perf_counter() - t0
+    key = midi.MidiCorpus(corpus_dir).cache_key
+    saved_cache_root = port_dataset.DEFAULT_CACHE_ROOT
+    port_dataset.DEFAULT_CACHE_ROOT = os.path.join(work, "data")
+    configs = {
+        "encoder": _scaleup_copy(work, "encoder_scaleup_midi.py", "encoder_scaleup_midi",
+                                 corpus_dir, SCALEUP_ENCODER_BATCHES),
+        "encoder (remat)": _scaleup_copy(work, "encoder_scaleup_midi.py",
+                                         "encoder_scaleup_midi_remat", corpus_dir,
+                                         SCALEUP_ENCODER_BATCHES),
+        "encoder (bf16)": _scaleup_copy(work, "encoder_scaleup_midi.py",
+                                        "encoder_scaleup_midi_bf16", corpus_dir,
+                                        SCALEUP_BF16_BATCHES),
+        "decoder": _scaleup_copy(work, "decoder_scaleup_midi.py", "decoder_scaleup_midi",
+                                 corpus_dir, SCALEUP_DECODER_BATCHES),
+        "prior": _scaleup_copy(work, "prior_scaleup_midi.py", "prior_scaleup_midi",
+                               corpus_dir, SCALEUP_PRIOR_BATCHES)}
+    windows = {}
+    for label, name, method in (("encoder", "encoder", "vqcpc"),
+                                ("decoder and prior", "decoder", "decoder")):
+        config = load_config_module(configs[name])
+        t0 = time.perf_counter()
+        gen = getters.get_dataloader_generator(
+            config["dataset"], method, config["dataloader_generator_kwargs"], config)
+        windows[label] = (len(gen.dataset.windows), time.perf_counter() - t0)
+    log(f"# [scaleup] (a) {n_files} .mid files written in {write_s:.2f} s, "
+        f"{sum(os.path.getsize(p) for p in glob.glob(os.path.join(corpus_dir, '*.mid')))} "
+        f"bytes, MidiCorpus.cache_key {key}; windows: "
+        + ", ".join(f"{label} {n} in {s:.2f} s" for label, (n, s) in windows.items()))
+
+    # what the calls leave: trainers, written grids, codes, step times
+    trainers, grids, codes, current = {}, [], [], {}
+    steps = {}
+    patched = ((DecoderTrainer, "train_model"), (DecoderTrainer, "load"),
+               (PriorTrainer, "train_model"), (PriorTrainer, "load"),
+               (VQCPCEncoderTrainer, "train_step"), (BachDataloaderGenerator, "write"),
+               (Decoder, "forward"), (Decoder, "sample_range"),
+               (PriorRelative, "forward"), (PriorTrainer, "generate_codes"))
+    originals = {(cls, name): getattr(cls, name) for cls, name in patched}
+
+    def recording(cls, name, kind):
+        def method(self, *args, **kw):
+            trainers.setdefault(kind, {}).setdefault(os.path.abspath(self.model_dir), self)
+            return originals[(cls, name)](self, *args, **kw)
+        return method
+
+    def train_step(self, *args, **kw):
+        record = steps.setdefault(current["label"], {"events": []})
+        if not record["events"]:
+            torch.cuda.reset_peak_memory_stats()
+            record["baseline"] = torch.cuda.memory_allocated()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        record["events"].append(event)
+        out = originals[(VQCPCEncoderTrainer, "train_step")](self, *args, **kw)
+        record["peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    def write(self, x, path):
+        grids.append((current["label"], self.dataset.vocabulary.num_tokens_per_channel,
+                      np.asarray(x)))
+        return originals[(BachDataloaderGenerator, "write")](self, x, path)
+
+    def seeing(cls, name, pick):
+        def method(self, *args, **kw):
+            out = originals[(cls, name)](self, *args, **kw)
+            codes.append((current["label"], pick(args, out)))
+            return out
+        return method
+
+    calls, per_call = {}, {}
+    env_before = {k: os.environ.get(k) for k in (
+        "VQCPCB_REMAT", "VQCPCB_COMPUTE_DTYPE", "VQCPCB_WARMUP_STEPS",
+        "VQCPCB_MIDI_ENCODER_CONFIG", "VQCPCB_MIDI_DECODER_CONFIG")}
+    cwd = os.getcwd()
+    os.chdir(work)
+    for cls in (DecoderTrainer, PriorTrainer):
+        cls.train_model = recording(cls, "train_model", "trained")
+        cls.load = recording(cls, "load", "loaded")
+    VQCPCEncoderTrainer.train_step = train_step
+    BachDataloaderGenerator.write = write
+    Decoder.forward = seeing(Decoder, "forward", lambda a, o: a[0])
+    Decoder.sample_range = seeing(Decoder, "sample_range", lambda a, o: a[0])
+    PriorRelative.forward = seeing(PriorRelative, "forward", lambda a, o: a[0])
+    PriorTrainer.generate_codes = seeing(PriorTrainer, "generate_codes", lambda a, o: o)
+    try:
+        def run(label, cli, argv, **env):
+            current["label"] = label
+            for name in env_before:
+                os.environ.pop(name, None)
+            os.environ.update(env)
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = counts()
+            code, sec = synced_seconds(lambda: cli.main(argv))
+            after = counts()
+            per_call[label] = dict(_delta(after, before), by_kind=_delta(
+                after.by_kind, before.by_kind))
+            calls[label] = sec
+            log(f"# [scaleup] {label}: exit {code} in {sec:.2f} s, launches "
+                f"{json.dumps({k: v for k, v in per_call[label].items() if v})}")
+            if code != 0:
+                raise AssertionError(f"{label} returned {code}")
+
+        def model_dir(savename):
+            # {savename}_{timestamp}: the other savenames go on with a letter
+            (path,) = glob.glob(os.path.join(work, "models", f"{savename}_[0-9]*"))
+            return path
+
+        reset_counts()
+        # (b) the encoder: as configured, with remat, in bf16
+        for label, name, env in (
+                ("encoder -t", "encoder", {}),
+                ("encoder -t (remat)", "encoder (remat)", {"VQCPCB_REMAT": "1"}),
+                ("encoder -t (bf16)", "encoder (bf16)",
+                 {"VQCPCB_COMPUTE_DTYPE": "bfloat16"})):
+            run(label, main_encoder, ["-t", "-c", configs[name]],
+                VQCPCB_WARMUP_STEPS=SCALEUP_ENCODER_WARMUP, **env)
+        dirs = {"encoder": model_dir("encoder_scaleup_midi"),
+                "encoder (remat)": model_dir("encoder_scaleup_midi_remat"),
+                "encoder (bf16)": model_dir("encoder_scaleup_midi_bf16")}
+        chain_env = dict(VQCPCB_REMAT="1", VQCPCB_WARMUP_STEPS=SCALEUP_WARMUP,
+                         VQCPCB_MIDI_ENCODER_CONFIG=os.path.join(
+                             dirs["encoder (remat)"], "config.py"))
+        # (c) the decoder over the remat run's encoder
+        run("decoder -t", main_decoder, ["-t", "-c", configs["decoder"]], **chain_env)
+        dirs["decoder"] = model_dir("decoder_scaleup_midi")
+        run("decoder -l -r --num_examples 1", main_decoder,
+            ["-l", "-r", "--num_examples", "1", "-c",
+             os.path.join(dirs["decoder"], "config.py")], **chain_env)
+        # (d) the prior over both
+        chain_env["VQCPCB_MIDI_DECODER_CONFIG"] = os.path.join(dirs["decoder"],
+                                                              "config.py")
+        run("prior -t", main_prior, ["-t", "-c", configs["prior"]], **chain_env)
+        dirs["prior"] = model_dir("prior_scaleup_midi")
+        run("prior -l -g", main_prior,
+            ["-l", "-g", "-c", os.path.join(dirs["prior"], "config.py")], **chain_env)
+        main_counts = counts()
+        # the reloaded decoder and prior against the trained ones, one fixed
+        # val batch, in the env of their calls
+        os.environ.update(chain_env)
+        reloaded = {}
+        for kind in ("decoder", "prior"):
+            a = trainers["trained"][dirs[kind]]
+            b = trainers["loaded"][dirs[kind]]
+            x = next(a.dataloader_generator.dataloaders(batch_size=8)[1])["x"]
+            reloaded[kind] = (a.eval_step(x)["loss"].item(), b.eval_step(x)["loss"].item())
+    finally:
+        os.chdir(cwd)
+        port_dataset.DEFAULT_CACHE_ROOT = saved_cache_root
+        for (cls, name), method in originals.items():
+            setattr(cls, name, method)
+        for name, value in env_before.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
+
+    # (e) the checks
+    for label, kernels in SCALEUP_KERNELS.items():
+        got = per_call[label]
+        missing = [k for k in kernels if not got[k]]
+        others = [k for k, c in got.items() if c and k not in kernels and k != "by_kind"]
+        if missing or others:
+            raise AssertionError(f"{label}: launched {got}: missing {missing}, "
+                                 f"unexpected {others}")
+        if got["by_kind"]["d4_s16"] != got["vq_nearest"]:
+            raise AssertionError(f"{label}: K1 ran {got['by_kind']}, not only d4_s16")
+    rows = {kind: _check_model_dir(d, 1, "loss_monitor" if kind.startswith("encoder")
+                                   else "loss") for kind, d in dirs.items()}
+    for label, vocab, grid in grids:
+        if grid.min() < 0 or (grid >= np.asarray(vocab)).any():
+            raise AssertionError(f"{label}: a written grid's tokens leave the "
+                                 f"vocabulary {vocab}")
+    seen = {}
+    for label, c in codes:
+        c = torch.as_tensor(c)
+        lo, hi = seen.get(label, (SCALEUP_CODES, -1))
+        seen[label] = (min(lo, int(c.min())), max(hi, int(c.max())))
+    if not seen or any(lo < 0 or hi >= SCALEUP_CODES for lo, hi in seen.values()):
+        raise AssertionError(f"codes outside [0, {SCALEUP_CODES}): {seen}")
+    written = sorted(glob.glob(os.path.join(work, "models", "**", "*.mid"),
+                               recursive=True))
+    # every file parses (a sample of a barely trained decoder may hold no
+    # note at all); notes are counted over all of them
+    notes = 0
+    for path in written:
+        with open(path, "rb") as f:
+            smf = midi.parse_smf(f.read())
+        notes += sum(len(midi.track_notes(t)) for t in smf["tracks"])
+    if not notes:
+        raise AssertionError("the written .mid files hold no note")
+    kinds = {os.path.relpath(p, work).split(os.sep)[2] for p in written}
+    if not {"clusters_train", "reharmonisations", "generations"} <= kinds:
+        raise AssertionError(f"the chain wrote .mid files only under {kinds}")
+    for kind, (la, lb) in reloaded.items():
+        log(f"# [scaleup] (e) {kind}: eval loss of val batch 0, trained in memory "
+            f"{la!r}, reloaded by -l {lb!r} (need equal)")
+        if la != lb:
+            raise AssertionError(f"{kind}: the reloaded model's eval loss differs")
+    log(f"# [scaleup] (e) every call returned 0; {len(grids)} written grids inside "
+        f"the vocabulary; codes seen {json.dumps(seen)} (< {SCALEUP_CODES}); "
+        f"{len(written)} written .mid files parsed back ({sorted(kinds)}; {notes} "
+        f"notes); every K1 launch ran d4_s16")
+
+    # (f) the numbers
+    encoder = {}
+    for label in ("encoder -t", "encoder -t (remat)", "encoder -t (bf16)"):
+        record = steps[label]
+        events = record["events"]
+        torch.cuda.synchronize()
+        gaps = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+        encoder[label] = dict(
+            steps=len(events), median_ms=float(np.median(gaps[2:] or gaps)),
+            peak_gib=record["peak"] / 2 ** 30, baseline_gib=record["baseline"] / 2 ** 30)
+    tokens = {kind: r[0]["tokens_per_sec/train"] for kind, r in rows.items()}
+    for label, e in encoder.items():
+        kind = label.replace(" -t", "")
+        log(f"# [scaleup] (f) {card}: {label}: epoch {tokens[kind]:.1f} tokens/s "
+            f"(metrics.jsonl), CLI {calls[label]:.2f} s, median {e['median_ms']:.3f} "
+            f"ms/step over {e['steps']} steps (CUDA events between step starts, the "
+            f"first two left out), peak {e['peak_gib']:.3f} GiB allocated over the "
+            f"train steps ({e['baseline_gib']:.3f} GiB before the first)")
+    log(f"# [scaleup] (f) {card}: decoder epoch {tokens['decoder']:.1f} tokens/s "
+        f"({SCALEUP_DECODER_BATCHES} steps at batch 32, remat), prior epoch "
+        f"{tokens['prior']:.1f} tokens/s ({SCALEUP_PRIOR_BATCHES} steps at batch 64, "
+        f"remat); CLI seconds {json.dumps({k: round(v, 2) for k, v in calls.items()})}")
+    return dict(launches=main_counts, encoder=encoder, tokens_per_s=tokens,
+                cli_s=calls, windows=windows, cache_key=key)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -2667,6 +3038,7 @@ def main() -> int:
     prior = phase_prior(gen, profile, card)
     by_path["prior_training"] = prior["launches"]
     by_path["prior_sampling"] = prior["sampling_launches"]
+    by_path["scaleup_midi"] = phase_scaleup_midi(card)["launches"]
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
     # every main path's K1 launches run a compiled instance

@@ -66,7 +66,7 @@ def _outside_margin(x, e):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,d,s,kind", [(1, 3, 32, "d3_s32"), (2, 8, 16, "d8_s16")])
+@pytest.mark.parametrize("k,d,s,kind", [(1, 3, 32, "d3_s32"), (2, 4, 16, "d4_s16")])
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 96, 12288])
 def test_nearest_codebook_instances_equal_the_runtime_kernel(gen, n, k, d, s, kind):
     """The compiled instances at the row-group and block edges: the shape
@@ -87,7 +87,7 @@ def test_nearest_codebook_instances_equal_the_runtime_kernel(gen, n, k, d, s, ki
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,s", [(3, 32), (8, 16), (5, 40)])
+@pytest.mark.parametrize("d,s", [(3, 32), (4, 16), (5, 40)])
 def test_nearest_codebook_duplicated_codes_give_the_lowest_index(gen, d, s):
     """Codes duplicated within a lane's share, across lanes and everywhere:
     rows that sit on a duplicated code take its lowest index, in the
@@ -717,3 +717,81 @@ def test_dropout_on_card_draws_from_the_generator(gen):
     a.sum().backward()
     torch.testing.assert_close(x.grad, kept.float() / 0.8)
     assert dropout(x, 0.2, False) is x
+
+
+# ---- the scale-up MIDI chain's shapes (configs/*_scaleup_midi.py) -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5760, 384, 768, 1536])
+def test_nearest_codebook_at_the_scaleup_shapes(gen, n):
+    """K1 at the chain's rows (its encoder's 64 x 15 x 6 negatives and 64 x
+    6 blocks, its decoder's 32 x 24 and its prior's 64 x 24 codes) with its
+    product codebook of 2 sub-codebooks of 16 codes of dimension 4
+    (codebook_dim 8): the d4_s16 instance, equal to the run-time kernel bit
+    for bit and to the plain version outside the margin."""
+    x = torch.randn((n, 2, 4), generator=gen, device="cuda") * 4
+    e = torch.randn((2, 16, 4), generator=gen, device="cuda") * 4
+    assert vk.kernel_kind(4, 16) == "d4_s16"
+    got = vk.nearest_codebook_indices(x, e)
+    assert torch.equal(got, vk.nearest_codebook_indices_cuda(x, e, kind="runtime"))
+    want = vk.nearest_codebook_indices_plain(x, e)
+    assert not ((got != want) & _outside_margin(x, e)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(5760, 16), (5760, 4), (768, 16), (768, 4)])
+def test_relbias_kernels_at_the_scaleup_batches(gen, b, t):
+    """K2-fwd and K2-bwd (packed, f32 inputs, bf16 dots, dropout 0.1) and
+    K3-fwd ((B, H, L, d)) with no mask at the chain's downscaler batches (8
+    heads of 64, T = S = 16 and 4), within _grad_err's bound of their plain
+    versions, and the forward's bf16 weights equal to the plain version's
+    at every entry (its dots sliced by batch, _kernel_io.batch_einsum);
+    K3-fwd's out within the bound too."""
+    h, d = 8, 64
+    q = torch.randn((b, t, h * d), generator=gen, device="cuda") * d ** -0.5
+    k, v, g = (torch.randn((b, t, h * d), generator=gen, device="cuda")
+               for _ in range(3))
+    e1, e2 = (torch.randn((h, t, d), generator=gen, device="cuda") for _ in range(2))
+    kw = dict(num_heads=h, dropout=0.1, seed=5)
+    got = [ak.relbias_attention_fwd(q, k, v, None, e1, e2, **kw),
+           *ak.relbias_attention_bwd(q, k, v, None, e1, e2, g, **kw)]
+    want = [ak.relbias_attention_fwd_plain(q, k, v, None, e1, e2, **kw),
+            *ak.relbias_attention_bwd_plain(q, k, v, None, e1, e2, g, **kw)]
+    for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "de1", "de2"), got, want):
+        if w is None:
+            assert a is None, name
+            continue
+        assert _grad_err(a, w) <= 0, (name, _grad_err(a, w))
+    assert _weights_differ(ak.relbias_attention_fwd_cuda,
+                           ak.relbias_attention_bwd_weights_plain,
+                           (q, k, v, None, e1, e2, g), kw) == 0
+    q4, k4, v4 = (heads(x, h).contiguous() for x in (q, k, v))
+    out = ak.relbias_attention_fwd(q4, k4, v4, None, e1, e2)
+    assert _grad_err(out, ak.relbias_attention_fwd_plain(q4, k4, v4, None, e1, e2)) <= 0
+
+
+@pytest.mark.cuda
+def test_remat_gradients_on_card_equal_bit_for_bit(gen, monkeypatch):
+    """VQCPCB_REMAT=1 on the card: a two-layer relative encoder stack in
+    train mode at dropout 0.2 (the kernels' in-kernel dropout and the fused
+    dropout draw from the wired generators) gives the loss and every
+    gradient of the run without it bit for bit, and leaves the generators
+    where that run leaves them."""
+    from vqcpcb_tpu_torch.ops.transformer import TransformerEncoder, wire_generators
+    torch.manual_seed(0)
+    stack = TransformerEncoder(2, 512, 8, "relative_attention", 1, 16, 2048,
+                               dropout=0.2).cuda().train()
+    x = torch.randn((64, 16, 512), generator=gen, device="cuda")
+    results = []
+    for remat in ("0", "1"):
+        monkeypatch.setenv("VQCPCB_REMAT", remat)
+        gens = (torch.Generator(device="cuda").manual_seed(1),
+                torch.Generator().manual_seed(2))
+        wire_generators(stack, *gens)
+        loss = stack(x).square().mean()
+        grads = torch.autograd.grad(loss, list(stack.parameters()))
+        results.append((loss, grads, [g.get_state() for g in gens]))
+    (loss, grads, states), (rloss, rgrads, rstates) = results
+    assert torch.equal(loss, rloss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, rgrads))
+    assert all(torch.equal(a, b) for a, b in zip(states, rstates))

@@ -345,11 +345,9 @@ def _bach_config():
 @pytest.mark.parametrize("call,item", [
     (lambda: getters.get_dataloader_generator(
         "bach", "vqcpc", {}, _bach_config()), "M6 (h)"),
-    (lambda: getters.get_dataloader_generator(
-        "midi", "decoder", {}, {"dataset": "midi"}), "M6 (h)"),
     (lambda: getters.get_prior(None, None, {}, "transformer_relative",
                                {"n_head_kv": 2}), "M6 (e)"),
-], ids=["bach", "midi", "prior"])
+], ids=["bach", "prior"])
 def test_what_waits_raises_naming_its_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):

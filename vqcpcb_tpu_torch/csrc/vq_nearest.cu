@@ -14,7 +14,9 @@
 // Two kernels, chosen by shape alone before the launch:
 //
 // vq_nearest_instance<D, S, G>, compiled for the shapes the configurations
-// use ((d, S) = (3, 32) and (8, 16)). A group of G lanes serves one (n, k)
+// use: (d, S) = (3, 32), every encoder config's, and (4, 16), the
+// configs/*_scaleup_midi.py product quantizer's (codebook_dim 8 split over
+// 2 sub-codebooks of 16 codes). A group of G lanes serves one (n, k)
 // row; 256-thread blocks take 256 / G consecutive rows of the flat (N * K)
 // row order, so neighbouring groups read neighbouring rows of x. No shared
 // memory and no barrier: each lane loads the row's x into registers once,
@@ -182,7 +184,7 @@ __global__ void io_floor_kernel(const float* __restrict__ x,
 }
 
 // The compiled instances, by the `instance` argument of vq_nearest_launch.
-enum { kRunTime = 0, kInstanceD3S32 = 1, kInstanceD8S16 = 2 };
+enum { kRunTime = 0, kInstanceD3S32 = 1, kInstanceD4S16 = 2 };
 
 // The instance <D, S, G> over `rows` = N * K flat rows.
 template <int D, int S, int G>
@@ -214,9 +216,9 @@ int vq_nearest_launch(const float* x, const float* e, int* out, int n_rows,
     case kInstanceD3S32:
       if (d != 3 || s_codes != 32) return -1;
       return launch_instance<3, 32, 8>(x, e, out, n_rows * k_books, k_books, st);
-    case kInstanceD8S16:
-      if (d != 8 || s_codes != 16) return -1;
-      return launch_instance<8, 16, 8>(x, e, out, n_rows * k_books, k_books, st);
+    case kInstanceD4S16:
+      if (d != 4 || s_codes != 16) return -1;
+      return launch_instance<4, 16, 8>(x, e, out, n_rows * k_books, k_books, st);
     case kRunTime:
       break;
     default:

@@ -46,8 +46,16 @@ def _corpus_from_config(config: Dict):
     if dataset == "synthetic":
         from vqcpcb_tpu_torch.data.corpora import SyntheticChoraleCorpus
         return SyntheticChoraleCorpus(**config.get("corpus_kwargs", {}))
-    if dataset in ("bach", "midi", "musicxml"):
-        raise _not_yet(f"the {dataset!r} corpus", "item 5, M6 (h)")
+    if dataset == "midi":
+        # corpus_kwargs: midi_root, num_voices=4, max_files=None
+        from vqcpcb_tpu_torch.data.midi import MidiCorpus
+        return MidiCorpus(**config.get("corpus_kwargs", {}))
+    if dataset == "musicxml":
+        # corpus_kwargs: xml_root, num_voices=4, max_files=None
+        from vqcpcb_tpu_torch.data.musicxml import MusicXmlCorpus
+        return MusicXmlCorpus(**config.get("corpus_kwargs", {}))
+    if dataset == "bach":
+        raise _not_yet("the 'bach' (music21) corpus", "M6 (h) part 2")
     raise NotImplementedError(
         "If you want to use your own datasets, you need to implement a "
         "corpus backend, data_processor and dataloader")

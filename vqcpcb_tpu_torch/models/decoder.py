@@ -19,9 +19,13 @@ training route (the relative-bias or the fused-attention kernels on CUDA)
 with dropout, as JAX's `Decoder.__call__(training=True)`. The output heads
 are fused into one (d_model, sum vocab) product with the stacked cross
 entropy, JAX's default (decoder.py:41-53, 246-261). The compute dtype is
-the caller's: the trainer runs the forward under bf16 autocast on CUDA
-(JAX's default_compute_dtype('bfloat16')) and in f32 on the CPU; parameters
-stay f32, and the target embedding's Dense stays f32 as in JAX.
+utils.layer_compute_dtype: the trainer's steps run in its bf16 scope on
+CUDA (JAX's default_compute_dtype('bfloat16')) and in f32 on the CPU, and
+VQCPCB_COMPUTE_DTYPE=bfloat16 puts every forward and `sample_range` in
+bf16. It reaches the transformer layers and the fused head, as JAX's
+dtype=compute_dtype() does (decoder.py:161, 251); parameters stay f32, and
+the embeddings, the target embedding's Dense and the sampler's per-channel
+heads (JAX's fused generation head, decoder.py:320-350) compute in f32.
 
 Parameter names follow the reference Decoder (sos, linear_target,
 source_embeddings, target_channel_embeddings and
@@ -44,8 +48,8 @@ from vqcpcb_tpu_torch.ops.losses import stacked_categorical_crossentropy
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerDecoder, TransformerEncoder
-from vqcpcb_tpu_torch.utils import (flatten, kv_cache_dtype, module_device,
-                                    to_device)
+from vqcpcb_tpu_torch.utils import (dense, flatten, kv_cache_dtype,
+                                    module_device, to_device)
 
 
 class Decoder(nn.Module):
@@ -148,8 +152,7 @@ class Decoder(nn.Module):
             feats = [target_seq, channel, events]
         else:
             feats = [target_seq, self.target_positional_embeddings.expand(b, -1, -1)]
-        with torch.autocast(target_seq.device.type, enabled=False):
-            return self.linear_target(torch.cat(feats, 2))
+        return self.linear_target(torch.cat(feats, 2))
 
     def shift_with_sos(self, target_seq: torch.Tensor) -> torch.Tensor:
         sos = self.sos.expand(target_seq.shape[0], 1, -1)
@@ -206,7 +209,7 @@ class Decoder(nn.Module):
         # the fused output head (decoder.py:246-261): one product with the
         # per-channel weights concatenated, channel c's logits in its columns
         vocabs = self.data_processor.num_tokens_per_channel
-        stacked = F.linear(
+        stacked = dense(
             output, torch.cat([h.weight for h in self.pre_softmaxes]),
             torch.cat([h.bias for h in self.pre_softmaxes]))
         offsets = [sum(vocabs[:c]) for c in range(len(vocabs))]

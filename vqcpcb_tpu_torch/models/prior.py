@@ -7,7 +7,9 @@ sequence is shifted right by a learned SOS vector and run causally through
 a TransformerEncoder with the relative bias, and one head gives the next
 code's logits. Train mode (the module's) takes the attention's training
 route (the relative-bias kernels on CUDA) with dropout; the compute dtype
-is f32, as in JAX.
+is f32, as in JAX, but for the transformer layers under
+VQCPCB_COMPUTE_DTYPE=bfloat16 (utils.layer_compute_dtype), in training and
+in `sample_window` alike.
 
 `sample_window` is the KV-cached sampler: one prefill per window that has
 a fixed context (the relative-bias forward kernel in every layer on CUDA),

@@ -59,11 +59,35 @@ def scratch_planes(x: torch.Tensor, b, h, t, s) -> torch.Tensor:
     return x.view(b, h, t, scratch_cols(s))[..., :s]
 
 
+# The plain versions' f32 products ahead of a bf16 rounding point (the
+# scores, the relative-bias columns, do . v^T) run on at most PLAIN_BATCH
+# sequences at a time. On the card cuBLAS picks its kernel, and with it the
+# order of each dot's sum, by the shape: on whole batches of 1,440 x 8
+# heads and more at T = S = 4 it summed in another order than at the
+# batches the kernels' chains were matched at, and softmax weights landed
+# one bf16 step from the kernel's (chip_smoke.py phase 5 holds the
+# forwards' weights bit for bit at every batch it times).
+PLAIN_BATCH = 192
+
+
+def batch_einsum(equation: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """torch.einsum(equation, x, y) over slices of at most PLAIN_BATCH along
+    x's leading (batch) dimension, and y's where its subscripts start with
+    the same letter."""
+    b = x.shape[0]
+    if b <= PLAIN_BATCH:
+        return torch.einsum(equation, x, y)
+    shared = equation.split(",")[1][0] == equation[0]
+    return torch.cat([torch.einsum(equation, x[i:i + PLAIN_BATCH],
+                                   y[i:i + PLAIN_BATCH] if shared else y)
+                      for i in range(0, b, PLAIN_BATCH)])
+
+
 def score_grads_plain(w, dod, vd, keep, inv):
     """The backward's f32 dropped weights w_drop and score gradient
     ds = w * (dw - sum_s dw * w), dw = keep * (do . v^T) * inv, from the f32
     softmax w and do, v already rounded to the dot type."""
-    dw = torch.einsum("bhtd,bhsd->bhts", dod, vd)
+    dw = batch_einsum("bhtd,bhsd->bhts", dod, vd)
     w_drop = w
     if keep is not None:
         w_drop = torch.where(keep, w * inv, 0.0)

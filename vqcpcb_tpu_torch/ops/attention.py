@@ -29,13 +29,17 @@ Routes of the full forward:
     weights.
 `step` (one query position over the KV cache) is plain PyTorch on every
 device, as it is plain XLA in JAX.
+
+The projections (in_proj, out_proj) compute in utils.layer_compute_dtype,
+bf16 under VQCPCB_COMPUTE_DTYPE=bfloat16 or the decoder trainer's scope, as
+JAX's DenseGeneral(dtype=compute_dtype()); q, k and v are then bf16, and
+the scores, the softmax and w.v accumulate in f32 on every route.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vqcpcb_tpu_torch.ops.attention_kernels import (RelbiasAttention,
@@ -45,7 +49,7 @@ from vqcpcb_tpu_torch.ops.fused_attention_kernels import (FusedAttentionTrain,
 from vqcpcb_tpu_torch.ops.kv_cache import Cache, cache_prefix, dequantize_kv
 from vqcpcb_tpu_torch.ops.relative_attention import (
     subsampled_relative_bias, subsampled_relative_bias_row)
-from vqcpcb_tpu_torch.utils import relbias_in_kernel
+from vqcpcb_tpu_torch.utils import dense, relbias_in_kernel
 
 RELATIVE_BIAS_TYPES = ("relative_attention", "relative_attention_target_source")
 
@@ -105,21 +109,24 @@ class MultiheadAttention(nn.Module):
         return x.view(b, n, self.num_heads, self.head_dim).transpose(1, 2)
 
     def project_q(self, query: torch.Tensor) -> torch.Tensor:
-        """(B, L, E) -> scaled q (B, H, L, hd)."""
+        """(B, L, E) -> scaled q (B, H, L, hd), in the compute dtype."""
         e = self.embed_dim
-        q = F.linear(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
+        q = dense(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
         return self._split_heads(q * self.head_dim ** -0.5)
 
     def project_kv(self, key: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, S, E) -> k, v each (B, H, S, hd)."""
+        """(B, S, E) -> k, v each (B, H, S, hd), in the compute dtype."""
         e = self.embed_dim
-        kv = F.linear(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
+        kv = dense(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
         return self._split_heads(kv[..., :e]), self._split_heads(kv[..., e:])
+
+    def _out_proj(self, out: torch.Tensor) -> torch.Tensor:
+        return dense(out, self.out_proj.weight, self.out_proj.bias)
 
     def _merge_heads(self, out: torch.Tensor) -> torch.Tensor:
         b, h, t, d = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, h * d))
+        return self._out_proj(out.transpose(1, 2).reshape(b, t, h * d))
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None
@@ -135,11 +142,10 @@ class MultiheadAttention(nn.Module):
 
     def _explicit_bias(self, q4: torch.Tensor) -> torch.Tensor:
         """The relative bias as a (B*H, T, S) f32 tensor, from the scaled q
-        (B, H, T, hd) (attention.py:305-306): computed in f32 outside any
-        autocast, as JAX's skew promotes to its f32 tables."""
+        (B, H, T, hd) (attention.py:305-306): computed in f32 whatever q's
+        dtype, as JAX's skew promotes to its f32 tables."""
         b, h, t, _ = q4.shape
-        with torch.autocast(q4.device.type, enabled=False):
-            bias = subsampled_relative_bias(q4.float(), *self.attn_bias.tables())
+        bias = subsampled_relative_bias(q4.float(), *self.attn_bias.tables())
         return bias.reshape(b * h, t, bias.shape[-1])
 
     def _train_packed(self, query: torch.Tensor, key: torch.Tensor,
@@ -147,11 +153,11 @@ class MultiheadAttention(nn.Module):
         """The packed training route (attention.py:188-231, 255-318)."""
         e, h = self.embed_dim, self.num_heads
         if key is query:
-            qkv = F.linear(query, self.in_proj_weight, self.in_proj_bias)
+            qkv = dense(query, self.in_proj_weight, self.in_proj_bias)
             q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
         else:
-            q = F.linear(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
-            kv = F.linear(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
+            q = dense(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
+            kv = dense(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
             k, v = kv[..., :e], kv[..., e:]                # views of (B, S, 2E)
         q = q * self.head_dim ** -0.5                        # (B, T, E)
         seed = 0
@@ -168,7 +174,7 @@ class MultiheadAttention(nn.Module):
                     self._explicit_bias(q.unflatten(-1, (h, -1)).transpose(1, 2)))
             out = FusedAttentionTrain.apply(q, k, v, attn_mask, bias, h,
                                             float(self.dropout), seed, dot_dtype)
-        return self.out_proj(out)
+        return self._out_proj(out)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None
@@ -176,7 +182,12 @@ class MultiheadAttention(nn.Module):
         """The forward after the projections: scaled q (B, H, L_tgt, hd), k and
         v (B, H, L_src, hd) as project_q / project_kv give them. A prefill
         that also keeps k and v for the cache projects them once and calls
-        this."""
+        this. Projections in bf16 are attended in f32 (exactly their
+        values): the scores accumulate in f32 as JAX's
+        preferred_element_type has them, and on the CPU the weights are
+        rounded to v's dtype before w.v, as JAX rounds them."""
+        v_dtype = v.dtype
+        q, k, v = q.float(), k.float(), v.float()
         if q.device.type != "cpu":
             if self.attn_bias is None:
                 out = fused_attention(q, k, v, attn_mask)
@@ -195,7 +206,7 @@ class MultiheadAttention(nn.Module):
         if self.attn_bias is not None:
             scores = scores + subsampled_relative_bias(q, *self.attn_bias.tables())
         weights = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhts,bhsd->bhtd", weights, v)
+        out = torch.einsum("bhts,bhsd->bhtd", weights.to(v_dtype).float(), v)
         return self._merge_heads(out), weights
 
     def step(self, query_t: torch.Tensor, k_cache: Cache, v_cache: Cache,
@@ -208,12 +219,13 @@ class MultiheadAttention(nn.Module):
         tuples. causal: the rule keys <= t, for which only rows [0, t] are
         read; key_len_mask: (S,) bool of visible keys, or None for all.
         Returns (B, 1, E) (attention.py:354)."""
-        q = self.project_q(query_t)[:, :, 0]                  # (B, H, hd)
+        q = self.project_q(query_t)[:, :, 0].float()          # (B, H, hd)
         if causal:
             k_cache = cache_prefix(k_cache, t + 1)
             v_cache = cache_prefix(v_cache, t + 1)
         k = dequantize_kv(k_cache).float()
-        v = dequantize_kv(v_cache).float()
+        v = dequantize_kv(v_cache)
+        v_dtype, v = v.dtype, v.float()
         s = k.shape[2]
         scores = torch.einsum("bhd,bhsd->bhs", q, k)
         if self.attn_bias is not None:
@@ -223,7 +235,7 @@ class MultiheadAttention(nn.Module):
         if key_len_mask is not None:
             scores = scores.masked_fill(~key_len_mask, float("-inf"))
         weights = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhs,bhsd->bhd", weights, v)
+        out = torch.einsum("bhs,bhsd->bhd", weights.to(v_dtype).float(), v)
         b, h, d = out.shape
-        return self.out_proj(out.reshape(b, 1, h * d))
+        return self._out_proj(out.reshape(b, 1, h * d))
 

@@ -36,9 +36,9 @@ from typing import Optional, Tuple
 import torch
 
 from vqcpcb_tpu_torch.ops._kernel_io import (
-    MASK32, TABLE_GROUPS, bwd_scratch, check_inputs, dropout_threshold,
-    empty_like_layout, finite_mask, heads, kernel_args, raise_status,
-    score_grads_plain, strides, typed, unheads)
+    MASK32, TABLE_GROUPS, batch_einsum, bwd_scratch, check_inputs,
+    dropout_threshold, empty_like_layout, finite_mask, heads, kernel_args,
+    raise_status, score_grads_plain, strides, typed, unheads)
 
 # Launches since the last reset: forward kernel calls, and backward wrapper
 # calls (each launches the backward's kernels in turn).
@@ -116,8 +116,8 @@ def _plain_weights(qd, kd, mask, table):
     type; also returns the gather index of the bias."""
     b, h, t, _ = qd.shape
     s = kd.shape[2]
-    scores = torch.einsum("bhtd,bhsd->bhts", qd, kd)
-    c = torch.einsum("bhtd,hjd->bhtj", qd, table)            # (B, H, T, 2S-1)
+    scores = batch_einsum("bhtd,bhsd->bhts", qd, kd)
+    c = batch_einsum("bhtd,hjd->bhtj", qd, table)            # (B, H, T, 2S-1)
     cols = _bias_columns(t, s, qd.device).expand(b, h, t, s)
     bias = torch.gather(c, 3, cols)
     mask = finite_mask(mask, t, s, qd.device)

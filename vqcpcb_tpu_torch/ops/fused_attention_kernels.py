@@ -42,8 +42,9 @@ from typing import Optional
 import torch
 
 from vqcpcb_tpu_torch.ops._kernel_io import (
-    MASK32, bwd_scratch, check_inputs, empty_like_layout, finite_mask, heads,
-    kernel_args, raise_status, score_grads_plain, strides, typed, unheads)
+    MASK32, batch_einsum, bwd_scratch, check_inputs, empty_like_layout,
+    finite_mask, heads, kernel_args, raise_status, score_grads_plain, strides,
+    typed, unheads)
 from vqcpcb_tpu_torch.ops.attention_kernels import dropout_keep_plain
 
 # Launches since the last reset: K4; K6's forward; K6's backward with a real
@@ -74,7 +75,7 @@ def _plain_weights(qd, kd, mask, bias):
     """f32 softmax of (q.k^T + mask) + bias from inputs already rounded."""
     b, h, t, _ = qd.shape
     s = kd.shape[2]
-    scores = torch.einsum("bhtd,bhsd->bhts", qd, kd) + finite_mask(mask, t, s, qd.device)
+    scores = batch_einsum("bhtd,bhsd->bhts", qd, kd) + finite_mask(mask, t, s, qd.device)
     if bias is not None:
         scores = scores + bias.float().reshape(b, h, bias.shape[1], bias.shape[2])
     return torch.softmax(scores, dim=-1)

@@ -16,23 +16,39 @@ the FFN's hidden activation, as the JAX layers do (transformer.py:53-109,
 318-327). The rate defaults to 0; the Decoder passes its own. Those
 dropouts draw their masks from the generator set on them (`Dropout`), the
 trainer's, so a run's every draw has a source it can save
-(`wire_generators`). Under bf16 autocast the aligned cross branch stays in
-f32, as its JAX Dense layers carry no compute dtype. `train_mode` runs a
-block with a module in the mode a caller's `training` argument names, for
-the modules that take one as the JAX modules do.
+(`wire_generators`). `train_mode` runs a block with a module in the mode a
+caller's `training` argument names, for the modules that take one as the
+JAX modules do.
+
+Compute dtype: the attention projections and the FFN's linears compute in
+utils.layer_compute_dtype (bf16 under VQCPCB_COMPUTE_DTYPE=bfloat16 or the
+decoder trainer's scope, transformer.py:61-64); the residual stream, the
+LayerNorms and the aligned cross branch stay f32, as JAX's Dense layers
+without a dtype and its f32 LayerNorms do.
+
+Rematerialisation: under VQCPCB_REMAT=1 each layer of a stack in train mode
+is recomputed in the backward instead of keeping its activations
+(transformer.py:26-40; `remat_layer`), which bounds the peak to one layer's
+temporaries. Its dropout draws come from explicit generators, which
+torch.utils.checkpoint does not restore: the recompute rewinds them to
+where the forward found them, so it draws the same seeds and masks, and
+leaves them where the forward left them.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Tuple
+import os
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
 from vqcpcb_tpu_torch.ops.kv_cache import Cache
-from vqcpcb_tpu_torch.utils import dropout
+from vqcpcb_tpu_torch.utils import (default_compute_dtype, dense, dropout,
+                                    layer_compute_dtype)
 
 LAYER_NORM_EPS = 1e-6
 
@@ -60,6 +76,55 @@ def wire_generators(module: nn.Module, generator: torch.Generator,
             m.generator = generator
 
 
+def _layer_generators(layer: nn.Module) -> List[torch.Generator]:
+    """The explicit generators the layer's dropout draws from, each once."""
+    found: List[torch.Generator] = []
+    for m in layer.modules():
+        if isinstance(m, MultiheadAttention):
+            g = m.seed_generator
+        elif isinstance(m, Dropout):
+            g = m.generator
+        else:
+            continue
+        if g is not None and all(g is not h for h in found):
+            found.append(g)
+    return found
+
+
+def remat_layer(layer: nn.Module, *args):
+    """layer(*args); under VQCPCB_REMAT=1, for a layer in train mode with
+    gradients on, through torch.utils.checkpoint, so the backward recomputes
+    the layer's activations (JAX's nn.remat of each layer). The recompute
+    runs in the compute dtype of the forward (the backward may run outside
+    a default_compute_dtype scope) and first rewinds the layer's explicit
+    generators to their states before the forward, so it draws the
+    forward's dropout seeds and masks, and then puts them back where they
+    were; torch's default generators are restored by checkpoint itself."""
+    if not (os.environ.get("VQCPCB_REMAT") == "1" and layer.training
+            and torch.is_grad_enabled()):
+        return layer(*args)
+    generators = _layer_generators(layer)
+    before = [g.get_state() for g in generators]
+    dtype = layer_compute_dtype()
+    calls = []
+
+    def run(*inputs):
+        if not calls:                            # the forward
+            calls.append(True)
+            return layer(*inputs)
+        now = [g.get_state() for g in generators]
+        for g, state in zip(generators, before):
+            g.set_state(state)
+        try:
+            with default_compute_dtype(dtype):
+                return layer(*inputs)
+        finally:
+            for g, state in zip(generators, now):
+                g.set_state(state)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 @contextlib.contextmanager
 def train_mode(module: nn.Module, training: Optional[bool]) -> Iterator[None]:
     """Runs the block with `module` and its submodules in train mode
@@ -80,16 +145,17 @@ def train_mode(module: nn.Module, training: Optional[bool]) -> Iterator[None]:
 def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
                  activation: str, dropout: Dropout) -> torch.Tensor:
     """The FeedForward block (transformer.py:53): linear1, relu or gelu
-    (flax's gelu is the tanh approximation), dropout, linear2. Its modules
-    live on the layer, the Linears under the reference's names."""
-    h = linear1(x)
+    (flax's gelu is the tanh approximation), dropout, linear2, the linears
+    in the compute dtype. Its modules live on the layer, the Linears under
+    the reference's names."""
+    h = dense(x, linear1.weight, linear1.bias)
     if activation == "relu":
         h = F.relu(h)
     elif activation == "gelu":
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"activation should be relu/gelu, not {activation}")
-    return linear2(dropout(h))
+    return dense(dropout(h), linear2.weight, linear2.bias)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -160,7 +226,7 @@ class TransformerEncoder(nn.Module):
                 ) -> torch.Tensor:
         out = src
         for layer in self.layers:
-            out, _ = layer(out, mask)
+            out, _ = remat_layer(layer, out, mask)
         return out
 
 
@@ -206,8 +272,7 @@ class TransformerAlignedDecoderLayer(nn.Module):
         b, s, e = memory.shape
         c_enc, c_dec = self.num_channels_encoder, self.num_channels_decoder
         n_mem = s // c_enc
-        with torch.autocast(memory.device.type, enabled=False):
-            h = self.cross_attn(memory.float().reshape(b, n_mem, c_enc * e))
+        h = self.cross_attn(memory.reshape(b, n_mem, c_enc * e))
         h = h.reshape(b, n_mem, e, c_dec).transpose(2, 3)      # (B, n, C, E)
         ratio = (tgt_len // c_dec) // n_mem
         return h[:, :, None].expand(b, n_mem, ratio, c_dec, e).reshape(
@@ -326,5 +391,5 @@ class TransformerDecoder(nn.Module):
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
         out = tgt
         for layer in self.layers:
-            out, _ = layer(out, memory, tgt_mask, memory_mask)
+            out, _ = remat_layer(layer, out, memory, tgt_mask, memory_mask)
         return out

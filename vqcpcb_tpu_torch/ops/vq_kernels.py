@@ -4,9 +4,10 @@
 PyTorch version, a CUDA tensor launches a hand-written kernel
 (csrc/vq_nearest.cu) or raises. Both compute argmin_s |x|^2 - 2 x.e_s + |e_s|^2
 in f32 per sub-codebook, ties to the lowest index. On the card the shape
-alone picks the kernel: a compiled instance for (d, S) = (3, 32) or (8, 16),
-the run-time kernel for any other shape; the two give the same indices bit
-for bit.
+alone picks the kernel: a compiled instance for (d, S) = (3, 32) (the
+other encoder configs' codebook) or (4, 16) (the scale-up MIDI configs'
+two sub-codebooks), the run-time kernel for any other shape; the two give
+the same indices bit for bit.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from vqcpcb_tpu_torch.ops import _build
 # The compiled instances of csrc/vq_nearest.cu by (d, S); every other shape
 # takes the run-time kernel. _CODES: each kernel's `instance` code in the C
 # launcher.
-INSTANCES = {(3, 32): "d3_s32", (8, 16): "d8_s16"}
-_CODES = {"runtime": 0, "d3_s32": 1, "d8_s16": 2}
+INSTANCES = {(3, 32): "d3_s32", (4, 16): "d4_s16"}
+_CODES = {"runtime": 0, "d3_s32": 1, "d4_s16": 2}
 
 # Launches of the CUDA kernels since the last reset (a plain counter: a run
 # sets it to 0, drives the model and reads it back), in all and by kernel.

@@ -5,8 +5,8 @@ dropout and with torch's nn.Dropout in turns, in one process.
                                                 [--rounds 10] [--steps 20]
 
 Builds chip_smoke.py's full-width decoder trainer (d_model 512, 3 + 3
-layers, batch 32 x 384 tokens, dropout 0.2, bf16 autocast, Adam) or, with
---kind prior, its full-width prior trainer (configs/prior_config.py: 6
+layers, batch 32 x 384 tokens, dropout 0.2, bf16 transformer layers, Adam)
+or, with --kind prior, its full-width prior trainer (configs/prior_config.py: 6
 layers of 512, batch 64 x 24 codes, dropout 0.1, f32, Adam) and times
 rounds of `steps` train steps, each synced and timed on the host clock as
 chip_smoke.py times them. The rounds alternate the forward of the decoder's

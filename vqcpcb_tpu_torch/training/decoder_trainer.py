@@ -4,8 +4,9 @@ its training steps (:120-160, 204-230), its epoch loop and checkpoints
 
 `DecoderTrainer` trains a decoder on the codes of a frozen encoder: one step
 encodes the batch (the nearest-codebook kernel on the card), runs the
-decoder in train mode under the compute dtype (bf16 autocast on CUDA, f32 on
-the CPU, unless VQCPCB_COMPUTE_DTYPE says otherwise: utils.compute_dtype),
+decoder in train mode in the compute dtype (bf16 transformer layers on CUDA,
+f32 on the CPU, unless VQCPCB_COMPUTE_DTYPE says otherwise:
+utils.compute_dtype, utils.default_compute_dtype),
 and applies the clipped Adam of training/optim.py. It holds the
 model, the optimizer and the step count, the counterpart of the JAX
 TrainState, and two generators every random draw comes from: one on the
@@ -36,7 +37,8 @@ from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
                                              warmup_steps_from_env)
-from vqcpcb_tpu_torch.utils import compute_dtype, resolve_device, to_device
+from vqcpcb_tpu_torch.utils import (compute_dtype, default_compute_dtype,
+                                    resolve_device, to_device)
 
 
 def compute_start_end_times(t: int, num_blocks: int, num_blocks_model: int):
@@ -96,9 +98,11 @@ class DecoderTrainer(TrainLoopMixin):
         return merge_codes(indices, self.codebook_size)
 
     def _loss(self, x: torch.Tensor) -> torch.Tensor:
-        codes = self.encode_codes(x)
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.compute_dtype == torch.bfloat16):
+        """The step's loss in the trainer's compute dtype, the frozen
+        encoder's codes included, as JAX traces both inside its scope
+        (decoder_trainer.py:233-242)."""
+        with default_compute_dtype(self.compute_dtype):
+            codes = self.encode_codes(x)
             return self.decoder(codes, x)["loss"]
 
     def train_step(self, x) -> Dict[str, torch.Tensor]:

@@ -10,7 +10,9 @@ and two generators every random draw comes from: one on that device
 (dropout, label corruption and the codebook-init permutation) and one on
 the host (the dropout seeds of a transformer downscaler's attention
 layers). Steps run in f32, as the JAX steps do (the GRU recurrence is f32
-there by design). `save` / `load` (training/loop.py) keep the whole state:
+there by design); VQCPCB_COMPUTE_DTYPE=bfloat16 puts a transformer
+downscaler's layers in bf16 and nothing else, as in JAX
+(utils.layer_compute_dtype). `save` / `load` (training/loop.py) keep the whole state:
 parameters, the BatchNorm and EMA buffers, the optimizer, the step and the
 generators.
 """

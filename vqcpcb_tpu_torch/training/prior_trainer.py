@@ -5,7 +5,8 @@ the generation surface (:184-243).
 
 `PriorTrainer` trains a PriorRelative on the codes of a frozen encoder: one
 step encodes the token batch (the nearest-codebook kernel on the card, no
-grad), merges the codes, runs the prior in train mode in f32 (the
+grad), merges the codes, runs the prior in train mode in f32 (its transformer
+layers in bf16 under VQCPCB_COMPUTE_DTYPE=bfloat16, as in JAX; the
 relative-bias kernels on the card) and applies the clipped Adam of
 training/optim.py without a schedule (optim.py:39 with
 schedule_lr=False). It holds the prior, the optimizer, the step count and

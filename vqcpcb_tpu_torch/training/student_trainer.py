@@ -14,7 +14,9 @@ soft prediction of that event, taken before the teacher's update and
 detached: the distilled cross entropy plus quantization_weighting times
 the mean commitment loss. Each group has its own clipped Adam
 (training/optim.py). Everything runs in f32 on one device (the card unless
-the caller names another).
+the caller names another); VQCPCB_COMPUTE_DTYPE=bfloat16 puts the
+transformer layers of the three modules in bf16, as in JAX
+(utils.layer_compute_dtype).
 
 The trainer holds the three modules in one ModuleDict (`model`: encoder,
 teacher, auxiliary_decoder; the teacher's data processor lies under

@@ -1,10 +1,11 @@
 """Cross-cutting helpers (counterpart of vqcpcb_tpu/utils.py)."""
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import os
 import sys
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -99,6 +100,49 @@ def compute_dtype(default: torch.dtype) -> torch.dtype:
     if env is None:
         return default
     return _COMPUTE_DTYPES.get(env, torch.float32)
+
+
+# the innermost default_compute_dtype scope's dtype (JAX's _scoped_default)
+_scoped_default = [torch.float32]
+
+
+@contextlib.contextmanager
+def default_compute_dtype(dtype: torch.dtype) -> Iterator[None]:
+    """Runs the block with `dtype` as the transformer stacks' compute dtype
+    unless VQCPCB_COMPUTE_DTYPE says otherwise (ops/__init__.py:34): the
+    decoder trainer's steps run in one, bf16 on CUDA."""
+    prev = _scoped_default[0]
+    _scoped_default[0] = dtype
+    try:
+        yield
+    finally:
+        _scoped_default[0] = prev
+
+
+def layer_compute_dtype() -> torch.dtype:
+    """The dtype the transformer stacks' dense layers compute in (the
+    attention projections, the feed-forward linears and the decoder's
+    output heads in training), read at each call as JAX reads its
+    compute_dtype() at each trace: VQCPCB_COMPUTE_DTYPE when set, else the
+    innermost default_compute_dtype scope, else f32. Every other layer
+    (embeddings, the downscalers' and the prior's own linears, GRUs, the
+    upscaler, the quantizer, the losses) computes in f32 whatever this
+    says, as in JAX."""
+    return compute_dtype(_scoped_default[0])
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """F.linear in layer_compute_dtype. Under bf16 it is flax's
+    Dense(dtype=bfloat16): x, the weight and the bias cast to bf16, the
+    product rounded to bf16, then the bias added in bf16 (two roundings, as
+    XLA has them); the parameters stay f32 (their gradients come back
+    through the casts in f32)."""
+    dt = layer_compute_dtype()
+    if dt == torch.float32:
+        return torch.nn.functional.linear(x, weight, bias)
+    y = torch.nn.functional.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias.to(dt)
 
 
 def kv_cache_dtype(device: torch.device) -> Optional[torch.dtype]:
