@@ -103,7 +103,7 @@ Phases, in order; any failure raises and the run exits non-zero:
      teacher-forced argmax, (d) with --profile, 3 profiled steps and
      one profiled sampling window;
  13. one JSON line of per-kernel numbers, then the result line (printed
-     last, after phase 14);
+     last, after phases 14 and 15);
  14. the scale-up MIDI chain (scripts/r5_chain9.sh) through the CLIs in
      process in build/scaleup_midi, at the configs' full width: (a) 512
      .mid files from the port's writer (make_midi_corpus.py), their cache
@@ -117,12 +117,30 @@ Phases, in order; any failure raises and the run exits non-zero:
      configs/prior_scaleup_midi.py (20 batches), then -l -g; (e) the
      checks: exit codes, model directories, tokens inside the vocabulary,
      codes below 256, every written .mid parsed back, reloaded eval losses
-     equal to the trained ones, every K1 launch on the d4_s16 instance.
+     equal to the trained ones, every K1 launch on the d4_s16 instance;
+ 15. the decoder over an unquantized encoder, grouped-query attention and
+     the hooks, at full width: (a) the encoder CLI -t on
+     configs/encoder_random_no_quantization_config.py (no quantizer, no K1),
+     the decoder CLI -t on
+     configs/decoder_relative_AC_D_C_random_noQuantization.py over it, -l
+     --num_examples 1, and -l -r, which must raise where the JAX CLI fails
+     (the glued z loses its feature axis); then serving at batch 512 over
+     the trained encoder's z and 30 train steps at batch 32, each held
+     against the CPU f32 plain route; (b) n_head_kv 4 of 8 heads: the
+     flagship's serving at batch 512 (its int8 KV-cache bytes beside the
+     ungrouped decoder's) and 30 steps beside phases 7 and 8, the cost of
+     expanding k and v, the absolute decoder's 5 steps (K6) and one prefill
+     at batch 64 (K4), the prior's 30 steps, sampling at batch 512 and
+     greedy codes, each held against its plain route, and the grouped
+     decoder and prior CLIs (-t, -l --num_examples 1; -t, -l -g); (c) a
+     decoder -t with VQCPCB_PROFILE_DIR (a Chrome trace naming a port
+     kernel) and a prior -t with VQCPCB_DEBUG_NANS=1 (exit 0).
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
-(a) and (c) and the CLI calls of phase 14 are the main paths: each is driven
-with the launch counts set to 0 just before it and read just after. Every
-K1 launch on them must run a compiled instance.
+(a) and (c), the CLI calls of phase 14 and the runs and CLI calls of phase
+15 are the main paths: each is driven with the launch counts set to 0 just
+before it and read just after. Every K1 launch on them must run a compiled
+instance.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -209,24 +227,44 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# torch.profiler (CUPTI) now and then ends a session with no device event
+# at all, though the calls ran: such a session is run again, up to
+# PROFILER_TRIES sessions; after that device_ms times with CUDA events
+# (which then include the host's gaps between launches) and says so.
+PROFILER_TRIES = 3
+DEVICE_TIME_FALLBACKS = []
+
+
 def device_ms(fn, reps: int, warmup: int = 2) -> float:
     """Milliseconds of device time per call: the kernels' own time, summed
     by torch.profiler over `reps` calls after warm-up, without the host's
-    gaps between them. Raises when the profiler saw no kernel."""
+    gaps between them. A session that records no device time is run again;
+    after PROFILER_TRIES such sessions the CUDA events' time is returned
+    and the fallback logged and kept in DEVICE_TIME_FALLBACKS."""
+    import gc
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    if busy_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return busy_us / 1e3 / reps
+    for attempt in range(1, PROFILER_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / reps
+        log(f"# device_ms: torch.profiler session {attempt} of {PROFILER_TRIES} "
+            "recorded no device time")
+        del prof
+        gc.collect()
+    ms = time_cuda(fn, reps, warmup=0)
+    DEVICE_TIME_FALLBACKS.append(ms)
+    log(f"# device_ms: timed with CUDA events instead: {ms:.5f} ms a call "
+        "(host gaps included)")
+    return ms
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -1292,12 +1330,14 @@ STEP_LAUNCHES = {
                       "fused_attention_train_bwd": 6, "vq_nearest": 1}}
 
 
-def build_models(vocab, dropout: float = 0.0, kind: str = "flagship"):
+def build_models(vocab, dropout: float = 0.0, kind: str = "flagship",
+                 n_head_kv=None):
     """Full width, random weights from torch's init under a fixed seed:
     the encoder of configs/encoder_random_config.py and a decoder of
     DECODERS, d_model 512, 8 heads, 3 + 3 layers, ff 1024, positional 8
     (the configs' dropout 0.2 is the caller's `dropout`; serving runs in
-    eval mode)."""
+    eval mode); n_head_kv: grouped-query attention in every attention of
+    the decoder."""
     from vqcpcb_tpu_torch.models.data_processor import (BachCPCDataProcessor,
                                                         BachDataProcessor)
     from vqcpcb_tpu_torch.models.decoder import Decoder
@@ -1320,6 +1360,7 @@ def build_models(vocab, dropout: float = 0.0, kind: str = "flagship"):
         num_channels_encoder=1, num_events_encoder=NUM_CODES,
         num_channels_decoder=4, num_events_decoder=NUM_EVENTS,
         total_upscaling=16, source_vocab_size=CODEBOOK_SIZE, dropout=dropout,
+        n_head_kv=n_head_kv,
         **DECODERS[kind])
     return encoder, decoder
 
@@ -1622,10 +1663,11 @@ def train_steps(trainer, batches, steps: int, kind: str, must_fall: bool) -> dic
                 losses=losses)
 
 
-def _trainer(gen, kind: str):
+def _trainer(gen, kind: str, n_head_kv=None):
     from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
     vocab = synthetic_vocabulary()
-    encoder, decoder = build_models(vocab, dropout=TRAIN_DROPOUT, kind=kind)
+    encoder, decoder = build_models(vocab, dropout=TRAIN_DROPOUT, kind=kind,
+                                    n_head_kv=n_head_kv)
     batches = [random_templates(vocab, gen, TRAIN_BATCH, NUM_EVENTS)
                for _ in range(4)]
     trainer = DecoderTrainer(encoder, decoder, CODEBOOK_SIZE, seed=0)
@@ -2469,7 +2511,7 @@ def phase_entry_points(card: str) -> dict:
             f"path: {json.dumps({l: n for l, n in calls_.items() if n})}")
     return dict(launches=main_counts, tokens_per_s=tokens, reharm_s=reharm_s,
                 cli_s=calls, by_kernel=by_kernel, acac_loss_err=loss_err,
-                acac_worst_cos=worst_cos)
+                acac_worst_cos=worst_cos, encoder_config=encoder_config)
 
 
 # ---- phase 12 --------------------------------------------------------------
@@ -2509,18 +2551,20 @@ def prior_config(root: str) -> dict:
     return config
 
 
-def prior_at_full_width(gen):
+def prior_at_full_width(gen, n_head_kv=None):
     """(trainer, 4 batches on the card): the PriorTrainer the prior CLI
     builds from prior_config() (weights from torch's init under seed 0, the
     encoder's codebook initialised from the 4 batches' latents), and 4
     batches of its data loader (the corpus windows built into
-    build/prior_data)."""
+    build/prior_data); n_head_kv in its prior_kwargs when given."""
     from vqcpcb_tpu_torch import getters
     from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
     from vqcpcb_tpu_torch.utils import load_config_module
     root = os.path.dirname(os.path.abspath(__file__))
     cache = os.path.join(root, "build", "prior_data")
     config = prior_config(root)
+    if n_head_kv is not None:
+        config["prior_kwargs"] = dict(config["prior_kwargs"], n_head_kv=n_head_kv)
     enc_config = load_config_module(config["config_encoder"])
     data = getters.get_dataloader_generator(
         config["dataset"], "prior", config["dataloader_generator_kwargs"], config,
@@ -3002,6 +3046,697 @@ def phase_scaleup_midi(card: str) -> dict:
                 cli_s=calls, windows=windows, cache_key=key)
 
 
+# ---- phase 15 --------------------------------------------------------------
+
+# The decoder over an unquantized encoder and grouped-query attention, at
+# the configs' full width, random weights from seeds; only batch counts are
+# cut. (a) configs/encoder_random_no_quantization_config.py's encoder (GRU
+# 512 x 2, no quantizer, MLP upscaler to 32), trained by the encoder CLI,
+# under configs/decoder_relative_AC_D_C_random_noQuantization.py's flagship
+# (d_model 512, 3 + 3 layers, 8 heads, FF 1024, dropout 0.2), over z: no K1.
+# The encoder is trained first, as a user does, because an untrained one
+# gives nearly the same z at every position (its spread across positions is
+# 3% of its size), which leaves the decoder's encoder stack nothing to
+# attend to. (b) n_head_kv 4 of 8 heads (scripts/measure_gqa_quality.py's
+# n_head / 2 arm) in phase 7's flagship, configs/prior_config.py's prior and
+# configs/decoder_random.py's absolute decoder: k and v expanded to 8 heads
+# before K2 / K3-fwd, K4 and K6, the caches kept at 4 heads. (c) the hooks,
+# VQCPCB_PROFILE_DIR and VQCPCB_DEBUG_NANS, on CLI calls. The CLI calls run
+# in process in build/phase15 on the synthetic corpus (the 'bach' corpus of
+# the configs needs music21).
+GQA_KV_HEADS = 4
+GQA_ABSOLUTE_STEPS = 5
+GQA_PREFILL_BATCH = 64
+P15_ENCODER_BATCHES = 60
+P15_CLI_BATCHES = 20
+P15_HOOK_BATCHES = 3
+# grouped against ungrouped in one stretch of the call: chunks of AB_REPS
+# synced runs in the order A, B, B, A, repeated AB_ROUNDS times
+AB_ROUNDS = 2
+AB_REPS = 5
+STEP_LAUNCHES["unquantized"] = {"relbias_attention_fwd": 6,
+                                "relbias_attention_bwd": 6}
+STEP_LAUNCHES["gqa_flagship"] = STEP_LAUNCHES["flagship"]
+STEP_LAUNCHES["gqa_absolute"] = STEP_LAUNCHES["absolute"]
+STEP_LAUNCHES["gqa_prior"] = STEP_LAUNCHES["prior"]
+# the CLI calls and the kernels each must launch (the unquantized encoder
+# launches none; -l -r over z raises at the first window's source
+# embedding, where the JAX CLI fails, before any)
+P15_KERNELS = {
+    "unquantized encoder -t": (),
+    "unquantized -t": ("relbias_attention_fwd", "relbias_attention_bwd"),
+    "unquantized -l --num_examples 1": ("relbias_attention_fwd",),
+    "unquantized -l -r": (),
+    "gqa decoder -t": ("vq_nearest", "relbias_attention_fwd",
+                       "relbias_attention_bwd"),
+    "gqa decoder -l --num_examples 1": ("vq_nearest", "relbias_attention_fwd"),
+    "gqa prior -t": ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"),
+    "gqa prior -l -g": ("relbias_attention_fwd",),
+    "unquantized -t (VQCPCB_PROFILE_DIR)": ("relbias_attention_fwd",
+                                            "relbias_attention_bwd"),
+    "gqa prior -t (VQCPCB_DEBUG_NANS=1)": ("vq_nearest", "relbias_attention_fwd",
+                                           "relbias_attention_bwd"),
+}
+# the port's kernels that the relative decoder's train epoch launches (K2-fwd
+# and K2-bwd), by their qualified names in csrc/; the profiler's trace of
+# the VQCPCB_PROFILE_DIR call must name every one
+TRACED_PORT_KERNELS = ("fwd_mma::fwd_kernel", "bwd_mma::rows_kernel",
+                       "bwd_mma::row_term_kernel", "bwd_mma::cols_kernel",
+                       "bwd_mma::dqe_kernel", "bwd_mma::table_kernel",
+                       "bwd_mma::table_sum_kernel")
+
+
+def _traced_functions(names) -> set:
+    """The qualified function names in a trace's event names: each event's
+    first identifier that a template or parameter list follows, so that
+    'void bwd_mma::rows_kernel<__nv_bfloat16>(...)' gives
+    'bwd_mma::rows_kernel' and no other kernel's name matches it."""
+    import re
+    pattern = re.compile(r"([A-Za-z_][\w:]*)\s*[<(]")
+    return {m.group(1) for n in names for m in pattern.finditer(n)}
+
+
+def _cache_bytes(caches) -> int:
+    """Bytes of a prefill's caches: every layer's k and v, int8 rows and
+    their f32 scales."""
+    return sum(t.numel() * t.element_size() for layer in caches for cache in layer
+               for t in (cache if isinstance(cache, tuple) else (cache,)))
+
+
+def _p15_serving(label: str, encoder, decoder, templates, vocab, k1: bool) -> dict:
+    """One decoder's serving path at batch 512, counted from zero launches:
+    the encoder's source for the templates (codes through K1, or z), then
+    KV-cached sampling of all 384 positions (T 0.95, top-p 0.8, int8
+    caches: one prefill, K3-fwd in the 6 relative layers). Outside it: the
+    prefill alone (ms, cache bytes), the kernel route's logits against the
+    CPU f32 plain route at batch 8, and greedy f32-cache tokens against the
+    teacher-forced argmax."""
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderGenerator
+    generator = DecoderGenerator(encoder, decoder, vocab, CODEBOOK_SIZE, seed=0)
+    warm = generator.encode_codes(templates[:8])
+    decoder.sample_range(warm, templates[:8], 0, 8, generator.generator,
+                         temperature=0.95, top_p=0.8)
+    torch.cuda.synchronize()
+    reset_counts()
+    source, encode_s = synced_seconds(lambda: generator.encode_codes(templates))
+    tokens0 = torch.zeros((BATCH, NUM_EVENTS, 4), dtype=torch.int32, device="cuda")
+    n_tok = NUM_EVENTS * 4
+    sampled, sample_s = synced_seconds(lambda: decoder.sample_range(
+        source, tokens0, 0, n_tok, generator.generator, temperature=0.95,
+        top_p=0.8))
+    main_counts = counts()
+    want = {k: 0 for k in main_counts}
+    want.update(relbias_attention_fwd=6, vq_nearest=int(k1))
+    if main_counts != want:
+        raise AssertionError(f"{label} serving launched {main_counts}, not {want}")
+    sizes = torch.tensor(vocab.num_tokens_per_channel, device="cuda")
+    if not ((sampled >= 0) & (sampled < sizes)).all():
+        raise AssertionError(f"{label}: sampled tokens outside the vocabulary")
+    tokens_per_s = BATCH * n_tok / sample_s
+    with torch.no_grad():
+        (caches, _), prefill_s = synced_seconds(lambda: decoder.prefill(
+            source, tokens0, torch.int8))
+    cache_bytes = _cache_bytes(caches)
+    heads = caches[0][0][0].shape[1]
+    del caches
+    log(f"# [{label}] serving: source {tuple(source.shape)} {source.dtype} in "
+        f"{encode_s * 1e3:.3f} ms; sample_range batch {BATCH} x {n_tok} positions "
+        f"(T 0.95, top_p 0.8, int8 caches) {sample_s:.4f} s, {tokens_per_s:.1f} "
+        f"tokens/s; launches {json.dumps({k: v for k, v in main_counts.items() if v})}; "
+        f"prefill alone {prefill_s * 1e3:.3f} ms, caches of {heads} heads, "
+        f"{cache_bytes} bytes over {len(decoder.decoder_layers)} layers")
+    small, small_source = sampled[:8], source[:8]
+    with torch.no_grad():
+        kernel = decoder(small_source, small)["weights_per_category"]
+        plain = copy.deepcopy(decoder).cpu()(small_source.cpu(), small.cpu())[
+            "weights_per_category"]
+    scale = max(lg.abs().max().item() for lg in plain)
+    err = max((k.cpu() - p).abs().max().item() for k, p in zip(kernel, plain))
+    os.environ["VQCPCB_KV_DTYPE"] = "float32"
+    try:
+        greedy = decoder.sample_range(small_source, tokens0[:8], 0, n_tok,
+                                      generator.generator, top_k=1)
+    finally:
+        del os.environ["VQCPCB_KV_DTYPE"]
+    with torch.no_grad():
+        forced = decoder(small_source, greedy)["weights_per_category"]
+    rate = (torch.stack([lg.argmax(-1) for lg in forced], -1)
+            == greedy.long()).float().mean().item()
+    log(f"# [{label}] logits at batch 8, kernel route vs CPU f32 plain route: max "
+        f"abs err {err:.4e}, max |logit| {scale:.3f} (tolerance {LOGITS_RTOL} * max "
+        f"|logit|); greedy f32-cache tokens vs teacher-forced argmax "
+        f"{rate * 100:.3f}% agree (need >= 99%)")
+    if not (err <= LOGITS_RTOL * scale and rate >= 0.99):
+        raise AssertionError(f"{label}: kernel-route logits or greedy tokens")
+    return dict(launches=main_counts, tokens_per_s=tokens_per_s, encode_ms=encode_s * 1e3,
+                prefill_ms=prefill_s * 1e3, cache_bytes=cache_bytes,
+                logits_err=err, greedy_agreement=rate, source=source)
+
+
+def _p15_training(label: str, step_kind: str, trainer, batches, steps: int,
+                  must_fall: bool) -> dict:
+    """`steps` synced DecoderTrainer steps at batch 32 (bf16 layers, dropout
+    0.2), counted from zero launches (train_steps), then the kernel route's
+    loss and gradients against the CPU f32 plain route at batch 2, dropout
+    0, the CPU route on the card's source (codes or z)."""
+    result = train_steps(trainer, batches, steps, step_kind, must_fall=must_fall)
+    dec = trainer.decoder
+    set_dropout(dec, 0.0)
+    small = batches[0][:2]
+    source = trainer.encode_codes(small)
+    kernel = loss_and_grads(dec, source, small, bf16=True)
+    plain = loss_and_grads(copy.deepcopy(dec).cpu(), source.cpu(), small.cpu(),
+                           bf16=False)
+    loss_err, worst_cos, _ = compare_routes(
+        f"[{label}] batch 2, dropout 0, kernel route vs CPU f32 plain route",
+        kernel, plain)
+    return dict(result, loss_err=loss_err, worst_cos=worst_cos)
+
+
+def _alternate(fns: dict, reps: int) -> dict:
+    """The two callables of `fns` (name -> fn), each run `reps` times a
+    chunk, synced one by one, chunks in the order A, B, B, A, AB_ROUNDS
+    times: the median seconds of each."""
+    a, b = fns
+    times = {a: [], b: []}
+    for name in (a, b, b, a) * AB_ROUNDS:
+        for _ in range(reps):
+            times[name].append(synced_seconds(fns[name])[1])
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def _expansion_ms(trainer, x, step_device_ms: float) -> dict:
+    """What expanding k and v costs a grouped flagship train step, read from
+    the step: expand_kv_heads is wrapped for one train step to record the
+    shape of every k and v it expands (the decoder's self-attentions over
+    384 positions, the encoder's and the cross-attentions' over the 24
+    codes); each shape is then expanded to 8 heads and its gradient summed
+    back (forward and backward) and timed by device time, and the times are
+    summed over the step's calls; beside the bytes they move and the grouped
+    step's device time."""
+    from collections import Counter
+    from vqcpcb_tpu_torch.ops import attention
+    expand = attention.expand_kv_heads
+    calls = Counter()
+
+    def recording(t, num_kv_heads, g):
+        calls[(tuple(t.shape), t.dtype, num_kv_heads, g)] += 1
+        return expand(t, num_kv_heads, g)
+    attention.expand_kv_heads = recording
+    try:
+        trainer.train_step(x)
+    finally:
+        attention.expand_kv_heads = expand
+    torch.cuda.synchronize()
+    if not calls:
+        raise AssertionError("the grouped train step expanded no k or v")
+    per_step, moved, shapes = 0.0, 0, []
+    for (shape, dtype, kv_heads, g), n in sorted(calls.items(), key=str):
+        src = torch.randn(shape, device="cuda", dtype=dtype, requires_grad=True)
+        grad = torch.randn_like(expand(src.detach(), kv_heads, g))
+
+        def run():
+            expand(src, kv_heads, g).backward(grad)
+        ms = device_ms(run, 20)
+        per_step += ms * n
+        moved += n * 2 * (src.numel() * src.element_size()
+                          + grad.numel() * grad.element_size())
+        shapes.append(dict(shape=list(shape), dtype=str(dtype), calls=n,
+                           device_ms=ms))
+        log(f"# [gqa] expansion of k or v {shape} {dtype} ({kv_heads} heads -> "
+            f"{kv_heads * g}), forward and backward: device {ms:.4f} ms, "
+            f"{n} calls a step")
+    log(f"# [gqa] expansion in one grouped flagship train step: "
+        f"{sum(calls.values())} calls, {per_step:.4f} ms of device time "
+        f"({moved} bytes, {moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
+        f"rate), {per_step / step_device_ms * 100:.2f}% of the grouped step's "
+        f"device time")
+    return dict(shapes=shapes, expand_device_ms_per_step=per_step,
+                expand_bytes_per_step=moved,
+                expand_share=per_step / step_device_ms)
+
+
+class _P15Work:
+    """build/phase15: config copies on the synthetic corpus (each file's
+    savename its name) and the CLI calls in process, each call's launches
+    and seconds recorded."""
+
+    def __init__(self):
+        import shutil
+        from vqcpcb_tpu_torch.utils import load_config_module
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.path = os.path.join(self.root, "build", "phase15")
+        shutil.rmtree(self.path, ignore_errors=True)
+        os.makedirs(os.path.join(self.path, "configs"))
+        self.corpus = load_config_module(os.path.join(
+            self.root, "configs", "decoder_synthetic.py"))["corpus_kwargs"]
+        self.per_call, self.calls = {}, {}
+
+    def config(self, name: str, **changes) -> dict:
+        """configs/{name} on the synthetic corpus, with `changes`."""
+        from vqcpcb_tpu_torch.utils import load_config_module
+        return dict(load_config_module(os.path.join(self.root, "configs", name)),
+                    dataset="synthetic", corpus_kwargs=self.corpus, **changes)
+
+    def write(self, name: str, config: dict) -> str:
+        path = os.path.join(self.path, "configs", f"{name}.py")
+        with open(path, "w") as f:
+            f.write(f'"""chip_smoke.py phase 15: {name}."""\n'
+                    f"config = {dict(config, savename=name)!r}\n")
+        return path
+
+    def model_dir(self, name: str) -> str:
+        import glob
+        (path,) = glob.glob(os.path.join(self.path, "models", f"{name}_*"))
+        return path
+
+    def run(self, label, cli, argv, env=None, raises=None) -> None:
+        """cli.main(argv) in the working directory with `env` set; with
+        raises = (exception type, text), the call must raise it."""
+        before = counts()
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        cwd = os.getcwd()
+        os.chdir(self.path)
+        t0 = time.perf_counter()
+        try:
+            if raises is None:
+                outcome = f"exit {cli.main(argv)}"
+            else:
+                try:
+                    cli.main(argv)
+                except raises[0] as exc:
+                    if raises[1] not in str(exc):
+                        raise
+                    outcome = f"raised {type(exc).__name__}: {exc}"
+                else:
+                    raise AssertionError(f"{label} did not raise {raises}")
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+            for k, v in saved.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+            # the CLIs set the NaN checks from the variable: off again
+            from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
+            enable_debug_checks()
+        self.calls[label] = time.perf_counter() - t0
+        self.per_call[label] = _delta(counts(), before)
+        log(f"# [p15 entry] {label}: {outcome} in {self.calls[label]:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in self.per_call[label].items() if v})}")
+        if raises is None and outcome != "exit 0":
+            raise AssertionError(f"{label}: {outcome}")
+        kernels = P15_KERNELS[label]
+        missing = [k for k in kernels if not self.per_call[label][k]]
+        others = [k for k, c in self.per_call[label].items() if c and k not in kernels]
+        if missing or others:
+            raise AssertionError(f"{label}: launched {self.per_call[label]}: missing "
+                                 f"{missing}, unexpected {others}")
+
+
+def _p15_generations(model_dir: str, want: int) -> None:
+    import glob
+    written = glob.glob(os.path.join(model_dir, "generations", "*.mid"))
+    if len(written) != want:
+        raise AssertionError(f"{model_dir}: {len(written)} generated scores, not {want}")
+
+
+def _p15_unquantized(gen, card: str, work: _P15Work) -> dict:
+    """(a) the CLIs, counted from zero launches: encoder -t on the
+    unquantized config, decoder -t over it, -l --num_examples 1, -l -r
+    (which must raise the port's error at the first window, as JAX's CLI
+    fails there); then, at full width over that trained encoder and the
+    config's data, serving at batch 512 over z and 30 train steps at batch
+    32, each with its routes."""
+    from vqcpcb_tpu_torch import getters, main_decoder, main_encoder
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    encoder_path = work.write("encoder_no_quantization_synthetic",
+                              work.config("encoder_random_no_quantization_config.py"))
+    reset_counts()
+    work.run("unquantized encoder -t", main_encoder,
+             ["-t", "-c", encoder_path, "--num_epochs", "1", "--num_batches",
+              str(P15_ENCODER_BATCHES)])
+    encoder_config = os.path.join(work.model_dir("encoder_no_quantization_synthetic"),
+                                  "config.py")
+    config = work.config("decoder_relative_AC_D_C_random_noQuantization.py",
+                         config_encoder=encoder_config)
+    work.write("decoder_nq_hooks", config)
+    work.run("unquantized -t", main_decoder,
+             ["-t", "-c", work.write("decoder_nq_synthetic", config),
+              "--num_epochs", "1", "--num_batches", str(P15_CLI_BATCHES)])
+    model_dir = work.model_dir("decoder_nq_synthetic")
+    loaded = os.path.join(model_dir, "config.py")
+    work.run("unquantized -l --num_examples 1", main_decoder,
+             ["-l", "--num_examples", "1", "-c", loaded])
+    work.run("unquantized -l -r", main_decoder, ["-l", "-r", "-c", loaded],
+             raises=(ValueError, "feature axis"))
+    cli_counts = counts()
+    rows = _check_model_dir(model_dir, 1)
+    _p15_generations(model_dir, 6)
+
+    # full width, the trained encoder, fresh decoder weights from seed 0
+    encoder, encoder_cfg = main_decoder.load_encoder_stack(config)
+    data = getters.get_dataloader_generator(
+        config["dataset"], config["training_method"],
+        config["dataloader_generator_kwargs"], config)
+    torch.manual_seed(0)
+    decoder = getters.get_decoder(
+        data, getters.get_data_processor(data, config["data_processor_type"],
+                                         config["data_processor_kwargs"]),
+        encoder, encoder_cfg, config["decoder_type"], config["decoder_kwargs"])
+    if decoder.source_embeddings.in_features != 32:
+        raise AssertionError(f"the source Linear {decoder.source_embeddings}")
+    vocab = data.dataset.vocabulary
+    rows_x, loader = [], data.dataloaders(batch_size=TRAIN_BATCH)[0]
+    while sum(len(x) for x in rows_x) < BATCH:
+        for batch in loader:
+            rows_x.append(torch.as_tensor(batch["x"], device="cuda"))
+        loader = data.dataloaders(batch_size=TRAIN_BATCH)[0]
+    batches = rows_x[:4]
+    templates = torch.cat(rows_x)[:BATCH]
+    serving = _p15_serving("unquantized", encoder, decoder, templates, vocab,
+                           k1=False)
+    z = serving.pop("source")
+    spread = (z.std(1).mean() / z.std()).item()
+    if z.dtype != torch.float32 or z.shape != (BATCH, NUM_CODES, 32):
+        raise AssertionError(f"z {z.shape} {z.dtype}")
+    log(f"# [unquantized] {card}: z (B, 24, 32) f32 from the trained encoder, its "
+        f"spread across positions {spread:.4f} of its size; the CLI's epoch "
+        f"{rows[0]['tokens_per_sec/train']:.1f} tokens/s ({P15_CLI_BATCHES} "
+        f"batches at 64)")
+    trainer = DecoderTrainer(encoder, decoder, CODEBOOK_SIZE, seed=0)
+    trainer.init_state(lr=1e-4)               # the config's lr, no schedule
+    for x in batches[:2]:                     # warm-up: cuBLAS plans, caches
+        trainer.train_step(x)
+    torch.cuda.synchronize()
+    training = _p15_training("unquantized", "unquantized", trainer, batches,
+                             TRAIN_STEPS, True)
+    return dict(cli_launches=cli_counts, serving=serving, training=training,
+                spread=spread, cli_tokens_per_s=rows[0]["tokens_per_sec/train"])
+
+
+def _p15_grouped(gen, card: str, ungrouped: dict) -> dict:
+    """(b) at n_head_kv 4: the flagship's serving beside phase 7's and its
+    KV-cache bytes beside the ungrouped decoder's, 30 train steps beside
+    phase 8's, the expansion's cost, the routes; the absolute decoder's 5
+    steps (K6) and one prefill at batch 64 (K4), each held against the
+    plain route; the prior's 30 steps, routes, sampling beside phase 12 (c)
+    and greedy codes against the teacher-forced argmax."""
+    vocab = synthetic_vocabulary()
+    out = {}
+    encoder, decoder = build_models(vocab, n_head_kv=GQA_KV_HEADS)
+    templates = random_templates(vocab, gen, BATCH, NUM_EVENTS)
+    encoder = encoder.cuda()
+    init_codebook(encoder, templates, gen)
+    out["serving"] = _p15_serving("gqa flagship", encoder, decoder.cuda(), templates,
+                                  vocab, k1=True)
+    codes = out["serving"].pop("source")
+    _, ungrouped_decoder = build_models(vocab)
+    with torch.no_grad():
+        caches, _ = ungrouped_decoder.cuda().eval().prefill(
+            codes, torch.zeros((BATCH, NUM_EVENTS, 4), dtype=torch.int32,
+                               device="cuda"), torch.int8)
+    out["ungrouped_cache_bytes"] = _cache_bytes(caches)
+    del caches, ungrouped_decoder, encoder, decoder
+    log(f"# [gqa] {card}: serving {out['serving']['tokens_per_s']:.1f} tokens/s "
+        f"grouped vs {ungrouped['serving_tokens_per_s']:.1f} ungrouped (phase 7, this "
+        f"call); prefill {out['serving']['prefill_ms']:.3f} vs "
+        f"{ungrouped['serving_prefill_ms']:.3f} ms; int8 KV caches at batch {BATCH}: "
+        f"{out['serving']['cache_bytes']} bytes grouped vs "
+        f"{out['ungrouped_cache_bytes']} ungrouped "
+        f"({out['serving']['cache_bytes'] / out['ungrouped_cache_bytes']:.4f}x)")
+    trainer, batches = _trainer(gen, "flagship", n_head_kv=GQA_KV_HEADS)
+    out["training"] = _p15_training("gqa flagship", "gqa_flagship", trainer, batches,
+                                    TRAIN_STEPS, True)
+    # the ungrouped flagship beside it, in turns: median ms/step and the
+    # device time of a step
+    twin, twin_batches = _trainer(gen, "flagship")
+    set_dropout(trainer.decoder, TRAIN_DROPOUT)       # the routes set it to 0
+    step = iter(range(10 ** 6))
+    ab = _alternate({
+        "ungrouped": lambda: twin.train_step(twin_batches[next(step) % 4]),
+        "grouped": lambda: trainer.train_step(batches[next(step) % 4])}, AB_REPS)
+    dev = {"ungrouped": device_ms(lambda: twin.train_step(twin_batches[0]), 3),
+           "grouped": device_ms(lambda: trainer.train_step(batches[0]), 3)}
+    out["training_ab"] = dict(ms={k: v * 1e3 for k, v in ab.items()}, device_ms=dev)
+    log(f"# [gqa] {card}: flagship train step {out['training']['step_ms']:.3f} ms "
+        f"grouped vs {ungrouped['train_ms']:.3f} ungrouped (phase 8, this call); in "
+        f"turns here (A, B, B, A x {AB_ROUNDS}, {AB_REPS} steps a chunk): median "
+        f"{ab['grouped'] * 1e3:.3f} grouped vs {ab['ungrouped'] * 1e3:.3f} "
+        f"ungrouped ms/step ({(ab['grouped'] / ab['ungrouped'] - 1) * 100:+.1f}%); "
+        f"device time a step {dev['grouped']:.3f} vs {dev['ungrouped']:.3f} ms "
+        f"({(dev['grouped'] / dev['ungrouped'] - 1) * 100:+.1f}%)")
+    out["expansion"] = _expansion_ms(trainer, batches[0], dev["grouped"])
+    del trainer, batches, twin, twin_batches
+    torch.cuda.empty_cache()
+
+    # the absolute decoder: 5 steps (K6), one prefill at batch 64 (K4)
+    trainer, batches = _trainer(gen, "absolute", n_head_kv=GQA_KV_HEADS)
+    out["absolute"] = _p15_training("gqa absolute", "gqa_absolute", trainer,
+                                    batches, GQA_ABSOLUTE_STEPS, False)
+    dec = trainer.decoder.eval()
+    x = torch.cat(batches)[:GQA_PREFILL_BATCH]
+    codes = trainer.encode_codes(x)
+    reset_counts()
+    with torch.no_grad():
+        (caches, _), prefill_s = synced_seconds(lambda: dec.prefill(codes, x,
+                                                                    torch.int8))
+    out["absolute_prefill_launches"] = counts()
+    want = {k: 9 if k == "fused_attention" else 0
+            for k in out["absolute_prefill_launches"]}
+    if (out["absolute_prefill_launches"] != want
+            or caches[0][0][0].shape[1] != GQA_KV_HEADS):
+        raise AssertionError(f"grouped absolute prefill launched "
+                             f"{out['absolute_prefill_launches']}")
+    with torch.no_grad():
+        kernel = dec(codes[:8], x[:8])["weights_per_category"]
+        plain = copy.deepcopy(dec).cpu()(codes[:8].cpu(), x[:8].cpu())[
+            "weights_per_category"]
+    scale = max(lg.abs().max().item() for lg in plain)
+    err = max((k.cpu() - p).abs().max().item() for k, p in zip(kernel, plain))
+    out["absolute"].update(prefill_ms=prefill_s * 1e3, logits_err=err)
+    log(f"# [gqa absolute] {card}: prefill at batch {GQA_PREFILL_BATCH} "
+        f"{prefill_s * 1e3:.3f} ms, K4 9 launches, caches of {GQA_KV_HEADS} heads; "
+        f"logits at batch 8 (K4), kernel route vs CPU f32 plain route: max abs err "
+        f"{err:.4e}, max |logit| {scale:.3f} (tolerance {LOGITS_RTOL} * max |logit|)")
+    if not err <= LOGITS_RTOL * scale:
+        raise AssertionError(f"grouped absolute logits differ by {err}")
+    del trainer, batches, dec, caches
+    torch.cuda.empty_cache()
+
+    # the prior
+    trainer, batches = prior_at_full_width(gen, n_head_kv=GQA_KV_HEADS)
+    warm = [trainer.train_step(batches[i % 4]) for i in range(PRIOR_WARMUP)]
+    torch.cuda.synchronize()
+    warm = [{k: v.item() for k, v in m.items()} for m in warm]
+    out["prior_launches"], step_s, synced = student_steps(
+        trainer, batches, PRIOR_SYNCED, "gqa_prior")
+    losses = [m["loss"] for m in warm + synced]
+    prior_ms = float(np.median(step_s)) * 1e3
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"the grouped prior's loss did not fall: {losses}")
+    prior = trainer.prior
+    set_dropout(prior, 0.0)
+    codes = trainer.encode_codes(batches[0][:PRIOR_ROUTE_BATCH])
+    kernel = prior_loss_and_grads(prior, codes)
+    plain = prior_loss_and_grads(copy.deepcopy(prior).cpu(), codes.cpu())
+    loss_err, worst_cos, _ = compare_routes(
+        f"[gqa prior] batch {PRIOR_ROUTE_BATCH}, dropout 0, kernel route vs CPU f32 "
+        "plain route", kernel, plain)
+    prior.eval()
+    reset_counts()
+    sampled, sample_s = synced_seconds(lambda: trainer.generate_codes(
+        PRIOR_SAMPLE_CODES, num_generated_codes=PRIOR_SAMPLE_BATCH))
+    out["prior_sampling_launches"] = counts()
+    windows = 1 + (PRIOR_SAMPLE_CODES - PRIOR_CODES) // (PRIOR_CODES // 2)
+    want = {k: 6 * (windows - 1) if k == "relbias_attention_fwd" else 0
+            for k in out["prior_sampling_launches"]}
+    if out["prior_sampling_launches"] != want or not (
+            (sampled >= 0) & (sampled < CODEBOOK_SIZE)).all():
+        raise AssertionError(f"grouped generate_codes launched "
+                             f"{out['prior_sampling_launches']}")
+    codes_per_s = PRIOR_SAMPLE_BATCH * PRIOR_SAMPLE_CODES / sample_s
+    os.environ["VQCPCB_KV_DTYPE"] = "float32"
+    try:
+        greedy = prior.sample_window(
+            torch.zeros((PRIOR_SAMPLE_BATCH, PRIOR_CODES), dtype=torch.long,
+                        device="cuda"), 0, PRIOR_CODES, trainer.generator, top_k=1)
+    finally:
+        del os.environ["VQCPCB_KV_DTYPE"]
+    with torch.no_grad():
+        agreement = (prior.logits(greedy).argmax(-1) == greedy).float().mean().item()
+    # the ungrouped prior beside it, in turns: train steps and sampling
+    twin, twin_batches = prior_at_full_width(gen)
+    for i in range(PRIOR_WARMUP):
+        twin.train_step(twin_batches[i % 4])
+    set_dropout(prior, prior_config(os.path.dirname(os.path.abspath(__file__)))[
+        "prior_kwargs"]["dropout"])                   # the routes set it to 0
+    step = iter(range(10 ** 6))
+    ab_train = _alternate({
+        "ungrouped": lambda: twin.train_step(twin_batches[next(step) % 4]),
+        "grouped": lambda: trainer.train_step(batches[next(step) % 4])}, AB_REPS)
+    ab_sample = _alternate({
+        name: (lambda t=t: t.generate_codes(PRIOR_SAMPLE_CODES,
+                                            num_generated_codes=PRIOR_SAMPLE_BATCH))
+        for name, t in (("ungrouped", twin), ("grouped", trainer))}, 1)
+    ab_codes = {k: PRIOR_SAMPLE_BATCH * PRIOR_SAMPLE_CODES / v
+                for k, v in ab_sample.items()}
+    log(f"# [gqa prior] {card}: in turns (A, B, B, A x {AB_ROUNDS}): train step "
+        f"median {ab_train['grouped'] * 1e3:.3f} grouped vs "
+        f"{ab_train['ungrouped'] * 1e3:.3f} ungrouped ms "
+        f"({(ab_train['grouped'] / ab_train['ungrouped'] - 1) * 100:+.1f}%); "
+        f"generate_codes {PRIOR_SAMPLE_BATCH} x {PRIOR_SAMPLE_CODES} "
+        f"{ab_codes['grouped']:.1f} grouped vs {ab_codes['ungrouped']:.1f} ungrouped "
+        f"codes/s ({(ab_codes['grouped'] / ab_codes['ungrouped'] - 1) * 100:+.1f}%)")
+    out["prior"] = dict(step_ms=prior_ms, codes_per_s=codes_per_s, loss_err=loss_err,
+                        worst_cos=worst_cos, greedy_agreement=agreement,
+                        tokens_per_s=PRIOR_BATCH * NUM_EVENTS * 4 / (prior_ms / 1e3),
+                        ab_step_ms={k: v * 1e3 for k, v in ab_train.items()},
+                        ab_codes_per_s=ab_codes)
+    del twin, twin_batches
+    log(f"# [gqa prior] {card}: {prior_ms:.3f} ms/step grouped vs "
+        f"{ungrouped['prior_train_ms']:.3f} ungrouped (phase 12, this call), "
+        f"{out['prior']['tokens_per_s']:.1f} tokens/s; loss "
+        f"{np.mean(losses[:5]):.4f} -> {np.mean(losses[-5:]):.4f}; generate_codes "
+        f"{PRIOR_SAMPLE_BATCH} x {PRIOR_SAMPLE_CODES} codes {sample_s:.4f} s, "
+        f"{codes_per_s:.1f} codes/s grouped vs {ungrouped['prior_codes_per_s']:.1f} "
+        f"ungrouped (phase 12 (c), this call); greedy f32-cache codes vs "
+        f"teacher-forced argmax {agreement * 100:.3f}% agree (need >= 99%)")
+    if agreement < 0.99:
+        raise AssertionError(f"grouped prior greedy agreement {agreement}")
+    del trainer, prior, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p15_grouped_cli(work: _P15Work, encoder_config: str) -> dict:
+    """(b) the CLIs on grouped copies, counted from zero launches: the
+    flagship decoder (configs/decoder_synthetic.py at n_head_kv 4) -t over
+    `encoder_config` and -l --num_examples 1, the prior
+    (configs/prior_config.py at n_head_kv 4) -t and -l -g through that
+    decoder; then the checks."""
+    from vqcpcb_tpu_torch import main_decoder, main_prior
+    config = work.config("decoder_synthetic.py", config_encoder=encoder_config)
+    config["decoder_kwargs"] = dict(config["decoder_kwargs"], n_head_kv=GQA_KV_HEADS)
+    reset_counts()
+    work.run("gqa decoder -t", main_decoder,
+             ["-t", "-c", work.write("decoder_gqa_synthetic", config),
+              "--num_epochs", "1", "--num_batches", str(P15_CLI_BATCHES)])
+    decoder_dir = work.model_dir("decoder_gqa_synthetic")
+    decoder_config = os.path.join(decoder_dir, "config.py")
+    work.run("gqa decoder -l --num_examples 1", main_decoder,
+             ["-l", "--num_examples", "1", "-c", decoder_config])
+    prior = dict(prior_config(work.root), config_encoder=encoder_config,
+                 config_decoder=decoder_config, num_epochs=1,
+                 num_batches=P15_CLI_BATCHES)
+    prior["prior_kwargs"] = dict(prior["prior_kwargs"], n_head_kv=GQA_KV_HEADS)
+    work.run("gqa prior -t", main_prior,
+             ["-t", "-c", work.write("prior_gqa_synthetic", prior)])
+    prior_dir = work.model_dir("prior_gqa_synthetic")
+    work.run("gqa prior -l -g", main_prior,
+             ["-l", "-g", "-c", os.path.join(prior_dir, "config.py")])
+    cli_counts = counts()
+    rows = {"gqa decoder": _check_model_dir(decoder_dir, 1),
+            "gqa prior": _check_model_dir(prior_dir, 1)}
+    _p15_generations(decoder_dir, 6)
+    _p15_generations(prior_dir, 1)
+    return dict(cli_launches=cli_counts, prior=prior,
+                tokens_per_s={k: r[0]["tokens_per_sec/train"] for k, r in rows.items()})
+
+
+def _p15_hooks(work: _P15Work, card: str, prior: dict) -> dict:
+    """(c) the unquantized decoder -t with VQCPCB_PROFILE_DIR (a non-empty
+    Chrome trace of the train epoch that names a port kernel) and the grouped
+    prior -t with VQCPCB_DEBUG_NANS=1 (exit 0), counted from zero
+    launches."""
+    import glob
+    from vqcpcb_tpu_torch import main_decoder, main_prior
+    reset_counts()
+    for attempt in range(1, PROFILER_TRIES + 1):
+        traces = os.path.join(work.path, f"traces_{attempt}")
+        work.run("unquantized -t (VQCPCB_PROFILE_DIR)", main_decoder,
+                 ["-t", "-c", os.path.join(work.path, "configs", "decoder_nq_hooks.py"),
+                  "--num_epochs", "1", "--num_batches", str(P15_HOOK_BATCHES)],
+                 env={"VQCPCB_PROFILE_DIR": traces})
+        files = glob.glob(os.path.join(traces, "epoch_0_train.*.pt.trace.json"))
+        if len(files) != 1 or not os.path.getsize(files[0]):
+            raise AssertionError(f"VQCPCB_PROFILE_DIR: trace files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        # a trace without a single device kernel is the profiler's empty
+        # session (see PROFILER_TRIES), not a port fault: the call runs again
+        if any(e.get("cat") == "kernel" for e in events):
+            break
+        log(f"# [p15 hooks] trace {attempt} of {PROFILER_TRIES} holds no device "
+            "kernel event")
+    else:
+        raise AssertionError(f"{PROFILER_TRIES} VQCPCB_PROFILE_DIR traces hold no "
+                             "device kernel event")
+    work.run("gqa prior -t (VQCPCB_DEBUG_NANS=1)", main_prior,
+             ["-t", "-c", work.write("prior_gqa_debug_nans",
+                                     dict(prior, num_batches=P15_HOOK_BATCHES))],
+             env={"VQCPCB_DEBUG_NANS": "1"})
+    cli_counts = counts()
+    names = {str(e.get("name")) for e in events}
+    functions = _traced_functions(names)
+    named = sorted(set(TRACED_PORT_KERNELS) & functions)
+    log(f"# [p15 hooks] {card}: the VQCPCB_PROFILE_DIR trace "
+        f"{os.path.basename(files[0])}: {os.path.getsize(files[0])} bytes, "
+        f"{len(names)} event names, port kernels named {named}; the "
+        f"VQCPCB_DEBUG_NANS=1 call exited 0 in "
+        f"{work.calls['gqa prior -t (VQCPCB_DEBUG_NANS=1)']:.2f} s")
+    missing = sorted(set(TRACED_PORT_KERNELS) - functions)
+    if missing:
+        raise AssertionError(
+            f"the profiler's trace names no {missing}; its kernel-like names: "
+            f"{sorted(f for f in functions if 'kernel' in f)}")
+    return dict(cli_launches=cli_counts, trace_kernels=named,
+                trace_bytes=os.path.getsize(files[0]))
+
+
+def phase_unquantized_and_grouped(gen: torch.Generator, card: str,
+                                  encoder_config: str, ungrouped: dict) -> dict:
+    """(a) the unquantized flagship (_p15_unquantized), (b) grouped-query
+    attention (_p15_grouped, _p15_grouped_cli over `encoder_config`, phase
+    11's trained encoder), (c) the hooks (_p15_hooks); `ungrouped` holds
+    phases 7, 8 and 12's numbers of this call, logged beside (b)'s. Returns
+    the counted main paths' launches by path."""
+    t0 = time.perf_counter()
+    work = _P15Work()
+    nq = _p15_unquantized(gen, card, work)
+    gqa = _p15_grouped(gen, card, ungrouped)
+    gqa_cli = _p15_grouped_cli(work, encoder_config)
+    hooks = _p15_hooks(work, card, gqa_cli["prior"])
+    launches = {"p15_unquantized_cli": nq["cli_launches"],
+                "p15_unquantized_serving": nq["serving"].pop("launches"),
+                "p15_unquantized_training": nq["training"].pop("launches"),
+                "p15_gqa_serving": gqa["serving"].pop("launches"),
+                "p15_gqa_training": gqa["training"].pop("launches"),
+                "p15_gqa_absolute_training": gqa["absolute"].pop("launches"),
+                "p15_gqa_absolute_prefill": gqa["absolute_prefill_launches"],
+                "p15_gqa_prior_training": gqa["prior_launches"],
+                "p15_gqa_prior_sampling": gqa["prior_sampling_launches"],
+                "p15_gqa_cli": gqa_cli["cli_launches"],
+                "p15_hooks_cli": hooks["cli_launches"]}
+    for result in (nq["training"], gqa["training"], gqa["absolute"]):
+        result.pop("losses", None)
+    log(f"# [p15] {card}: " + json.dumps(dict(
+        unquantized=dict(serving=nq["serving"], training=nq["training"],
+                         z_spread=nq["spread"],
+                         cli_tokens_per_s=nq["cli_tokens_per_s"]),
+        gqa=dict(serving=gqa["serving"], ungrouped_cache_bytes=gqa[
+            "ungrouped_cache_bytes"], training=gqa["training"],
+                 training_ab=gqa["training_ab"], expansion=gqa["expansion"],
+                 absolute=gqa["absolute"], prior=gqa["prior"],
+                 cli_tokens_per_s=gqa_cli["tokens_per_s"]),
+        ungrouped=ungrouped, hooks=dict(trace_kernels=hooks["trace_kernels"],
+                                        trace_bytes=hooks["trace_bytes"]),
+        cli_s=work.calls, phase_s=time.perf_counter() - t0)))
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -3024,8 +3759,10 @@ def main() -> int:
     fused = phase_fused(gen)
     profile = "--profile" in sys.argv[1:]
     by_path = {}
-    by_path["serving"] = phase_serving(gen, profile, "flagship")["launches"]
-    by_path["decoder_training"] = phase_decoder_training(gen, profile, "flagship")["launches"]
+    serving = phase_serving(gen, profile, "flagship")
+    by_path["serving"] = serving["launches"]
+    training = phase_decoder_training(gen, profile, "flagship")
+    by_path["decoder_training"] = training["launches"]
     by_path["absolute_serving"] = phase_serving(gen, profile, "absolute")["launches"]
     by_path["absolute_training"] = phase_decoder_training(gen, profile, "absolute")["launches"]
     by_path["explicit_bias"] = phase_explicit_bias(gen)["launches"]
@@ -3034,11 +3771,18 @@ def main() -> int:
     by_path["student_training"] = student["launches"]
     by_path["student_absolute_training"] = student["absolute_launches"]
     by_path["transfo_encoder_training"] = student["transfo_launches"]
-    by_path["entry_points"] = phase_entry_points(card)["launches"]
+    entry_points = phase_entry_points(card)
+    by_path["entry_points"] = entry_points["launches"]
     prior = phase_prior(gen, profile, card)
     by_path["prior_training"] = prior["launches"]
     by_path["prior_sampling"] = prior["sampling_launches"]
     by_path["scaleup_midi"] = phase_scaleup_midi(card)["launches"]
+    by_path.update(phase_unquantized_and_grouped(
+        gen, card, entry_points["encoder_config"],
+        dict(serving_tokens_per_s=serving["tokens_per_s"],
+             serving_prefill_ms=serving["prefill_ms"],
+             train_ms=training["step_ms"], prior_train_ms=prior["step_ms"],
+             prior_codes_per_s=prior["sample_codes_per_s"]))["launches"])
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
     # every main path's K1 launches run a compiled instance
@@ -3140,6 +3884,8 @@ def main() -> int:
     # the error is read under two names by readers of this line; one number
     for k in kernels:
         k["max_err"] = k["max_abs_err"]
+    log(f"# device_ms: {len(DEVICE_TIME_FALLBACKS)} of its measurements timed "
+        "with CUDA events after empty profiler sessions")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -795,3 +795,86 @@ def test_remat_gradients_on_card_equal_bit_for_bit(gen, monkeypatch):
     assert torch.equal(loss, rloss)
     assert all(torch.equal(a, b) for a, b in zip(grads, rgrads))
     assert all(torch.equal(a, b) for a, b in zip(states, rstates))
+
+
+def _cosine(a, b):
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relative", [True, False], ids=["relative", "absolute"])
+@pytest.mark.parametrize("kv_heads", [1, 4])
+def test_grouped_mha_kernel_routes_on_card(gen, f32_matmuls, relative, kv_heads):
+    """A grouped MHA (8 heads, n_head_kv 1 or 4, d_model 512, causal 384 x
+    384) on the card, k and v expanded before the kernels, against the same
+    module on the CPU (the plain route): in eval, K3-fwd (bf16 dots; 2e-2
+    of the largest output) or K4 (f32 dots; 1e-4), one launch; in train
+    mode at dropout 0, K2 or K6 forward and backward once each, the output
+    within 2e-2 and every parameter's gradient within cosine 0.99."""
+    import copy
+    from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
+    torch.manual_seed(0)
+    m = MultiheadAttention(512, 8, "relative_attention" if relative else None,
+                           1, 384, 1, 384, num_kv_heads=kv_heads)
+    cpu = copy.deepcopy(m)
+    m = m.cuda()
+    x = torch.randn((4, 384, 512), generator=gen, device="cuda")
+    mask = causal_mask(384, device="cuda")
+    counters = (("launches", "bwd_launches") if relative
+                else ("train_fwd_launches", "train_bwd_nobias_launches"))
+    module = ak if relative else fk
+    with torch.no_grad():
+        before = ak.launches, fk.launches
+        got, _ = m.eval()(x, x, attn_mask=mask)
+        assert (ak.launches - before[0], fk.launches - before[1]) == (
+            (1, 0) if relative else (0, 1))
+        want, _ = cpu.eval()(x.cpu(), x.cpu(), attn_mask=mask.cpu())
+    tol = 2e-2 if relative else 1e-4
+    assert (got.cpu() - want).abs().max() <= tol * want.abs().max()
+    outs = []
+    for mod, inp, msk in ((m, x, mask), (cpu, x.cpu(), mask.cpu())):
+        mod.train()
+        before = [getattr(module, c) for c in counters]
+        out, _ = mod(inp, inp, attn_mask=msk)
+        out.square().mean().backward()
+        if mod is m:
+            assert [getattr(module, c) - b for c, b in zip(counters, before)] == [1, 1]
+        outs.append((out.detach().cpu(), {n: p.grad.cpu() for n, p in mod.named_parameters()}))
+    (got, got_grads), (want, want_grads) = outs
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    for name, g in want_grads.items():
+        if relative and name.endswith(".e2"):
+            continue                     # causal: e2 gets no gradient
+        assert _cosine(got_grads[name], g) >= 0.99, name
+
+
+@pytest.mark.cuda
+def test_grouped_decoder_on_card_matches_teacher_forcing(gen, monkeypatch):
+    """A small grouped flagship decoder (d_model 64, 4 heads, n_head_kv 2)
+    on the card: one prefill launches K3-fwd once per relative layer and
+    fills (B, 2, T, hd) caches; greedy f32-cache tokens equal the argmax of
+    the teacher-forced logits at 99% or more of the positions."""
+    from vqcpcb_tpu_torch.models.data_processor import BachDataProcessor
+    from vqcpcb_tpu_torch.models.decoder import Decoder
+    monkeypatch.setenv("VQCPCB_KV_DTYPE", "float32")
+    torch.manual_seed(0)
+    vocabs = [7, 9, 6, 8]
+    dec = Decoder(BachDataProcessor(16, 16, vocabs), "anticausal", d_model=64,
+                  num_encoder_layers=2, num_decoder_layers=2, n_head=4,
+                  dim_feedforward=96, positional_embedding_size=4,
+                  num_channels_encoder=1, num_events_encoder=4,
+                  num_channels_decoder=4, num_events_decoder=16,
+                  total_upscaling=16, source_vocab_size=8,
+                  n_head_kv=2).cuda().eval()
+    codes = torch.randint(0, 8, (64, 4), generator=gen, device="cuda")
+    tokens = torch.zeros((64, 16, 4), dtype=torch.int32, device="cuda")
+    before = ak.launches
+    with torch.no_grad():
+        caches, _ = dec.prefill(codes, tokens)
+    assert ak.launches - before == 4
+    assert caches[0][0].shape == (64, 2, 64, 16)
+    greedy = dec.sample_range(codes, tokens, 0, 64, gen, top_k=1)
+    with torch.no_grad():
+        logits = dec(codes, greedy)["weights_per_category"]
+    forced = torch.stack([lg.argmax(-1) for lg in logits], -1)
+    assert (forced == greedy.long()).float().mean().item() >= 0.99

@@ -12,7 +12,10 @@ encoder CLIs derive them) and the relative-transformer downscalers (the
 *transfo* configs' downscalers on encoder_smoke.py's geometry) take the
 converted JAX params in strict loads and give JAX's outputs (1e-5); and
 the prior of configs/prior_config.py takes the JAX prior's parameter
-shapes; and what the port does not have yet raises NotImplementedError
+shapes; the decoder over configs/encoder_random_no_quantization_config.py's
+encoder (a source Linear from its z width) and the grouped (n_head_kv)
+flagship decoder and prior take the JAX modules' parameter shapes at full
+width; and what the port does not have yet raises NotImplementedError
 naming its ROADMAP item."""
 import functools
 import os
@@ -27,6 +30,7 @@ from vqcpcb_tpu import getters as jax_getters
 from vqcpcb_tpu.training.student_trainer import mask_batch as jax_mask_batch
 from vqcpcb_tpu_torch import convert, getters, main_encoder
 from vqcpcb_tpu_torch.models.encoder import merge_codes
+from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
 from vqcpcb_tpu_torch.utils import load_config_module
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -336,6 +340,96 @@ def test_prior_from_getters_matches_jax_at_full_width(tmp_path):
     assert prior.transformer.layers[0].self_attn.attn_bias.e1.shape == (8 * 24, 64)
 
 
+# ---- the unquantized decoder and grouped-query attention at full width ------------
+
+def _synthetic(name: str) -> dict:
+    """configs/{name} on the synthetic corpus of configs/decoder_synthetic.py
+    (the 'bach' corpus waits on M6 (h) part 2)."""
+    config = load_config_module(os.path.join(REPO, "configs", name))
+    config.update(dataset="synthetic", corpus_kwargs=load_config_module(
+        os.path.join(REPO, "configs", "decoder_synthetic.py"))["corpus_kwargs"])
+    return config
+
+
+def _full_width_decoders(tmp, decoder_config: str, encoder_config: str,
+                         n_head_kv=None):
+    """(the JAX decoder, the port's, the encoder's z width) of a decoder
+    config over an encoder config, both from their getters."""
+    config = _synthetic(decoder_config)
+    enc_config = _synthetic(encoder_config)
+    config["decoder_kwargs"] = dict(config["decoder_kwargs"], n_head_kv=n_head_kv)
+    jgen, gen = _loaders(config, "decoder", tmp)
+    jenc_gen, enc_gen = _loaders(enc_config, "vqcpc", tmp)
+    args = (config["decoder_type"], config["decoder_kwargs"])
+    jdec = jax_getters.get_decoder(
+        jgen, jax_getters.get_data_processor(jgen, "bach", config["data_processor_kwargs"]),
+        jax_getters.get_encoder(jenc_gen, enc_config), enc_config, *args)
+    encoder = getters.get_encoder(enc_gen, enc_config)
+    dec = getters.get_decoder(
+        gen, getters.get_data_processor(gen, "bach", config["data_processor_kwargs"]),
+        encoder, enc_config, *args)
+    return jdec, dec, getters.z_width(encoder, enc_config)
+
+
+def _zero_params(init, *args):
+    shapes = jax.eval_shape(init, RNGS, *args)["params"]
+    return jax.tree_util.tree_map(lambda leaf: np.zeros(leaf.shape, np.float32),
+                                  shapes)
+
+
+@pytest.mark.parametrize("n_head_kv", [None, 4], ids=["mha", "gqa"])
+def test_unquantized_decoder_from_getters_at_full_width(tmp_path, n_head_kv):
+    """configs/decoder_relative_AC_D_C_random_noQuantization.py over
+    configs/encoder_random_no_quantization_config.py's encoder: the source
+    is a Linear from the encoder's z width, 32 (the MLP upscaler's
+    output_dim, not JAX's source_dim of 3, which flax never reads), and the
+    JAX decoder's parameter shapes (jax.eval_shape over z) load with
+    strict=True; with n_head_kv 4, grouped, as its own case."""
+    jdec, dec, width = _full_width_decoders(
+        tmp_path, "decoder_relative_AC_D_C_random_noQuantization.py",
+        "encoder_random_no_quantization_config.py", n_head_kv)
+    assert width == 32 and jdec.source_vocab_size == 0 and jdec.source_dim == 3
+    assert isinstance(dec.source_embeddings, torch.nn.Linear)
+    assert (dec.source_embeddings.in_features,
+            dec.source_embeddings.out_features) == (32, 512)
+    params = _zero_params(jdec.init, jnp.zeros((2, 24, width)),
+                          jnp.zeros((2, 96, 4), jnp.int32))
+    dec.load_state_dict(convert.decoder_state_dict(params), strict=True)
+    assert dec.transformer["encoder"].layers[0].self_attn.num_kv_heads == (
+        n_head_kv or 8)
+
+
+def test_grouped_decoder_and_prior_from_getters_at_full_width(tmp_path):
+    """configs/decoder_relative_AC_D_C_random.py and configs/prior_config.py
+    with n_head_kv 4 of 8 heads (scripts/measure_gqa_quality.py's n_head / 2
+    arm): every attention grouped (kv_proj (2 * 4 * 64, 512), no in_proj),
+    and the JAX modules' parameter shapes load with strict=True."""
+    jdec, dec, _ = _full_width_decoders(
+        tmp_path, "decoder_relative_AC_D_C_random.py",
+        "encoder_random_synthetic.py", n_head_kv=4)
+    params = _zero_params(jdec.init, jnp.zeros((2, 24), jnp.int32),
+                          jnp.zeros((2, 96, 4), jnp.int32))
+    dec.load_state_dict(convert.decoder_state_dict(params), strict=True)
+    config = dict(_synthetic("prior_config.py"),
+                  config_encoder="configs/encoder_random_synthetic.py")
+    config["prior_kwargs"] = dict(config["prior_kwargs"], n_head_kv=4)
+    enc_config = _synthetic("encoder_random_synthetic.py")
+    jgen, gen = _loaders(config, "prior", tmp_path)
+    jenc_gen, enc_gen = _loaders(enc_config, "vqcpc", tmp_path)
+    args = ("transformer_relative", config["prior_kwargs"])
+    jprior = jax_getters.get_prior(
+        jgen, jax_getters.get_encoder(jenc_gen, enc_config), enc_config, *args)
+    prior = getters.get_prior(gen, getters.get_encoder(enc_gen, enc_config),
+                              enc_config, *args)
+    prior.load_state_dict(convert.prior_state_dict(
+        _zero_params(jprior.init, jnp.zeros((2, 24), jnp.int32))), strict=True)
+    for module in (dec, prior):
+        attns = [m for m in module.modules() if isinstance(m, MultiheadAttention)]
+        assert attns and all(m.num_kv_heads == 4 and m.kv_proj.weight.shape
+                             == (512, 512) and not hasattr(m, "in_proj_weight")
+                             for m in attns)
+
+
 # ---- what waits ------------------------------------------------------------------
 
 def _bach_config():
@@ -345,9 +439,7 @@ def _bach_config():
 @pytest.mark.parametrize("call,item", [
     (lambda: getters.get_dataloader_generator(
         "bach", "vqcpc", {}, _bach_config()), "M6 (h)"),
-    (lambda: getters.get_prior(None, None, {}, "transformer_relative",
-                               {"n_head_kv": 2}), "M6 (e)"),
-], ids=["bach", "prior"])
+], ids=["bach"])
 def test_what_waits_raises_naming_its_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):

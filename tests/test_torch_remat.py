@@ -1,7 +1,8 @@
 """VQCPCB_REMAT=1 in the port (ops/transformer.py remat_layer): each layer of
 a transformer stack in train mode is recomputed in the backward. At dropout
 > 0 the losses and gradients equal those without it bit for bit on the CPU
--- the encoder stack, both decoder stacks, and two steps of each trainer
+-- the encoder stack, both decoder stacks (the attention one also with
+grouped-query attention), and two steps of each trainer
 (VQ-CPC with the transformer downscaler, decoder, prior, student) -- the
 explicit generators end where they end without it, and the dropout masks
 still change from step to step. A recompute that drew fresh seeds or masks
@@ -70,7 +71,8 @@ def _stack(kind):
     kwargs = dict(d_model=D, n_head=HEADS, attention_bias_type_self="relative_attention",
                   num_channels_encoder=1, num_events_encoder=4,
                   num_channels_decoder=4, num_events_decoder=16,
-                  dim_feedforward=FF, dropout=DROPOUT)
+                  dim_feedforward=FF, dropout=DROPOUT,
+                  n_head_kv=1 if kind.startswith("grouped") else None)
     if not aligned:
         kwargs["attention_bias_type_cross"] = "relative_attention_target_source"
     stack = transformer.TransformerDecoder(2, aligned=aligned, **kwargs)
@@ -96,7 +98,8 @@ def _two_steps(stack, inputs, run):
 
 
 @pytest.mark.parametrize("kind", ["encoder", "encoder in a bf16 scope",
-                                  "aligned decoder", "attention decoder"])
+                                  "aligned decoder", "attention decoder",
+                                  "grouped attention decoder"])
 def test_stack_gradients_bit_equal_with_remat(kind, monkeypatch, remat_calls):
     stack, inputs, run = _stack(kind)
     monkeypatch.delenv("VQCPCB_REMAT", raising=False)

@@ -8,16 +8,19 @@ jax.device_get returns them); the results load with strict=True.
 
 Layouts handled: flax Dense kernels are (in, out), torch Linear weights
 (out, in); the attention in_proj kernel is (E, 3, H, hd) and becomes the
-(3E, E) in_proj_weight; rel_e1 / rel_e2 are (H, S, hd) and become (H*S, hd);
-the fused BiGRU stacks its two directions on axis 0 of (2, in, 3h) and
-becomes g_enc_fwd / g_enc_bwd; codebooks are (K, S, d) and become
-embeddings.{k}; sos and the positional embeddings (relative: target
-channel and event features; absolute: source and target positions) are raw
-params; an attention decoder layer's cross-attention is multihead_attn; a
-flax stack's layer_{i} is layers.{i}, and the student modules' numbered
-names (transformer_{i}, linear_agg_{i}, upscale_embeddings_{i},
-pre_softmax_{c}) become the reference's lists (transformers.{i},
-linear_aggs.{i}, upscale_embeddings.{i}, pre_softmaxes.{c}).
+(3E, E) in_proj_weight, or, grouped, q_proj (E, H, hd) and kv_proj (E, 2,
+H_kv, hd) become the Linears q_proj and kv_proj; rel_e1 / rel_e2 are (H, S,
+hd) and become (H*S, hd); a decoder's source_embeddings is an Embed, or the
+Dense over an unquantized encoder's z; the fused BiGRU stacks its two
+directions on axis 0 of (2, in, 3h) and becomes g_enc_fwd / g_enc_bwd;
+codebooks are (K, S, d) and become embeddings.{k}; sos and the positional
+embeddings (relative: target channel and event features; absolute: source
+and target positions) are raw params; an attention decoder layer's
+cross-attention is multihead_attn; a flax stack's layer_{i} is layers.{i},
+and the student modules' numbered names (transformer_{i}, linear_agg_{i},
+upscale_embeddings_{i}, pre_softmax_{c}) become the reference's lists
+(transformers.{i}, linear_aggs.{i}, upscale_embeddings.{i},
+pre_softmaxes.{c}).
 The non-parameter collections (flax `batch_stats`: the quantizer
 BatchNorm's mean / var; `ema`: the EMA quantizer's codebooks, cluster_size
 and ema_sums) become buffers of the same state_dict.
@@ -64,12 +67,23 @@ def _embeddings(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _flat_dense(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A DenseGeneral whose kernel is (in, *features) -> a Linear."""
+    kernel = np.asarray(params["kernel"])
+    return _dense({"kernel": kernel.reshape(kernel.shape[0], -1),
+                   "bias": np.asarray(params["bias"]).reshape(-1)}, prefix)
+
+
 def _attention(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    kernel = np.asarray(params["in_proj"]["kernel"])         # (E, 3, H, hd)
-    e = kernel.shape[0]
-    out = {f"{prefix}in_proj_weight": _tensor(kernel.reshape(e, 3 * e).T),
-           f"{prefix}in_proj_bias": _tensor(
-               np.asarray(params["in_proj"]["bias"]).reshape(3 * e))}
+    if "in_proj" in params:
+        kernel = np.asarray(params["in_proj"]["kernel"])     # (E, 3, H, hd)
+        e = kernel.shape[0]
+        out = {f"{prefix}in_proj_weight": _tensor(kernel.reshape(e, 3 * e).T),
+               f"{prefix}in_proj_bias": _tensor(
+                   np.asarray(params["in_proj"]["bias"]).reshape(3 * e))}
+    else:                       # grouped: q (E, H, hd), kv (E, 2, H_kv, hd)
+        out = _flat_dense(params["q_proj"], f"{prefix}q_proj.")
+        out.update(_flat_dense(params["kv_proj"], f"{prefix}kv_proj."))
     out.update(_dense(params["out_proj"], f"{prefix}out_proj."))
     if "rel_e1" in params:
         for name in ("e1", "e2"):
@@ -169,9 +183,12 @@ def encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 def decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax Decoder 'params' (relative or absolute; aligned or attention
     cross branch) -> state_dict of vqcpcb_tpu_torch.models.decoder.Decoder."""
-    sd = {"sos": _tensor(params["sos"]),
-          "source_embeddings.weight": _tensor(
-              params["source_embeddings"]["embedding"])}
+    sd = {"sos": _tensor(params["sos"])}
+    source = params["source_embeddings"]
+    if "embedding" in source:
+        sd["source_embeddings.weight"] = _tensor(source["embedding"])
+    else:                       # the Dense over an unquantized encoder's z
+        sd.update(_dense(source, "source_embeddings."))
     for name in ("target_channel_embeddings",
                  "target_events_positioning_embeddings",       # relative
                  "source_positional_embeddings",

@@ -4,9 +4,10 @@ the same derived dimensions, so one config builds the same model in either
 package.
 
 The port's modules take their input widths explicitly where flax infers
-them (the downscalers', the upscaler's and the CPC context network's
-input); the getters fill them in from the config. What the port does not
-have yet raises NotImplementedError naming the ROADMAP item that ports it.
+them (the downscalers', the upscaler's, the CPC context network's and an
+unquantized decoder's source input); the getters fill them in from the
+config. What the port does not have yet raises NotImplementedError naming
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -199,13 +200,19 @@ def get_encoder(dataloader_generator, config: Dict) -> Encoder:
                    quantizer=get_quantizer(config), upscaler=upscaler)
 
 
+def z_width(encoder: Encoder, config: Dict) -> int:
+    """The width of the encoder's z: the upscaler's output if it has one,
+    else codebook_dim (flax infers it from z; torch's Linear is told)."""
+    return (encoder.upscaler.mlp[3].out_features if encoder.upscaler is not None
+            else config["quantizer_kwargs"]["codebook_dim"])
+
+
 def get_vqcpc_model(dataloader_generator, config: Dict) -> VQCPCModel:
     """Encoder + CPC context and scorer networks (getters.py:211)."""
     encoder = get_encoder(dataloader_generator, config)
     aux = config["auxiliary_networks_kwargs"]
     c_net_kwargs = aux["c_net_kwargs"]
-    z_dim = (encoder.upscaler.mlp[3].out_features if encoder.upscaler is not None
-             else config["quantizer_kwargs"]["codebook_dim"])
+    z_dim = z_width(encoder, config)
     c_dim = c_net_kwargs["output_dim"]
     k_max = dataloader_generator.num_blocks_right
 
@@ -282,7 +289,10 @@ def get_decoder(dataloader_generator, data_processor, encoder: Encoder,
                 decoder_kwargs: Dict) -> Decoder:
     """(getters.py:291) The decoder over the codes of `encoder`: one code per
     prod(downscale_factors) target tokens, a source vocabulary of
-    codebook_size ** num_codebooks merged codes."""
+    codebook_size ** num_codebooks merged codes; over an encoder without a
+    quantizer, a source Linear from the width of its z (getters.py:307-318,
+    where flax infers the width JAX's source_dim does not give). n_head_kv
+    in decoder_kwargs makes it grouped-query."""
     transformer_type, enc_attn, cross_attn = DECODER_TYPES[decoder_type]
     num_channels_decoder = data_processor.num_channels
     num_events_decoder = data_processor.num_events
@@ -291,11 +301,12 @@ def get_decoder(dataloader_generator, data_processor, encoder: Encoder,
     num_events_encoder = (num_events_decoder * num_channels_decoder) // (
         total_upscaling * num_channels_encoder)
     quantizer_kwargs = encoder_config["quantizer_kwargs"]
-    if encoder_config["quantizer_type"] not in ("commitment", "ema"):
-        raise _not_yet("a decoder over an unquantized encoder (source_dim)",
-                       "item 5, M6 (i)")
-    if decoder_kwargs.get("n_head_kv") is not None:
-        raise _not_yet("grouped-query attention (n_head_kv)", "item 5, M6 (e)")
+    if encoder_config["quantizer_type"] in ("commitment", "ema"):
+        source_vocab_size = (quantizer_kwargs["codebook_size"]
+                             ** quantizer_kwargs["num_codebooks"])
+        source_dim = 0
+    else:
+        source_vocab_size, source_dim = 0, z_width(encoder, encoder_config)
     return Decoder(
         data_processor=data_processor,
         encoder_attention_type=enc_attn,
@@ -310,11 +321,12 @@ def get_decoder(dataloader_generator, data_processor, encoder: Encoder,
         num_channels_decoder=num_channels_decoder,
         num_events_decoder=num_events_decoder,
         total_upscaling=total_upscaling,
-        source_vocab_size=(quantizer_kwargs["codebook_size"]
-                           ** quantizer_kwargs["num_codebooks"]),
+        source_vocab_size=source_vocab_size,
+        source_dim=source_dim,
         dropout=decoder_kwargs["dropout"],
         transformer_type=transformer_type,
-        cross_attention_type=cross_attn)
+        cross_attention_type=cross_attn,
+        n_head_kv=decoder_kwargs.get("n_head_kv"))
 
 
 def get_prior(dataloader_generator, encoder: Encoder, encoder_config: Dict,
@@ -322,9 +334,8 @@ def get_prior(dataloader_generator, encoder: Encoder, encoder_config: Dict,
     """(getters.py:341) The prior over the codes of `encoder`, one code per
     prod(downscale_factors) tokens of the *prior* loader's sequences (not of
     the encoder's CPC window, getters.py:350-361), a vocabulary of
-    codebook_size ** num_codebooks merged codes."""
-    if prior_kwargs.get("n_head_kv") is not None:
-        raise _not_yet("grouped-query attention (n_head_kv)", "item 5, M6 (e)")
+    codebook_size ** num_codebooks merged codes; n_head_kv in prior_kwargs
+    makes it grouped-query."""
     if prior_type != "transformer_relative":
         raise NotImplementedError(prior_type)
     num_channels = 1
@@ -345,4 +356,5 @@ def get_prior(dataloader_generator, encoder: Encoder, encoder_config: Dict,
         embedding_size=prior_kwargs["embedding_size"],
         num_channels=num_channels,
         num_events=num_events,
-        dropout=prior_kwargs["dropout"])
+        dropout=prior_kwargs["dropout"],
+        n_head_kv=prior_kwargs.get("n_head_kv"))

@@ -13,7 +13,10 @@ re-harmonisations of the corpus's first score, under reharmonisations/),
 under generations/), --num_epochs and --num_batches (-1: the whole corpus);
 plus --device (default: the card; without CUDA the CLI raises unless given
 --device cpu). The frozen encoder comes from the config's `config_encoder`
-(load_encoder_stack).
+(load_encoder_stack); over an encoder without a quantizer the decoder reads
+its z, and -r fails where the JAX CLI's does (Decoder.embed_source).
+VQCPCB_DEBUG_NANS=1 turns the NaN checks on and VQCPCB_PROFILE_DIR traces
+each train epoch (training/profiling.py), in the three CLIs.
 """
 from __future__ import annotations
 
@@ -133,8 +136,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     import torch
 
     from vqcpcb_tpu_torch.training import checkpoints
+    from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
     from vqcpcb_tpu_torch.utils import load_config_module, resolve_device
 
+    enable_debug_checks()
     device = resolve_device(args.device)
     print(f"Device: {device}")
     config = load_config_module(args.config_path)

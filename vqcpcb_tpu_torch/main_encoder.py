@@ -56,8 +56,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from vqcpcb_tpu_torch.training import analysis, checkpoints
     from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
     from vqcpcb_tpu_torch.training.optim import warmup_steps_from_env
+    from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
     from vqcpcb_tpu_torch.utils import load_config_module, resolve_device
 
+    enable_debug_checks()
     device = resolve_device(args.device)
     print(f"Device: {device}")
     config = load_config_module(args.config_path)

@@ -45,8 +45,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from vqcpcb_tpu_torch.main_decoder import load_encoder_stack
     from vqcpcb_tpu_torch.training import checkpoints
     from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
+    from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
     from vqcpcb_tpu_torch.utils import load_config_module, resolve_device
 
+    enable_debug_checks()
     device = resolve_device(args.device)
     print(f"Device: {device}")
     config = load_config_module(args.config_path)

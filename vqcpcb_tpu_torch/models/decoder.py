@@ -27,6 +27,14 @@ dtype=compute_dtype() does (decoder.py:161, 251); parameters stay f32, and
 the embeddings, the target embedding's Dense and the sampler's per-channel
 heads (JAX's fused generation head, decoder.py:320-350) compute in f32.
 
+The source: merged code indices re-embedded by `source_embeddings`, an
+nn.Embedding of source_vocab_size rows; or, over an encoder without a
+quantizer (source_vocab_size 0), the encoder's continuous z (B, S,
+source_dim) mapped by `source_embeddings`, an nn.Linear in f32 under every
+compute dtype, as JAX's nn.Dense without a dtype (decoder.py:114-119).
+`n_head_kv` makes every attention of both stacks grouped-query
+(ops/attention.py; decoder.py:80).
+
 Parameter names follow the reference Decoder (sos, linear_target,
 source_embeddings, target_channel_embeddings and
 target_events_positioning_embeddings (relative) or
@@ -61,7 +69,8 @@ class Decoder(nn.Module):
                  num_channels_decoder: int, num_events_decoder: int,
                  total_upscaling: int, source_vocab_size: int,
                  dropout: float = 0.0, transformer_type: str = "relative",
-                 cross_attention_type: str = "diagonal"):
+                 cross_attention_type: str = "diagonal", source_dim: int = 0,
+                 n_head_kv: Optional[int] = None):
         super().__init__()
         if encoder_attention_type not in ("anticausal", "causal", "full"):
             raise ValueError(encoder_attention_type)
@@ -88,14 +97,17 @@ class Decoder(nn.Module):
                 torch.randn(1, num_channels_decoder, p))
             self.target_events_positioning_embeddings = nn.Parameter(
                 torch.randn(1, total_upscaling // num_channels_decoder, p))
-            source_dim, target_in = d_model, data_processor.embedding_size + 2 * p
+            embed_width, target_in = d_model, data_processor.embedding_size + 2 * p
         else:
             self.source_positional_embeddings = nn.Parameter(
                 torch.randn(1, self.num_tokens_target // total_upscaling, p))
             self.target_positional_embeddings = nn.Parameter(
                 torch.randn(1, self.num_tokens_target, p))
-            source_dim, target_in = d_model - p, data_processor.embedding_size + p
-        self.source_embeddings = nn.Embedding(source_vocab_size, source_dim)
+            embed_width, target_in = d_model - p, data_processor.embedding_size + p
+        if source_vocab_size > 0:
+            self.source_embeddings = nn.Embedding(source_vocab_size, embed_width)
+        else:
+            self.source_embeddings = nn.Linear(source_dim, embed_width)
         self.linear_target = nn.Linear(target_in, d_model)
         self.sos = nn.Parameter(torch.randn(1, 1, d_model))
         bias_type = "relative_attention" if relative else None
@@ -106,7 +118,8 @@ class Decoder(nn.Module):
             num_events_encoder=num_events_encoder,
             num_channels_decoder=num_channels_decoder,
             num_events_decoder=num_events_decoder,
-            dim_feedforward=dim_feedforward, dropout=dropout)
+            dim_feedforward=dim_feedforward, dropout=dropout,
+            n_head_kv=n_head_kv)
         if not self.aligned:
             layer_kwargs["attention_bias_type_cross"] = (
                 "relative_attention_target_source" if relative else None)
@@ -114,7 +127,7 @@ class Decoder(nn.Module):
             "encoder": TransformerEncoder(
                 num_encoder_layers, d_model, n_head, bias_type,
                 num_channels_encoder, num_events_encoder, dim_feedforward,
-                dropout=dropout),
+                dropout=dropout, n_head_kv=n_head_kv),
             "decoder": TransformerDecoder(num_decoder_layers,
                                           aligned=self.aligned, **layer_kwargs),
         })
@@ -128,9 +141,23 @@ class Decoder(nn.Module):
     # ---- embeddings ---------------------------------------------------------
 
     def embed_source(self, source: torch.Tensor) -> torch.Tensor:
-        """Code indices (B, S) -> (B, S, d_model); the absolute decoder
-        concatenates the source positional embeddings."""
-        source_seq = self.source_embeddings(source.long())
+        """Code indices (B, S), or z (B, S, source_dim) over an unquantized
+        encoder, -> (B, S, d_model); the absolute decoder concatenates the
+        source positional embeddings. A z without its feature axis raises
+        where JAX's Dense does (a parameter shape error): the case of
+        `generate_reharmonisation`, whose reshape(1, -1) of the encoded
+        chunks flattens z (decoder_trainer.py:454)."""
+        if isinstance(self.source_embeddings, nn.Embedding):
+            source_seq = self.source_embeddings(source.long())
+        else:
+            width = self.source_embeddings.in_features
+            if source.dim() != 3 or source.shape[-1] != width:
+                raise ValueError(
+                    f"the source of a decoder over an unquantized encoder is z "
+                    f"of shape (B, S, {width}), not {tuple(source.shape)}; a "
+                    "code sequence glued with reshape(1, -1) has lost z's "
+                    "feature axis (the JAX package fails at the same call)")
+            source_seq = self.source_embeddings(source.float())
         if self.transformer_type == "absolute":
             pos = self.source_positional_embeddings
             source_seq = torch.cat(
@@ -193,11 +220,11 @@ class Decoder(nn.Module):
     # ---- teacher-forced forward ---------------------------------------------
 
     def forward(self, source: torch.Tensor, target: torch.Tensor) -> Dict:
-        """source (B, S) codes, target (B, num_events, C) tokens. Returns
-        {'loss', 'weights_per_category'}: the per-channel logits
-        (B, num_events, vocab_c) and their summed CE (decoder.py:223). In
-        train mode the attention layers take the training route, with
-        dropout."""
+        """source (B, S) codes or (B, S, source_dim) z, target (B,
+        num_events, C) tokens. Returns {'loss', 'weights_per_category'}:
+        the per-channel logits (B, num_events, vocab_c) and their summed CE
+        (decoder.py:223). In train mode the attention layers take the
+        training route, with dropout."""
         b = target.shape[0]
         memory = self.encode_memory(source)
         target_seq = self.shift_with_sos(self.embed_target(target))
@@ -255,9 +282,9 @@ class Decoder(nn.Module):
                 cache_dt: Optional[torch.dtype] = None
                 ) -> Tuple[List[Tuple[Cache, Cache]], List[torch.Tensor]]:
         """One full forward filling every layer's caches: per layer (k, v) of
-        (B, H, T, hd) in the cache format, and the cross context: the aligned
-        branch (B, T, E), or the memory's (k, v) of (B, H, S, hd) for an
-        attention layer (decoder.py:363)."""
+        (B, H_kv, T, hd) in the cache format, and the cross context: the
+        aligned branch (B, T, E), or the memory's (k, v) of (B, H_kv, S, hd)
+        for an attention layer (decoder.py:363)."""
         memory = self.encode_memory(source)
         out = self.shift_with_sos(self.embed_target(target))
         mask = causal_mask(out.shape[1], device=out.device)
@@ -280,7 +307,7 @@ class Decoder(nn.Module):
         out = x_t
         for layer, (k_cache, v_cache), cross in zip(self.decoder_layers,
                                                     caches, crosses):
-            k_t, v_t = layer.self_attn.project_kv(out)          # (B, H, 1, hd)
+            k_t, v_t = layer.self_attn.project_kv(out)       # (B, H_kv, 1, hd)
             cache_update(k_cache, k_t, t)
             cache_update(v_cache, v_t, t)
             if self.aligned:
@@ -300,12 +327,13 @@ class Decoder(nn.Module):
         """Sample flat positions [start, start + num_steps) autoregressively
         (decoder.py:421).
 
-        source (B, S) codes; tokens_init (B, E, C) tokens, the fixed context
-        outside the sampled range; forbidden_indices: optional (C, n) token
-        ids excluded per channel. Runs on `device` -- the card unless the
-        caller names another; the module must already live there. Caches
-        follow utils.kv_cache_dtype (int8 on the card, f32 on the CPU).
-        Returns the updated (B, E, C) tokens on that device."""
+        source (B, S) codes or (B, S, source_dim) z; tokens_init (B, E, C)
+        tokens, the fixed context outside the sampled range;
+        forbidden_indices: optional (C, n) token ids excluded per channel.
+        Runs on `device` -- the card unless the caller names another; the
+        module must already live there. Caches follow utils.kv_cache_dtype
+        (int8 on the card, f32 on the CPU). Returns the updated (B, E, C)
+        tokens on that device."""
         here = module_device(self, device)
         source = to_device(source, here)
         tokens_init = to_device(tokens_init, here)

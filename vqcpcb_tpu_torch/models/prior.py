@@ -17,6 +17,9 @@ then one decode step per code in plain PyTorch, as `Decoder.sample_range`. Its t
 the reference: the logits are *multiplied* by the temperature, so a higher
 temperature sharpens the distribution.
 
+`n_head_kv` makes the layers grouped-query (ops/attention.py; prior.py:33):
+the caches hold n_head_kv heads.
+
 Parameter names follow the JAX module (embedding, linear, sos,
 transformer.layers.{i}, pre_softmax).
 """
@@ -38,7 +41,8 @@ from vqcpcb_tpu_torch.utils import kv_cache_dtype, module_device, to_device
 class PriorRelative(nn.Module):
     def __init__(self, code_vocab_size: int, d_model: int, num_layers: int,
                  n_head: int, dim_feedforward: int, embedding_size: int,
-                 num_channels: int, num_events: int, dropout: float):
+                 num_channels: int, num_events: int, dropout: float,
+                 n_head_kv: Optional[int] = None):
         super().__init__()
         if num_channels != 1:
             raise ValueError(f"the prior has one channel, not {num_channels} "
@@ -50,7 +54,7 @@ class PriorRelative(nn.Module):
         self.sos = nn.Parameter(torch.randn(1, 1, d_model))
         self.transformer = TransformerEncoder(
             num_layers, d_model, n_head, "relative_attention", num_channels,
-            num_events, dim_feedforward, dropout)
+            num_events, dim_feedforward, dropout, n_head_kv=n_head_kv)
         self.pre_softmax = nn.Linear(d_model, code_vocab_size)
 
     @property
@@ -91,8 +95,8 @@ class PriorRelative(nn.Module):
     def prefill(self, x: torch.Tensor, cache_dt: Optional[torch.dtype] = None
                 ) -> List[Tuple[Cache, Cache]]:
         """Causal full forward over the SOS-shifted window x (B, T), filling
-        each layer's self-attention caches: per layer (k, v) of (B, H, T, hd)
-        in the format for cache_dt (prior.py:93)."""
+        each layer's self-attention caches: per layer (k, v) of (B, H_kv, T,
+        hd) in the format for cache_dt (prior.py:93)."""
         out = self._shifted_input(x)
         mask = causal_mask(x.shape[1], device=x.device)
         caches = []
@@ -110,7 +114,7 @@ class PriorRelative(nn.Module):
         caches = []
         for layer in self.transformer.layers:
             attn = layer.self_attn
-            zeros = self.sos.new_zeros((b, attn.num_heads, length,
+            zeros = self.sos.new_zeros((b, attn.num_kv_heads, length,
                                         attn.head_dim))
             caches.append((new_cache(zeros, cache_dt),
                            new_cache(zeros.clone(), cache_dt)))

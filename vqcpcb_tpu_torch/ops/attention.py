@@ -30,6 +30,17 @@ Routes of the full forward:
 `step` (one query position over the KV cache) is plain PyTorch on every
 device, as it is plain XLA in JAX.
 
+Grouped-query attention (num_kv_heads, JAX's attention.py:40-66): K and V
+get num_kv_heads heads, query head h reading KV head h // g for
+g = num_heads / num_kv_heads. A grouped module has separate projections
+q_proj (E -> E) and kv_proj (E -> 2 * H_kv * hd, k's heads then v's) in
+place of in_proj_weight / in_proj_bias, which stay exactly as they are when
+num_kv_heads is None (or equal to num_heads). project_kv gives H_kv heads,
+so the caches hold H_kv heads and `step` reads them with the grouped
+einsum. The full forward expands k and v to H heads before the kernels
+(`expand_kv_heads`; autograd sums dk and dv over each group), so every
+route above serves grouped layers unchanged.
+
 The projections (in_proj, out_proj) compute in utils.layer_compute_dtype,
 bf16 under VQCPCB_COMPUTE_DTYPE=bfloat16 or the decoder trainer's scope, as
 JAX's DenseGeneral(dtype=compute_dtype()); q, k and v are then bf16, and
@@ -70,12 +81,27 @@ class RelativeBias(nn.Module):
                 self.e2.view(h, -1, self.e2.shape[-1]))
 
 
+def expand_kv_heads(x: torch.Tensor, num_kv_heads: int, g: int) -> torch.Tensor:
+    """K or V of num_kv_heads heads, packed (B, S, H_kv * hd) or (B, H_kv,
+    S, hd), -> the same layout with each head repeated g times in place,
+    query head h reading KV head h // g (attention.py:324-325)."""
+    if g == 1:
+        return x
+    if x.dim() == 3:
+        b, s, _ = x.shape
+        return x.view(b, s, num_kv_heads, 1, -1).expand(
+            b, s, num_kv_heads, g, x.shape[-1] // num_kv_heads).reshape(b, s, -1)
+    b, _, s, d = x.shape
+    return x[:, :, None].expand(b, num_kv_heads, g, s, d).reshape(
+        b, num_kv_heads * g, s, d)
+
+
 class MultiheadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int,
                  attention_bias_type: Optional[str] = None,
                  num_channels_k: int = 1, num_events_k: int = 1,
                  num_channels_q: int = 1, num_events_q: int = 1,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, num_kv_heads: Optional[int] = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
@@ -83,11 +109,25 @@ class MultiheadAttention(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        if num_heads % self.num_kv_heads:
+            raise ValueError(f"num_heads {num_heads} is not a multiple of "
+                             f"num_kv_heads {self.num_kv_heads}")
+        self.group = num_heads // self.num_kv_heads
         self.dropout = dropout
         self.seed_generator: Optional[torch.Generator] = None
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        nn.init.xavier_uniform_(self.in_proj_weight)
+        if self.grouped:
+            self.q_proj = nn.Linear(embed_dim, embed_dim)
+            self.kv_proj = nn.Linear(embed_dim,
+                                     2 * self.num_kv_heads * self.head_dim)
+            for proj in (self.q_proj, self.kv_proj):
+                nn.init.xavier_uniform_(proj.weight)
+                nn.init.zeros_(proj.bias)
+        else:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
+                                                           embed_dim))
+            self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+            nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.out_proj.weight)
         nn.init.zeros_(self.out_proj.bias)
@@ -104,22 +144,41 @@ class MultiheadAttention(nn.Module):
             raise NotImplementedError(
                 f"Not a valid type of attention bias: {attention_bias_type}")
 
+    @property
+    def grouped(self) -> bool:
+        return self.num_kv_heads != self.num_heads
+
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
-        return x.view(b, n, self.num_heads, self.head_dim).transpose(1, 2)
+        return x.view(b, n, -1, self.head_dim).transpose(1, 2)
+
+    def _q_packed(self, query: torch.Tensor) -> torch.Tensor:
+        """(B, L, E) -> unscaled q (B, L, E), in the compute dtype."""
+        if self.grouped:
+            return dense(query, self.q_proj.weight, self.q_proj.bias)
+        e = self.embed_dim
+        return dense(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
+
+    def _kv_packed(self, key: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, S, E) -> k, v each (B, S, H_kv * hd), views of one product in
+        the compute dtype."""
+        if self.grouped:
+            kv = dense(key, self.kv_proj.weight, self.kv_proj.bias)
+        else:
+            e = self.embed_dim
+            kv = dense(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
+        return kv.chunk(2, dim=-1)
 
     def project_q(self, query: torch.Tensor) -> torch.Tensor:
         """(B, L, E) -> scaled q (B, H, L, hd), in the compute dtype."""
-        e = self.embed_dim
-        q = dense(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
-        return self._split_heads(q * self.head_dim ** -0.5)
+        return self._split_heads(self._q_packed(query) * self.head_dim ** -0.5)
 
     def project_kv(self, key: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, S, E) -> k, v each (B, H, S, hd), in the compute dtype."""
-        e = self.embed_dim
-        kv = dense(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
-        return self._split_heads(kv[..., :e]), self._split_heads(kv[..., e:])
+        """(B, S, E) -> k, v each (B, H_kv, S, hd), in the compute dtype."""
+        k, v = self._kv_packed(key)
+        return self._split_heads(k), self._split_heads(v)
 
     def _out_proj(self, out: torch.Tensor) -> torch.Tensor:
         return dense(out, self.out_proj.weight, self.out_proj.bias)
@@ -152,13 +211,13 @@ class MultiheadAttention(nn.Module):
                       attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
         """The packed training route (attention.py:188-231, 255-318)."""
         e, h = self.embed_dim, self.num_heads
-        if key is query:
+        if key is query and not self.grouped:
             qkv = dense(query, self.in_proj_weight, self.in_proj_bias)
             q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
         else:
-            q = dense(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
-            kv = dense(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
-            k, v = kv[..., :e], kv[..., e:]                # views of (B, S, 2E)
+            q = self._q_packed(query)
+            k, v = (expand_kv_heads(x, self.num_kv_heads, self.group)
+                    for x in self._kv_packed(key))    # (B, S, E) each
         q = q * self.head_dim ** -0.5                        # (B, T, E)
         seed = 0
         if self.dropout > 0.0:
@@ -185,7 +244,10 @@ class MultiheadAttention(nn.Module):
         this. Projections in bf16 are attended in f32 (exactly their
         values): the scores accumulate in f32 as JAX's
         preferred_element_type has them, and on the CPU the weights are
-        rounded to v's dtype before w.v, as JAX rounds them."""
+        rounded to v's dtype before w.v, as JAX rounds them. Grouped k and
+        v (H_kv heads) are expanded to H heads first."""
+        k, v = (expand_kv_heads(x, self.num_kv_heads, self.group)
+                for x in (k, v))
         v_dtype = v.dtype
         q, k, v = q.float(), k.float(), v.float()
         if q.device.type != "cpu":
@@ -215,10 +277,12 @@ class MultiheadAttention(nn.Module):
              causal: bool = True) -> torch.Tensor:
         """Attend from one query position over cached keys and values.
 
-        query_t (B, 1, E) at target position t; caches (B, H, S, hd) or int8
-        tuples. causal: the rule keys <= t, for which only rows [0, t] are
-        read; key_len_mask: (S,) bool of visible keys, or None for all.
-        Returns (B, 1, E) (attention.py:354)."""
+        query_t (B, 1, E) at target position t; caches (B, H_kv, S, hd) or
+        int8 tuples. causal: the rule keys <= t, for which only rows [0, t]
+        are read; key_len_mask: (S,) bool of visible keys, or None for all.
+        Caches are read with the grouped einsum (attention.py:386-411, g = 1
+        when ungrouped), never expanded. Returns (B, 1, E)
+        (attention.py:354)."""
         q = self.project_q(query_t)[:, :, 0].float()          # (B, H, hd)
         if causal:
             k_cache = cache_prefix(k_cache, t + 1)
@@ -227,15 +291,17 @@ class MultiheadAttention(nn.Module):
         v = dequantize_kv(v_cache)
         v_dtype, v = v.dtype, v.float()
         s = k.shape[2]
-        scores = torch.einsum("bhd,bhsd->bhs", q, k)
+        b, h, d = q.shape
+        kv, g = self.num_kv_heads, self.group               # g = 1 ungrouped
+        scores = torch.einsum("bkgd,bksd->bkgs", q.view(b, kv, g, d),
+                              k).reshape(b, h, s)
         if self.attn_bias is not None:
             e1, e2 = self.attn_bias.tables()
             scores = scores + subsampled_relative_bias_row(
                 q, e1, e2, t, seq_len_tgt)[..., :s]
         if key_len_mask is not None:
             scores = scores.masked_fill(~key_len_mask, float("-inf"))
-        weights = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhs,bhsd->bhd", weights.to(v_dtype).float(), v)
-        b, h, d = out.shape
+        weights = torch.softmax(scores, dim=-1).to(v_dtype).float()
+        out = torch.einsum("bkgs,bksd->bkgd", weights.view(b, kv, g, s), v)
         return self._out_proj(out.reshape(b, 1, h * d))
 

@@ -20,6 +20,10 @@ trainer's, so a run's every draw has a source it can save
 caller's `training` argument names, for the modules that take one as the
 JAX modules do.
 
+Grouped-query attention: `n_head_kv` (None: one KV head per query head)
+goes to every attention of a layer, self and cross (transformer.py:81,
+186, 272); `capture` returns the H_kv-head k and v the caches keep.
+
 Compute dtype: the attention projections and the FFN's linears compute in
 utils.layer_compute_dtype (bf16 under VQCPCB_COMPUTE_DTYPE=bfloat16 or the
 decoder trainer's scope, transformer.py:61-64); the residual stream, the
@@ -164,13 +168,14 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_head: int,
                  attention_bias_type: Optional[str], num_channels: int,
                  num_events: int, dim_feedforward: int = 2048,
-                 activation: str = "relu", dropout: float = 0.0):
+                 activation: str = "relu", dropout: float = 0.0,
+                 n_head_kv: Optional[int] = None):
         super().__init__()
         self.self_attn = MultiheadAttention(
             d_model, n_head, attention_bias_type,
             num_channels_k=num_channels, num_events_k=num_events,
             num_channels_q=num_channels, num_events_q=num_events,
-            dropout=dropout)
+            dropout=dropout, num_kv_heads=n_head_kv)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
@@ -214,12 +219,12 @@ class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, n_head: int,
                  attention_bias_type: Optional[str], num_channels: int,
                  num_events: int, dim_feedforward: int = 2048,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, n_head_kv: Optional[int] = None):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, n_head, attention_bias_type,
                                     num_channels, num_events, dim_feedforward,
-                                    dropout=dropout)
+                                    dropout=dropout, n_head_kv=n_head_kv)
             for _ in range(num_layers))
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor] = None
@@ -241,14 +246,15 @@ class TransformerAlignedDecoderLayer(nn.Module):
                  num_channels_encoder: int, num_events_encoder: int,
                  num_channels_decoder: int, num_events_decoder: int,
                  dim_feedforward: int = 2048, activation: str = "relu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, n_head_kv: Optional[int] = None):
         super().__init__()
         self.self_attn = MultiheadAttention(
             d_model, n_head, attention_bias_type_self,
             num_channels_k=num_channels_decoder,
             num_events_k=num_events_decoder,
             num_channels_q=num_channels_decoder,
-            num_events_q=num_events_decoder, dropout=dropout)
+            num_events_q=num_events_decoder, dropout=dropout,
+            num_kv_heads=n_head_kv)
         self.cross_attn = nn.Sequential(
             nn.Linear(d_model * num_channels_encoder, d_model * 2), nn.ELU(),
             nn.Linear(d_model * 2, d_model * num_channels_decoder))
@@ -317,20 +323,22 @@ class TransformerDecoderLayer(nn.Module):
                  num_channels_encoder: int, num_events_encoder: int,
                  num_channels_decoder: int, num_events_decoder: int,
                  dim_feedforward: int = 2048, activation: str = "relu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, n_head_kv: Optional[int] = None):
         super().__init__()
         self.self_attn = MultiheadAttention(
             d_model, n_head, attention_bias_type_self,
             num_channels_k=num_channels_decoder,
             num_events_k=num_events_decoder,
             num_channels_q=num_channels_decoder,
-            num_events_q=num_events_decoder, dropout=dropout)
+            num_events_q=num_events_decoder, dropout=dropout,
+            num_kv_heads=n_head_kv)
         self.multihead_attn = MultiheadAttention(
             d_model, n_head, attention_bias_type_cross,
             num_channels_k=num_channels_encoder,
             num_events_k=num_events_encoder,
             num_channels_q=num_channels_decoder,
-            num_events_q=num_events_decoder, dropout=dropout)
+            num_events_q=num_events_decoder, dropout=dropout,
+            num_kv_heads=n_head_kv)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
@@ -369,7 +377,7 @@ class TransformerDecoderLayer(nn.Module):
     def step(self, x_t, k_cache: Cache, v_cache: Cache, k_mem, v_mem, t: int,
              seq_len_tgt: int, cross_key_mask: Optional[torch.Tensor]):
         """One position: x_t (B, 1, E); caches already hold position t;
-        k_mem, v_mem (B, H, S, hd); cross_key_mask (S,) bool of the memory
+        k_mem, v_mem (B, H_kv, S, hd); cross_key_mask (S,) bool of the memory
         positions visible from t, or None when all are."""
         x = self.norm1(x_t + self.self_attn.step(x_t, k_cache, v_cache, t,
                                                  seq_len_tgt))

@@ -18,6 +18,8 @@ modules. `DecoderGenerator` holds a frozen encoder and a decoder on one
 device and an explicit torch.Generator for the draws: frozen-encoder codes
 for a template, then sliding-window KV-cached decoding of the code
 sequence. Both run on the card unless the caller names another device.
+Over an encoder without a quantizer, the decoder's source is the encoder's
+z in place of merged codes, on every path that takes it (`encode_source`).
 """
 from __future__ import annotations
 
@@ -37,8 +39,18 @@ from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
                                              warmup_steps_from_env)
+from vqcpcb_tpu_torch.training.profiling import check_finite
 from vqcpcb_tpu_torch.utils import (compute_dtype, default_compute_dtype,
                                     resolve_device, to_device)
+
+
+def encode_source(encoder: Encoder, x: torch.Tensor,
+                  codebook_size: int) -> torch.Tensor:
+    """The decoder's source for a token batch: the frozen encoder's merged
+    codes (B, S), or its z (B, S, dim) when it has no quantizer
+    (decoder_trainer.py:110-116)."""
+    z, indices, _ = encoder(x)
+    return z if indices is None else merge_codes(indices, codebook_size)
 
 
 def compute_start_end_times(t: int, num_blocks: int, num_blocks_model: int):
@@ -93,9 +105,9 @@ class DecoderTrainer(TrainLoopMixin):
 
     @torch.no_grad()
     def encode_codes(self, x: torch.Tensor) -> torch.Tensor:
-        """Token batch (B, events, voices) -> merged codes (B, S), no grad."""
-        _, indices, _ = self.encoder(x)
-        return merge_codes(indices, self.codebook_size)
+        """Token batch (B, events, voices) -> merged codes (B, S), or z
+        (B, S, dim) over an unquantized encoder; no grad."""
+        return encode_source(self.encoder, x, self.codebook_size)
 
     def _loss(self, x: torch.Tensor) -> torch.Tensor:
         """The step's loss in the trainer's compute dtype, the frozen
@@ -114,6 +126,7 @@ class DecoderTrainer(TrainLoopMixin):
         self.decoder.train()
         self.optimizer.zero_grad()
         loss = self._loss(x)
+        check_finite(loss)
         loss.backward()
         self.optimizer.step()
         self.step += 1
@@ -295,10 +308,11 @@ class DecoderGenerator:
 
     @torch.no_grad()
     def encode_codes(self, x) -> torch.Tensor:
-        """Token grid (B, ticks, voices) -> merged codes (B, S) on the device
+        """Token grid (B, ticks, voices) -> merged codes (B, S), or z (B, S,
+        dim) over an unquantized encoder, on the device
         (decoder_trainer.py:109)."""
-        _, indices, _ = self.encoder(to_device(x, self.device))
-        return merge_codes(indices, self.codebook_size)
+        return encode_source(self.encoder, to_device(x, self.device),
+                             self.codebook_size)
 
     def _meta_chunks(self, num_events: int):
         """START/PAD, END/PAD and PAD framing chunks (decoder_trainer.py:250)."""
@@ -339,7 +353,8 @@ class DecoderGenerator:
                                 codes_per_window: Optional[int] = None
                                 ) -> List[np.ndarray]:
         """Sliding-window decoding of a long code sequence (1 or more rows,
-        (B, n_codes)); one sample_range call -- one prefill -- per window,
+        (B, n_codes), or z (B, n_codes, dim) over an unquantized encoder);
+        one sample_range call -- one prefill -- per window,
         batched over decodings. codes_per_window codes are decoded per window
         before it slides (1 is the reference's placement,
         decoder_trainer.py:322); None reads VQCPCB_CODES_PER_WINDOW (default
@@ -402,7 +417,10 @@ class DecoderGenerator:
         """Re-harmonise one template given as a tick grid (1, events, voices)
         (decoder_trainer.py:407, which reads it from a score): frame it with
         START/END/PAD chunks, encode, decode `num_reharmonisations` variants.
-        Returns one (events, voices) grid per variant."""
+        Returns one (events, voices) grid per variant. The encoded chunks
+        are glued with reshape(1, -1), as JAX glues them (:454): over an
+        unquantized encoder that flattens z's feature axis, and the first
+        window's decoding raises, as JAX's does (Decoder.embed_source)."""
         x = np.asarray(ticks)
         num_events = self.decoder.data_processor.num_events
         vocab = self.vocabulary

@@ -34,6 +34,7 @@ from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
                                              warmup_steps_from_env)
+from vqcpcb_tpu_torch.training.profiling import check_finite
 from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 # batch keys whose elements count as the step's tokens (encoder_trainer.py:227)
@@ -105,6 +106,7 @@ class VQCPCEncoderTrainer(TrainLoopMixin):
         loss, metrics = self.model(batch, training=True,
                                    corrupt_labels=corrupt_labels,
                                    generator=self.generator)
+        check_finite(loss)
         loss.backward()
         self.optimizer.step()
         self.step += 1

@@ -14,6 +14,9 @@ the same model directory then restores it and skips the batches already
 trained: the per-epoch reseed replays the same stream, so the resumed run
 ends where the uninterrupted one does.
 
+With VQCPCB_PROFILE_DIR set, each train epoch is traced
+(profiling.maybe_profile, as the JAX loop at :208).
+
 A trainer provides `init_state()`, `_init_from_first()`,
 `_checkpointed()` (the module whose state_dict is saved), `_generators()`
 (name -> every torch.Generator it draws from), `model_dir`,
@@ -35,6 +38,7 @@ import torch
 
 from vqcpcb_tpu_torch.training import checkpoints
 from vqcpcb_tpu_torch.training.metrics import MetricsWriter
+from vqcpcb_tpu_torch.training.profiling import maybe_profile
 from vqcpcb_tpu_torch.utils import dict_pretty_print
 
 
@@ -253,9 +257,10 @@ class TrainLoopMixin:
 
             remaining = (None if num_batches is None
                          else max(num_batches - skip, 0))
-            monitored_train = self._train_epoch_chunked(
-                generator_train, remaining, checkpoint_every_steps, epoch_id,
-                skip, partial, ek)
+            with maybe_profile(f"epoch_{epoch_id}_train"):
+                monitored_train = self._train_epoch_chunked(
+                    generator_train, remaining, checkpoint_every_steps,
+                    epoch_id, skip, partial, ek)
             monitored_val = self.epoch(
                 generator_val, False,
                 num_batches // 2 if num_batches is not None else None, **ek)

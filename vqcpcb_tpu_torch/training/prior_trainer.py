@@ -31,6 +31,7 @@ from vqcpcb_tpu_torch.models.prior import PriorRelative
 from vqcpcb_tpu_torch.ops.transformer import wire_generators
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import Adam
+from vqcpcb_tpu_torch.training.profiling import check_finite
 from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 
@@ -76,6 +77,7 @@ class PriorTrainer(TrainLoopMixin):
         self.prior.train()
         self.optimizer.zero_grad()
         loss = self.prior(codes)["loss"]
+        check_finite(loss)
         loss.backward()
         self.optimizer.step()
         self.step += 1

@@ -46,6 +46,7 @@ from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
                                              warmup_steps_from_env)
+from vqcpcb_tpu_torch.training.profiling import check_finite
 from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 METRICS = ("loss_teacher", "loss_quantization", "loss_reconstruction",
@@ -169,7 +170,9 @@ class StudentEncoderTrainer(TrainLoopMixin):
         self.optimizer_teacher.zero_grad()
         self.optimizer_encdec.zero_grad()
         loss_t, loss_e, metrics = self.losses(x, masked_event_index)
-        (loss_t + loss_e).backward()
+        total = loss_t + loss_e
+        check_finite(total)
+        total.backward()
         self.optimizer_teacher.step()
         self.optimizer_encdec.step()
         self.step += 1
