@@ -103,7 +103,7 @@ Phases, in order; any failure raises and the run exits non-zero:
      teacher-forced argmax, (d) with --profile, 3 profiled steps and
      one profiled sampling window;
  13. one JSON line of per-kernel numbers, then the result line (printed
-     last, after phases 14 and 15);
+     last, after phases 14, 15 and 16);
  14. the scale-up MIDI chain (scripts/r5_chain9.sh) through the CLIs in
      process in build/scaleup_midi, at the configs' full width: (a) 512
      .mid files from the port's writer (make_midi_corpus.py), their cache
@@ -134,13 +134,30 @@ Phases, in order; any failure raises and the run exits non-zero:
      greedy codes, each held against its plain route, and the grouped
      decoder and prior CLIs (-t, -l --num_examples 1; -t, -l -g); (c) a
      decoder -t with VQCPCB_PROFILE_DIR (a Chrome trace naming a port
-     kernel) and a prior -t with VQCPCB_DEBUG_NANS=1 (exit 0).
+     kernel) and a prior -t with VQCPCB_DEBUG_NANS=1 (exit 0);
+ 16. reference (PyTorch VQCPCB) checkpoints migrated into the port, in
+     build/phase16: reference directories written at full width from
+     seeded random weights (the flagship pipeline's encoder of
+     configs/encoder_random_synthetic.py, both slots, four files each; its
+     decoder of configs/decoder_synthetic.py, one whole file with the
+     `encoder.*` entries, both slots; a prior at configs/prior_config.py's
+     width; the flat layout of a transformer-downscaler encoder,
+     configs/encoder_random_transfo_config.py on the synthetic corpus), each
+     through the migrate CLI (seconds); then (a) the decoder CLI -l -r and
+     -l --num_examples 1 and the prior CLI -l -g through the migrated
+     decoder; (b) the loaded modules equal to the written tensors bit for
+     bit, the GRU encoder's codes at batch 512 on the card equal to the CPU
+     plain route's (the transformer downscaler's z within a bf16 step, its
+     codes equal where that cannot move them), the decoder's eval loss over
+     those codes within
+     LOSS_RTOL of the CPU f32 plain route's; (c) the decoder CLI -t -l for
+     one epoch of 10 batches, Adam's moments at zero after the load.
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
-(a) and (c), the CLI calls of phase 14 and the runs and CLI calls of phase
-15 are the main paths: each is driven with the launch counts set to 0 just
-before it and read just after. Every K1 launch on them must run a compiled
-instance.
+(a) and (c), the CLI calls of phase 14, the runs and CLI calls of phase 15
+and the CLI calls and the two encodes at batch 512 of phase 16 are the main
+paths: each is driven with the launch counts set to 0 just before it and
+read just after. Every K1 launch on them must run a compiled instance.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -3737,6 +3754,424 @@ def phase_unquantized_and_grouped(gen: torch.Generator, card: str,
     return dict(launches=launches)
 
 
+# ---- phase 16 --------------------------------------------------------------
+
+# Reference (PyTorch VQCPCB) checkpoints migrated into the port, at full
+# width, the reference files written from seeded random weights of the
+# port's modules (which keep the reference's names; the CPU tests hold that
+# layout against what the JAX importer reads): the flagship pipeline's
+# encoder (configs/encoder_random_synthetic.py: GRU 512 x 2, codebook 32 x
+# 3; both slots, four files each), its decoder (configs/decoder_synthetic.py:
+# relative AC/D/C, d_model 512, 3 + 3 layers, 8 heads; one whole `decoder`
+# file with the `encoder.*` entries, both slots), a prior at
+# configs/prior_config.py's width (one slot) and the flat layout of a
+# transformer-downscaler encoder (configs/encoder_random_transfo_config.py
+# on the synthetic corpus: d_model 512, [4, 4] layers, codebook 32 x 3). The
+# codebooks are drawn from the encoders' latents, so the codes spread.
+# Everything runs in build/phase16; the CLIs in process.
+P16_TRAIN_BATCHES = 10
+P16_EVAL_ROWS = 16
+P16_INIT_ROWS = 16
+# the CLI calls over the migrated directories and the kernels each must
+# launch (-l -g decodes sampled codes: nothing is encoded)
+P16_KERNELS = {
+    "migrated decoder -l -r": ("vq_nearest", "relbias_attention_fwd"),
+    "migrated decoder -l --num_examples 1": ("vq_nearest", "relbias_attention_fwd"),
+    "migrated prior -l -g": ("relbias_attention_fwd",),
+    "migrated decoder -t -l": ("vq_nearest", "relbias_attention_fwd",
+                               "relbias_attention_bwd"),
+}
+ENCODER_FILES = ("data_processor", "downscaler", "quantizer", "upscaler")
+# The transformer downscaler's K3-fwd rounds q, k, v, the bias table and
+# its f32 softmax weights to bf16 before the products. Its plain version
+# sums the f32 score chains in another order, so now and then a weight
+# lands on the other side of a bf16 rounding step, and over 8 layers z
+# moves by up to a bf16 step: its codes cannot be held bit for bit (on an
+# H100, 38 of 12,288 rows differ from the CPU plain route's). Its z is held
+# within P16_Z_RTOL (bf16's relative step) of max |z| of the CPU plain
+# route's, and its codes equal on every row that no such error can move.
+P16_Z_RTOL = 2.0 ** -8
+
+
+def _reference_files(kind: str, sd: dict, encoder_sd=None) -> dict:
+    """A port module's state_dict as the reference saves it: an encoder as
+    four per-module files, a decoder as one file carrying the frozen
+    encoder's entries under `encoder.`, a prior with its head as
+    pre_softmaxes.0."""
+    if kind == "encoder":
+        return {name: {k[len(name) + 1:]: v for k, v in sd.items()
+                       if k.startswith(f"{name}.")} for name in ENCODER_FILES}
+    if kind == "decoder":
+        return {"decoder": {**sd, **{f"encoder.{k}": v for k, v in encoder_sd.items()}}}
+    return {"prior": {k.replace("pre_softmax.", "pre_softmaxes.0.", 1): v
+                      for k, v in sd.items()}}
+
+
+def _write_reference(path: str, config: dict, files: dict, slots) -> None:
+    """config.py and the files under path/{slot}/ for each slot, or in path
+    itself (slots None: the pre-slot layout)."""
+    for slot in slots or [None]:
+        slot_path = path if slot is None else os.path.join(path, slot)
+        os.makedirs(slot_path, exist_ok=True)
+        for name, sd in files.items():
+            torch.save(sd, os.path.join(slot_path, name))
+    with open(os.path.join(path, "config.py"), "w") as f:
+        f.write('"""chip_smoke.py phase 16: a reference model directory."""\n'
+                f"config = {config!r}\n")
+
+
+def _spread_codebook(encoder, x) -> None:
+    """The codebook from distinct latents of x (the data-dependent init)."""
+    with torch.no_grad():
+        z = encoder.downscale(x, training=False).reshape(-1, 3).unique(dim=0)
+        pick = torch.randperm(len(z), generator=torch.Generator().manual_seed(16))
+        encoder.quantizer.set_codebooks(z[pick[:CODEBOOK_SIZE]][None])
+
+
+def _attend_plain(self, q, k, v, attn_mask=None):
+    """MultiheadAttention.attend's card branch for a relative layer with the
+    kernel's plain version in place of the kernel, at its bf16 dots, on the
+    CPU or the card."""
+    from vqcpcb_tpu_torch.ops.attention import expand_kv_heads
+    from vqcpcb_tpu_torch.ops.attention_kernels import relbias_attention_fwd_plain
+    k, v = (expand_kv_heads(x, self.num_kv_heads, self.group) for x in (k, v))
+    e1, e2 = self.attn_bias.tables()
+    out = relbias_attention_fwd_plain(q.float().contiguous(), k.float().contiguous(),
+                                      v.float().contiguous(), attn_mask,
+                                      e1.contiguous(), e2.contiguous(),
+                                      dot_dtype=torch.bfloat16)
+    return self._merge_heads(out), None
+
+
+def _reach(quantizer, z, delta: float) -> tuple:
+    """For each row of z: whether a move of z by at most `delta` (in norm)
+    could change its nearest codeword, and whether its two nearest lie
+    within 1e-6 relative (where two summation orders may differ)."""
+    z = z.reshape(-1, z.shape[-1])
+    e = quantizer.embeddings[0]
+    dist = (z * z).sum(-1, keepdim=True) - 2.0 * z @ e.T + (e * e).sum(-1)
+    best = dist.argmin(-1)
+    spread = (e[None] - e[best][:, None]).norm(dim=-1)          # |e_j - e_best|
+    margin = dist - dist.gather(1, best[:, None]) - 2.0 * spread * delta
+    margin.scatter_(1, best[:, None], float("inf"))
+    two = dist.topk(2, dim=-1, largest=False).values
+    tie = (two[:, 1] - two[:, 0]) <= 1e-6 * two.abs().amax(-1).clamp_min(1.0)
+    return (margin <= 0).any(-1), tie
+
+
+def _hold_codes(label: str, encoder, x, card_codes, card_s: float,
+                bf16_attention: bool) -> dict:
+    """The card's codes of x against the CPU plain route's (a copy of the
+    encoder on the CPU; every relative layer through the kernel's plain
+    version at its bf16 dots), bit for bit; with bf16_attention (the
+    transformer downscaler), z within P16_Z_RTOL and the codes equal on
+    every row that such an error cannot move (P16_Z_RTOL's comment)."""
+    from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
+    cpu_encoder = copy.deepcopy(encoder).cpu().eval()
+    with torch.no_grad():
+        z_card = encoder.downscale(x, training=False).cpu()
+    attend = MultiheadAttention.attend
+    MultiheadAttention.attend = _attend_plain
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            z = cpu_encoder.downscale(x.cpu(), training=False)
+            cpu = cpu_encoder.quantizer(z, training=False)[1]
+            cpu_s = time.perf_counter() - t0
+    finally:
+        MultiheadAttention.attend = attend
+    differ = (card_codes.cpu() != cpu).reshape(-1)
+    z_err = float((z_card - z).abs().max() / z.abs().max())
+    delta = P16_Z_RTOL * float(z.abs().max()) * z.shape[-1] ** 0.5
+    movable, tie = _reach(cpu_encoder.quantizer, z, delta)
+    result = dict(card_ms=card_s * 1e3, cpu_s=cpu_s, differ=int(differ.sum()),
+                  ties=int(tie.sum()), z_err=z_err, distinct=len(cpu.unique()))
+    line = (f"# [p16] (b) {label}: codes {tuple(cpu.shape)} at batch {len(x)}, the "
+            f"card's in {card_s * 1e3:.3f} ms; the CPU plain route's in {cpu_s:.2f} s: "
+            f"{result['differ']} differ; {result['distinct']} distinct codes; "
+            f"{result['ties']} rows with their two nearest codewords within 1e-6 "
+            f"relative; z max abs err {z_err:.3e} of max |z|")
+    if not bf16_attention:
+        log(line + " (need 0 differ)")
+        if differ.any():
+            raise AssertionError(f"{label}: the card's codes differ from the CPU's")
+        return result
+    result.update(movable=int(movable.sum()),
+                  unexplained=int((differ & ~movable).sum()))
+    log(line + f" (need <= {P16_Z_RTOL}), {result['movable']} rows that such an "
+        f"error can move, {result['unexplained']} differing rows outside them "
+        "(need 0)")
+    if result["unexplained"] or not z_err <= P16_Z_RTOL:
+        raise AssertionError(f"{label}: the card's codes or z differ: {result}")
+    return result
+
+
+def _assert_state_equal(label: str, got: dict, want: dict) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: entries {sorted(set(got) ^ set(want))} "
+                             "on one side only")
+    for k, w in want.items():
+        g = got[k].detach().cpu()
+        if g.dtype != w.dtype or not torch.equal(g.view(torch.int32),
+                                                 w.view(torch.int32)):
+            raise AssertionError(f"{label}: {k} differs from the reference tensor")
+
+
+def phase_migrated(card: str) -> dict:
+    """Reference directories written at full width, migrated by the port's
+    CLI, then (a) served from: the decoder CLI -l -r and -l --num_examples 1,
+    the prior CLI -l -g through the migrated decoder; (b) held: the loaded
+    modules' entries equal the written reference tensors bit for bit, the
+    migrated encoders' codes at batch 512 on the card against the CPU plain
+    route's (the GRU encoder's bit for bit; the transformer downscaler's,
+    K3-fwd at T = S = 16 and 4, through z, _hold_codes), and the decoder's
+    eval loss over those codes on
+    the card the CPU f32 plain route's within phase 8's LOSS_RTOL; (c) the
+    decoder CLI -t -l for one epoch of P16_TRAIN_BATCHES batches from the
+    migrated weights, Adam's moments at zero after the load. The CLI calls
+    and the two encodes at batch 512 are counted from zero launches."""
+    import glob
+    import shutil
+    from vqcpcb_tpu_torch import (getters, main_decoder, main_prior,
+                                  migrate_reference_checkpoint as migrate)
+    from vqcpcb_tpu_torch.models.encoder import merge_codes
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
+    from vqcpcb_tpu_torch.utils import default_compute_dtype, load_config_module
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ref = {k: os.path.join(work, f"reference_{k}")
+           for k in ("encoder", "decoder", "prior", "transfo")}
+    out = {k: os.path.join(work, f"migrated_{k}") for k in ref}
+    out_config = {k: os.path.join(out[k], "config.py") for k in out}
+    corpus = load_config_module(os.path.join(root, "configs", "decoder_synthetic.py"))
+
+    # the configs: copies on the synthetic corpus, config_encoder /
+    # config_decoder at the migrated directories
+    configs = {
+        "encoder": load_config_module(os.path.join(root, "configs",
+                                                   "encoder_random_synthetic.py")),
+        "decoder": dict(corpus, config_encoder=out_config["encoder"]),
+        "prior": dict(prior_config(root), config_encoder=out_config["encoder"],
+                      config_decoder=out_config["decoder"]),
+        "transfo": dict(load_config_module(os.path.join(
+            root, "configs", "encoder_random_transfo_config.py")),
+            dataset="synthetic", corpus_kwargs=corpus["corpus_kwargs"])}
+    for kind, config in configs.items():
+        config["savename"] = f"reference_{kind}"
+
+    # the modules, random weights from seeds, on the CPU
+    t0 = time.perf_counter()
+    data = getters.get_dataloader_generator(
+        "synthetic", "decoder", corpus["dataloader_generator_kwargs"], corpus)
+    rows = [torch.as_tensor(batch["x"]) for _ in range(BATCH // DECODER_CLI_BATCH)
+            for batch in data.dataloaders(batch_size=DECODER_CLI_BATCH)[0]]
+    templates = torch.cat(rows)[:BATCH]             # the corpus's windows, repeated
+    if len(templates) != BATCH:
+        raise AssertionError(f"{len(templates)} templates, not {BATCH}")
+    encoders, written = {}, {}
+    for i, kind in enumerate(("encoder", "transfo")):
+        torch.manual_seed(16 + i)
+        encoders[kind] = getters.get_encoder(getters.get_dataloader_generator(
+            "synthetic", "vqcpc", configs[kind]["dataloader_generator_kwargs"],
+            configs[kind]), configs[kind]).eval()
+        _spread_codebook(encoders[kind], templates[:P16_INIT_ROWS])
+        written[kind] = encoders[kind].state_dict()
+    torch.manual_seed(18)
+    decoder = main_decoder.build_decoder_trainer(
+        dict(configs["decoder"], config_encoder=None), encoders["encoder"],
+        configs["encoder"], "cpu", os.path.join(work, "unused")).decoder
+    written["decoder"] = decoder.state_dict()
+    torch.manual_seed(19)
+    prior = getters.get_prior(
+        getters.get_dataloader_generator(
+            "synthetic", "prior", configs["prior"]["dataloader_generator_kwargs"],
+            configs["prior"]), encoders["encoder"], configs["encoder"],
+        "transformer_relative", configs["prior"]["prior_kwargs"])
+    written["prior"] = prior.state_dict()
+    del decoder, prior
+    build_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _write_reference(ref["encoder"], configs["encoder"],
+                     _reference_files("encoder", written["encoder"]), ("early_stopped", "overfitted"))
+    _write_reference(ref["decoder"], configs["decoder"],
+                     _reference_files("decoder", written["decoder"], written["encoder"]),
+                     ("early_stopped", "overfitted"))
+    _write_reference(ref["prior"], configs["prior"],
+                     _reference_files("prior", written["prior"]), ["early_stopped"])
+    _write_reference(ref["transfo"], configs["transfo"],
+                     _reference_files("encoder", written["transfo"]), None)
+    write_s = time.perf_counter() - t0
+    sizes = {k: sum(os.path.getsize(p) for p in glob.glob(os.path.join(v, "**", "*"),
+                                                          recursive=True)
+                    if os.path.isfile(p)) for k, v in ref.items()}
+
+    migrate_s = {}
+    for kind in ("encoder", "decoder", "prior", "transfo"):
+        t0 = time.perf_counter()
+        if migrate.main([ref[kind], "-o", out[kind]]) != 0:
+            raise AssertionError(f"migrating {ref[kind]} failed")
+        migrate_s[kind] = time.perf_counter() - t0
+    log(f"# [p16] {card}: modules built in {build_s:.2f} s, reference files "
+        f"written in {write_s:.2f} s ({json.dumps(sizes)} bytes); migrated in "
+        f"{json.dumps({k: round(v, 3) for k, v in migrate_s.items()})} s")
+
+    # (a) and (c): the CLIs in process, counted from zero launches; each
+    # load recorded with whether the optimizers' state was fresh after it
+    loaded = {}
+    originals = {cls: cls.load for cls in (DecoderTrainer, PriorTrainer)}
+    current = {}
+
+    def recording(cls):
+        def load(self, *args, **kw):
+            originals[cls](self, *args, **kw)
+            fresh = self.step == 0 and all(
+                opt.count == 0 and not any(m.any() for m in opt.mu + opt.nu)
+                for opt in self._optimizers().values())
+            loaded[(current["label"], cls.__name__)] = (self, fresh)
+        return load
+
+    per_call, calls = {}, {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    for cls in originals:
+        cls.load = recording(cls)
+    try:
+        def run(label, cli, argv):
+            current["label"] = label
+            before = counts()
+            code, sec = synced_seconds(lambda: cli.main(argv))
+            per_call[label], calls[label] = _delta(counts(), before), sec
+            log(f"# [p16 entry] {label}: exit {code} in {sec:.2f} s, launches "
+                f"{json.dumps({k: v for k, v in per_call[label].items() if v})}")
+            if code != 0:
+                raise AssertionError(f"{label} returned {code}")
+            kernels = P16_KERNELS[label]
+            missing = [k for k in kernels if not per_call[label][k]]
+            others = [k for k, c in per_call[label].items() if c and k not in kernels]
+            if missing or others:
+                raise AssertionError(f"{label}: launched {per_call[label]}: missing "
+                                     f"{missing}, unexpected {others}")
+
+        reset_counts()
+        run("migrated decoder -l -r", main_decoder, ["-l", "-r", "-c", out_config["decoder"]])
+        run("migrated decoder -l --num_examples 1", main_decoder,
+            ["-l", "--num_examples", "1", "-c", out_config["decoder"]])
+        run("migrated prior -l -g", main_prior, ["-l", "-g", "-c", out_config["prior"]])
+        run("migrated decoder -t -l", main_decoder, [
+            "-t", "-l", "-c", out_config["decoder"], "--num_epochs", "1",
+            "--num_batches", str(P16_TRAIN_BATCHES)])
+        cli_counts = counts()
+    finally:
+        os.chdir(cwd)
+        for cls, method in originals.items():
+            cls.load = method
+
+    # (b) the loaded modules against the written tensors
+    served = loaded[("migrated decoder -l -r", "DecoderTrainer")][0]
+    prior_trainer = loaded[("migrated prior -l -g", "PriorTrainer")][0]
+    through_prior = loaded[("migrated prior -l -g", "DecoderTrainer")][0]
+    transfo, _ = main_decoder.load_encoder_stack({"config_encoder": out_config["transfo"]})
+    transfo = transfo.cuda().eval()
+    checks = {"decoder": (served.decoder, "decoder"),
+              "its encoder": (served.encoder, "encoder"),
+              "prior": (prior_trainer.prior, "prior"),
+              "the prior's encoder": (prior_trainer.encoder, "encoder"),
+              "decoder of the prior's -g": (through_prior.decoder, "decoder"),
+              "transformer-downscaler encoder": (transfo, "transfo")}
+    for label, (module, kind) in checks.items():
+        got = module.state_dict()
+        if any(v.device.type != "cuda" for v in got.values()):
+            raise AssertionError(f"{label} was not loaded on the card")
+        _assert_state_equal(label, got, written[kind])
+    log(f"# [p16] (b) loaded on the card, equal to the written reference tensors "
+        f"bit for bit: {', '.join(checks)} "
+        f"({sum(len(written[kind]) for _, kind in checks.values())} entries)")
+
+    # the migrated encoders' codes at batch 512, counted from zero launches
+    x = templates.cuda()
+    held_encoders = {"GRU encoder": (served.encoder, False),
+                  "transformer-downscaler encoder": (transfo, True)}
+    card_codes, card_s, encode_launches = {}, {}, {}
+    with torch.no_grad():
+        served.encoder.eval()(x[:8])
+        transfo(x[:8])                       # warm-up: cuDNN and cuBLAS plans
+    torch.cuda.synchronize()
+    reset_counts()
+    for label, (encoder, _) in held_encoders.items():
+        before = counts()
+        with torch.no_grad():
+            card_codes[label], card_s[label] = synced_seconds(lambda: encoder(x)[1])
+        encode_launches[label] = _delta(counts(), before)
+    encode_counts = counts()
+    codes = {label: _hold_codes(label, encoder, x, card_codes[label], card_s[label],
+                                bf16)
+             for label, (encoder, bf16) in held_encoders.items()}
+    for label, c in codes.items():
+        c["launches"] = encode_launches[label]
+
+    # the decoder's eval loss over those codes, card vs the CPU f32 plain route
+    merged = merge_codes(card_codes["GRU encoder"][:P16_EVAL_ROWS], CODEBOOK_SIZE)
+    dec = served.decoder.eval()
+    with torch.no_grad(), default_compute_dtype(served.compute_dtype):
+        card_loss = dec(merged, x[:P16_EVAL_ROWS])["loss"].item()
+    with torch.no_grad():
+        cpu_loss = copy.deepcopy(dec).cpu()(merged.cpu(), templates[:P16_EVAL_ROWS])[
+            "loss"].item()
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    log(f"# [p16] (b) the migrated decoder's eval loss over the first "
+        f"{P16_EVAL_ROWS} rows' codes: card ({served.compute_dtype} layers) "
+        f"{card_loss!r} vs CPU f32 plain route {cpu_loss!r} (relative "
+        f"{loss_err:.3e}, need <= {LOSS_RTOL})")
+    if not loss_err <= LOSS_RTOL:
+        raise AssertionError("the migrated decoder's eval loss differs")
+
+    # (c) the continued training
+    continued, fresh = loaded[("migrated decoder -t -l", "DecoderTrainer")]
+    (row,) = _check_model_dir(out["decoder"], 1)
+    if not (fresh and continued.step == P16_TRAIN_BATCHES
+            and np.isfinite(row["loss/train"])):
+        raise AssertionError(f"-t -l: optimizer state fresh after the load {fresh}, "
+                             f"{continued.step} steps, metrics {row}")
+    written_scores = {k: len(glob.glob(os.path.join(out[k2], sub, "*.mid")))
+                      for k, k2, sub in (("-r", "decoder", "reharmonisations"),
+                                         ("--num_examples 1", "decoder", "generations"),
+                                         ("-g", "prior", "generations"))}
+    if written_scores != {"-r": 3, "--num_examples 1": 6, "-g": 1}:
+        raise AssertionError(f"scores written by the CLIs: {written_scores}")
+    log(f"# [p16] (c) -t -l from the migrated decoder: Adam's moments and count 0 "
+        f"and step 0 after the load, {continued.step} steps, loss "
+        f"{row['loss/train']!r} train / {row['loss/val']!r} val, "
+        f"{row['tokens_per_sec/train']:.1f} tokens/s; scores written "
+        f"{json.dumps(written_scores)}")
+    by_kernel = {"K1": {l: c["vq_nearest"] for l, c in per_call.items()},
+                 "K2-fwd": {l: c["relbias_attention_bwd"] for l, c in per_call.items()},
+                 "K2-bwd": {l: c["relbias_attention_bwd"] for l, c in per_call.items()},
+                 "K3-fwd": {l: c["relbias_attention_fwd"] - c["relbias_attention_bwd"]
+                            for l, c in per_call.items()}}
+    for label, c in encode_launches.items():
+        by_kernel["K1"][f"{label} at batch {BATCH}"] = c["vq_nearest"]
+        by_kernel["K3-fwd"][f"{label} at batch {BATCH}"] = c["relbias_attention_fwd"]
+    for name, by_call in by_kernel.items():
+        log(f"# [p16] {card}: {name} launches {sum(by_call.values())} on this path: "
+            f"{json.dumps({l: n for l, n in by_call.items() if n})}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"# [p16] {card}: " + json.dumps(dict(
+        build_s=build_s, write_s=write_s, reference_bytes=sizes, migrate_s=migrate_s,
+        cli_s=calls, codes={k: {n: v for n, v in c.items() if n != "launches"}
+                            for k, c in codes.items()},
+        eval_loss=dict(card=card_loss, cpu=cpu_loss, relative=loss_err),
+        continued=dict(loss_train=row["loss/train"], loss_val=row["loss/val"],
+                       tokens_per_s=row["tokens_per_sec/train"]),
+        phase_s=phase_s)))
+    return dict(launches={"p16_migrated_cli": cli_counts,
+                          "p16_migrated_encode": encode_counts})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -3783,6 +4218,7 @@ def main() -> int:
              serving_prefill_ms=serving["prefill_ms"],
              train_ms=training["step_ms"], prior_train_ms=prior["step_ms"],
              prior_codes_per_s=prior["sample_codes_per_s"]))["launches"])
+    by_path.update(phase_migrated(card)["launches"])
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
     # every main path's K1 launches run a compiled instance

@@ -878,3 +878,77 @@ def test_grouped_decoder_on_card_matches_teacher_forcing(gen, monkeypatch):
         logits = dec(codes, greedy)["weights_per_category"]
     forced = torch.stack([lg.argmax(-1) for lg in logits], -1)
     assert (forced == greedy.long()).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+def test_migrated_reference_decoder_on_card(gen, tmp_path, monkeypatch, f32_matmuls):
+    """A reference encoder and decoder of the smoke configs' geometry
+    (per-module files, both slots; one whole decoder file with its
+    `encoder.*` entries), migrated by the port's CLI and loaded on the card
+    by the decoder CLI's path: every entry equal to the written tensor bit
+    for bit, Adam's moments zero, the codes equal to the CPU's outside the
+    near-tie margin and the eval loss within phase 8's 2e-2 of the CPU's
+    f32 one."""
+    import os
+    from vqcpcb_tpu_torch import getters, main_decoder
+    from vqcpcb_tpu_torch import migrate_reference_checkpoint as migrate
+    from vqcpcb_tpu_torch.data import dataset
+    from vqcpcb_tpu_torch.models.encoder import merge_codes
+    from vqcpcb_tpu_torch.utils import load_config_module
+    monkeypatch.setattr(dataset, "DEFAULT_CACHE_ROOT", str(tmp_path / "data"))
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    enc_config = load_config_module(os.path.join(configs, "encoder_smoke.py"))
+    dec_config = load_config_module(os.path.join(configs, "decoder_smoke.py"))
+    ref = {k: tmp_path / f"ref_{k}" for k in ("encoder", "decoder")}
+    out = {k: tmp_path / f"migrated_{k}" for k in ref}
+    dec_config["config_encoder"] = str(out["encoder"] / "config.py")
+    torch.manual_seed(0)
+    data = getters.get_dataloader_generator(
+        "synthetic", "decoder", dec_config["dataloader_generator_kwargs"], dec_config)
+    x = torch.as_tensor(next(data.dataloaders(batch_size=8)[0])["x"])
+    encoder = getters.get_encoder(getters.get_dataloader_generator(
+        "synthetic", "vqcpc", enc_config["dataloader_generator_kwargs"], enc_config),
+        enc_config).eval()
+    with torch.no_grad():           # codewords from distinct latents: spread codes
+        z = encoder.downscale(x).reshape(-1, 3).unique(dim=0)
+        encoder.quantizer.set_codebooks(z[torch.randperm(len(z))[:8]][None])
+    decoder = main_decoder.build_decoder_trainer(
+        dec_config, encoder, enc_config, "cpu", str(tmp_path / "unused")).decoder
+    enc_sd, dec_sd = encoder.state_dict(), decoder.state_dict()
+    for kind, config in (("encoder", enc_config), ("decoder", dec_config)):
+        for slot in ("early_stopped", "overfitted"):
+            (ref[kind] / slot).mkdir(parents=True)
+            if kind == "encoder":
+                for name in ("data_processor", "downscaler", "quantizer", "upscaler"):
+                    torch.save({k[len(name) + 1:]: v for k, v in enc_sd.items()
+                                if k.startswith(f"{name}.")}, ref[kind] / slot / name)
+            else:
+                torch.save({**dec_sd, **{f"encoder.{k}": v for k, v in enc_sd.items()}},
+                           ref[kind] / slot / "decoder")
+        (ref[kind] / "config.py").write_text(f"config = {config!r}\n")
+        assert migrate.main([str(ref[kind]), "-o", str(out[kind])]) == 0
+
+    card_encoder, card_enc_config = main_decoder.load_encoder_stack(dec_config)
+    trainer = main_decoder.build_decoder_trainer(
+        dec_config, card_encoder, card_enc_config, "cuda", str(out["decoder"]))
+    trainer.load(early_stopped=True)
+    for got, want in ((trainer.decoder.state_dict(), dec_sd),
+                      (trainer.encoder.state_dict(), enc_sd)):
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k].is_cuda and torch.equal(got[k].cpu(), v), k
+    opt = trainer.optimizer
+    assert opt.count == 0 and trainer.step == 0
+    assert not any(m.any() for m in opt.mu + opt.nu)
+    xc = x.cuda()
+    with torch.no_grad():
+        card = trainer.encoder.eval()(xc)[1]
+        z = encoder.downscale(x)
+        cpu = encoder.quantizer(z, training=False)[1]
+    margin = _outside_margin(z.reshape(-1, 1, 3), encoder.quantizer.codebooks)
+    assert len(cpu.unique()) > 2
+    assert not ((card.cpu() != cpu).reshape(margin.shape) & margin).any()
+    loss = trainer.eval_step(xc)["loss"].item()
+    with torch.no_grad():
+        want = decoder.eval()(merge_codes(cpu, 8), x)["loss"].item()
+    assert abs(loss - want) <= 2e-2 * abs(want)

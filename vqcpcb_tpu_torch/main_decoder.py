@@ -40,7 +40,10 @@ def load_encoder_stack(config: Dict, cache_root: Optional[str] = None
     """The frozen encoder of config['config_encoder'] (a VQ-CPC or a
     student encoder) with the weights of its model directory's checkpoint
     (main_decoder.py:16-71): the latest
-    slot, `overfitted` first. Without a config_encoder it builds
+    slot, `overfitted` first, a trainer's whole state or a weights-only
+    one (a migrated reference encoder, migrate_reference_checkpoint.py),
+    its `encoder.` entries with the BatchNorm statistics. Without a
+    config_encoder it builds
     DEFAULT_ENCODER_CONFIG's encoder; without a checkpoint it warns and keeps
     the fresh weights. Returns (encoder, encoder_config)."""
     from vqcpcb_tpu_torch import getters

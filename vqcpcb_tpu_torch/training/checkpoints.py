@@ -14,8 +14,16 @@ A state is a dict of state_dicts, tensors and numbers, saved with
 torch.save and read with torch.load(weights_only=True): no pickled module.
 Every file goes through a temporary file and os.replace, and the step
 sidecar is written after its state, so a crash during a save keeps the
-previous consistent pair (:214-226). The orbax-only paths (the legacy QKV
-layout and weights-only adoption, :24-118) have no counterpart here.
+previous consistent pair (:214-226).
+
+A weights-only state, {"model": state_dict} with no optimizer, step or
+generators (save_weights_only, :133-143), is what the reference-checkpoint
+migration writes (migrate_reference_checkpoint.py); every trainer's `-l`
+adopts it with fresh optimizer moments (TrainLoopMixin.load_state_dict, as
+_adopt_weights_only at :62-118). A model directory without the slot's
+directory is read as the reference's pre-slot layout, its state in the
+model directory itself (:148-150). The orbax-only legacy QKV layout
+(:24-59) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -52,10 +60,24 @@ def save_state(model_dir: str, early_stopped: bool, state: Dict) -> None:
                                      STATE_FILE))
 
 
+def save_weights_only(model_dir: str, early_stopped: bool,
+                      model_state: Dict) -> None:
+    """A slot holding only a module's state_dict: {"model": model_state}."""
+    save_state(model_dir, early_stopped, {"model": model_state})
+
+
+def is_weights_only(state: Dict) -> bool:
+    return set(state) == {"model"}
+
+
 def load_state(model_dir: str, early_stopped: bool,
                map_location="cpu") -> Dict:
-    return _load(os.path.join(slot_dir(model_dir, early_stopped), STATE_FILE),
-                 map_location)
+    """A slot's state; without the slot's directory, the state in the model
+    directory itself (the reference's pre-slot layout)."""
+    path = slot_dir(model_dir, early_stopped)
+    if not os.path.exists(path):
+        path = os.path.abspath(model_dir)
+    return _load(os.path.join(path, STATE_FILE), map_location)
 
 
 def latest_slot(model_dir: str) -> Optional[str]:

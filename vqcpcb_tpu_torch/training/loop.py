@@ -14,6 +14,11 @@ the same model directory then restores it and skips the batches already
 trained: the per-epoch reseed replays the same stream, so the resumed run
 ends where the uninterrupted one does.
 
+`load` also reads a weights-only slot (a migrated reference checkpoint,
+checkpoints.save_weights_only): the module entries it names are adopted,
+the optimizers keep their fresh moments and `step` its value, so `-t -l`
+continues training from reference weights.
+
 With VQCPCB_PROFILE_DIR set, each train epoch is traced
 (profiling.maybe_profile, as the JAX loop at :208).
 
@@ -128,7 +133,12 @@ class TrainLoopMixin:
     def load_state_dict(self, state: Dict) -> None:
         """Restore a state_dict(); init_state first (it builds the
         optimizers). A generator state saved on another device type (a
-        card's generator read on the CPU) leaves that generator as it is."""
+        card's generator read on the CPU) leaves that generator as it is.
+        A weights-only state (checkpoints.save_weights_only) is adopted
+        instead (adopt_weights)."""
+        if checkpoints.is_weights_only(state):
+            self.adopt_weights(state["model"])
+            return
         self._checkpointed().load_state_dict(state["model"])
         for name, opt in self._optimizers().items():
             opt.load_state_dict(state[name])
@@ -138,6 +148,32 @@ class TrainLoopMixin:
             if saved["device"] == generators[name].device.type:
                 generators[name].set_state(
                     torch.as_tensor(saved["state"], dtype=torch.uint8).cpu())
+
+    def adopt_weights(self, weights: Dict[str, torch.Tensor]) -> None:
+        """Copy the entries of a weights-only state into the checkpointed
+        module (vqcpcb_tpu/training/checkpoints.py:62-118): entries it does
+        not name keep their values (a VQ-CPC model's context and scorer nets,
+        which the reference never saves), the optimizers their fresh moments,
+        `step` and the generators their state. Every entry must land on a
+        module entry of its shape, else ValueError."""
+        module = self._checkpointed()
+        target = module.state_dict()
+        unmatched = sorted(set(weights) - set(target))
+        if unmatched:
+            fused = [k for k in unmatched if k.endswith(("in_proj_weight", "in_proj_bias"))
+                     and k.rsplit(".", 1)[0] + ".q_proj.weight" in target]
+            hint = (f"; {fused[0]}: the reference's fused in_proj does not fit a "
+                    "grouped-query attention (n_head_kv below n_head keeps "
+                    "separate q_proj / kv_proj)" if fused else "")
+            raise ValueError(f"weights-only checkpoint: {len(unmatched)} of "
+                             f"{len(weights)} entries have no matching module "
+                             f"entry (first: {unmatched[0]}){hint}")
+        for name, value in weights.items():
+            if tuple(value.shape) != tuple(target[name].shape):
+                raise ValueError(f"weights-only entry {name}: shape "
+                                 f"{tuple(value.shape)} != the module's "
+                                 f"{tuple(target[name].shape)}")
+        module.load_state_dict({**target, **weights})
 
     # ---- the two slots --------------------------------------------------------
 
