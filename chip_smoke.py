@@ -151,13 +151,29 @@ Phases, in order; any failure raises and the run exits non-zero:
      codes equal where that cannot move them), the decoder's eval loss over
      those codes within
      LOSS_RTOL of the CPU f32 plain route's; (c) the decoder CLI -t -l for
-     one epoch of 10 batches, Adam's moments at zero after the load.
+     one epoch of 10 batches, Adam's moments at zero after the load;
+ 17. the (data, model) mesh (vqcpcb_tpu_torch/parallel/): (a) the K7 shard
+     wrappers on simulated shards of (2, 2), (1, 4) and (4, 1) meshes at
+     the training shapes (the flagship's packed bf16 B=32, T=S=384 and its
+     (B, H, L, d) twin, the absolute decoder's K6, the prior's B=64, T=S=24
+     f32), each shard against the wrapper's plain version (the bf16 w_drop
+     bit for bit), at dropout 0 against the unsharded kernel bit for bit,
+     and K1 on row shards; (b) one NCCL rank through maybe_initialize
+     (torchrun's variables): the decoder and prior CLIs -t, then -l
+     --num_examples 1 and -l -g on the one-GPU path; (c) four ranks sharing
+     the card over gloo (launch.run_ranks): gloo's collectives on CUDA
+     tensors probed, a (2, 2) flagship and absolute decoder at dropout 0.2,
+     and the flagship decoder and the prior at dropout 0 in f32 against one
+     rank on the same global batches (losses, gathered clipped gradients);
+     (d) with two or more GPUs, NCCL ranks one per GPU.
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
-(a) and (c), the CLI calls of phase 14, the runs and CLI calls of phase 15
-and the CLI calls and the two encodes at batch 512 of phase 16 are the main
-paths: each is driven with the launch counts set to 0 just before it and
-read just after. Every K1 launch on them must run a compiled instance.
+(a) and (c), the CLI calls of phase 14, the runs and CLI calls of phase 15,
+the CLI calls and the two encodes at batch 512 of phase 16, and the CLI
+calls of phase 17 (b) with the ranks' steps of (c) (their launches counted
+in each rank and summed) are the main paths: each is driven with the
+launch counts set to 0 just before it and read just after. Every K1 launch
+on them must run a compiled instance.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -1404,14 +1420,9 @@ def random_templates(vocab, gen, batch, events):
 
 
 def reset_counts():
-    from vqcpcb_tpu_torch.ops import attention_kernels as ak
-    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
-    from vqcpcb_tpu_torch.ops import vq_kernels as vk
-    vk.launches = 0
-    vk.launches_by_kind.update(dict.fromkeys(vk.launches_by_kind, 0))
-    ak.launches = ak.bwd_launches = 0
-    fk.launches = fk.train_fwd_launches = 0
-    fk.train_bwd_launches = fk.train_bwd_nobias_launches = 0
+    """Every kernel wrapper's count to 0, the K7 wrappers' too."""
+    from torch_mesh_harness import reset_launch_counts
+    reset_launch_counts()
 
 
 class Launches(dict):
@@ -1421,17 +1432,20 @@ class Launches(dict):
     by_kind: dict
 
 
+KERNELS = ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd",
+           "fused_attention", "fused_attention_train_fwd",
+           "fused_attention_train_bwd", "fused_attention_train_bwd_nobias")
+
+
 def counts() -> Launches:
-    from vqcpcb_tpu_torch.ops import attention_kernels as ak
-    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
-    from vqcpcb_tpu_torch.ops import vq_kernels as vk
-    out = Launches({"vq_nearest": vk.launches, "relbias_attention_fwd": ak.launches,
-                    "relbias_attention_bwd": ak.bwd_launches,
-                    "fused_attention": fk.launches,
-                    "fused_attention_train_fwd": fk.train_fwd_launches,
-                    "fused_attention_train_bwd": fk.train_bwd_launches,
-                    "fused_attention_train_bwd_nobias": fk.train_bwd_nobias_launches})
-    out.by_kind = dict(vk.launches_by_kind)
+    """The kernels' launch counts (torch_mesh_harness.launch_counts, the
+    one count of every wrapper, which the mesh's rank processes read too),
+    K1's by kind beside them."""
+    from torch_mesh_harness import launch_counts
+    now = launch_counts()
+    out = Launches({k: now[k] for k in KERNELS})
+    out.by_kind = {k.split("/", 1)[1]: n for k, n in now.items()
+                   if k.startswith("vq_nearest/")}
     return out
 
 
@@ -2568,14 +2582,14 @@ def prior_config(root: str) -> dict:
     return config
 
 
-def prior_at_full_width(gen, n_head_kv=None):
-    """(trainer, 4 batches on the card): the PriorTrainer the prior CLI
-    builds from prior_config() (weights from torch's init under seed 0, the
-    encoder's codebook initialised from the 4 batches' latents), and 4
-    batches of its data loader (the corpus windows built into
-    build/prior_data); n_head_kv in its prior_kwargs when given."""
+def prior_parts(gen, n_head_kv=None):
+    """(encoder, prior, codebook size, 4 batches on the card, lr): the
+    modules the prior CLI builds from prior_config() (weights from torch's
+    init under seed 0, the encoder on the card with its codebook
+    initialised from the 4 batches' latents), and 4 batches of its data
+    loader (the corpus windows built into build/prior_data); n_head_kv in
+    its prior_kwargs when given."""
     from vqcpcb_tpu_torch import getters
-    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
     from vqcpcb_tpu_torch.utils import load_config_module
     root = os.path.dirname(os.path.abspath(__file__))
     cache = os.path.join(root, "build", "prior_data")
@@ -2592,12 +2606,21 @@ def prior_at_full_width(gen, n_head_kv=None):
         enc_config, cache_root=cache), enc_config)
     prior = getters.get_prior(data, encoder, enc_config, config["prior_type"],
                               config["prior_kwargs"])
-    trainer = PriorTrainer(encoder, prior,
-                           enc_config["quantizer_kwargs"]["codebook_size"], seed=0)
     train = data.dataloaders(batch_size=config["batch_size"])[0]
     batches = [torch.as_tensor(next(train)["x"], device="cuda") for _ in range(4)]
-    init_codebook(trainer.encoder, torch.cat(batches), gen)
-    trainer.init_state(lr=config["lr"])
+    encoder.cuda()
+    init_codebook(encoder, torch.cat(batches), gen)
+    return (encoder, prior, enc_config["quantizer_kwargs"]["codebook_size"],
+            batches, config["lr"])
+
+
+def prior_at_full_width(gen, n_head_kv=None):
+    """(trainer, 4 batches on the card): a PriorTrainer over prior_parts'
+    modules, its optimizer initialised."""
+    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
+    encoder, prior, codebook_size, batches, lr = prior_parts(gen, n_head_kv)
+    trainer = PriorTrainer(encoder, prior, codebook_size, seed=0)
+    trainer.init_state(lr=lr)
     return trainer, batches
 
 
@@ -4172,6 +4195,738 @@ def phase_migrated(card: str) -> dict:
                           "p16_migrated_encode": encode_counts})
 
 
+# ---- phase 17 --------------------------------------------------------------
+
+# The (data, model) mesh (vqcpcb_tpu_torch/parallel/). (a) K7 on simulated
+# shards on the card at the training shapes: each shard of each mesh runs
+# its K7 wrapper (autograd over the kernels) on its (b_local, h_local)
+# planes, held against the wrapper's plain version (phase 5's GRAD_FRAC rule
+# and, for the relative-bias forward, phases 5-6's bf16 w_drop bit for
+# bit), and at dropout 0 against the unsharded kernel: out, dq, dk and dv
+# bit for bit (every plane is computed on its own); the tables' gradients,
+# summed over the data shards in another order than the unsharded kernel's
+# batch groups, within GRAD_FRAC. K1 on row shards (shard_batch, then K1's
+# entry, as the trainers run it) against the unsharded kernel, bit for
+# bit. (b) one NCCL rank through maybe_initialize
+# (VQCPCB_DISTRIBUTED=1 and torchrun's variables): the decoder and prior
+# CLIs -t over the mesh code, then -l on the one-GPU path from the slots
+# they wrote. (c) four ranks on the one card over gloo (run_ranks): gloo's
+# collectives probed on CUDA tensors, then a (2, 2) flagship decoder and a
+# (2, 2) absolute decoder at dropout 0.2 (the loss falls; gloo-on-one-card
+# step times, not speeds of the mesh), and the flagship decoder and the
+# prior at dropout 0 in f32 (VQCPCB_COMPUTE_DTYPE=float32 and
+# VQCPCB_PALLAS_BF16_DOTS=0: a bf16 rounding would land in other places
+# than one rank's) against one rank on the same global batches: the losses
+# of MESH_STEPS steps within MESH_RTOL relative, and every one of the
+# first step's gathered clipped gradients within MESH_GRAD_FRAC of its own
+# max |value|, the mesh's ReLU masks pinned to one rank's on that step
+# (torch_mesh_harness.ReluPins: f32 rounding differs between batch
+# and column partitions, and a pre-activation within rounding of zero
+# that takes the other sign moves its linear1 gradient by a token's whole
+# share, up to 2.7e-3 of the max over 4 row blocks of one rank on an
+# H100); beside it the card's own partition gaps, one rank over 4 row
+# blocks, masks free and pinned, pinned held as the mesh is. The default
+# route (K2's bf16 dots, layers in f32) on (2, 2) and on (4, 1), which
+# runs no model-axis code, each against one rank, masks pinned: every
+# gradient's relative L2 gap on (2, 2) within MESH_BF16_FACTOR of
+# (4, 1)'s. (d) with two or more GPUs, the flagship at dropout 0.2 over
+# NCCL ranks, one per GPU, ms/step and tokens/s.
+MESHES = ((2, 2), (1, 4), (4, 1))
+MESH_STEPS = 3
+MESH_DROPOUT_STEPS = 8
+MESH_ABSOLUTE_STEPS = 4
+MESH_RTOL = 1e-4
+MESH_GRAD_FRAC = 1e-4
+MESH_BF16_FACTOR = 4.0
+MESH_CLI_BATCHES = 8
+MESH_RANKS_TIMEOUT_S = 420
+MESH_SEED = 17
+# K1's mesh branch (pallas_vq.py:96-130) is no wrapper in the port: each
+# rank's rows (parallel/mesh.shard_batch) go through K1's ordinary entry,
+# held on row shards by (a) and counted under vq_nearest
+K7_WRAPPERS = {
+    "relbias_attention_packed_tp": "vqcpcb_tpu/ops/pallas_attention.py:1045",
+    "relbias_attention_tp": "vqcpcb_tpu/ops/pallas_attention.py:1085",
+    "fused_attention_train_tp": "vqcpcb_tpu/ops/pallas_attention.py:1122"}
+
+
+def _shard_blocks(kind, mesh, b, h, tensors, tables):
+    """One shard's blocks: rows of the batch and, packed, its heads'
+    columns or, (B, H, L, d), its heads; the tables' heads."""
+    lb, lh = b // mesh.n_data, h // mesh.n_model
+    rows = slice(mesh.data_index * lb, (mesh.data_index + 1) * lb)
+    heads = slice(mesh.model_index * lh, (mesh.model_index + 1) * lh)
+    cols = slice(heads.start * HEAD_DIM, heads.stop * HEAD_DIM)
+    if kind == "bhld":
+        blocks = [x[rows, heads] for x in tensors]
+    else:
+        blocks = [x[rows, :, cols] for x in tensors]
+    return (blocks, [None if x is None else x[heads] for x in tables], lh,
+            (rows, heads, cols))
+
+
+def _k7_run(kind, mesh, q, k, v, mask, e1, e2, g, lh, rate, seed):
+    """One shard's K7 wrapper, forward and backward through autograd, in
+    _hold's order: [out, dq, dk, dv, None (dmask), de1, de2] (relative
+    bias) or [out, dq, dk, dv, None, None] (K6, no bias)."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    tables = [] if kind == "fused" else [x.detach().requires_grad_(True)
+                                          for x in (e1, e2)]
+    if kind == "packed":
+        out = ak.relbias_attention_packed_tp(mesh, *leaves, mask, *tables, lh,
+                                             rate, seed)
+    elif kind == "bhld":
+        out = ak.relbias_attention_tp(mesh, *leaves, mask, *tables, rate, seed)
+    else:
+        out = fk.fused_attention_train_tp(mesh, *leaves, mask, None, lh, rate, seed)
+    out.backward(g)
+    grads = [x.grad for x in leaves + tables]
+    # the kernels return the tables' gradient in q's dtype; autograd casts
+    # it to the f32 tables' (exactly): back in q's dtype, _hold allows the
+    # bf16 step of a bf16 result, as for phase 5's
+    tables_grads = [x.to(q.dtype) for x in grads[3:]] or [None]
+    return [out.detach(), *grads[:3], None, *tables_grads]
+
+
+def _k7_plain(kind, mesh, q, k, v, mask, e1, e2, g, lh, rate, seed):
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    nh = None if kind == "bhld" else lh
+    if kind == "fused":
+        return fk.fused_attention_train_tp_plain(mesh, q, k, v, mask, None, g,
+                                                 num_heads=nh, dropout=rate,
+                                                 seed=seed)
+    return ak.relbias_attention_tp_plain(mesh, q, k, v, mask, e1, e2, g,
+                                         num_heads=nh, dropout=rate, seed=seed)
+
+
+def _k7_case(label, kind, inputs, rate, worst, unsharded=None):
+    """Every shard of every mesh: the wrapper against its plain version
+    (and, relative bias packed with bf16 inputs, the forward's bf16 w_drop
+    bit for bit on the first and last shard of each mesh); at
+    dropout 0 against `unsharded` (the full kernel's [out, dq, dk, dv,
+    dmask, de1, de2]): out, dq, dk, dv bit for bit, the summed tables'
+    gradients within GRAD_FRAC. Returns the number of shards held."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.parallel.mesh import simulated_mesh
+    q, k, v, mask, e1, e2, g = inputs
+    b = q.shape[0]
+    held = 0
+    for n_data, n_model in MESHES:
+        tables_sum = None
+        for rank in range(n_data * n_model):
+            mesh = simulated_mesh(n_data, n_model, rank)
+            (ql, kl, vl, gl), (e1l, e2l), lh, (rows, heads, cols) = _shard_blocks(
+                kind, mesh, b, HEADS, (q, k, v, g), (e1, e2))
+            what = f"K7 {label} mesh ({n_data}, {n_model}) rank {rank}"
+            got = _k7_run(kind, mesh, ql, kl, vl, mask, e1l, e2l, gl, lh, rate, 99)
+            want = _k7_plain(kind, mesh, ql, kl, vl, mask, e1l, e2l, gl, lh, rate, 99)
+            names = FUSED_RESULTS if kind == "fused" else TRAIN_RESULTS
+            _hold(what, got, want, None, worst, names=names)
+            if (kind == "packed" and rate > 0 and q.dtype == torch.bfloat16
+                    and rank in (0, n_data * n_model - 1)):
+                seed_k = ak.shard_seed(99, mesh, ql.shape[0], lh)
+                _hold_weights(
+                    what,
+                    lambda q_, k_, v_, m_, a_, b_, **kw: ak.relbias_attention_packed_tp(
+                        mesh, q_, k_, v_, m_, a_, b_, lh, rate, 99),
+                    lambda *x, **kw: ak.relbias_attention_bwd_weights_plain(
+                        *x, num_heads=lh, dropout=rate, seed=seed_k),
+                    (ql, kl, vl, mask, e1l, e2l, gl), dict(num_heads=lh))
+            if unsharded is not None:
+                pick = ((lambda x: x[rows, heads]) if kind == "bhld"
+                        else (lambda x: x[rows, :, cols]))
+                for res, a, w in zip(names[:4], got[:4], unsharded[:4]):
+                    if not torch.equal(a, pick(w)):
+                        raise AssertionError(f"{what}: {res} at dropout 0 is not "
+                                             "the unsharded kernel's, bit for bit")
+                if kind != "fused":
+                    part = [x.float() for x in got[5:]]
+                    if tables_sum is None:
+                        tables_sum = [torch.zeros_like(x, dtype=torch.float32)
+                                      for x in unsharded[5:]]
+                    for total, x in zip(tables_sum, part):
+                        total[heads] += x
+            held += 1
+        if unsharded is not None and kind != "fused":
+            # each shard's table gradient is rounded to q's dtype before the
+            # sum, the unsharded one once after it: half a step each
+            frac = GRAD_FRAC + ((n_data + 1) * 2.0 ** -9
+                                if q.dtype == torch.bfloat16 else 0.0)
+            for res, total, w in zip(("de1", "de2"), tables_sum, unsharded[5:]):
+                err = (total - w.float()).abs().max().item()
+                scale = w.float().abs().max().item()
+                worst["bwd"] = max(worst["bwd"], err)
+                log(f"# K7 {label} mesh ({n_data}, {n_model}) dropout 0: {res} summed "
+                    f"over the data shards vs unsharded {err:.3e} of {scale:.3g} "
+                    f"(need <= {frac:.2e} of it; bit for bit: {bool(err == 0)})")
+                if err > frac * max(scale, 1e-30):
+                    raise AssertionError(f"K7 {label}: {res} summed over the shards "
+                                         f"differs by {err}")
+        torch.cuda.empty_cache()
+    return held
+
+
+def _k7_time(inputs):
+    """The packed relative-bias K7 wrapper's forward and backward on one
+    shard of (2, 2) at the flagship training shape: ms, the plain version's,
+    the bound (fwd + bwd bytes and products of phase 5's rule at b_local,
+    h_local) and SDPA's forward and backward with the mask and bias as an
+    additive mask at the same shape."""
+    import torch.nn.functional as F
+    from vqcpcb_tpu_torch.ops.relative_attention import subsampled_relative_bias
+    from vqcpcb_tpu_torch.parallel.mesh import simulated_mesh
+    q, k, v, mask, e1, e2, g = inputs
+    mesh = simulated_mesh(2, 2, 0)
+    (ql, kl, vl, gl), (e1l, e2l), lh, _ = _shard_blocks(
+        "packed", mesh, q.shape[0], HEADS, (q, k, v, g), (e1, e2))
+    args = (ql, kl, vl, mask, e1l, e2l, gl, lh, TRAIN_DROPOUT, 99)
+    ms = time_cuda(lambda: _k7_run("packed", mesh, *args), 10)
+    plain_ms = time_cuda(lambda: _k7_plain("packed", mesh, *args), 3, warmup=1)
+    lb, t = ql.shape[0], ql.shape[1]
+    n = lb * lh
+    act = 2 * lb * t * lh * HEAD_DIM
+    side = 4 * t * t + 4 * lh * (2 * t - 1) * HEAD_DIM
+    prod = 2 * t * t * HEAD_DIM * n
+    bound_ms, bound_by = bound(11 * act + 3 * side, 11 * prod, BF16_FLOPS)
+    q4, k4, v4, g4 = (x.unflatten(-1, (lh, HEAD_DIM)).transpose(1, 2).contiguous()
+                      for x in (ql, kl, vl, gl))
+    bias = (mask + subsampled_relative_bias(q4.float(), e1l, e2l)).to(torch.bfloat16)
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4, bias)]
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        *leaves[:3], attn_mask=leaves[3], dropout_p=TRAIN_DROPOUT,
+        scale=1.0).backward(g4), 10)
+    log(f"# K7 relbias_attention_packed_tp at (2, 2)'s shard (b {lb}, h {lh}, T=S={t}, "
+        f"bf16, dropout {TRAIN_DROPOUT}), forward + backward: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa(mask+bias) fwd+bwd {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def _mesh_shards(gen) -> dict:
+    """(a): K7 at the flagship's training shape (packed bf16, B=32, T=S=384,
+    dropout 0.2 and 0), its (B, H, L, d) twin, K6's at the absolute
+    decoder's self-attention and the prior's (B=64, T=S=24, f32 inputs,
+    dropout 0.1 and 0), and K1 on row shards as the trainers run it
+    (shard_batch, then K1's entry). Returns {"held" (shards held, by
+    wrapper), "worst" (each wrapper's worst fwd and bwd error), "k1_held"
+    (row shards), "timing"}."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    from vqcpcb_tpu_torch.ops import vq_kernels as vk
+    from vqcpcb_tpu_torch.parallel.mesh import shard_batch, simulated_mesh
+    worst = {name: {"fwd": 0.0, "bwd": 0.0} for name in K7_WRAPPERS}
+    held = {}
+    flagship = _train_inputs(gen, TRAIN_BATCH, 384, 384, "causal", True, torch.bfloat16)
+    q, k, v, mask, e1, e2, g = flagship
+    full = [ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2, num_heads=HEADS),
+            *ak.relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, g, num_heads=HEADS,
+                                           need_dmask=False)]
+    held["relbias_attention_packed_tp"] = (
+        _k7_case("flagship packed dropout 0.2", "packed", flagship, TRAIN_DROPOUT,
+                 worst["relbias_attention_packed_tp"])
+        + _k7_case("flagship packed dropout 0", "packed", flagship, 0.0,
+                   worst["relbias_attention_packed_tp"], full))
+    del full
+    q4, k4, v4, g4 = (_split_heads(x).contiguous() for x in (q, k, v, g))
+    bhld = (q4, k4, v4, mask, e1, e2, g4)
+    full = [ak.relbias_attention_fwd_cuda(q4, k4, v4, mask, e1, e2),
+            *ak.relbias_attention_bwd_cuda(q4, k4, v4, mask, e1, e2, g4,
+                                           need_dmask=False)]
+    held["relbias_attention_tp"] = (
+        _k7_case("flagship (B, H, L, d) dropout 0.2", "bhld", bhld, TRAIN_DROPOUT,
+                 worst["relbias_attention_tp"])
+        + _k7_case("flagship (B, H, L, d) dropout 0", "bhld", bhld, 0.0,
+                   worst["relbias_attention_tp"], full))
+    del full, bhld, q4, k4, v4, g4
+    timing = _k7_time(flagship)
+    del flagship
+    qa, ka, va = _projected(gen, TRAIN_BATCH, 384, 384, torch.bfloat16)
+    ga = torch.randn(qa.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    causal = _fused_mask("causal", 384, 384)
+    absolute = (qa, ka, va, causal, None, None, ga)
+    full = [fk.fused_attention_train_fwd_cuda(qa, ka, va, causal, None, num_heads=HEADS),
+            *fk.fused_attention_train_bwd_cuda(qa, ka, va, causal, None, ga,
+                                               num_heads=HEADS, need_dmask=False)]
+    held["fused_attention_train_tp"] = (
+        _k7_case("absolute K6 dropout 0.2", "fused", absolute, TRAIN_DROPOUT,
+                 worst["fused_attention_train_tp"])
+        + _k7_case("absolute K6 dropout 0", "fused", absolute, 0.0,
+                   worst["fused_attention_train_tp"], full))
+    del full, absolute, qa, ka, va, ga
+    prior = _train_inputs(gen, PRIOR_BATCH, PRIOR_CODES, PRIOR_CODES, "causal", True)
+    q, k, v, mask, e1, e2, g = prior
+    full = [ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2, num_heads=HEADS),
+            *ak.relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, g, num_heads=HEADS,
+                                           need_dmask=False)]
+    held["relbias_attention_packed_tp"] += (
+        _k7_case("prior packed f32 dropout 0.1", "packed", prior, 0.1,
+                 worst["relbias_attention_packed_tp"])
+        + _k7_case("prior packed f32 dropout 0", "packed", prior, 0.0,
+                   worst["relbias_attention_packed_tp"], full))
+    # K1: the decoder trainer's encode of 32 x 24 blocks, each rank's rows
+    # (shard_batch) through K1's entry, as the trainers run it
+    x = torch.randn((TRAIN_BATCH * NUM_CODES, 1, 3), generator=gen, device="cuda")
+    codebooks = torch.randn((1, CODEBOOK_SIZE, 3), generator=gen, device="cuda")
+    whole = vk.nearest_codebook_indices_cuda(x, codebooks)
+    k1_held = 0
+    for n_data in (2, 4, 8):
+        got = torch.cat([vk.nearest_codebook_indices(
+            shard_batch(x, simulated_mesh(n_data, 1, r)), codebooks)
+            for r in range(n_data)])
+        if not torch.equal(got, whole):
+            raise AssertionError(f"K1 on {n_data} row shards differs from the "
+                                 "unsharded kernel")
+        k1_held += n_data
+    odd = shard_batch(x[:TRAIN_BATCH * NUM_CODES - 3], simulated_mesh(4, 1, 1))
+    if len(odd) != TRAIN_BATCH * NUM_CODES - 3 or not torch.equal(
+            vk.nearest_codebook_indices(odd, codebooks), whole[:len(odd)]):
+        raise AssertionError("K1 on replicated (non-dividing) rows differs")
+    k1_held += 1
+    errors = {k: {r: float(f"{e:.3e}") for r, e in w.items()} for k, w in worst.items()}
+    log(f"# (a) K7 shards held: {json.dumps(held)}; worst error by wrapper "
+        f"{json.dumps(errors)}; K1 on 2, 4 and 8 row shards (shard_batch, then "
+        "K1's entry) and on replicated rows = the unsharded kernel, bit for bit")
+    torch.cuda.empty_cache()
+    return dict(held=held, worst=worst, k1_held=k1_held, timing=timing)
+
+
+def _mesh_clis(encoder_config: str) -> tuple:
+    """(b): the decoder and prior CLIs -t as one NCCL rank started by
+    maybe_initialize from torchrun's variables, then -l on the one-GPU
+    path. Returns (the launches of the calls, seconds by call)."""
+    import glob
+    import shutil
+    import torch.distributed as dist
+    from vqcpcb_tpu_torch import main_decoder, main_prior
+    from vqcpcb_tpu_torch.parallel.launch import free_port
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase17")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "configs"))
+    env = {"VQCPCB_DISTRIBUTED": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1", "RANK": "0",
+           "LOCAL_RANK": "0"}
+    seconds = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        def run(label, cli, argv):
+            code, sec = synced_seconds(lambda: cli.main(argv))
+            seconds[label] = sec
+            log(f"# [mesh] {label}: exit {code} in {sec:.2f} s")
+            if code != 0:
+                raise AssertionError(f"{label} returned {code}")
+
+        reset_counts()
+        os.environ.update(env)
+        try:
+            config = _decoder_config_copy(work, "decoder_mesh", encoder_config,
+                                          "transformer_relative_diagonal")
+            run("decoder -t (1 NCCL rank)", main_decoder,
+                ["-t", "-c", config, "--num_epochs", "1", "--num_batches",
+                 str(MESH_CLI_BATCHES)])
+            if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                    and dist.get_world_size() == 1):
+                raise AssertionError("maybe_initialize did not start one NCCL rank")
+            (decoder_dir,) = glob.glob(os.path.join(work, "models", "decoder_mesh_*"))
+            decoder_config = os.path.join(decoder_dir, "config.py")
+            prior_cfg = _prior_config_copy(work, encoder_config, decoder_config)
+            run("prior -t (1 NCCL rank)", main_prior, ["-t", "-c", prior_cfg])
+            (prior_dir,) = glob.glob(os.path.join(work, "models", "prior_synthetic_*"))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for name in env:
+                os.environ.pop(name, None)
+        _check_model_dir(decoder_dir, 1)
+        _check_model_dir(prior_dir, 1)
+        run("decoder -l --num_examples 1 (one GPU)", main_decoder,
+            ["-l", "--num_examples", "1", "-c", decoder_config])
+        run("prior -l -g (one GPU)", main_prior,
+            ["-l", "-g", "-c", os.path.join(prior_dir, "config.py")])
+        launches = counts()
+    finally:
+        os.chdir(cwd)
+    for kernel in ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"):
+        if not launches[kernel]:
+            raise AssertionError(f"(b) launched no {kernel}")
+    return launches, seconds
+
+
+def _mesh_job(job: dict) -> dict:
+    """A payload of train_over_mesh (torch_mesh_harness.py) for one of
+    (c)'s jobs, its models and batches built from MESH_SEED (the same in
+    every process that builds them): the flagship or absolute decoder of
+    build_models at full width on 4 random batches of TRAIN_BATCH, or the
+    prior of prior_parts; the job's ReLU pins, where it has them."""
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    if job["kind"] == "prior":
+        encoder, model, codebook_size, batches, lr = prior_parts(gen)
+    else:
+        vocab = synthetic_vocabulary()
+        encoder, model = build_models(vocab, dropout=job["dropout"],
+                                      kind=job["model"])
+        batches = [random_templates(vocab, gen, TRAIN_BATCH, NUM_EVENTS)
+                   for _ in range(4)]
+        encoder.cuda()
+        init_codebook(encoder, torch.cat(batches), gen)
+        codebook_size, lr = CODEBOOK_SIZE, 1e-4
+    set_dropout(model, job["dropout"])
+    steps = [batches[i % 2].cpu().numpy() for i in range(job["steps"])]
+    return dict(kind="prior" if job["kind"] == "prior" else "decoder",
+                encoder=encoder, model=model, codebook_size=codebook_size,
+                num_model=job["num_model"], batches=steps, lr=lr, device="cuda",
+                env=job.get("env", {}), relu_pins=job.get("relu_pins"))
+
+
+def mesh_ranks(rank: int, world_size: int, spec: dict) -> dict:
+    """One rank of (c) or (d), started by launch.run_ranks: with one GPU per
+    rank (spec["own_gpu"]) it takes cuda:rank. Probes the process group's
+    collectives on CUDA tensors (the port's mesh uses all_reduce and
+    all_gather_into_tensor), then runs spec["jobs"] with train_over_mesh.
+    TF32 is off, as in this script's process (phase 1)."""
+    import torch.distributed as dist
+    from torch_mesh_harness import train_over_mesh
+    # as phase 1 sets them in this script's process: f32 matmuls and GRUs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec.get("own_gpu"):
+        torch.cuda.set_device(rank)
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    probes = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+              "broadcast": lambda: dist.broadcast(x.clone(), 0),
+              "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                  torch.empty(4 * world_size, device="cuda"), x),
+              "all_gather": lambda: dist.all_gather(
+                  [torch.empty(4, device="cuda") for _ in range(world_size)], x)}
+    probe = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            probe[name] = "ok"
+        except (RuntimeError, ValueError) as exc:
+            probe[name] = f"refused: {str(exc).splitlines()[0][:200]}"
+    if any(probe[k] != "ok" for k in ("all_reduce", "all_gather_into_tensor")):
+        return {"probe": probe}
+    return {"probe": probe,
+            "jobs": [train_over_mesh(rank, world_size, _mesh_job(job))
+                     for job in spec["jobs"]]}
+
+
+def _mesh_reference(job: dict) -> tuple:
+    """One rank in this process on a job's models and batches: (losses,
+    the first step's clipped gradients on the CPU, the ReLU pre-activations
+    near zero of the first step, a ReluPins recording)."""
+    from torch_mesh_harness import ReluPins, with_env
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
+    payload = _mesh_job(job)
+
+    def run():
+        cls = DecoderTrainer if payload["kind"] == "decoder" else PriorTrainer
+        trainer = cls(payload["encoder"], payload["model"], payload["codebook_size"],
+                      device=payload["device"], mesh=Mesh(1, 1))
+        trainer.init_state(payload["lr"])
+        module = trainer.decoder if payload["kind"] == "decoder" else trainer.prior
+        losses, grads, pins = [], None, ReluPins()
+        for batch in payload["batches"]:
+            if grads is None:
+                with pins:
+                    losses.append(float(trainer.train_step(batch)["loss"]))
+                grads = {n: (torch.zeros(p.shape) if p.grad is None
+                             else p.grad.float().cpu())
+                         for n, p in module.named_parameters()}
+            else:
+                losses.append(float(trainer.train_step(batch)["loss"]))
+        return losses, grads, pins.pins
+
+    out = with_env(payload["env"], run)
+    del payload
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grad_gaps(got: dict, want: dict) -> tuple:
+    """({parameter: largest gap / its max |value|}, {parameter: relative L2
+    gap}) of two gradients."""
+    own = {k: ((got[k].float() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+           for k, w in want.items()}
+    l2 = {k: ((got[k].float() - w).norm() / w.norm().clamp_min(1e-30)).item()
+          for k, w in want.items()}
+    return own, l2
+
+
+def _worst(gaps: dict, n: int = 3) -> str:
+    return json.dumps({k: float(f"{v:.3e}") for k, v in
+                       sorted(gaps.items(), key=lambda kv: -kv[1])[:n]})
+
+
+def _partition_gaps(job: dict, parts: int) -> dict:
+    """The card's own gradient gaps between batch partitions, with no mesh
+    code: one rank in this process, the job's first batch's decoder
+    gradient (the trainer's loss, no update) whole against the mean of
+    `parts` row blocks' gradients, the blocks' ReLU masks free and then
+    pinned to the whole batch's (torch_mesh_harness.ReluPins). Returns
+    {"free", "pinned": (own, l2) as _grad_gaps gives them, "flips" (pinned
+    units by ReLU call, summed over the blocks), "pin_gap"}."""
+    from torch_mesh_harness import ReluPins, with_env
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    payload = _mesh_job(job)
+
+    def run():
+        trainer = DecoderTrainer(payload["encoder"], payload["model"],
+                                 payload["codebook_size"], device="cuda",
+                                 mesh=Mesh(1, 1))
+        x = torch.as_tensor(payload["batches"][0], device="cuda")
+        trainer.decoder.train()
+
+        def grads(blocks):
+            trainer.decoder.zero_grad(set_to_none=True)
+            for i, rows in enumerate(x.chunk(parts)):
+                if blocks is None:
+                    (trainer._loss(rows) / parts).backward()
+                else:
+                    pins = ReluPins(blocks, (i, parts))
+                    with pins:
+                        (trainer._loss(rows) / parts).backward()
+                    flips.append(pins.flips)
+                    gaps.append(pins.gap)
+            return {k: p.grad.float() for k, p in trainer.decoder.named_parameters()}
+
+        flips, gaps = [], []
+        record = ReluPins()
+        with record:
+            trainer.decoder.zero_grad(set_to_none=True)
+            trainer._loss(x).backward()
+        whole = {k: p.grad.float() for k, p in trainer.decoder.named_parameters()}
+        free = grads(None)
+        pinned = grads(record.pins)
+        return whole, free, pinned, flips, gaps
+
+    whole, free, pinned, flips, gaps = with_env(payload["env"], run)
+    del payload
+    torch.cuda.empty_cache()
+    return dict(free=_grad_gaps(free, whole), pinned=_grad_gaps(pinned, whole),
+                flips=[int(sum(f)) for f in zip(*flips)], pin_gap=max(gaps))
+
+
+def _mesh_ranks_on_one_card(jobs=None) -> dict:
+    """(c): returns {"probe", "refused" (the collectives gloo refused on
+    CUDA tensors), "launches" (summed over the ranks and the jobs, K1 also
+    by kind), "k7" (the K7 wrappers' launches), "step_ms", "gaps" (the
+    comparisons' per-parameter gaps, by job), "losses"}. The comparisons
+    are held by _hold_mesh_gaps."""
+    from vqcpcb_tpu_torch.parallel.launch import run_ranks
+    relbias = ("relbias_attention_packed_tp", "relbias_attention_fwd",
+               "relbias_attention_bwd")
+    nobias = ("fused_attention_train_tp", "fused_attention_train_fwd",
+              "fused_attention_train_bwd_nobias")
+    explicit = ("fused_attention_train_tp", "fused_attention_train_fwd",
+                "fused_attention_train_bwd")
+    # f32 end to end: the layers, and the kernels' f32-dot instances (K6 with
+    # the explicit relative bias at the flagship's T=S=384, where the
+    # relative-bias kernels' f32 tables do not fit; K2 at the prior's 24)
+    f32 = {"VQCPCB_COMPUTE_DTYPE": "float32", "VQCPCB_PALLAS_BF16_DOTS": "0"}
+    bf16_dots = {"VQCPCB_COMPUTE_DTYPE": "float32"}
+    jobs = jobs or [
+        dict(name="flagship dropout", kind="decoder", model="flagship",
+             dropout=TRAIN_DROPOUT, steps=MESH_DROPOUT_STEPS, num_model=2,
+             need=relbias),
+        dict(name="absolute dropout", kind="decoder", model="absolute",
+             dropout=TRAIN_DROPOUT, steps=MESH_ABSOLUTE_STEPS, num_model=2,
+             need=nobias),
+        dict(name="flagship f32", kind="decoder", model="flagship", dropout=0.0,
+             steps=MESH_STEPS, num_model=2, need=explicit, compare="exact",
+             env=dict(f32, VQCPCB_PALLAS_RELBIAS="0")),
+        dict(name="prior f32", kind="prior", dropout=0.0, steps=MESH_STEPS,
+             num_model=2, need=relbias, compare="exact", env=f32),
+        # the default route (K2 with bf16 dots), layers in f32: the (2, 2)
+        # mesh held against (4, 1), which runs no model-axis code, each
+        # against one rank on the same batch
+        dict(name="flagship bf16 dots (2, 2)", kind="decoder", model="flagship",
+             dropout=0.0, steps=1, num_model=2, need=relbias, compare="bf16",
+             env=bf16_dots),
+        dict(name="flagship bf16 dots (4, 1)", kind="decoder", model="flagship",
+             dropout=0.0, steps=1, num_model=1, need=relbias, compare="bf16",
+             env=bf16_dots)]
+    # one rank first, on the compared jobs' batches: the reference losses and
+    # gradients, and the ReLU pre-activations near zero that pin the mesh's
+    # first step (torch_mesh_harness.ReluPins)
+    references = {}
+    for job in jobs:
+        if "compare" in job:
+            key = json.dumps([job["kind"], job.get("model"), job["steps"],
+                              job.get("env", {})], sort_keys=True)
+            if key not in references:
+                references[key] = _mesh_reference(job)
+            job["reference"] = references[key]
+            job["relu_pins"] = references[key][2]
+    t0 = time.perf_counter()
+    results = run_ranks("chip_smoke:mesh_ranks", 4,
+                        {"jobs": [{k: v for k, v in job.items() if k != "reference"}
+                                  for job in jobs]},
+                        timeout_s=MESH_RANKS_TIMEOUT_S, backend="gloo", threads=2)
+    wall = time.perf_counter() - t0
+    probe = results[0]["probe"]
+    refused = {k: v for k, v in probe.items() if v != "ok"}
+    log(f"# (c) gloo on CUDA tensors, 4 ranks on one card: {json.dumps(probe)} "
+        f"(the mesh code uses all_reduce and all_gather_into_tensor); run_ranks "
+        f"wall {wall:.1f} s")
+    if "jobs" not in results[0]:
+        log("# (c) gloo refused a collective of the mesh on CUDA tensors: the "
+            "multi-rank proof on the card is (a) and (b)")
+        return dict(probe=probe, refused=refused, launches={},
+                    k7=dict.fromkeys(K7_WRAPPERS, 0), step_ms={}, gaps={}, losses={})
+    launches, step_ms, gaps, losses_by_job = {}, {}, {}, {}
+    for j, job in enumerate(jobs):
+        per_job = {}
+        for r in results:
+            for key, n in r["jobs"][j]["launches"].items():
+                per_job[key] = per_job.get(key, 0) + n
+        for key, n in per_job.items():
+            launches[key] = launches.get(key, 0) + n
+        res = results[0]["jobs"][j]
+        losses = res["losses"]
+        losses_by_job[job["name"]] = losses
+        if not all(np.isfinite(losses)) or any(r["jobs"][j]["losses"] != losses
+                                                for r in results):
+            raise AssertionError(f"(c) {job['name']}: ranks' losses {losses}")
+        step_ms[job["name"]] = res["seconds"] / len(losses) * 1e3
+        log(f"# (c) {job['name']} over ({4 // job['num_model']}, {job['num_model']}): losses {[round(x, 5) for x in losses]}, "
+            f"{step_ms[job['name']]:.1f} ms/step with 4 gloo ranks sharing one card "
+            "(not a speed of the mesh); launches summed over the ranks "
+            f"{json.dumps({k: v for k, v in per_job.items() if v})}")
+        missing = [k for k in job["need"] + ("vq_nearest",) if not per_job.get(k)]
+        if missing:
+            raise AssertionError(f"(c) {job['name']}: no launch of {missing}")
+        if "compare" not in job:
+            first, last = np.mean(losses[:2]), np.mean(losses[-2:])
+            if job["name"].startswith("flagship") and not last < first:
+                raise AssertionError(f"(c) {job['name']}: the loss did not fall")
+            continue
+        want_losses, want_grads, _ = job["reference"]
+        own, l2 = _grad_gaps(res["grads"], want_grads)
+        gaps[job["name"]] = dict(
+            compare=job["compare"], own=own, l2=l2,
+            loss=max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses)),
+            flips=[r["jobs"][j]["flips"] for r in results],
+            pin_gap=max(r["jobs"][j]["pin_gap"] for r in results))
+        log(f"# (c) {job['name']}: the mesh vs one rank, losses {want_losses} "
+            f"(largest relative gap {gaps[job['name']]['loss']:.3e}); ReLU units "
+            f"pinned on the first step by rank and call "
+            f"{json.dumps(gaps[job['name']]['flips'])} (their largest pre-activation "
+            f"gap {gaps[job['name']]['pin_gap']:.3e}); first step's clipped "
+            f"gradients, gap / each parameter's max |value|: largest {_worst(own)}, "
+            f"median {np.median(list(own.values())):.3e}; relative L2 largest "
+            f"{_worst(l2)}")
+        if job["name"] == "flagship f32":
+            part = _partition_gaps(job, 4)
+            gaps["one rank, 4 row blocks"] = dict(compare="partition", **part)
+            log(f"# (c) the card's own partition gaps (one rank, no mesh code, "
+                f"f32 as above): the gradient over 4 row blocks against the "
+                f"whole batch's, gap / each parameter's max |value|: ReLU masks "
+                f"free, largest {_worst(part['free'][0])}, median "
+                f"{np.median(list(part['free'][0].values())):.3e}; pinned to the "
+                f"whole batch's ({json.dumps(part['flips'])} units by call, largest "
+                f"pre-activation gap {part['pin_gap']:.3e}), largest "
+                f"{_worst(part['pinned'][0])}, median "
+                f"{np.median(list(part['pinned'][0].values())):.3e}")
+    del references
+    for job in jobs:
+        job.pop("reference", None)
+        job.pop("relu_pins", None)
+    k7 = {k: launches.get(k, 0) for k in K7_WRAPPERS}
+    return dict(probe=probe, refused=refused, launches=launches, k7=k7,
+                step_ms=step_ms, gaps=gaps, losses=losses_by_job)
+
+
+def _hold_mesh_gaps(gaps: dict) -> None:
+    """(c)'s holds: every compared job's losses within MESH_RTOL of one
+    rank's; f32 ("exact", and the one-rank partition with its ReLU masks
+    pinned), every gradient within MESH_GRAD_FRAC of its own max |value|;
+    the bf16-dot (2, 2) mesh, every gradient's relative L2 gap within
+    MESH_BF16_FACTOR of the (4, 1) control's (its own, or the control's
+    median where that is larger)."""
+    for name, g in gaps.items():
+        if g["compare"] == "partition":
+            own = g["pinned"][0]
+        else:
+            if g["loss"] > MESH_RTOL:
+                raise AssertionError(f"(c) {name}: losses {g['loss']:.3e} apart "
+                                     f"(need <= {MESH_RTOL})")
+            own = g["own"]
+        if g["compare"] in ("exact", "partition"):
+            bad = {k: v for k, v in own.items() if v > MESH_GRAD_FRAC}
+            if bad:
+                raise AssertionError(f"(c) {name}: gradients beyond "
+                                     f"{MESH_GRAD_FRAC} of their max: {_worst(bad, 8)}")
+    mesh, control = (gaps.get(f"flagship bf16 dots {m}") for m in ("(2, 2)", "(4, 1)"))
+    if mesh is not None:
+        floor = float(np.median(list(control["l2"].values())))
+        bad = {k: v for k, v in mesh["l2"].items()
+               if v > MESH_BF16_FACTOR * max(control["l2"][k], floor)}
+        log(f"# (c) bf16 dots: the (2, 2) mesh's relative L2 gaps vs the (4, 1) "
+            f"control's (need each <= {MESH_BF16_FACTOR} x max(the control's, its "
+            f"median {floor:.3e})): largest ratio "
+            f"{max(v / max(control['l2'][k], floor) for k, v in mesh['l2'].items()):.3f}")
+        if bad:
+            raise AssertionError(f"(c) bf16 dots (2, 2): gradients beyond the "
+                                 f"control: {_worst(bad, 8)}")
+
+
+def _mesh_nccl_gpus() -> dict:
+    """(d): with two or more GPUs, the flagship at dropout 0.2 over NCCL ranks,
+    one per GPU (2, then 4 where there are 4): ms/step and tokens/s."""
+    from vqcpcb_tpu_torch.parallel.launch import run_ranks
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < 2:
+        log(f"# (d) not run: this machine shows {n_gpus} GPU, and NCCL takes one "
+            "rank per GPU")
+        return {}
+    out = {}
+    for world in (2, 4):
+        if world > n_gpus:
+            break
+        job = dict(name="flagship dropout", kind="decoder", model="flagship",
+                   dropout=TRAIN_DROPOUT, steps=MESH_DROPOUT_STEPS, num_model=1)
+        res = run_ranks("chip_smoke:mesh_ranks", world, {"jobs": [job], "own_gpu": True},
+                        timeout_s=MESH_RANKS_TIMEOUT_S, backend="nccl", threads=2)
+        r = res[0]["jobs"][0]
+        ms = r["seconds"] / len(r["losses"]) * 1e3
+        out[world] = dict(step_ms=ms, tokens_per_s=TRAIN_BATCH * NUM_EVENTS * 4 / ms * 1e3)
+        log(f"# (d) {world} NCCL ranks, data-parallel: {ms:.2f} ms/step, "
+            f"{out[world]['tokens_per_s']:.1f} tokens/s")
+    return out
+
+
+def phase_mesh(gen: torch.Generator, encoder_config: str) -> dict:
+    """Phase 17; see the comment above MESHES. Returns {"shards" ((a)),
+    "launches" (the main path's: (b) in this process and (c)'s ranks, as a
+    Launches), "k7" (the K7 wrappers' main-path launches), "gloo", "nccl"}."""
+    shards = _mesh_shards(gen)
+    cli_launches, cli_seconds = _mesh_clis(encoder_config)
+    gloo = _mesh_ranks_on_one_card()
+    _hold_mesh_gaps(gloo["gaps"])
+    nccl = _mesh_nccl_gpus()
+    ranks = gloo["launches"]
+    launches = Launches({k: cli_launches[k] + ranks.get(k, 0) for k in cli_launches})
+    launches.by_kind = {kind: cli_launches.by_kind[kind]
+                        + ranks.get(f"vq_nearest/{kind}", 0)
+                        for kind in cli_launches.by_kind}
+    log(f"# [mesh] main-path launches: (b) {json.dumps(dict(cli_launches))}, "
+        f"(c) {json.dumps({k: v for k, v in ranks.items() if v})}; CLI seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in cli_seconds.items()})}")
+    return dict(shards=shards, launches=launches, k7=gloo["k7"], gloo=gloo,
+                nccl=nccl)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -4219,6 +4974,8 @@ def main() -> int:
              train_ms=training["step_ms"], prior_train_ms=prior["step_ms"],
              prior_codes_per_s=prior["sample_codes_per_s"]))["launches"])
     by_path.update(phase_migrated(card)["launches"])
+    mesh = phase_mesh(gen, entry_points["encoder_config"])
+    by_path["mesh"] = mesh["launches"]
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
     # every main path's K1 launches run a compiled instance
@@ -4254,7 +5011,8 @@ def main() -> int:
         entry("vq_nearest", "vqcpcb_tpu_torch/csrc/vq_nearest.cu",
               "vqcpcb_tpu/ops/pallas_vq.py:28", "vqcpcb_tpu/ops/pallas_vq.py:_kernel",
               [], vq, shapes=vq["shapes"], kinds=vq["kinds"],
-              launches_by_kind=k1_kinds, redesigned=True),
+              launches_by_kind=k1_kinds, redesigned=True,
+              mesh_row_shards_held=mesh["shards"]["k1_held"]),
         # top-level times at the serving prefill's shape (B=512, T=S=384, f32
         # inputs), as since the kernel was first ported; the training shape
         # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"
@@ -4317,6 +5075,27 @@ def main() -> int:
         entry("fused_attention_train_bwd", "vqcpcb_tpu_torch/csrc/fused_attention_bwd.cu",
               f"{pa}:211", f"{pa}:_train_bwd_kernel", [], fused["bwd"]),
     ]
+    # K7: the shard wrappers, the kernels above on each rank's (b_local,
+    # h_local) planes; launches on the mesh path ((c)'s ranks), the shard
+    # checks of (a), times of the packed wrapper's forward and backward on
+    # (2, 2)'s shard at the flagship training shape
+    shards = mesh["shards"]
+    k7_errors = {name: max(w.values()) for name, w in shards["worst"].items()}
+    kernels.append(dict(
+        name="k7", route="cuda", source="vqcpcb_tpu_torch/ops/attention_kernels.py",
+        replaces=f"{pa}:1045", pallas_counterpart=f"{pa}:fused_attention_train_relbias_packed_tp",
+        also_replaces=list(K7_WRAPPERS.values())[1:],
+        launches=sum(mesh["k7"].values()),
+        launches_by_path={"mesh": sum(mesh["k7"].values())},
+        max_abs_err=max(k7_errors.values()),
+        **shards["timing"],
+        wrappers=[dict(name=name, pallas_counterpart=site,
+                       launches=mesh["k7"][name], shards_held=shards["held"][name],
+                       max_abs_err=k7_errors[name])
+                  for name, site in K7_WRAPPERS.items()],
+        gloo_on_cuda=mesh["gloo"]["probe"],
+        gloo_one_card_step_ms=mesh["gloo"]["step_ms"],
+        nccl_gpus=mesh["nccl"]))
     # the error is read under two names by readers of this line; one number
     for k in kernels:
         k["max_err"] = k["max_abs_err"]

@@ -952,3 +952,120 @@ def test_migrated_reference_decoder_on_card(gen, tmp_path, monkeypatch, f32_matm
     with torch.no_grad():
         want = decoder.eval()(merge_codes(cpu, 8), x)["loss"].item()
     assert abs(loss - want) <= 2e-2 * abs(want)
+
+
+# ---- the mesh: K7 and a data-parallel step over gloo ranks sharing the card ----
+
+def _k7_shard(mesh, x, n_heads, bhld=False):
+    """The shard of a packed (B, L, H*d) or (B, H, L, d) tensor."""
+    lb, lh = x.shape[0] // mesh.n_data, n_heads // mesh.n_model
+    rows = slice(mesh.data_index * lb, (mesh.data_index + 1) * lb)
+    if bhld:
+        return x[rows, mesh.model_index * lh:(mesh.model_index + 1) * lh]
+    d = x.shape[-1] // n_heads
+    return x[rows, :, mesh.model_index * lh * d:(mesh.model_index + 1) * lh * d]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["relbias", "fused"])
+def test_k7_shards_on_card(gen, fused):
+    """The packed K7 wrappers (relbias_attention_packed_tp, and
+    fused_attention_train_tp with no bias) on each shard of a (2, 2) mesh
+    at B=4, H=8, T=S=64, bf16: forward and backward through autograd within
+    _grad_err's bound of the wrappers' plain versions at dropout 0.2, and at
+    dropout 0 out, dq, dk and dv equal to the unsharded kernel's blocks bit
+    for bit."""
+    from vqcpcb_tpu_torch.parallel.mesh import simulated_mesh
+    b, h, t, d = 4, 8, 64, 64
+    q = (torch.randn((b, t, h * d), generator=gen, device="cuda") * d ** -0.5).bfloat16()
+    k, v, g = (torch.randn((b, t, h * d), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    e1, e2 = (torch.randn((h, t, d), generator=gen, device="cuda") for _ in range(2))
+    mask = causal_mask(t, device="cuda")
+    if fused:
+        full = [fk.fused_attention_train_fwd_cuda(q, k, v, mask, None, num_heads=h),
+                *fk.fused_attention_train_bwd_cuda(q, k, v, mask, None, g, num_heads=h,
+                                                   need_dmask=False)[:3]]
+    else:
+        full = [ak.relbias_attention_fwd_cuda(q, k, v, mask, e1, e2, num_heads=h),
+                *ak.relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, g, num_heads=h,
+                                               need_dmask=False)[:3]]
+    for rank in range(4):
+        mesh = simulated_mesh(2, 2, rank)
+        lh = h // 2
+        ql, kl, vl, gl = (_k7_shard(mesh, x, h) for x in (q, k, v, g))
+        tables = [x[mesh.model_index * lh:(mesh.model_index + 1) * lh] for x in (e1, e2)]
+        for rate in (0.2, 0.0):
+            leaves = [x.detach().requires_grad_(True) for x in (ql, kl, vl)]
+            before = fk.train_tp_launches if fused else ak.tp_launches
+            if fused:
+                out = fk.fused_attention_train_tp(mesh, *leaves, mask, None, lh, rate, 7)
+                want = fk.fused_attention_train_tp_plain(
+                    mesh, ql, kl, vl, mask, None, gl, num_heads=lh, dropout=rate, seed=7)
+            else:
+                out = ak.relbias_attention_packed_tp(mesh, *leaves, mask, *tables, lh,
+                                                     rate, 7)
+                want = ak.relbias_attention_tp_plain(
+                    mesh, ql, kl, vl, mask, *tables, gl, num_heads=lh, dropout=rate,
+                    seed=7)
+            assert (fk.train_tp_launches if fused else ak.tp_launches) == before + 1
+            out.backward(gl)
+            got = [out.detach(), *(x.grad for x in leaves)]
+            for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+                assert _grad_err(a, w) <= 0, (rank, rate, name, _grad_err(a, w))
+            if rate == 0.0:
+                for name, a, w in zip(("out", "dq", "dk", "dv"), got, full):
+                    assert torch.equal(a, _k7_shard(mesh, w, h)), (rank, name)
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_over_gloo_ranks_sharing_the_card(gen, monkeypatch):
+    """Two gloo ranks on the one card, a (2, 1) mesh, one DecoderTrainer step
+    of a small flagship decoder in f32 (VQCPCB_COMPUTE_DTYPE=float32) at
+    dropout 0, against one rank in this process on the same global batch:
+    the loss within 1e-4 relative, every averaged, clipped gradient within
+    1e-4 of its largest |value| (the attention's bf16 dots round q, k and v
+    of differently partitioned f32 products)."""
+    import copy
+
+    import numpy as np
+
+    from vqcpcb_tpu_torch.models.data_processor import (BachCPCDataProcessor,
+                                                        BachDataProcessor)
+    from vqcpcb_tpu_torch.models.decoder import Decoder
+    from vqcpcb_tpu_torch.models.downscalers import GruDownscaler
+    from vqcpcb_tpu_torch.models.encoder import Encoder
+    from vqcpcb_tpu_torch.ops.quantizer import ProductVectorQuantizer
+    from vqcpcb_tpu_torch.parallel.launch import run_ranks
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    vocabs, events = [7, 9, 6, 8], 16
+    torch.manual_seed(0)
+    encoder = Encoder(BachCPCDataProcessor(16, events, vocabs, num_tokens_per_block=16),
+                      GruDownscaler(16, 3, [16], 32, num_layers=1, dropout=0.0,
+                                    bidirectional=True),
+                      ProductVectorQuantizer(8, 3, 0.25, 1))
+    decoder = Decoder(BachDataProcessor(16, events, vocabs), "anticausal", d_model=64,
+                      num_encoder_layers=1, num_decoder_layers=1, n_head=4,
+                      dim_feedforward=128, positional_embedding_size=4,
+                      num_channels_encoder=1, num_events_encoder=events // 4,
+                      num_channels_decoder=4, num_events_decoder=events,
+                      total_upscaling=16, source_vocab_size=8)
+    rng = np.random.RandomState(0)
+    x = np.stack([rng.randint(0, v, (8, events)) for v in vocabs], -1)
+    env = {"VQCPCB_COMPUTE_DTYPE": "float32"}
+    job = dict(kind="decoder", encoder=encoder, model=decoder, codebook_size=8,
+               num_model=1, batches=[x], lr=1e-3, device="cuda", env=env)
+    ranks = run_ranks("torch_mesh_harness:train_over_mesh", 2, job,
+                      timeout_s=300)
+    monkeypatch.setenv("VQCPCB_COMPUTE_DTYPE", "float32")
+    one = DecoderTrainer(copy.deepcopy(encoder), copy.deepcopy(decoder), 8,
+                         device="cuda", mesh=Mesh(1, 1)).init_state(1e-3)
+    loss = float(one.train_step(x)["loss"])
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert abs(ranks[0]["losses"][0] - loss) <= 1e-4 * abs(loss)
+    assert ranks[0]["launches"]["relbias_attention_packed_tp"] > 0
+    for name, p in one.decoder.named_parameters():
+        want = p.grad.float().cpu()
+        err = (ranks[0]["grads"][name].float() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (name, err)

@@ -1,6 +1,7 @@
-"""The port imports no JAX: every vqcpcb_tpu_torch module, and chip_smoke.py,
-stay free of jax, flax and the JAX package. Checked in a fresh interpreter,
-because this test process already imports jax (tests/conftest.py). And the
+"""The port imports no JAX: every vqcpcb_tpu_torch module, chip_smoke.py
+and torch_mesh_harness.py stay free of jax, flax and the JAX package.
+Checked in a fresh interpreter, because this test process already imports
+jax (tests/conftest.py). And the
 port imports nothing but the stdlib, itself, torch, numpy, scipy and
 einops, the packages of the machine with the card: no click, orbax,
 matplotlib or music21."""
@@ -13,7 +14,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "vqcpcb_tpu")
 ALLOWED = frozenset(sys.stdlib_module_names) | {
     "vqcpcb_tpu_torch", "torch", "numpy", "scipy", "einops",
-    "chip_smoke"}             # the port's own smoke script, in the checkout
+    "chip_smoke",             # the port's own smoke script, in the checkout
+    "torch_mesh_harness"}     # its and the tests' mesh harness, held below too
 
 
 def _imported_roots(tree):
@@ -42,7 +44,8 @@ def test_port_modules_import_no_jax():
 
 
 def _port_files():
-    return [REPO / "chip_smoke.py", *(REPO / "vqcpcb_tpu_torch").rglob("*.py")]
+    return [REPO / "chip_smoke.py", REPO / "torch_mesh_harness.py",
+            *(REPO / "vqcpcb_tpu_torch").rglob("*.py")]
 
 
 def test_port_sources_and_chip_smoke_import_no_jax():

@@ -22,5 +22,7 @@ encoder (`models/teacher.py`, `models/auxiliary_decoder.py`,
 `training/student_trainer.py`, the transformer downscalers of
 `models/downscalers.py`); and the code prior (`models/prior.py`, its
 KV-cached sampler, `training/prior_trainer.py` and
-`python -m vqcpcb_tpu_torch.main_prior`).
+`python -m vqcpcb_tpu_torch.main_prior`); and the (data, model) mesh over
+torch.distributed ranks (`parallel/`), with the K7 shard wrappers and the
+decoder and prior trainers and CLIs over it.
 """

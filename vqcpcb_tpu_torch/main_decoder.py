@@ -17,6 +17,15 @@ plus --device (default: the card; without CUDA the CLI raises unless given
 its z, and -r fails where the JAX CLI's does (Decoder.embed_source).
 VQCPCB_DEBUG_NANS=1 turns the NaN checks on and VQCPCB_PROFILE_DIR traces
 each train epoch (training/profiling.py), in the three CLIs.
+
+Several GPUs: one process per GPU, started by torchrun (VQCPCB_DISTRIBUTED=1
+torchrun --nproc_per_node=N -m vqcpcb_tpu_torch.main_decoder -t -c ...) or
+with VQCPCB_COORDINATOR / VQCPCB_NUM_PROCESSES / VQCPCB_PROCESS_ID
+(parallel/distributed.py); rank r runs on cuda:LOCAL_RANK and -t trains
+over the data mesh of all ranks, as the JAX CLI trains over all devices.
+Rank 0 writes the model directory; generation (-r, --num_examples, and
+everything after -l without -t) runs on rank 0 alone, from the full
+weights. Without those variables the CLI is one rank, as before.
 """
 from __future__ import annotations
 
@@ -80,11 +89,12 @@ def load_encoder_stack(config: Dict, cache_root: Optional[str] = None
 
 
 def build_decoder_trainer(config: Dict, encoder: "Encoder",
-                          encoder_config: Dict, device, model_dir: str):
+                          encoder_config: Dict, device, model_dir: str,
+                          mesh=None):
     """The DecoderTrainer of a decoder config over `encoder` (main_decoder.py:
     119-155): its data loader, data processor and decoder, on `device`,
-    saving to `model_dir`, with its optimizer state initialised (lr,
-    schedule, warm-up steps)."""
+    saving to `model_dir`, over `mesh` (the trainer's default: every rank),
+    with its optimizer state initialised (lr, schedule, warm-up steps)."""
     from vqcpcb_tpu_torch import getters
     from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
     from vqcpcb_tpu_torch.training.optim import warmup_steps_from_env
@@ -105,7 +115,7 @@ def build_decoder_trainer(config: Dict, encoder: "Encoder",
     trainer = DecoderTrainer(
         encoder, decoder, encoder_config["quantizer_kwargs"]["codebook_size"],
         device=device, model_dir=model_dir,
-        dataloader_generator=dataloader_generator)
+        dataloader_generator=dataloader_generator, mesh=mesh)
     trainer.init_state(lr=config["lr"],
                        schedule_lr=config.get("schedule_lr", False),
                        warmup_steps=warmup_steps_from_env())
@@ -138,16 +148,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     import torch
 
+    from vqcpcb_tpu_torch.parallel import distributed
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh, make_mesh
     from vqcpcb_tpu_torch.training import checkpoints
     from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
-    from vqcpcb_tpu_torch.utils import load_config_module, resolve_device
+    from vqcpcb_tpu_torch.utils import load_config_module
 
+    distributed.maybe_initialize(args.device)
     enable_debug_checks()
-    device = resolve_device(args.device)
-    print(f"Device: {device}")
+    device = distributed.rank_device(args.device)
+    rank = distributed.rank()
+    if not args.train and rank != 0:
+        return 0                              # generation runs on rank 0 alone
+    mesh = make_mesh() if args.train else Mesh(1, 1)
+    print(f"Device: {device}" + (f" (rank {rank} of a {mesh.n_data} x "
+                                 f"{mesh.n_model} mesh)" if mesh.size > 1 else ""))
     config = load_config_module(args.config_path)
     if config.get("timestamp") is None:
-        config["timestamp"] = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        config["timestamp"] = distributed.broadcast_object(
+            datetime.now().strftime("%Y-%m-%d_%H-%M-%S"), mesh.size > 1)
     if args.load:
         model_dir = os.path.dirname(os.path.abspath(args.config_path))
     else:
@@ -157,10 +176,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.num_batches is not None:
         config["num_batches"] = None if args.num_batches < 0 else args.num_batches
 
-    torch.manual_seed(0)                      # the fresh weights
-    encoder, encoder_config = load_encoder_stack(config)
-    trainer = build_decoder_trainer(config, encoder, encoder_config, device,
-                                    model_dir)
+    torch.manual_seed(0)                      # the fresh weights, on every rank
+    # rank 0 fills the corpus caches
+    with distributed.rank_zero_first(mesh.size > 1):
+        encoder, encoder_config = load_encoder_stack(config)
+        trainer = build_decoder_trainer(config, encoder, encoder_config, device,
+                                        model_dir, mesh)
     if args.load:
         sidecar = checkpoints.read_step_sidecar(model_dir)
         if checkpoints.latest_slot(model_dir) is not None or sidecar is None:
@@ -173,7 +194,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # from the step slot
 
     if args.train:
-        if not args.load:
+        if not args.load and rank == 0:
             os.makedirs(model_dir, exist_ok=True)
             shutil.copy(args.config_path, os.path.join(model_dir, "config.py"))
         trainer.train_model(
@@ -185,6 +206,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             plot=True,
             num_workers=args.num_workers,
             checkpoint_every_steps=config.get("checkpoint_every_steps"))
+        if rank != 0:
+            return 0                          # generation runs on rank 0 alone
 
     for _ in range(args.num_examples):
         if args.code_juxtaposition:

@@ -11,6 +11,9 @@ the config's `config_decoder`, writing the scores under generations/),
 -n/--num_workers and --num_epochs; plus --device (default: the card;
 without CUDA the CLI raises unless given --device cpu). The frozen encoder
 comes from the config's `config_encoder` (main_decoder.load_encoder_stack).
+Several GPUs as for main_decoder: -t trains over the data mesh of every
+rank (torchrun, or the VQCPCB_* variables), rank 0 writes, and -g runs on
+rank 0 alone.
 """
 from __future__ import annotations
 
@@ -43,17 +46,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from vqcpcb_tpu_torch import getters
     from vqcpcb_tpu_torch.main_decoder import load_encoder_stack
+    from vqcpcb_tpu_torch.parallel import distributed
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh, make_mesh
     from vqcpcb_tpu_torch.training import checkpoints
     from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
     from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
-    from vqcpcb_tpu_torch.utils import load_config_module, resolve_device
+    from vqcpcb_tpu_torch.utils import load_config_module
 
+    distributed.maybe_initialize(args.device)
     enable_debug_checks()
-    device = resolve_device(args.device)
-    print(f"Device: {device}")
+    device = distributed.rank_device(args.device)
+    rank = distributed.rank()
+    if not args.train and rank != 0:
+        return 0                              # generation runs on rank 0 alone
+    mesh = make_mesh() if args.train else Mesh(1, 1)
+    print(f"Device: {device}" + (f" (rank {rank} of a {mesh.n_data} x "
+                                 f"{mesh.n_model} mesh)" if mesh.size > 1 else ""))
     config = load_config_module(args.config_path)
     if config.get("timestamp") is None:
-        config["timestamp"] = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        config["timestamp"] = distributed.broadcast_object(
+            datetime.now().strftime("%Y-%m-%d_%H-%M-%S"), mesh.size > 1)
     if args.load:
         model_dir = os.path.dirname(os.path.abspath(args.config_path))
     else:
@@ -61,12 +73,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.num_epochs is not None:
         config["num_epochs"] = args.num_epochs
 
-    dataloader_generator = getters.get_dataloader_generator(
-        dataset=config["dataset"], training_method="prior",
-        dataloader_generator_kwargs=config["dataloader_generator_kwargs"],
-        config=config)
-    torch.manual_seed(0)                      # the fresh weights
-    encoder, encoder_config = load_encoder_stack(config)
+    # rank 0 fills the corpus caches
+    with distributed.rank_zero_first(mesh.size > 1):
+        dataloader_generator = getters.get_dataloader_generator(
+            dataset=config["dataset"], training_method="prior",
+            dataloader_generator_kwargs=config["dataloader_generator_kwargs"],
+            config=config)
+        torch.manual_seed(0)                  # the fresh weights, on every rank
+        encoder, encoder_config = load_encoder_stack(config)
     codebook_size = encoder_config["quantizer_kwargs"]["codebook_size"]
     prior = getters.get_prior(
         dataloader_generator=dataloader_generator, encoder=encoder,
@@ -75,7 +89,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         prior_kwargs=config["prior_kwargs"])
     trainer = PriorTrainer(encoder, prior, codebook_size, device=device,
                            model_dir=model_dir,
-                           dataloader_generator=dataloader_generator)
+                           dataloader_generator=dataloader_generator, mesh=mesh)
     trainer.init_state(lr=config["lr"])
     if args.load:
         sidecar = checkpoints.read_step_sidecar(model_dir)
@@ -89,7 +103,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # from the step slot
 
     if args.train:
-        if not args.load:
+        if not args.load and rank == 0:
             os.makedirs(model_dir, exist_ok=True)
             shutil.copy(args.config_path, os.path.join(model_dir, "config.py"))
         trainer.train_model(
@@ -100,6 +114,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             plot=True,
             num_workers=args.num_workers,
             checkpoint_every_steps=config.get("checkpoint_every_steps"))
+        if rank != 0:
+            return 0                          # generation runs on rank 0 alone
 
     if args.generate:
         decoder_trainer = load_decoder_trainer(config, encoder, encoder_config,
@@ -141,9 +157,10 @@ def load_decoder_trainer(config, encoder, encoder_config, device):
         print(f"WARNING: the prior's config_encoder ({prior_encoder!r}) differs "
               f"from the decoder's ({decoder_encoder!r}): the decoder will "
               "consume codes from an encoder it was not trained with")
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh
     decoder_trainer = build_decoder_trainer(
         decoder_config, encoder, encoder_config, device,
-        os.path.dirname(os.path.abspath(config_decoder_path)))
+        os.path.dirname(os.path.abspath(config_decoder_path)), Mesh(1, 1))
     decoder_trainer.load(early_stopped=True)
     return decoder_trainer
 

@@ -22,6 +22,10 @@ the caches hold n_head_kv heads.
 
 Parameter names follow the JAX module (embedding, linear, sos,
 transformer.layers.{i}, pre_softmax).
+
+Under a model axis (parallel/mesh.py shard_params) the head is
+vocabulary-parallel when the vocabulary divides the axis: this rank's rows
+of pre_softmax, the logits all-gathered before the cross entropy.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from vqcpcb_tpu_torch.ops.losses import categorical_crossentropy
 from vqcpcb_tpu_torch.ops.masks import causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerEncoder, train_mode
+from vqcpcb_tpu_torch.parallel.collectives import copy_to_model, gather_from_model
 from vqcpcb_tpu_torch.utils import kv_cache_dtype, module_device, to_device
 
 
@@ -56,6 +61,11 @@ class PriorRelative(nn.Module):
             num_layers, d_model, n_head, "relative_attention", num_channels,
             num_events, dim_feedforward, dropout, n_head_kv=n_head_kv)
         self.pre_softmax = nn.Linear(d_model, code_vocab_size)
+        self.head_mesh = None            # set by set_mesh when it splits the head
+
+    def set_mesh(self, mesh, specs) -> None:
+        self.head_mesh = (mesh if specs.get("pre_softmax.weight") is not None
+                          else None)
 
     @property
     def num_tokens(self) -> int:
@@ -73,7 +83,10 @@ class PriorRelative(nn.Module):
         (prior.py:57)."""
         out = self.transformer(self._shifted_input(x),
                                causal_mask(x.shape[1], device=x.device))
-        return self.pre_softmax(out)
+        mesh = self.head_mesh
+        if mesh is None:
+            return self.pre_softmax(out)
+        return gather_from_model(self.pre_softmax(copy_to_model(out, mesh)), mesh)
 
     def forward(self, x: torch.Tensor) -> Dict:
         """The next-code cross entropy of codes (B, num_tokens) (prior.py:67):

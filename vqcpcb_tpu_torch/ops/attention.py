@@ -16,7 +16,8 @@ Routes of the full forward:
     (ops/attention_kernels.py), or, with the in-kernel relbias off
     (utils.relbias_in_kernel), FusedAttentionTrain with the bias built in
     PyTorch (in f32, as JAX's skew) so autograd carries e1 and e2. The
-    kernels take bf16 dots on CUDA, the plain versions f32 on the CPU; both
+    kernels take bf16 dots on CUDA (f32 under VQCPCB_PALLAS_BF16_DOTS=0,
+    utils.train_dot_dtype), the plain versions f32 on the CPU; both
     apply the attention-weight dropout in-kernel. No weights are returned.
     The dropout seed is drawn on the host from `seed_generator` (torch's
     default CPU generator when None), so no device value is read per layer;
@@ -45,6 +46,25 @@ The projections (in_proj, out_proj) compute in utils.layer_compute_dtype,
 bf16 under VQCPCB_COMPUTE_DTYPE=bfloat16 or the decoder trainer's scope, as
 JAX's DenseGeneral(dtype=compute_dtype()); q, k and v are then bf16, and
 the scores, the softmax and w.v accumulate in f32 on every route.
+
+Under a mesh (parallel/mesh.py; `set_mesh`, which shard_params calls) the
+training route, and under a model axis also the eval forward, run through
+the K7 shard wrappers (relbias_attention_packed_tp, fused_attention_train_tp)
+on this rank's rows, with the dropout seed offset per shard, as JAX routes
+through its `_tp` wrappers (attention.py:195-230, 270-316); the seed is
+still drawn on the host, the same on every rank. With a model axis whose
+size divides the heads the module holds num_heads / m query heads: its
+in_proj rows are the [q; k; v] blocks of its heads, q_proj's its heads,
+e1 / e2 its tables, out_proj's columns its heads' (row-parallel, reduced
+over `model`, its bias added after the reduce). Grouped, kv_proj holds
+num_kv_heads / m KV heads when those divide too -- a query head's KV head
+then lies on its rank (JAX's mesh.py:135-152) -- and is otherwise
+replicated, each rank reading the KV heads of its query heads, its
+gradient summed over `model`. Heads that do not divide the model axis keep
+the attention replicated, every rank computing it at its data shard's
+offsets; out_proj, split when E divides, then takes this rank's columns.
+The KV-cached paths (project_q, project_kv, attend, step) serve one
+unsharded rank and raise under a model axis.
 """
 from __future__ import annotations
 
@@ -53,20 +73,23 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from vqcpcb_tpu_torch.ops.attention_kernels import (RelbiasAttention,
-                                                    relbias_attention_fwd)
-from vqcpcb_tpu_torch.ops.fused_attention_kernels import (FusedAttentionTrain,
-                                                          fused_attention)
+from vqcpcb_tpu_torch.ops.attention_kernels import (
+    RelbiasAttention, relbias_attention_fwd, relbias_attention_packed_tp)
+from vqcpcb_tpu_torch.ops.fused_attention_kernels import (
+    FusedAttentionTrain, fused_attention, fused_attention_train_tp)
 from vqcpcb_tpu_torch.ops.kv_cache import Cache, cache_prefix, dequantize_kv
 from vqcpcb_tpu_torch.ops.relative_attention import (
     subsampled_relative_bias, subsampled_relative_bias_row)
-from vqcpcb_tpu_torch.utils import dense, relbias_in_kernel
+from vqcpcb_tpu_torch.parallel.collectives import (copy_to_model, row_parallel,
+                                                   split_to_model)
+from vqcpcb_tpu_torch.utils import dense, relbias_in_kernel, train_dot_dtype
 
 RELATIVE_BIAS_TYPES = ("relative_attention", "relative_attention_target_source")
 
 
 class RelativeBias(nn.Module):
-    """Learned causal (e1) and anticausal (e2) embeddings, (H*S, hd) each."""
+    """Learned causal (e1) and anticausal (e2) embeddings, (H*S, hd) each
+    (under a model axis, the module's num_heads local heads)."""
 
     def __init__(self, num_heads: int, seq_len_src: int, head_dim: int):
         super().__init__()
@@ -116,6 +139,9 @@ class MultiheadAttention(nn.Module):
         self.group = num_heads // self.num_kv_heads
         self.dropout = dropout
         self.seed_generator: Optional[torch.Generator] = None
+        # set by set_mesh: the mesh, and which parameters the model axis split
+        self.mesh = None
+        self.tp_heads = self.tp_kv = self.tp_out = False
         if self.grouped:
             self.q_proj = nn.Linear(embed_dim, embed_dim)
             self.kv_proj = nn.Linear(embed_dim,
@@ -148,6 +174,28 @@ class MultiheadAttention(nn.Module):
     def grouped(self) -> bool:
         return self.num_kv_heads != self.num_heads
 
+    def set_mesh(self, mesh, specs) -> None:
+        """Run under `mesh` with the blocks shard_params left; specs: this
+        module's parameters' Splits, by name (parallel/mesh.py)."""
+        self.mesh = mesh
+        q_name = "q_proj.weight" if self.grouped else "in_proj_weight"
+        self.tp_heads = specs.get(q_name) is not None
+        self.tp_kv = self.grouped and specs.get("kv_proj.weight") is not None
+        self.tp_out = specs.get("out_proj.weight") is not None
+        if self.attn_bias is not None and self.tp_heads:
+            self.attn_bias.num_heads = self.num_heads // mesh.n_model
+
+    @property
+    def _model_axis(self) -> bool:
+        return self.mesh is not None and self.mesh.n_model > 1
+
+    def _check_unsharded(self) -> None:
+        if self._model_axis:
+            raise NotImplementedError(
+                "the KV-cached attention runs on one unsharded rank; gather "
+                "the parameters (parallel/mesh.gather_params) into a module "
+                "without a mesh to sample")
+
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         return x.view(b, n, -1, self.head_dim).transpose(1, 2)
@@ -156,27 +204,34 @@ class MultiheadAttention(nn.Module):
         """(B, L, E) -> unscaled q (B, L, E), in the compute dtype."""
         if self.grouped:
             return dense(query, self.q_proj.weight, self.q_proj.bias)
-        e = self.embed_dim
+        e = self.in_proj_weight.shape[0] // 3
         return dense(query, self.in_proj_weight[:e], self.in_proj_bias[:e])
 
-    def _kv_packed(self, key: torch.Tensor
+    def _kv_packed(self, key: torch.Tensor, sum_grads_over=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S, E) -> k, v each (B, S, H_kv * hd), views of one product in
-        the compute dtype."""
+        the compute dtype. sum_grads_over: a mesh whose model ranks each
+        read part of a replicated kv_proj, whose gradient is summed over
+        `model` (copy_to_model on the weights)."""
         if self.grouped:
-            kv = dense(key, self.kv_proj.weight, self.kv_proj.bias)
+            w, b = self.kv_proj.weight, self.kv_proj.bias
+            if sum_grads_over is not None:
+                w, b = (copy_to_model(x, sum_grads_over) for x in (w, b))
+            kv = dense(key, w, b)
         else:
-            e = self.embed_dim
+            e = self.in_proj_weight.shape[0] // 3
             kv = dense(key, self.in_proj_weight[e:], self.in_proj_bias[e:])
         return kv.chunk(2, dim=-1)
 
     def project_q(self, query: torch.Tensor) -> torch.Tensor:
         """(B, L, E) -> scaled q (B, H, L, hd), in the compute dtype."""
+        self._check_unsharded()
         return self._split_heads(self._q_packed(query) * self.head_dim ** -0.5)
 
     def project_kv(self, key: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S, E) -> k, v each (B, H_kv, S, hd), in the compute dtype."""
+        self._check_unsharded()
         k, v = self._kv_packed(key)
         return self._split_heads(k), self._split_heads(v)
 
@@ -193,9 +248,12 @@ class MultiheadAttention(nn.Module):
         """query (B, L_tgt, E), key (= value) (B, L_src, E), attn_mask an
         additive (L_tgt, L_src) mask or None. Returns (output (B, L_tgt, E),
         weights (B, H, L_tgt, L_src) on the plain inference path, None on the
-        kernel and training paths). Train mode takes the training route."""
+        kernel and training paths). Train mode takes the training route, and
+        so does eval under a model axis, at dropout 0."""
         if self.training:
             return self._train_packed(query, key, attn_mask), None
+        if self._model_axis:
+            return self._train_mesh(query, key, attn_mask, 0.0), None
         return self.attend(self.project_q(query), *self.project_kv(key),
                            attn_mask)
 
@@ -210,6 +268,8 @@ class MultiheadAttention(nn.Module):
     def _train_packed(self, query: torch.Tensor, key: torch.Tensor,
                       attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
         """The packed training route (attention.py:188-231, 255-318)."""
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._train_mesh(query, key, attn_mask, self.dropout)
         e, h = self.embed_dim, self.num_heads
         if key is query and not self.grouped:
             qkv = dense(query, self.in_proj_weight, self.in_proj_bias)
@@ -219,11 +279,10 @@ class MultiheadAttention(nn.Module):
             k, v = (expand_kv_heads(x, self.num_kv_heads, self.group)
                     for x in self._kv_packed(key))    # (B, S, E) each
         q = q * self.head_dim ** -0.5                        # (B, T, E)
-        seed = 0
-        if self.dropout > 0.0:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=self.seed_generator))
-        dot_dtype = torch.float32 if q.device.type == "cpu" else torch.bfloat16
+        seed = self._draw_seed(self.dropout)
+        dot_dtype = train_dot_dtype(q.device)
+        if dot_dtype == torch.float32:
+            q, k, v = q.float(), k.float(), v.float()
         if self.attn_bias is not None and relbias_in_kernel():
             e1, e2 = self.attn_bias.tables()
             out = RelbiasAttention.apply(q, k, v, attn_mask, e1, e2, h,
@@ -234,6 +293,72 @@ class MultiheadAttention(nn.Module):
             out = FusedAttentionTrain.apply(q, k, v, attn_mask, bias, h,
                                             float(self.dropout), seed, dot_dtype)
         return self._out_proj(out)
+
+    def _draw_seed(self, dropout: float) -> int:
+        """The layer's dropout seed, drawn on the host (0 without dropout)."""
+        if dropout <= 0.0:
+            return 0
+        return int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self.seed_generator))
+
+    def _kv_mesh(self, key: torch.Tensor, h: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """k, v packed (B, S, h * hd) for this rank's h query heads."""
+        mesh, g = self.mesh, self.group
+        if not self.grouped:
+            return self._kv_packed(key)
+        if self.tp_kv or not self.tp_heads:
+            kv_heads = self.num_kv_heads // (mesh.n_model if self.tp_kv else 1)
+            return tuple(expand_kv_heads(x, kv_heads, g)
+                         for x in self._kv_packed(key))
+        # replicated kv_proj under split query heads: this rank's query
+        # heads read KV heads h // g of the whole set
+        b, s, _ = key.shape
+        index = torch.div(mesh.model_index * h
+                          + torch.arange(h, device=key.device), g,
+                          rounding_mode="floor")
+        return tuple(x.view(b, s, self.num_kv_heads, -1)[:, :, index].reshape(b, s, -1)
+                     for x in self._kv_packed(key, sum_grads_over=mesh))
+
+    def _train_mesh(self, query: torch.Tensor, key: torch.Tensor,
+                    attn_mask: Optional[torch.Tensor],
+                    dropout: float) -> torch.Tensor:
+        """The packed route under a mesh: this rank's rows and, with split
+        heads, its heads, through the K7 wrappers; see the module
+        docstring."""
+        mesh = self.mesh
+        tp = self.tp_heads
+        h = self.num_heads // mesh.n_model if tp else self.num_heads
+        self_attention = key is query
+        if tp:
+            query = copy_to_model(query, mesh)
+            key = query if self_attention else copy_to_model(key, mesh)
+        if self_attention and not self.grouped:
+            q, k, v = dense(query, self.in_proj_weight,
+                            self.in_proj_bias).chunk(3, dim=-1)
+        else:
+            q = self._q_packed(query)
+            k, v = self._kv_mesh(key, h)
+        q = q * self.head_dim ** -0.5
+        seed = self._draw_seed(dropout)
+        dot_dtype = train_dot_dtype(q.device)
+        if dot_dtype == torch.float32:
+            q, k, v = q.float(), k.float(), v.float()
+        shards = mesh if tp else mesh.data_only()
+        if self.attn_bias is not None and relbias_in_kernel():
+            e1, e2 = self.attn_bias.tables()
+            out = relbias_attention_packed_tp(shards, q, k, v, attn_mask, e1, e2,
+                                              h, float(dropout), seed, dot_dtype)
+        else:
+            bias = (None if self.attn_bias is None else
+                    self._explicit_bias(q.unflatten(-1, (h, -1)).transpose(1, 2)))
+            out = fused_attention_train_tp(shards, q, k, v, attn_mask, bias, h,
+                                           float(dropout), seed, dot_dtype)
+        if not (tp or self.tp_out):
+            return self._out_proj(out)
+        if not tp:
+            out = split_to_model(out, mesh)
+        return row_parallel(out, self.out_proj.weight, self.out_proj.bias, mesh)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None

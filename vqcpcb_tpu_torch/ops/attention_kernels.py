@@ -344,3 +344,75 @@ class RelbiasAttention(torch.autograd.Function):
             need_dmask=mask is not None and ctx.needs_input_grad[3],
             **ctx.config)
         return dq, dk, dv, dmask, de1, de2, None, None, None, None
+
+
+# ---- K7: the shard wrappers (pallas_attention.py:1045, :1085) ----------------
+#
+# Under a (data, model) mesh each rank holds its rows of the batch and, with
+# a model axis, its contiguous block of heads: packed q, k, v are its
+# (b_local, L, h_local*d) columns (head-aligned: heads are contiguous d-wide
+# blocks of E), e1 and e2 its (h_local, S, d) tables. A K7 wrapper runs the
+# kernel on those planes with the dropout seed offset per shard, as JAX's
+# shard_map `local()` does, so that its (b, h) plane draws stream
+# seed + shard*(b_local*h_local) + h*b_local + b. The union of the shards'
+# masks is not the unsharded mask: a TP step with dropout equals JAX's TP
+# step, not the one-device step. At dropout 0 each plane is computed on its
+# own, so the shards' results are the unsharded kernel's, bit for bit.
+
+# K7 wrapper calls on CUDA tensors since the last reset, packed and (B, H, L,
+# d); each launches the forward kernel and, in the backward, the backward's.
+tp_launches = 0
+tp_bhld_launches = 0
+
+
+def shard_seed(seed: int, mesh, b_local: int, h_local: int) -> int:
+    """The seed of this rank's shard: seed + shard * (b_local * h_local),
+    shard = data_index * n_model + model_index (pallas_attention.py:
+    1068-1071; wrapped to 32 bits by the kernels and the hash)."""
+    return int(seed) + mesh.rank * b_local * h_local
+
+
+def relbias_attention_packed_tp(mesh, q, k, v, mask, e1, e2, num_heads: int,
+                                dropout: float, seed: int,
+                                dot_dtype=torch.bfloat16) -> torch.Tensor:
+    """fused_attention_train_relbias_packed_tp's counterpart: RelbiasAttention
+    (K2 on CUDA, its plain version on the CPU) on this rank's packed
+    (b_local, L, num_heads*d) blocks and (num_heads, S, d) tables, num_heads
+    the local head count, at the shard's seed; differentiable."""
+    global tp_launches
+    out = RelbiasAttention.apply(q, k, v, mask, e1, e2, num_heads, dropout,
+                                 shard_seed(seed, mesh, q.shape[0], num_heads),
+                                 dot_dtype)
+    if q.device.type != "cpu":
+        tp_launches += 1
+    return out
+
+
+def relbias_attention_tp(mesh, q, k, v, mask, e1, e2, dropout: float,
+                         seed: int, dot_dtype=torch.bfloat16) -> torch.Tensor:
+    """fused_attention_train_relbias_tp's counterpart: the same on this
+    rank's (b_local, h_local, L, d) planes (K3's layout)."""
+    global tp_bhld_launches
+    b, h = q.shape[:2]
+    out = RelbiasAttention.apply(q, k, v, mask, e1, e2, None, dropout,
+                                 shard_seed(seed, mesh, b, h), dot_dtype)
+    if q.device.type != "cpu":
+        tp_bhld_launches += 1
+    return out
+
+
+def relbias_attention_tp_plain(mesh, q, k, v, mask, e1, e2, dout,
+                               dot_dtype=torch.bfloat16, *,
+                               num_heads: Optional[int] = None,
+                               dropout: float = 0.0, seed: int = 0,
+                               need_dmask: bool = False):
+    """The K7 wrappers' plain version, packed (num_heads = the local head
+    count) or (B, H, L, d) (None): [out, dq, dk, dv, dmask, de1, de2] of
+    the plain forward and backward on this rank's blocks at the shard's
+    seed."""
+    h = num_heads or q.shape[1]
+    kw = dict(num_heads=num_heads, dropout=dropout,
+              seed=shard_seed(seed, mesh, q.shape[0], h))
+    return [relbias_attention_fwd_plain(q, k, v, mask, e1, e2, dot_dtype, **kw),
+            *relbias_attention_bwd_plain(q, k, v, mask, e1, e2, dout, dot_dtype,
+                                         need_dmask=need_dmask, **kw)]

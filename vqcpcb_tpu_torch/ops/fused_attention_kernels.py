@@ -45,7 +45,7 @@ from vqcpcb_tpu_torch.ops._kernel_io import (
     MASK32, batch_einsum, bwd_scratch, check_inputs, empty_like_layout,
     finite_mask, heads, kernel_args, raise_status, score_grads_plain, strides,
     typed, unheads)
-from vqcpcb_tpu_torch.ops.attention_kernels import dropout_keep_plain
+from vqcpcb_tpu_torch.ops.attention_kernels import dropout_keep_plain, shard_seed
 
 # Launches since the last reset: K4; K6's forward; K6's backward with a real
 # bias, and with the placeholder (each launches a rows and a cols kernel).
@@ -322,3 +322,44 @@ class FusedAttentionTrain(torch.autograd.Function):
         else:
             dbias = None
         return dq, dk, dv, dmask, dbias, None, None, None, None
+
+
+# ---- K7: the shard wrapper (pallas_attention.py:1122) ------------------------
+
+# fused_attention_train_tp calls on CUDA tensors since the last reset
+train_tp_launches = 0
+
+
+def fused_attention_train_tp(mesh, q, k, v, mask, bias, num_heads: Optional[int],
+                             dropout: float, seed: int,
+                             dot_dtype=torch.bfloat16) -> torch.Tensor:
+    """fused_attention_train_tp's counterpart: FusedAttentionTrain (K6 on
+    CUDA, its plain version on the CPU) on this rank's (b_local, h_local)
+    planes, packed (num_heads = h_local) or (B, H, L, d) (None), with its
+    bias planes (b_local*h_local, T, S), the placeholder or None, at the
+    shard's seed (attention_kernels.shard_seed): plane (b, h) draws stream
+    seed + shard*(b_local*h_local) + b*h_local + h (:1152-1157);
+    differentiable."""
+    global train_tp_launches
+    h = num_heads or q.shape[1]
+    out = FusedAttentionTrain.apply(q, k, v, mask, bias, num_heads, dropout,
+                                    shard_seed(seed, mesh, q.shape[0], h),
+                                    dot_dtype)
+    if q.device.type != "cpu":
+        train_tp_launches += 1
+    return out
+
+
+def fused_attention_train_tp_plain(mesh, q, k, v, mask, bias, dout,
+                                   dot_dtype=torch.bfloat16, *,
+                                   num_heads: Optional[int] = None,
+                                   dropout: float = 0.0, seed: int = 0,
+                                   need_dmask: bool = False):
+    """fused_attention_train_tp's plain version: [out, dq, dk, dv, dmask,
+    dbias] of K6's plain forward and backward at the shard's seed."""
+    h = num_heads or q.shape[1]
+    kw = dict(num_heads=num_heads, dropout=dropout,
+              seed=shard_seed(seed, mesh, q.shape[0], h))
+    return [fused_attention_train_fwd_plain(q, k, v, mask, bias, dot_dtype, **kw),
+            *fused_attention_train_bwd_plain(q, k, v, mask, bias, dout, dot_dtype,
+                                             need_dmask=need_dmask, **kw)]

@@ -37,6 +37,14 @@ temporaries. Its dropout draws come from explicit generators, which
 torch.utils.checkpoint does not restore: the recompute rewinds them to
 where the forward found them, so it draws the same seeds and masks, and
 leaves them where the forward left them.
+
+Under a model axis (parallel/mesh.py shard_params, which calls each layer's
+`set_mesh`) the FFN pair and the aligned layer's cross MLP pair run as
+Megatron's column-then-row blocks where their hidden width divides the
+axis: copy_to_model on the input, the first Linear on this rank's output
+rows, the activation (elementwise, so the split holds through it), the
+second Linear on its input columns, reduce_from_model, the bias once
+(parallel/collectives.py); replicated otherwise.
 """
 from __future__ import annotations
 
@@ -51,6 +59,9 @@ from torch.utils.checkpoint import checkpoint
 
 from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
 from vqcpcb_tpu_torch.ops.kv_cache import Cache
+from vqcpcb_tpu_torch.parallel.collectives import (copy_to_model,
+                                                   reduce_from_model,
+                                                   row_parallel)
 from vqcpcb_tpu_torch.utils import (default_compute_dtype, dense, dropout,
                                     layer_compute_dtype)
 
@@ -147,11 +158,14 @@ def train_mode(module: nn.Module, training: Optional[bool]) -> Iterator[None]:
 
 
 def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
-                 activation: str, dropout: Dropout) -> torch.Tensor:
+                 activation: str, dropout: Dropout, mesh=None) -> torch.Tensor:
     """The FeedForward block (transformer.py:53): linear1, relu or gelu
     (flax's gelu is the tanh approximation), dropout, linear2, the linears
     in the compute dtype. Its modules live on the layer, the Linears under
-    the reference's names."""
+    the reference's names. mesh: a mesh whose model axis splits the pair
+    (column then row), or None."""
+    if mesh is not None:
+        x = copy_to_model(x, mesh)
     h = dense(x, linear1.weight, linear1.bias)
     if activation == "relu":
         h = F.relu(h)
@@ -159,10 +173,22 @@ def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"activation should be relu/gelu, not {activation}")
+    if mesh is not None:
+        return row_parallel(dropout(h), linear2.weight, linear2.bias, mesh)
     return dense(dropout(h), linear2.weight, linear2.bias)
 
 
-class TransformerEncoderLayer(nn.Module):
+class _MeshLayer(nn.Module):
+    """A transformer layer's FFN split over a model axis (set_mesh); the
+    attention modules take theirs from shard_params themselves."""
+
+    ff_mesh = None
+
+    def set_mesh(self, mesh, specs) -> None:
+        self.ff_mesh = mesh if specs.get("linear1.weight") is not None else None
+
+
+class TransformerEncoderLayer(_MeshLayer):
     """attn -> add -> LN -> FFN -> add -> LN (transformer.py:67)."""
 
     def __init__(self, d_model: int, n_head: int,
@@ -196,7 +222,7 @@ class TransformerEncoderLayer(nn.Module):
 
     def _ff(self, x):
         return feed_forward(x, self.linear1, self.linear2, self.activation,
-                            self.ff_dropout)
+                            self.ff_dropout, self.ff_mesh)
 
     def capture(self, src, src_mask=None):
         """Full forward that also returns this layer's self-attention K/V,
@@ -235,7 +261,7 @@ class TransformerEncoder(nn.Module):
         return out
 
 
-class TransformerAlignedDecoderLayer(nn.Module):
+class TransformerAlignedDecoderLayer(_MeshLayer):
     """Causal self-attention, then the aligned cross branch -- an MLP of the
     memory event (channels_enc*E -> 2E -> E*channels_dec) broadcast over the
     subsampling ratio -- then the FFN, each followed by add & LN
@@ -270,6 +296,22 @@ class TransformerAlignedDecoderLayer(nn.Module):
         self.num_channels_encoder = num_channels_encoder
         self.num_channels_decoder = num_channels_decoder
         self.activation = activation
+        self.cross_mesh = None
+
+    def set_mesh(self, mesh, specs) -> None:
+        super().set_mesh(mesh, specs)
+        self.cross_mesh = (mesh if specs.get("cross_attn.0.weight") is not None
+                           else None)
+
+    def _cross_mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """cross_attn (Linear, ELU, Linear) in f32; split column then row
+        under a model axis."""
+        mesh = self.cross_mesh
+        if mesh is None:
+            return self.cross_attn(x)
+        first, elu, second = self.cross_attn
+        h = elu(first(copy_to_model(x, mesh)))
+        return reduce_from_model(F.linear(h, second.weight), mesh) + second.bias
 
     def cross_branch(self, memory: torch.Tensor, tgt_len: int) -> torch.Tensor:
         """memory (B, S, E), S = events_memory * channels_encoder ->
@@ -278,7 +320,7 @@ class TransformerAlignedDecoderLayer(nn.Module):
         b, s, e = memory.shape
         c_enc, c_dec = self.num_channels_encoder, self.num_channels_decoder
         n_mem = s // c_enc
-        h = self.cross_attn(memory.reshape(b, n_mem, c_enc * e))
+        h = self._cross_mlp(memory.reshape(b, n_mem, c_enc * e))
         h = h.reshape(b, n_mem, e, c_dec).transpose(2, 3)      # (B, n, C, E)
         ratio = (tgt_len // c_dec) // n_mem
         return h[:, :, None].expand(b, n_mem, ratio, c_dec, e).reshape(
@@ -287,7 +329,8 @@ class TransformerAlignedDecoderLayer(nn.Module):
     def _after_self(self, x, cross):
         x = self.norm2(x + self.drop2(cross))
         return self.norm3(x + self.drop3(feed_forward(
-            x, self.linear1, self.linear2, self.activation, self.ff_dropout)))
+            x, self.linear1, self.linear2, self.activation, self.ff_dropout,
+            self.ff_mesh)))
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
         """memory_mask is unused: the aligned branch masks nothing."""
@@ -313,7 +356,7 @@ class TransformerAlignedDecoderLayer(nn.Module):
         return self._after_self(x, cross_t)
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(_MeshLayer):
     """Causal self-attention, then cross-attention over the memory, then the
     FFN, each followed by add & LN (transformer.py:172)."""
 
@@ -352,7 +395,8 @@ class TransformerDecoderLayer(nn.Module):
 
     def _ff_block(self, x):
         return self.norm3(x + self.drop3(feed_forward(
-            x, self.linear1, self.linear2, self.activation, self.ff_dropout)))
+            x, self.linear1, self.linear2, self.activation, self.ff_dropout,
+            self.ff_mesh)))
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
         tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask)

@@ -20,6 +20,18 @@ for a template, then sliding-window KV-cached decoding of the code
 sequence. Both run on the card unless the caller names another device.
 Over an encoder without a quantizer, the decoder's source is the encoder's
 z in place of merged codes, on every path that takes it (`encode_source`).
+
+Over a (data, model) mesh (`mesh`, by default parallel/mesh.make_mesh()
+over every rank, as JAX's trainer builds one over every device,
+decoder_trainer.py:87-90) the decoder keeps its blocks (shard_params), each
+step takes this rank's rows of the global batch (shard_batch) through the
+frozen encoder (K1 on those rows) and the decoder, Adam averages the
+gradients over `data`, and the losses are averaged over `data`. The
+dropout layers' generator is seeded with seed + data_index (a distinct
+stream per data rank, the same for the ranks of one data index, whose
+activations are replicated); the attention's seed generator with seed on
+every rank (the K7 wrappers offset it per shard). A one-rank mesh is the
+single-device path.
 """
 from __future__ import annotations
 
@@ -35,6 +47,9 @@ from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, START_SYMBOL,
 from vqcpcb_tpu_torch.models.decoder import Decoder
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
 from vqcpcb_tpu_torch.ops.transformer import wire_generators
+from vqcpcb_tpu_torch.parallel.collectives import mean_over_data
+from vqcpcb_tpu_torch.parallel.mesh import (make_mesh, module_specs,
+                                            shard_batch, shard_params)
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
@@ -74,20 +89,23 @@ class DecoderTrainer(TrainLoopMixin):
     sampler draw from, and the host generator the attention layers draw
     their dropout seeds from. model_dir and dataloader_generator serve
     train_model, save / load and the generation methods; the steps need
-    neither."""
+    neither. mesh: the (data, model) mesh to train over (see the module
+    docstring)."""
 
     def __init__(self, encoder: Encoder, decoder: Decoder, codebook_size: int,
                  device=None, seed: int = 0, model_dir: Optional[str] = None,
-                 dataloader_generator=None):
+                 dataloader_generator=None, mesh=None):
         self.model_dir = model_dir
         self.dataloader_generator = dataloader_generator
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
-        self.decoder = decoder.to(self.device)
+        self.decoder = shard_params(decoder.to(self.device), self.mesh)
         self.codebook_size = codebook_size
         self.compute_dtype = compute_dtype(
             torch.bfloat16 if self.device.type == "cuda" else torch.float32)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + self.mesh.data_index)
         self.seed_generator = torch.Generator().manual_seed(seed)
         wire_generators(self.decoder, self.generator, self.seed_generator)
         self.optimizer: Optional[Adam] = None
@@ -97,9 +115,12 @@ class DecoderTrainer(TrainLoopMixin):
                    warmup_steps: int = WARMUP_STEPS) -> "DecoderTrainer":
         """Fresh optimizer state at step 0 (decoder_trainer.py:init_state;
         the decoder's weights are the module's own)."""
+        specs = module_specs(self.decoder)
+        named = list(self.decoder.named_parameters())
         self.optimizer = Adam(
-            self.decoder.parameters(),
-            trapezoid_schedule(lr, warmup_steps) if schedule_lr else lr)
+            [p for _, p in named],
+            trapezoid_schedule(lr, warmup_steps) if schedule_lr else lr,
+            mesh=self.mesh, specs=[specs.get(name) for name, _ in named])
         self.step = 0
         return self
 
@@ -118,11 +139,11 @@ class DecoderTrainer(TrainLoopMixin):
             return self.decoder(codes, x)["loss"]
 
     def train_step(self, x) -> Dict[str, torch.Tensor]:
-        """One clipped Adam step on a token batch; returns {'loss'} as a
-        device scalar (not read back)."""
+        """One clipped Adam step on a (global) token batch; returns {'loss'},
+        the mean over `data`, as a device scalar (not read back)."""
         if self.optimizer is None:
             raise RuntimeError("init_state before train_step")
-        x = to_device(x, self.device)
+        x = to_device(shard_batch(x, self.mesh), self.device)
         self.decoder.train()
         self.optimizer.zero_grad()
         loss = self._loss(x)
@@ -130,12 +151,13 @@ class DecoderTrainer(TrainLoopMixin):
         loss.backward()
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": mean_over_data(loss.detach(), self.mesh)}
 
     @torch.no_grad()
     def eval_step(self, x) -> Dict[str, torch.Tensor]:
         self.decoder.eval()
-        return {"loss": self._loss(to_device(x, self.device))}
+        loss = self._loss(to_device(shard_batch(x, self.mesh), self.device))
+        return {"loss": mean_over_data(loss, self.mesh)}
 
     # ---- the epoch loop (training/loop.py) and its state --------------------
 

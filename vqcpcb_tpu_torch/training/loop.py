@@ -30,6 +30,15 @@ and may override `monitor_key`, `_epoch_kwargs`, `_optimizers()` (name
 -> every optimizer it steps, each saved under its name; by default
 `optimizer`, saved as "optimizer") and `epoch()` (by default the mean of
 the {'loss'} that `train_step(x)` / `eval_step(x)` return).
+
+Over a mesh of several ranks (a trainer's `mesh`, parallel/mesh.py) every
+rank runs the loop on the same global batches (the per-epoch reseed is the
+same everywhere) and calls every save, whose state it gathers into the
+one-GPU layout (collective); rank 0 alone writes the slots, the step slot,
+metrics.jsonl and the events file, and prints. A state keeps every rank's
+generators (`generators_by_rank`) beside rank 0's (`generators`, which a
+one-rank load reads); every rank loads the one-GPU layout and keeps its
+blocks.
 """
 from __future__ import annotations
 
@@ -40,7 +49,10 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from vqcpcb_tpu_torch.parallel.mesh import (gather_params, local_state_dict,
+                                            module_specs)
 from vqcpcb_tpu_torch.training import checkpoints
 from vqcpcb_tpu_torch.training.metrics import MetricsWriter
 from vqcpcb_tpu_torch.training.profiling import maybe_profile
@@ -117,18 +129,67 @@ class TrainLoopMixin:
         """Whether init_state has built the optimizers."""
         return all(opt is not None for opt in self._optimizers().values())
 
+    # ---- the mesh ------------------------------------------------------------------
+
+    @property
+    def _multi_rank_mesh(self):
+        """The trainer's mesh when it has several ranks, else None."""
+        mesh = getattr(self, "mesh", None)
+        return mesh if mesh is not None and mesh.size > 1 else None
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this rank writes the files (rank 0, or the only rank)."""
+        mesh = self._multi_rank_mesh
+        return mesh is None or mesh.rank == 0
+
+    def _generator_states(self) -> Dict:
+        """{"generators": rank 0's states, and over several ranks
+        "generators_by_rank": every rank's, in rank order (collective)}."""
+        own = {name: {"device": g.device.type, "state": g.get_state()}
+               for name, g in self._generators().items()}
+        if self._multi_rank_mesh is None:
+            return {"generators": own}
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, own)
+        return {"generators": everyone[0], "generators_by_rank": everyone}
+
+    def _restore_generators(self, state: Dict) -> None:
+        """This rank's saved generator states (rank 0's when the state was
+        saved by another number of ranks); a state saved on another device
+        type (a card's generator read on the CPU) leaves that generator as
+        it is."""
+        saved = state["generators"]
+        mesh = self._multi_rank_mesh
+        by_rank = state.get("generators_by_rank")
+        if mesh is not None and by_rank is not None and len(by_rank) == mesh.size:
+            saved = by_rank[mesh.rank]
+        generators = self._generators()
+        for name, entry in saved.items():
+            if entry["device"] == generators[name].device.type:
+                generators[name].set_state(
+                    torch.as_tensor(entry["state"], dtype=torch.uint8).cpu())
+
+    def _local_weights(self, weights: Dict[str, torch.Tensor]) -> Dict:
+        """A one-GPU-layout state_dict cut to this rank's blocks."""
+        mesh = self._multi_rank_mesh
+        if mesh is None:
+            return weights
+        return local_state_dict(weights, module_specs(self._checkpointed()), mesh)
+
     # ---- the trainer's state ----------------------------------------------------
 
     def state_dict(self) -> Dict:
         """The module's parameters and buffers, each optimizer, the step and
-        every generator's state (with its device type)."""
-        return {"model": self._checkpointed().state_dict(),
+        every generator's state (with its device type), in the one-GPU
+        layout (collective over a mesh of several ranks)."""
+        module = self._checkpointed()
+        mesh = self._multi_rank_mesh
+        return {"model": (module.state_dict() if mesh is None
+                          else gather_params(module, mesh)),
                 **{name: opt.state_dict()
                    for name, opt in self._optimizers().items()},
-                "step": self.step,
-                "generators": {name: {"device": g.device.type,
-                                      "state": g.get_state()}
-                               for name, g in self._generators().items()}}
+                "step": self.step, **self._generator_states()}
 
     def load_state_dict(self, state: Dict) -> None:
         """Restore a state_dict(); init_state first (it builds the
@@ -139,15 +200,11 @@ class TrainLoopMixin:
         if checkpoints.is_weights_only(state):
             self.adopt_weights(state["model"])
             return
-        self._checkpointed().load_state_dict(state["model"])
+        self._checkpointed().load_state_dict(self._local_weights(state["model"]))
         for name, opt in self._optimizers().items():
             opt.load_state_dict(state[name])
         self.step = int(state["step"])
-        generators = self._generators()
-        for name, saved in state["generators"].items():
-            if saved["device"] == generators[name].device.type:
-                generators[name].set_state(
-                    torch.as_tensor(saved["state"], dtype=torch.uint8).cpu())
+        self._restore_generators(state)
 
     def adopt_weights(self, weights: Dict[str, torch.Tensor]) -> None:
         """Copy the entries of a weights-only state into the checkpointed
@@ -158,6 +215,7 @@ class TrainLoopMixin:
         module entry of its shape, else ValueError."""
         module = self._checkpointed()
         target = module.state_dict()
+        weights = self._local_weights(weights)
         unmatched = sorted(set(weights) - set(target))
         if unmatched:
             fused = [k for k in unmatched if k.endswith(("in_proj_weight", "in_proj_bias"))
@@ -178,7 +236,10 @@ class TrainLoopMixin:
     # ---- the two slots --------------------------------------------------------
 
     def save(self, early_stopped: bool) -> None:
-        checkpoints.save_state(self.model_dir, early_stopped, self.state_dict())
+        """Every rank calls it; rank 0 writes."""
+        state = self.state_dict()
+        if self._writes:
+            checkpoints.save_state(self.model_dir, early_stopped, state)
 
     def load(self, early_stopped: bool) -> None:
         """The whole state of a slot; init_state first (it builds the
@@ -193,19 +254,28 @@ class TrainLoopMixin:
     def _save_step_checkpoint(self, epoch_id: int, batches_done: int,
                               sums: dict, count: int) -> None:
         state = self.state_dict()
-        generators = state.pop("generators")
+        if not self._writes:
+            return
+
+        def listed(generators):
+            return {name: {"device": g["device"], "state": g["state"].tolist()}
+                    for name, g in generators.items()}
+
         info = {"epoch": int(epoch_id), "batches_done": int(batches_done),
                 "metric_sums": {k: np.asarray(v, dtype=np.float64).tolist()
                                 for k, v in sums.items()},
                 "metric_count": int(count),
-                "generators": {name: {"device": g["device"],
-                                      "state": g["state"].tolist()}
-                               for name, g in generators.items()}}
+                "generators": listed(state.pop("generators"))}
+        if "generators_by_rank" in state:
+            info["generators_by_rank"] = [listed(g) for g in
+                                          state.pop("generators_by_rank")]
         checkpoints.save_step_state(self.model_dir, state, info)
 
     def _restore_step_checkpoint(self, info: dict) -> None:
         state = checkpoints.load_step_state(self.model_dir)
         state["generators"] = info["generators"]
+        if "generators_by_rank" in info:
+            state["generators_by_rank"] = info["generators_by_rank"]
         self.load_state_dict(state)
 
     def _train_epoch_chunked(self, generator_train, num_batches,
@@ -254,7 +324,7 @@ class TrainLoopMixin:
                     initialize: bool = True,
                     checkpoint_every_steps: Optional[int] = None,
                     **kwargs) -> None:
-        writer = MetricsWriter(self.model_dir, plot=plot)
+        writer = MetricsWriter(self.model_dir, plot=plot and self._writes)
         start_epoch = writer.epochs_logged()
         best_val = writer.best_val(self.monitor_key)
         ek = self._epoch_kwargs(corrupt_labels)
@@ -265,7 +335,8 @@ class TrainLoopMixin:
         resume = checkpoints.read_step_sidecar(self.model_dir)
         if resume is not None and resume.get("epoch", -1) < start_epoch:
             # stale: the epoch it belongs to completed (its metrics row exists)
-            checkpoints.clear_step_state(self.model_dir)
+            if self._writes:
+                checkpoints.clear_step_state(self.model_dir)
             resume = None
 
         for epoch_id in range(start_epoch, start_epoch + num_epochs):
@@ -287,8 +358,9 @@ class TrainLoopMixin:
                 partial = resume
                 generator_train = itertools.islice(iter(generator_train), skip,
                                                    None)
-                print(f"resuming epoch {epoch_id} from step checkpoint "
-                      f"({skip} batches already trained)")
+                if self._writes:
+                    print(f"resuming epoch {epoch_id} from step checkpoint "
+                          f"({skip} batches already trained)")
             resume = None
 
             remaining = (None if num_batches is None
@@ -301,19 +373,21 @@ class TrainLoopMixin:
                 generator_val, False,
                 num_batches // 2 if num_batches is not None else None, **ek)
 
-            print(f"======= Epoch {epoch_id} =======")
-            print("---Train---")
-            dict_pretty_print(monitored_train, endstr=" " * 5)
-            print()
-            print("---Val---")
-            dict_pretty_print(monitored_val, endstr=" " * 5)
-            print("\n")
+            if self._writes:
+                print(f"======= Epoch {epoch_id} =======")
+                print("---Train---")
+                dict_pretty_print(monitored_train, endstr=" " * 5)
+                print()
+                print("---Val---")
+                dict_pretty_print(monitored_val, endstr=" " * 5)
+                print("\n")
 
             self.save(early_stopped=False)
             valid_loss = monitored_val.get(self.monitor_key, 1e8)
             if valid_loss < best_val:
                 self.save(early_stopped=True)
                 best_val = valid_loss
-            writer.write(epoch_id, monitored_train, monitored_val)
-            # the epoch-boundary saves supersede any mid-epoch checkpoint
-            checkpoints.clear_step_state(self.model_dir)
+            if self._writes:
+                writer.write(epoch_id, monitored_train, monitored_val)
+                # the epoch-boundary saves supersede any mid-epoch checkpoint
+                checkpoints.clear_step_state(self.model_dir)

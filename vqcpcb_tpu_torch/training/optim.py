@@ -12,13 +12,25 @@ The arithmetic follows optax so one step matches the JAX trainer's:
     optax's step count does.
 Parameters are updated in place; nothing is read back to the host, so a step
 does not wait for the device.
+
+Under a mesh (parallel/mesh.py) the gradients are first averaged over
+`data` (the gradient of the global-batch mean loss: the data loaders drop
+uneven tails, so the local batches are equal); the clip's norm sums the
+squares of the gradients the model axis splits over `model` and counts each
+replicated gradient once, so it is the norm of the whole gradient, as JAX
+computes it; Adam then updates this rank's blocks. Its state_dict holds
+the moments in the one-GPU layout (gathered over `model`), and
+load_state_dict takes that layout and keeps this rank's blocks.
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Iterable, List, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import torch
+
+from vqcpcb_tpu_torch.parallel.collectives import all_reduce_, average_gradients
+from vqcpcb_tpu_torch.parallel.mesh import MODEL_AXIS, gather_tensor, local_slice
 
 WARMUP_STEPS = 10_000
 MIN_SCALING = 0.1
@@ -50,11 +62,20 @@ def warmup_steps_from_env() -> int:
 
 
 def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float = GRAD_CLIP) -> torch.Tensor:
+                        max_norm: float = GRAD_CLIP, mesh=None,
+                        sharded: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scale `grads` in place as optax.clip_by_global_norm does; returns the
-    global norm (a device scalar)."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    global norm (a device scalar). Under a mesh with a model axis, `sharded`
+    (a 0 / 1 float tensor on the gradients' device, one entry a gradient)
+    flags the gradients that are this rank's blocks: their squares are
+    summed over `model`, the replicated ones counted once."""
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    if mesh is None or mesh.n_model == 1:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        squares = norms * norms
+        split = all_reduce_((squares * sharded).sum(), mesh, MODEL_AXIS)
+        norm = torch.sqrt((squares * (1.0 - sharded)).sum() + split)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -63,11 +84,24 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 
 class Adam:
     """optax.adam over a list of parameters, with the global-norm clip in
-    front; `lr` is a float or a schedule of the step count."""
+    front; `lr` is a float or a schedule of the step count. mesh: the mesh
+    the parameters are trained over, with `specs` their Splits in order
+    (parallel/mesh.module_specs; None where replicated); None for one
+    rank."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
-                 lr: Union[float, Callable[[int], float]]):
-        self.params = [p for p in params if p.requires_grad]
+                 lr: Union[float, Callable[[int], float]], mesh=None,
+                 specs: Optional[Sequence] = None):
+        params = list(params)
+        specs = list(specs) if specs is not None else [None] * len(params)
+        kept = [(p, sp) for p, sp in zip(params, specs) if p.requires_grad]
+        self.params = [p for p, _ in kept]
+        self.specs = [sp for _, sp in kept]
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.sharded = None
+        if self.mesh is not None and self.params:
+            self.sharded = torch.tensor([float(sp is not None) for sp in self.specs],
+                                        device=self.params[0].device)
         self.lr = lr
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -84,7 +118,9 @@ class Adam:
         gradients' global norm before clipping (a device scalar)."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
-        norm = clip_by_global_norm(grads)
+        if self.mesh is not None:
+            average_gradients(grads, self.mesh)
+        norm = clip_by_global_norm(grads, mesh=self.mesh, sharded=self.sharded)
         lr = self.lr(self.count) if callable(self.lr) else self.lr
         self.count += 1
         c1 = 1.0 - B1 ** self.count
@@ -102,18 +138,33 @@ class Adam:
         torch._foreach_add_(self.params, update)
         return norm
 
+    def _gather(self, moments: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self.mesh is None:
+            return list(moments)
+        return [gather_tensor(x, sp, self.mesh)
+                for x, sp in zip(moments, self.specs)]
+
     def state_dict(self) -> Dict:
         """The moments and the step count, which is also the schedule's
         position: an optimizer built by the same init_state and given this
-        state takes the step, at the learning rate, that this one would."""
-        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+        state takes the step, at the learning rate, that this one would.
+        The moments are in the one-GPU layout (collective under a model
+        axis)."""
+        return {"count": self.count, "mu": self._gather(self.mu),
+                "nu": self._gather(self.nu)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
-        """Copy a state_dict() in place (onto this optimizer's devices)."""
+        """Copy a state_dict() in place (onto this optimizer's devices),
+        keeping this rank's blocks of the one-GPU layout."""
         if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(self.nu):
             raise ValueError(f"optimizer state for {len(state['mu'])} "
                              f"parameters, not {len(self.mu)}")
+        if self.mesh is not None:
+            state = dict(state, **{
+                key: [local_slice(x, sp, self.mesh)
+                      for x, sp in zip(state[key], self.specs)]
+                for key in ("mu", "nu")})
         for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
             if dst.shape != src.shape:
                 raise ValueError(f"optimizer moment of shape {tuple(src.shape)}, "

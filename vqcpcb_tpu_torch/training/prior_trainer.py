@@ -16,6 +16,12 @@ layers' dropout seeds); `save` / `load` keep them with the rest. Generation
 samples codes window by window (`generate_codes`) and decodes them with a
 decoder trainer's `generate_from_code_long`, writing the scores. Runs on
 the card unless the caller names another device.
+
+Over a (data, model) mesh (`mesh`, by default make_mesh() over every rank,
+prior_trainer.py:54-57) it trains as DecoderTrainer does
+(training/decoder_trainer.py): the prior's blocks, this rank's rows through
+the frozen encoder and the prior, gradients and losses averaged over
+`data`, the dropout generator seeded per data rank.
 """
 from __future__ import annotations
 
@@ -29,6 +35,9 @@ import torch
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
 from vqcpcb_tpu_torch.models.prior import PriorRelative
 from vqcpcb_tpu_torch.ops.transformer import wire_generators
+from vqcpcb_tpu_torch.parallel.collectives import mean_over_data
+from vqcpcb_tpu_torch.parallel.mesh import (make_mesh, module_specs,
+                                            shard_batch, shard_params)
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import Adam
 from vqcpcb_tpu_torch.training.profiling import check_finite
@@ -37,18 +46,22 @@ from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 class PriorTrainer(TrainLoopMixin):
     """model_dir and dataloader_generator serve train_model, save / load and
-    `generate`; the steps need neither."""
+    `generate`; the steps need neither. mesh: the (data, model) mesh to
+    train over."""
 
     def __init__(self, encoder: Encoder, prior: PriorRelative,
                  codebook_size: int, device=None, seed: int = 0,
-                 model_dir: Optional[str] = None, dataloader_generator=None):
+                 model_dir: Optional[str] = None, dataloader_generator=None,
+                 mesh=None):
         self.model_dir = model_dir
         self.dataloader_generator = dataloader_generator
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
-        self.prior = prior.to(self.device)
+        self.prior = shard_params(prior.to(self.device), self.mesh)
         self.codebook_size = codebook_size
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + self.mesh.data_index)
         self.seed_generator = torch.Generator().manual_seed(seed)
         wire_generators(self.prior, self.generator, self.seed_generator)
         self.optimizer: Optional[Adam] = None
@@ -57,7 +70,10 @@ class PriorTrainer(TrainLoopMixin):
     def init_state(self, lr: float) -> "PriorTrainer":
         """Fresh optimizer state at step 0, no schedule (prior_trainer.py:125;
         the prior's weights are the module's own)."""
-        self.optimizer = Adam(self.prior.parameters(), lr)
+        specs = module_specs(self.prior)
+        named = list(self.prior.named_parameters())
+        self.optimizer = Adam([p for _, p in named], lr, mesh=self.mesh,
+                              specs=[specs.get(name) for name, _ in named])
         self.step = 0
         return self
 
@@ -69,11 +85,11 @@ class PriorTrainer(TrainLoopMixin):
         return merge_codes(indices, self.codebook_size)
 
     def train_step(self, x) -> Dict[str, torch.Tensor]:
-        """One clipped Adam step on a token batch; returns {'loss'} as a
-        device scalar (not read back)."""
+        """One clipped Adam step on a (global) token batch; returns {'loss'},
+        the mean over `data`, as a device scalar (not read back)."""
         if self.optimizer is None:
             raise RuntimeError("init_state before train_step")
-        codes = self.encode_codes(x)
+        codes = self.encode_codes(shard_batch(x, self.mesh))
         self.prior.train()
         self.optimizer.zero_grad()
         loss = self.prior(codes)["loss"]
@@ -81,12 +97,13 @@ class PriorTrainer(TrainLoopMixin):
         loss.backward()
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": mean_over_data(loss.detach(), self.mesh)}
 
     @torch.no_grad()
     def eval_step(self, x) -> Dict[str, torch.Tensor]:
         self.prior.eval()
-        return {"loss": self.prior(self.encode_codes(x))["loss"]}
+        loss = self.prior(self.encode_codes(shard_batch(x, self.mesh)))["loss"]
+        return {"loss": mean_over_data(loss, self.mesh)}
 
     # ---- the epoch loop (training/loop.py) and its state --------------------
 

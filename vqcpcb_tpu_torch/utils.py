@@ -178,6 +178,19 @@ def relbias_in_kernel() -> bool:
     return os.environ.get("VQCPCB_PALLAS_RELBIAS", "1") == "1"
 
 
+def train_dot_dtype(device) -> torch.dtype:
+    """The dot type of the attention's training kernels (K2, K6): bf16 on the
+    card, f32 on the CPU (the plain versions). VQCPCB_PALLAS_BF16_DOTS=0
+    gives f32 dots on the card too, where the JAX package reads it
+    (vqcpcb_tpu/ops/pallas_attention.py:_dots_dtype, at each trace): the
+    kernels' f32-dot instances, f32 inputs (bf16 ones are cast, exactly)."""
+    if torch.device(device).type == "cpu":
+        return torch.float32
+    if os.environ.get("VQCPCB_PALLAS_BF16_DOTS", "1") == "1":
+        return torch.bfloat16
+    return torch.float32
+
+
 def dict_pretty_print(d: Dict[str, Any], endstr: str = "\n") -> None:
     """Console pretty printer of a metrics dict (vqcpcb_tpu/utils.py:67)."""
     for key, value in d.items():
