@@ -159,13 +159,17 @@ Phases, in order; any failure raises and the run exits non-zero:
      f32), each shard against the wrapper's plain version (the bf16 w_drop
      bit for bit), at dropout 0 against the unsharded kernel bit for bit,
      and K1 on row shards; (b) one NCCL rank through maybe_initialize
-     (torchrun's variables): the decoder and prior CLIs -t, then -l
-     --num_examples 1 and -l -g on the one-GPU path; (c) four ranks sharing
-     the card over gloo (launch.run_ranks): gloo's collectives on CUDA
-     tensors probed, a (2, 2) flagship and absolute decoder at dropout 0.2,
-     and the flagship decoder and the prior at dropout 0 in f32 against one
-     rank on the same global batches (losses, gathered clipped gradients);
-     (d) with two or more GPUs, NCCL ranks one per GPU.
+     (torchrun's variables): the decoder and prior CLIs -t; one NCCL rank
+     from VQCPCB_COORDINATOR: the encoder CLI -t, VQ-CPC and student; then
+     -l --num_examples 1, -l -g and the encoder's -l on the one-GPU path;
+     (c) four ranks sharing the card over gloo (launch.run_ranks): gloo's
+     collectives on CUDA tensors probed, a (2, 2) flagship and absolute
+     decoder at dropout 0.2, and the flagship decoder, the prior, the
+     VQ-CPC (BatchNorm, EMA, transformer downscaler) and the student at
+     dropout 0 in f32 against one rank on the same global batches (losses,
+     gathered clipped gradients; the encoder side's codebook init, quantizer
+     buffers and K1 codes); (d) with two or more GPUs, NCCL ranks one per
+     GPU.
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
 (a) and (c), the CLI calls of phase 14, the runs and CLI calls of phase 15,
@@ -1616,11 +1620,14 @@ EXPLICIT_STEPS = 6
 
 def set_dropout(model, rate: float) -> None:
     from vqcpcb_tpu_torch.ops.attention import MultiheadAttention
+    from vqcpcb_tpu_torch.ops.gru import GRU
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = rate
         elif isinstance(m, MultiheadAttention):
             m.dropout = rate
+        elif isinstance(m, GRU) and m.num_layers > 1:
+            m.layer_dropout = rate
 
 
 def loss_and_grads(decoder, codes, x, bf16: bool):
@@ -1782,7 +1789,7 @@ def phase_explicit_bias(gen: torch.Generator) -> dict:
 ENC_LOSS_RTOL = 1e-4
 
 
-def build_cpc_model(ema: bool, transformer: bool = False):
+def build_cpc_model(ema: bool, transformer: bool = False, batch_norm: bool = False):
     """The VQ-CPC model of bench.py:52-88 at full width, random weights from
     torch's init under a fixed seed: embedding 32, two independent 2-layer
     GRUs of 512 over blocks of 16 tokens, codebook 32 x 3 (one codebook,
@@ -1792,7 +1799,8 @@ def build_cpc_model(ema: bool, transformer: bool = False):
     weighting 0.25. With `transformer`, the downscaler of
     configs/encoder_random_transfo_config.py instead of the GRUs: the
     strided relative-transformer downscaler, factors [4, 4], d_model 512, 8
-    heads, 4 + 4 layers, ff 2048."""
+    heads, 4 + 4 layers, ff 2048. With `batch_norm`, the commitment
+    quantizer's search normalised by its BatchNorm."""
     from vqcpcb_tpu_torch.models.cpc import CModule, FksModule, VQCPCModel
     from vqcpcb_tpu_torch.models.data_processor import BachCPCDataProcessor
     from vqcpcb_tpu_torch.models.downscalers import (GruDownscaler,
@@ -1804,7 +1812,8 @@ def build_cpc_model(ema: bool, transformer: bool = False):
     torch.manual_seed(1 if ema else 0)
     ticks = ENC_BLOCKS * 16 // 4
     quantizer = (EMAProductVectorQuantizer(CODEBOOK_SIZE, 3, 0.25, 1, ema_decay=0.99)
-                 if ema else ProductVectorQuantizer(CODEBOOK_SIZE, 3, 0.25, 1))
+                 if ema else ProductVectorQuantizer(CODEBOOK_SIZE, 3, 0.25, 1,
+                                                    use_batch_norm=batch_norm))
     downscaler = (RelativeTransformerDownscaler(32, 3, [4, 4], 4, 512, HEADS, [4, 4],
                                                 2048, 0.1)
                   if transformer else
@@ -2016,11 +2025,12 @@ STUDENT_ABSOLUTE_EVAL = {"vq_nearest": 1, "relbias_attention_fwd": 16,
                          "fused_attention": 8}
 
 
-def student_at_full_width(aux_type: str = "relative"):
+def student_at_full_width(aux_type: str = "relative", mesh=None):
     """(trainer, 4 batches on the card): the StudentEncoderTrainer the
     encoder CLI builds from STUDENT_CONFIG (weights from torch's init under
-    seed 0), with the auxiliary decoder `aux_type`, and 4 batches of its
-    data loader (the corpus windows built into build/student_data)."""
+    seed 0), with the auxiliary decoder `aux_type`, over `mesh` (None:
+    make_mesh()), and 4 batches of its data loader (the corpus windows
+    built into build/student_data)."""
     from vqcpcb_tpu_torch import getters, main_encoder
     from vqcpcb_tpu_torch.utils import load_config_module
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2031,7 +2041,7 @@ def student_at_full_width(aux_type: str = "relative"):
         cache_root=os.path.join(root, "build", "student_data"))
     torch.manual_seed(0)
     trainer = main_encoder.student_trainer(
-        config, data, getters.get_encoder(data, config), None, None)
+        config, data, getters.get_encoder(data, config), None, None, mesh)
     train = data.dataloaders(batch_size=STUDENT_BATCH)[0]
     batches = [torch.as_tensor(next(train)["x"], device="cuda") for _ in range(4)]
     trainer.init_state(batches[0], lr=config["lr"])
@@ -4209,8 +4219,12 @@ def phase_migrated(card: str) -> dict:
 # entry, as the trainers run it) against the unsharded kernel, bit for
 # bit. (b) one NCCL rank through maybe_initialize
 # (VQCPCB_DISTRIBUTED=1 and torchrun's variables): the decoder and prior
-# CLIs -t over the mesh code, then -l on the one-GPU path from the slots
-# they wrote. (c) four ranks on the one card over gloo (run_ranks): gloo's
+# CLIs -t over the mesh code; then one NCCL rank from VQCPCB_COORDINATOR
+# (the coordinator path): the encoder CLI -t on
+# configs/encoder_random_synthetic.py and on STUDENT_CONFIG; then -l of each
+# on the one-GPU path from the slots they wrote. (c) four ranks on the one
+# card over gloo (run_ranks, each started through maybe_initialize's
+# coordinator path): gloo's
 # collectives probed on CUDA tensors, then a (2, 2) flagship decoder and a
 # (2, 2) absolute decoder at dropout 0.2 (the loss falls; gloo-on-one-card
 # step times, not speeds of the mesh), and the flagship decoder and the
@@ -4229,8 +4243,26 @@ def phase_migrated(card: str) -> dict:
 # route (K2's bf16 dots, layers in f32) on (2, 2) and on (4, 1), which
 # runs no model-axis code, each against one rank, masks pinned: every
 # gradient's relative L2 gap on (2, 2) within MESH_BF16_FACTOR of
-# (4, 1)'s. (d) with two or more GPUs, the flagship at dropout 0.2 over
-# NCCL ranks, one per GPU, ms/step and tokens/s.
+# (4, 1)'s. The encoder side on (2, 2) and on (4, 1), each in f32 at
+# dropout 0 against one rank (_encoder_mesh_jobs): the VQ-CPC of
+# build_cpc_model with the BatchNorm and with the EMA quantizer, its
+# transformer-downscaler twin and the student at full width, held as the
+# decoder's (losses within MESH_RTOL, gradients within MESH_GRAD_FRAC of
+# their own max, ReLU masks pinned), and besides: the codebooks after
+# init_state bit for bit on every rank; the quantizer's buffers after the
+# first step within ENC_BUFFER_RTOL; each rank's own K1 codes equal to the
+# unsharded K1's rows on the data ranks' inputs, bit for bit; a row whose
+# code differs from one rank's (an f32 BatchNorm statistic or latent summed
+# in another order) pinned to one rank's on the first step only where one
+# rank's best and second-best distances are a near tie, at most
+# ENC_CODE_PINS_MAX such rows, any other differing row a failure; the
+# student's masked event one rank's. The GRU VQ-CPC's own partition gaps
+# (one rank over 2 and 4 row blocks, the whole batch's codes) beside its
+# mesh's, and its (2, 2) job run twice. The student's default route (K7
+# packed over K2 with bf16 dots at T = S = 384), layers in f32, on (2, 2)
+# held against (4, 1) as the flagship's.
+# (d) with two or more GPUs, the flagship at dropout 0.2 and the VQ-CPC
+# over NCCL ranks, one per GPU, ms/step and tokens/s.
 MESHES = ((2, 2), (1, 4), (4, 1))
 MESH_STEPS = 3
 MESH_DROPOUT_STEPS = 8
@@ -4239,8 +4271,17 @@ MESH_RTOL = 1e-4
 MESH_GRAD_FRAC = 1e-4
 MESH_BF16_FACTOR = 4.0
 MESH_CLI_BATCHES = 8
-MESH_RANKS_TIMEOUT_S = 420
+MESH_RANKS_TIMEOUT_S = 600
 MESH_SEED = 17
+# the encoder side of (c): steps of each job; the quantizer's buffers after
+# the first step against one rank's, relative, element by element
+ENC_MESH_STEPS = 2
+ENC_BUFFER_RTOL = 1e-5
+# the most first-step rows of a job, over its data ranks and its searches,
+# whose codes may differ from one rank's at a near tie (torch_mesh_harness
+# CODE_TIE_REL, f32 rounding; BF16_STEP, one bf16 step, on the bf16-dot
+# route) and be pinned; a row that differs elsewhere fails the job
+ENC_CODE_PINS_MAX = 8
 # K1's mesh branch (pallas_vq.py:96-130) is no wrapper in the port: each
 # rank's rows (parallel/mesh.shard_batch) go through K1's ordinary entry,
 # held on row shards by (a) and counted under vq_nearest
@@ -4496,12 +4537,15 @@ def _mesh_shards(gen) -> dict:
 
 def _mesh_clis(encoder_config: str) -> tuple:
     """(b): the decoder and prior CLIs -t as one NCCL rank started by
-    maybe_initialize from torchrun's variables, then -l on the one-GPU
-    path. Returns (the launches of the calls, seconds by call)."""
+    maybe_initialize from torchrun's variables; the encoder CLI -t on
+    configs/encoder_random_synthetic.py and on STUDENT_CONFIG as one NCCL
+    rank started from VQCPCB_COORDINATOR (the coordinator path); then -l of
+    each on the one-GPU path. Returns (the launches of the calls, seconds by
+    call, the encoder calls' launches, their epoch ms/step by kind)."""
     import glob
     import shutil
     import torch.distributed as dist
-    from vqcpcb_tpu_torch import main_decoder, main_prior
+    from vqcpcb_tpu_torch import main_decoder, main_encoder, main_prior
     from vqcpcb_tpu_torch.parallel.launch import free_port
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(root, "build", "phase17")
@@ -4548,24 +4592,86 @@ def _mesh_clis(encoder_config: str) -> tuple:
             ["-l", "--num_examples", "1", "-c", decoder_config])
         run("prior -l -g (one GPU)", main_prior,
             ["-l", "-g", "-c", os.path.join(prior_dir, "config.py")])
+
+        # the encoder CLI through the coordinator variables
+        before = counts()
+        coordinator = {"VQCPCB_COORDINATOR": f"127.0.0.1:{free_port()}",
+                       "VQCPCB_NUM_PROCESSES": "1", "VQCPCB_PROCESS_ID": "0"}
+        os.environ.update(coordinator)
+        encoder_dirs = {}
+        try:
+            for kind, config in (("encoder", "encoder_random_synthetic.py"),
+                                 ("student", os.path.basename(STUDENT_CONFIG))):
+                run(f"{kind} -t (1 NCCL rank, VQCPCB_COORDINATOR)", main_encoder,
+                    ["-t", "-c", os.path.join(root, "configs", config), "--num_epochs",
+                     "1", "--num_batches", str(MESH_CLI_BATCHES)])
+                if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                        and dist.get_world_size() == 1):
+                    raise AssertionError("maybe_initialize did not start one NCCL "
+                                         "rank from VQCPCB_COORDINATOR")
+                (encoder_dirs[kind],) = glob.glob(os.path.join(
+                    work, "models", f"{os.path.splitext(config)[0]}_*"))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for name in coordinator:
+                os.environ.pop(name, None)
+        epoch_ms = {}
+        tokens_per_step = {"encoder": ENC_BATCH * (2 * ENC_BLOCKS * 16
+                                                    + ENC_NEG * ENC_BLOCKS * 16),
+                           "student": STUDENT_BATCH * NUM_EVENTS * 4}
+        for kind, model_dir in encoder_dirs.items():
+            (row,) = _check_model_dir(model_dir, 1, "loss_monitor" if kind == "student"
+                                      else "loss")
+            epoch_ms[kind] = tokens_per_step[kind] / row["tokens_per_sec/train"] * 1e3
+            run(f"{kind} -l (one GPU)", main_encoder,
+                ["-l", "-c", os.path.join(model_dir, "config.py")])
+        encoder_launches = _delta(counts(), before)
+        log(f"# (b) the encoder CLI's train epochs as one NCCL rank, ms/step from "
+            f"metrics.jsonl's tokens/s ({MESH_CLI_BATCHES} steps, the first and the "
+            f"data loading included): {json.dumps({k: round(v, 3) for k, v in epoch_ms.items()})}; "
+            f"launches of the encoder calls {json.dumps(encoder_launches)}")
         launches = counts()
     finally:
         os.chdir(cwd)
     for kernel in ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd"):
         if not launches[kernel]:
             raise AssertionError(f"(b) launched no {kernel}")
-    return launches, seconds
+    if not encoder_launches["vq_nearest"]:
+        raise AssertionError("(b) the encoder CLI launched no K1")
+    return launches, seconds, encoder_launches, epoch_ms
 
 
 def _mesh_job(job: dict) -> dict:
     """A payload of train_over_mesh (torch_mesh_harness.py) for one of
     (c)'s jobs, its models and batches built from MESH_SEED (the same in
     every process that builds them): the flagship or absolute decoder of
-    build_models at full width on 4 random batches of TRAIN_BATCH, or the
-    prior of prior_parts; the job's ReLU pins, where it has them."""
+    build_models at full width on 4 random batches of TRAIN_BATCH, the
+    prior of prior_parts, the VQ-CPC of build_cpc_model (the BatchNorm,
+    EMA or transformer-downscaler quantizer) on 2 random batches of
+    ENC_BATCH, its codebook init from the first, or the student of
+    student_at_full_width on its first 2 batches (its codebook init from
+    the first); the job's ReLU pins and code pins, where it has them."""
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh
     gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    extra = {}
     if job["kind"] == "prior":
         encoder, model, codebook_size, batches, lr = prior_parts(gen)
+    elif job["kind"] == "vqcpc":
+        model = build_cpc_model(job["quantizer"] == "ema", job.get("transformer", False),
+                                batch_norm=job["quantizer"] == "bn")
+        batches = [{k: v.cpu().numpy() for k, v in random_cpc_batch(gen).items()}
+                   for _ in range(2)]
+        encoder = codebook_size = None
+        lr = 1e-3
+    elif job["kind"] == "student":
+        trainer, student_batches = student_at_full_width(mesh=Mesh(1, 1))
+        model = (trainer.encoder, trainer.teacher, trainer.auxiliary_decoder)
+        batches = [x.cpu().numpy() for x in student_batches[:2]]
+        encoder = codebook_size = None
+        lr = trainer.optimizer_encdec.lr
+        extra = dict(num_events_masked=trainer.num_events_masked,
+                     quantization_weighting=trainer.quantization_weighting)
     else:
         vocab = synthetic_vocabulary()
         encoder, model = build_models(vocab, dropout=job["dropout"],
@@ -4575,12 +4681,18 @@ def _mesh_job(job: dict) -> dict:
         encoder.cuda()
         init_codebook(encoder, torch.cat(batches), gen)
         codebook_size, lr = CODEBOOK_SIZE, 1e-4
-    set_dropout(model, job["dropout"])
-    steps = [batches[i % 2].cpu().numpy() for i in range(job["steps"])]
-    return dict(kind="prior" if job["kind"] == "prior" else "decoder",
-                encoder=encoder, model=model, codebook_size=codebook_size,
+    for module in (model if isinstance(model, tuple) else (model,)):
+        set_dropout(module, job["dropout"])
+    steps = [batches[i % 2] for i in range(job["steps"])]
+    if job["kind"] in ("decoder", "prior"):
+        steps = [b.cpu().numpy() for b in steps]
+    else:
+        extra.update(record_codes=True, code_pins=job.get("code_pins"),
+                     code_tie=job["code_tie"], initialize=job.get("initialize", True))
+    return dict(kind=job["kind"], encoder=encoder, model=model, codebook_size=codebook_size,
                 num_model=job["num_model"], batches=steps, lr=lr, device="cuda",
-                env=job.get("env", {}), relu_pins=job.get("relu_pins"))
+                env=job.get("env", {}), relu_pins=job.get("relu_pins"),
+                relu_rel=job.get("relu_rel", 1e-4), **extra)
 
 
 def mesh_ranks(rank: int, world_size: int, spec: dict) -> dict:
@@ -4618,35 +4730,17 @@ def mesh_ranks(rank: int, world_size: int, spec: dict) -> dict:
                      for job in spec["jobs"]]}
 
 
-def _mesh_reference(job: dict) -> tuple:
-    """One rank in this process on a job's models and batches: (losses,
-    the first step's clipped gradients on the CPU, the ReLU pre-activations
-    near zero of the first step, a ReluPins recording)."""
-    from torch_mesh_harness import ReluPins, with_env
+def _mesh_reference(job: dict) -> dict:
+    """One rank in this process on a job's models and batches
+    (torch_mesh_harness.run_job over Mesh(1, 1)): its losses, the first
+    step's clipped gradients, its ReLU pre-activations near zero (a
+    ReluPins recording, "pins") and, on the encoder side, its codebooks
+    after init_state, its quantizer buffers and the codes of its first
+    step's searches."""
+    from torch_mesh_harness import run_job, with_env
     from vqcpcb_tpu_torch.parallel.mesh import Mesh
-    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
-    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
     payload = _mesh_job(job)
-
-    def run():
-        cls = DecoderTrainer if payload["kind"] == "decoder" else PriorTrainer
-        trainer = cls(payload["encoder"], payload["model"], payload["codebook_size"],
-                      device=payload["device"], mesh=Mesh(1, 1))
-        trainer.init_state(payload["lr"])
-        module = trainer.decoder if payload["kind"] == "decoder" else trainer.prior
-        losses, grads, pins = [], None, ReluPins()
-        for batch in payload["batches"]:
-            if grads is None:
-                with pins:
-                    losses.append(float(trainer.train_step(batch)["loss"]))
-                grads = {n: (torch.zeros(p.shape) if p.grad is None
-                             else p.grad.float().cpu())
-                         for n, p in module.named_parameters()}
-            else:
-                losses.append(float(trainer.train_step(batch)["loss"]))
-        return losses, grads, pins.pins
-
-    out = with_env(payload["env"], run)
+    out = with_env(payload["env"], lambda: run_job(payload, Mesh(1, 1), record=True))
     del payload
     torch.cuda.empty_cache()
     return out
@@ -4669,59 +4763,221 @@ def _worst(gaps: dict, n: int = 3) -> str:
 
 def _partition_gaps(job: dict, parts: int) -> dict:
     """The card's own gradient gaps between batch partitions, with no mesh
-    code: one rank in this process, the job's first batch's decoder
-    gradient (the trainer's loss, no update) whole against the mean of
-    `parts` row blocks' gradients, the blocks' ReLU masks free and then
-    pinned to the whole batch's (torch_mesh_harness.ReluPins). Returns
-    {"free", "pinned": (own, l2) as _grad_gaps gives them, "flips" (pinned
-    units by ReLU call, summed over the blocks), "pin_gap"}."""
-    from torch_mesh_harness import ReluPins, with_env
+    code: one rank in this process, the job's first batch's gradient (the
+    trainer's loss, no update) whole against the mean of `parts` row
+    blocks' gradients, the blocks' ReLU masks free and then pinned to the
+    whole batch's (torch_mesh_harness.ReluPins). A VQ-CPC's blocks take
+    the whole batch's nearest-codebook codes in both (a block's own
+    BatchNorm statistics would move them, where the mesh sums them over
+    `data`). Returns {"free", "pinned": (own, l2) as _grad_gaps gives
+    them, "flips" (pinned units by ReLU call, summed over the blocks),
+    "pin_gap", "codes_moved" (the VQ-CPC's rows whose codes a block's own
+    search moved, held to the whole batch's)}."""
+    from torch_mesh_harness import ReluPins, build_trainer, with_env
     from vqcpcb_tpu_torch.parallel.mesh import Mesh
-    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
     payload = _mesh_job(job)
 
     def run():
-        trainer = DecoderTrainer(payload["encoder"], payload["model"],
-                                 payload["codebook_size"], device="cuda",
-                                 mesh=Mesh(1, 1))
-        x = torch.as_tensor(payload["batches"][0], device="cuda")
-        trainer.decoder.train()
+        trainer, module = build_trainer(payload, Mesh(1, 1), torch.device("cuda"))
+        module.train()
+        state = dict(block=None, call=0, moved=0)
+        if job["kind"] == "vqcpc":
+            whole = trainer._batch(payload["batches"][0], train=True)
+            blocks = [{k: v.chunk(parts)[i] for k, v in whole.items()}
+                      for i in range(parts)]
+            quantizer = module.encoder.quantizer
+            search, codes = quantizer.search, []
 
-        def grads(blocks):
-            trainer.decoder.zero_grad(set_to_none=True)
-            for i, rows in enumerate(x.chunk(parts)):
-                if blocks is None:
-                    (trainer._loss(rows) / parts).backward()
+            def held_search(x, codebooks):
+                own = search(x, codebooks)
+                if state["block"] is None:
+                    codes.append(own)
+                    return own
+                n, i = len(own), state["block"]
+                held = codes[state["call"]][i * n:(i + 1) * n]
+                state["call"] += 1
+                state["moved"] += int((held != own).any(-1).sum())
+                return held
+            quantizer.search = held_search
+
+            def loss(inputs, block):
+                state.update(block=block, call=0)
+                return module(inputs, training=True, generator=trainer.generator)[0]
+        else:
+            whole = torch.as_tensor(payload["batches"][0], device="cuda")
+            blocks = list(whole.chunk(parts))
+
+            def loss(inputs, block):
+                return trainer._loss(inputs)
+
+        def grads(pinned):
+            module.zero_grad(set_to_none=True)
+            for i, rows in enumerate(blocks):
+                if pinned is None:
+                    (loss(rows, i) / parts).backward()
                 else:
-                    pins = ReluPins(blocks, (i, parts))
+                    pins = ReluPins(pinned, (i, parts))
                     with pins:
-                        (trainer._loss(rows) / parts).backward()
+                        (loss(rows, i) / parts).backward()
                     flips.append(pins.flips)
                     gaps.append(pins.gap)
-            return {k: p.grad.float() for k, p in trainer.decoder.named_parameters()}
+            return {k: p.grad.float() for k, p in module.named_parameters()
+                    if p.grad is not None}
 
         flips, gaps = [], []
         record = ReluPins()
         with record:
-            trainer.decoder.zero_grad(set_to_none=True)
-            trainer._loss(x).backward()
-        whole = {k: p.grad.float() for k, p in trainer.decoder.named_parameters()}
+            module.zero_grad(set_to_none=True)
+            loss(whole, None).backward()
+        reference = {k: p.grad.float() for k, p in module.named_parameters()
+                     if p.grad is not None}
         free = grads(None)
+        moved = state["moved"]
         pinned = grads(record.pins)
-        return whole, free, pinned, flips, gaps
+        return reference, free, pinned, flips, gaps, moved
 
-    whole, free, pinned, flips, gaps = with_env(payload["env"], run)
+    whole, free, pinned, flips, gaps, moved = with_env(payload["env"], run)
     del payload
     torch.cuda.empty_cache()
     return dict(free=_grad_gaps(free, whole), pinned=_grad_gaps(pinned, whole),
-                flips=[int(sum(f)) for f in zip(*flips)], pin_gap=max(gaps))
+                flips=[int(sum(f)) for f in zip(*flips)], pin_gap=max(gaps),
+                codes_moved=moved)
+
+
+def _log_partition(label: str, part: dict) -> None:
+    log(f"# (c) the card's own partition gaps, {label} (one rank, no mesh code, "
+        f"f32 as above): the gradient over row blocks against the whole batch's, "
+        f"gap / each parameter's max |value|: ReLU masks free, largest "
+        f"{_worst(part['free'][0])}, median {np.median(list(part['free'][0].values())):.3e}; "
+        f"pinned to the whole batch's ({json.dumps(part['flips'])} units by call, "
+        f"largest pre-activation gap {part['pin_gap']:.3e}), largest "
+        f"{_worst(part['pinned'][0])}, median "
+        f"{np.median(list(part['pinned'][0].values())):.3e}; rows whose codes a "
+        f"block's own search moved, held to the whole batch's {part['codes_moved']}")
+
+
+def _encoder_mesh_jobs(f32: dict, bf16_dots: dict, relbias: tuple,
+                       explicit: tuple) -> list:
+    """(c)'s encoder-side jobs, on (2, 2) and on (4, 1), each in f32 at
+    dropout 0 against one rank: the VQ-CPC of build_cpc_model with the
+    BatchNorm and with the EMA quantizer, its transformer-downscaler twin
+    (K2 through K7 with f32 dots at T = S = 16 and 4), and the student at
+    full width (the relative auxiliary decoder; K6 with the explicit
+    relative bias through K7, the teacher's T = S = 384 being beyond the
+    relative-bias kernels' f32 tables); the BatchNorm VQ-CPC's (2, 2) job
+    a second time; and the student on its default route (K7 packed over K2
+    with bf16 dots), layers in f32, one step on (2, 2) and on (4, 1), held
+    as the flagship's bf16-dot pair, from the model's own codebooks (no
+    data init: under a model axis its bf16-dot eval forward rounds
+    otherwise than one rank's, and the pair compares the training step). A code row is a near tie within f32
+    rounding, or one bf16 step on the bf16-dot route."""
+    from torch_mesh_harness import BF16_STEP, CODE_TIE_REL
+    jobs = []
+    for num_model, label in ((2, "(2, 2)"), (1, "(4, 1)")):
+        common = dict(dropout=0.0, steps=ENC_MESH_STEPS, num_model=num_model,
+                      compare="exact", encoder_side=True, code_tie=CODE_TIE_REL)
+        jobs += [
+            dict(name=f"vqcpc bn f32 {label}", kind="vqcpc", quantizer="bn",
+                 need=(), env=f32, **common),
+            dict(name=f"vqcpc ema f32 {label}", kind="vqcpc", quantizer="ema",
+                 need=(), env=f32, **common),
+            dict(name=f"transfo vqcpc f32 {label}", kind="vqcpc", quantizer="plain",
+                 transformer=True, need=relbias, env=f32, **common),
+            dict(name=f"student f32 {label}", kind="student", need=explicit,
+                 env=dict(f32, VQCPCB_PALLAS_RELBIAS="0"), **common)]
+    jobs.append(dict(jobs[0], name="vqcpc bn f32 (2, 2) again"))
+    for num_model, label in ((2, "(2, 2)"), (1, "(4, 1)")):
+        jobs.append(dict(name=f"student bf16 dots {label}", kind="student",
+                         dropout=0.0, steps=1, num_model=num_model, need=relbias,
+                         compare="bf16", encoder_side=True, env=bf16_dots,
+                         code_tie=BF16_STEP, relu_rel=BF16_STEP, initialize=False))
+    return jobs
+
+
+def _reference_key(job: dict) -> str:
+    """Jobs of one key train the same models on the same batches."""
+    return json.dumps([job["kind"], job.get("model"), job.get("quantizer"),
+                       job.get("transformer"), job["steps"], job.get("env", {}),
+                       job.get("initialize", True), job.get("relu_rel")], sort_keys=True)
+
+
+def _rel_gap(got, want) -> float:
+    """The largest |got - want| / |want| over the elements."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+def _encoder_side_checks(job: dict, results: list, n_model: int) -> dict:
+    """The encoder-side holds of a job over the 4 ranks (rank r's data index
+    r // n_model), against the one-rank reference: the codebooks after
+    init_state equal bit for bit on every rank; the quantizer's buffers
+    after the first step (BatchNorm running statistics; the EMA codebooks,
+    cluster_size and ema_sums) within ENC_BUFFER_RTOL relative; each rank's
+    own K1 codes of the first step equal the rows of K1 launched here,
+    unsharded, on the data ranks' search inputs put together, bit for bit;
+    no row's code differs from one rank's except at a near tie, and at most
+    ENC_CODE_PINS_MAX such rows, pinned; the student's masked event the
+    same on every rank and one rank's. Returns {"init_gap" (vs one rank's
+    init, not held), "buffer_gap", "code_rows", "code_flips" (near-tie rows
+    whose codes differed from one rank's and were pinned to them, by rank
+    and search), "code_flip_margin" (the largest one-rank margin of such a
+    row)}."""
+    from vqcpcb_tpu_torch.ops import vq_kernels as vk
+    ref = job["reference"]
+    runs = [r["jobs"][job["index"]] for r in results]
+    first = runs[0]["init_codebooks"]
+    for r, run in enumerate(runs):
+        for key, value in run["init_codebooks"].items():
+            if not torch.equal(value, first[key]):
+                raise AssertionError(f"(c) {job['name']}: rank {r}'s codebooks after "
+                                     f"init_state differ from rank 0's ({key})")
+    init_gap = max((first[k] - v).abs().max().item()
+                   for k, v in ref["init_codebooks"].items())
+    buffer_gap = max([_rel_gap(runs[0]["buffers"][0][k], v)
+                      for k, v in ref["buffers"][0].items()] or [0.0])
+    if buffer_gap > ENC_BUFFER_RTOL:
+        raise AssertionError(f"(c) {job['name']}: quantizer buffers {buffer_gap:.3e} "
+                             f"from one rank's (need <= {ENC_BUFFER_RTOL})")
+    # each search of the first step: the data ranks' inputs (model index 0)
+    # in data order, through K1 unsharded, against the ranks' own codes
+    rows = 0
+    data_ranks = [runs[r] for r in range(0, len(runs), n_model)]
+    for call in range(len(ref["codes"])):
+        x = torch.cat([run["codes"][call][0] for run in data_ranks]).cuda()
+        codebooks = data_ranks[0]["codes"][call][1].cuda()
+        own = torch.cat([run["codes"][call][2] for run in data_ranks]).cuda()
+        if not torch.equal(vk.nearest_codebook_indices(x.contiguous(), codebooks), own):
+            raise AssertionError(f"(c) {job['name']}: the ranks' K1 codes of search "
+                                 f"{call} differ from the unsharded K1's rows")
+        rows += len(own)
+    faults = [run["code_faults"] for run in runs]
+    margin = max(run["code_flip_margin"] for run in runs)
+    if any(map(any, faults)):
+        raise AssertionError(
+            f"(c) {job['name']}: rows whose codes differ from one rank's away from a "
+            f"near tie, by rank and search {faults} (largest one-rank margin "
+            f"{margin:.3e}, a near tie is <= {job['code_tie']})")
+    # the model ranks of a data index search the same rows: count them once
+    pinned = sum(map(sum, (run["code_flips"] for run in data_ranks)))
+    if pinned > ENC_CODE_PINS_MAX:
+        raise AssertionError(f"(c) {job['name']}: {pinned} near-tie rows pinned to "
+                             f"one rank's codes (need <= {ENC_CODE_PINS_MAX})")
+    if job["kind"] == "student":
+        masked = [run["masked"] for run in runs]
+        if any(m != ref["masked"] for m in masked):
+            raise AssertionError(f"(c) {job['name']}: masked events {masked}, one "
+                                 f"rank's {ref['masked']}")
+    return dict(init_gap=init_gap, buffer_gap=buffer_gap, code_rows=rows,
+                code_flips=[run["code_flips"] for run in runs], code_flip_margin=margin)
 
 
 def _mesh_ranks_on_one_card(jobs=None) -> dict:
     """(c): returns {"probe", "refused" (the collectives gloo refused on
     CUDA tensors), "launches" (summed over the ranks and the jobs, K1 also
-    by kind), "k7" (the K7 wrappers' launches), "step_ms", "gaps" (the
-    comparisons' per-parameter gaps, by job), "losses"}. The comparisons
+    by kind), "encoder_launches" (those of the encoder-side jobs), "k7"
+    (the K7 wrappers' launches), "step_ms", "gaps" (the comparisons'
+    per-parameter gaps, by job), "losses", "encoder_side" (the holds of
+    _encoder_side_checks, by job)}. The comparisons of losses and gradients
     are held by _hold_mesh_gaps."""
     from vqcpcb_tpu_torch.parallel.launch import run_ranks
     relbias = ("relbias_attention_packed_tp", "relbias_attention_fwd",
@@ -4755,19 +5011,23 @@ def _mesh_ranks_on_one_card(jobs=None) -> dict:
              env=bf16_dots),
         dict(name="flagship bf16 dots (4, 1)", kind="decoder", model="flagship",
              dropout=0.0, steps=1, num_model=1, need=relbias, compare="bf16",
-             env=bf16_dots)]
+             env=bf16_dots)] + _encoder_mesh_jobs(f32, bf16_dots, relbias, explicit)
     # one rank first, on the compared jobs' batches: the reference losses and
-    # gradients, and the ReLU pre-activations near zero that pin the mesh's
-    # first step (torch_mesh_harness.ReluPins)
+    # gradients, the ReLU pre-activations near zero that pin the mesh's
+    # first step (torch_mesh_harness.ReluPins), and on the encoder side the
+    # first step's codes, which pin the mesh's where they differ
     references = {}
-    for job in jobs:
+    for j, job in enumerate(jobs):
+        job["index"] = j
         if "compare" in job:
-            key = json.dumps([job["kind"], job.get("model"), job["steps"],
-                              job.get("env", {})], sort_keys=True)
+            key = _reference_key(job)
             if key not in references:
                 references[key] = _mesh_reference(job)
             job["reference"] = references[key]
-            job["relu_pins"] = references[key][2]
+            job["relu_pins"] = references[key]["pins"]
+            if job.get("encoder_side"):
+                job["code_pins"] = [(codes, margins) for _, _, codes, margins
+                                    in references[key]["codes"]]
     t0 = time.perf_counter()
     results = run_ranks("chip_smoke:mesh_ranks", 4,
                         {"jobs": [{k: v for k, v in job.items() if k != "reference"}
@@ -4782,9 +5042,11 @@ def _mesh_ranks_on_one_card(jobs=None) -> dict:
     if "jobs" not in results[0]:
         log("# (c) gloo refused a collective of the mesh on CUDA tensors: the "
             "multi-rank proof on the card is (a) and (b)")
-        return dict(probe=probe, refused=refused, launches={},
-                    k7=dict.fromkeys(K7_WRAPPERS, 0), step_ms={}, gaps={}, losses={})
-    launches, step_ms, gaps, losses_by_job = {}, {}, {}, {}
+        return dict(probe=probe, refused=refused, launches={}, encoder_launches={},
+                    k7=dict.fromkeys(K7_WRAPPERS, 0), step_ms={}, gaps={}, losses={},
+                    encoder_side={})
+    launches, encoder_launches, step_ms, gaps, losses_by_job = {}, {}, {}, {}, {}
+    encoder_side = {}
     for j, job in enumerate(jobs):
         per_job = {}
         for r in results:
@@ -4792,6 +5054,8 @@ def _mesh_ranks_on_one_card(jobs=None) -> dict:
                 per_job[key] = per_job.get(key, 0) + n
         for key, n in per_job.items():
             launches[key] = launches.get(key, 0) + n
+            if job.get("encoder_side"):
+                encoder_launches[key] = encoder_launches.get(key, 0) + n
         res = results[0]["jobs"][j]
         losses = res["losses"]
         losses_by_job[job["name"]] = losses
@@ -4811,14 +5075,14 @@ def _mesh_ranks_on_one_card(jobs=None) -> dict:
             if job["name"].startswith("flagship") and not last < first:
                 raise AssertionError(f"(c) {job['name']}: the loss did not fall")
             continue
-        want_losses, want_grads, _ = job["reference"]
-        own, l2 = _grad_gaps(res["grads"], want_grads)
+        ref = job["reference"]
+        own, l2 = _grad_gaps(res["grads"], ref["grads"])
         gaps[job["name"]] = dict(
             compare=job["compare"], own=own, l2=l2,
-            loss=max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses)),
-            flips=[r["jobs"][j]["flips"] for r in results],
-            pin_gap=max(r["jobs"][j]["pin_gap"] for r in results))
-        log(f"# (c) {job['name']}: the mesh vs one rank, losses {want_losses} "
+            loss=max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])),
+            flips=[r["jobs"][j].get("flips") for r in results],
+            pin_gap=max(r["jobs"][j].get("pin_gap", 0.0) for r in results))
+        log(f"# (c) {job['name']}: the mesh vs one rank, losses {ref['losses']} "
             f"(largest relative gap {gaps[job['name']]['loss']:.3e}); ReLU units "
             f"pinned on the first step by rank and call "
             f"{json.dumps(gaps[job['name']]['flips'])} (their largest pre-activation "
@@ -4826,34 +5090,53 @@ def _mesh_ranks_on_one_card(jobs=None) -> dict:
             f"gradients, gap / each parameter's max |value|: largest {_worst(own)}, "
             f"median {np.median(list(own.values())):.3e}; relative L2 largest "
             f"{_worst(l2)}")
-        if job["name"] == "flagship f32":
-            part = _partition_gaps(job, 4)
-            gaps["one rank, 4 row blocks"] = dict(compare="partition", **part)
-            log(f"# (c) the card's own partition gaps (one rank, no mesh code, "
-                f"f32 as above): the gradient over 4 row blocks against the "
-                f"whole batch's, gap / each parameter's max |value|: ReLU masks "
-                f"free, largest {_worst(part['free'][0])}, median "
-                f"{np.median(list(part['free'][0].values())):.3e}; pinned to the "
-                f"whole batch's ({json.dumps(part['flips'])} units by call, largest "
-                f"pre-activation gap {part['pin_gap']:.3e}), largest "
-                f"{_worst(part['pinned'][0])}, median "
-                f"{np.median(list(part['pinned'][0].values())):.3e}")
+        if job.get("encoder_side"):
+            held = _encoder_side_checks(job, results, job["num_model"])
+            encoder_side[job["name"]] = held
+            log(f"# (c) {job['name']}: codebooks after init_state equal on the 4 "
+                f"ranks (largest gap to one rank's init {held['init_gap']:.3e}); "
+                f"quantizer buffers after the first step within "
+                f"{held['buffer_gap']:.3e} relative of one rank's; the ranks' own "
+                f"K1 codes = the unsharded K1's rows on their inputs ({held['code_rows']} "
+                f"rows); near-tie rows whose codes differed from one rank's, pinned, "
+                f"by rank and search {json.dumps(held['code_flips'])} (largest "
+                f"one-rank margin {held['code_flip_margin']:.3e}; none elsewhere)")
+        partitions = {"flagship f32": (4,), "vqcpc bn f32 (2, 2)": (2, 4)}
+        for parts in partitions.get(job["name"], ()):
+            label = (f"{parts} row blocks" if job["kind"] == "decoder"
+                     else f"the GRU VQ-CPC (BatchNorm) over {parts} row blocks")
+            part = _partition_gaps(job, parts)
+            gaps[f"one rank, {label}"] = dict(compare="partition", **part)
+            _log_partition(f"{label}, beside its mesh's largest {_worst(own, 1)}", part)
+        again = job["name"].replace(" again", "")
+        if again != job["name"] and again in gaps:
+            first = results[0]["jobs"][[o["name"] for o in jobs].index(again)]["grads"]
+            run_gap = _grad_gaps(res["grads"], first)[0]
+            log(f"# (c) {again}, run twice: the largest gap to one rank's "
+                f"{_worst(gaps[again]['own'], 1)} then {_worst(own, 1)}; between the "
+                f"two mesh runs, gap / each parameter's max |value| largest "
+                f"{_worst(run_gap, 1)}")
     del references
     for job in jobs:
-        job.pop("reference", None)
-        job.pop("relu_pins", None)
+        for key in ("reference", "relu_pins", "code_pins"):
+            job.pop(key, None)
     k7 = {k: launches.get(k, 0) for k in K7_WRAPPERS}
-    return dict(probe=probe, refused=refused, launches=launches, k7=k7,
-                step_ms=step_ms, gaps=gaps, losses=losses_by_job)
+    return dict(probe=probe, refused=refused, launches=launches,
+                encoder_launches=encoder_launches, k7=k7, step_ms=step_ms, gaps=gaps,
+                losses=losses_by_job, encoder_side=encoder_side)
 
 
 def _hold_mesh_gaps(gaps: dict) -> None:
     """(c)'s holds: every compared job's losses within MESH_RTOL of one
     rank's; f32 ("exact", and the one-rank partition with its ReLU masks
     pinned), every gradient within MESH_GRAD_FRAC of its own max |value|;
-    the bf16-dot (2, 2) mesh, every gradient's relative L2 gap within
+    each bf16-dot (2, 2) mesh, every gradient's relative L2 gap within
     MESH_BF16_FACTOR of the (4, 1) control's (its own, or the control's
-    median where that is larger)."""
+    median where that is larger). The student's relative-bias tables may
+    instead stand within MESH_BF16_FACTOR of the flagship control's
+    largest table gap: its (4, 1) control runs its teacher's tables' backward
+    almost exactly (2 rows a rank), where the flagship's shows the tables'
+    bf16 rounding at the same T = S = 384."""
     for name, g in gaps.items():
         if g["compare"] == "partition":
             own = g["pinned"][0]
@@ -4867,23 +5150,35 @@ def _hold_mesh_gaps(gaps: dict) -> None:
             if bad:
                 raise AssertionError(f"(c) {name}: gradients beyond "
                                      f"{MESH_GRAD_FRAC} of their max: {_worst(bad, 8)}")
-    mesh, control = (gaps.get(f"flagship bf16 dots {m}") for m in ("(2, 2)", "(4, 1)"))
-    if mesh is not None:
+    flagship = gaps.get("flagship bf16 dots (4, 1)")
+    table_floor = max((v for k, v in flagship["l2"].items() if ".attn_bias.e" in k),
+                      default=0.0) if flagship else 0.0
+    for name in [n for n, g in gaps.items()
+                 if g["compare"] == "bf16" and n.endswith("(2, 2)")]:
+        mesh, control = gaps[name], gaps[name.replace("(2, 2)", "(4, 1)")]
         floor = float(np.median(list(control["l2"].values())))
-        bad = {k: v for k, v in mesh["l2"].items()
-               if v > MESH_BF16_FACTOR * max(control["l2"][k], floor)}
-        log(f"# (c) bf16 dots: the (2, 2) mesh's relative L2 gaps vs the (4, 1) "
+
+        def base(k):
+            tables = ".attn_bias.e" in k and not name.startswith("flagship")
+            return max(control["l2"][k], floor, table_floor if tables else 0.0)
+        bad = {k: v for k, v in mesh["l2"].items() if v > MESH_BF16_FACTOR * base(k)}
+        extra = ("" if name.startswith("flagship") else
+                 f"; a relative-bias table's, or the flagship control's largest "
+                 f"table gap {table_floor:.3e}")
+        log(f"# (c) {name}: the mesh's relative L2 gaps vs the (4, 1) "
             f"control's (need each <= {MESH_BF16_FACTOR} x max(the control's, its "
-            f"median {floor:.3e})): largest ratio "
-            f"{max(v / max(control['l2'][k], floor) for k, v in mesh['l2'].items()):.3f}")
+            f"median {floor:.3e}{extra})): largest ratio "
+            f"{max(v / base(k) for k, v in mesh['l2'].items()):.3f}, to the "
+            f"control's alone {max(v / max(control['l2'][k], floor) for k, v in mesh['l2'].items()):.3f}")
         if bad:
-            raise AssertionError(f"(c) bf16 dots (2, 2): gradients beyond the "
+            raise AssertionError(f"(c) {name}: gradients beyond the "
                                  f"control: {_worst(bad, 8)}")
 
 
 def _mesh_nccl_gpus() -> dict:
-    """(d): with two or more GPUs, the flagship at dropout 0.2 over NCCL ranks,
-    one per GPU (2, then 4 where there are 4): ms/step and tokens/s."""
+    """(d): with two or more GPUs, the flagship at dropout 0.2 and the VQ-CPC
+    of build_cpc_model at its dropout 0.1 over NCCL ranks, one per GPU (2,
+    then 4 where there are 4): ms/step and tokens/s."""
     from vqcpcb_tpu_torch.parallel.launch import run_ranks
     n_gpus = torch.cuda.device_count()
     if n_gpus < 2:
@@ -4891,18 +5186,23 @@ def _mesh_nccl_gpus() -> dict:
             "rank per GPU")
         return {}
     out = {}
+    tokens = {"flagship": TRAIN_BATCH * NUM_EVENTS * 4,
+              "vqcpc": ENC_BATCH * (2 * ENC_BLOCKS * 16 + ENC_NEG * ENC_BLOCKS * 16)}
     for world in (2, 4):
         if world > n_gpus:
             break
-        job = dict(name="flagship dropout", kind="decoder", model="flagship",
-                   dropout=TRAIN_DROPOUT, steps=MESH_DROPOUT_STEPS, num_model=1)
-        res = run_ranks("chip_smoke:mesh_ranks", world, {"jobs": [job], "own_gpu": True},
+        jobs = [dict(name="flagship dropout", kind="decoder", model="flagship",
+                     dropout=TRAIN_DROPOUT, steps=MESH_DROPOUT_STEPS, num_model=1),
+                dict(name="vqcpc", kind="vqcpc", quantizer="plain", dropout=0.1,
+                     steps=MESH_DROPOUT_STEPS, num_model=1)]
+        res = run_ranks("chip_smoke:mesh_ranks", world, {"jobs": jobs, "own_gpu": True},
                         timeout_s=MESH_RANKS_TIMEOUT_S, backend="nccl", threads=2)
-        r = res[0]["jobs"][0]
-        ms = r["seconds"] / len(r["losses"]) * 1e3
-        out[world] = dict(step_ms=ms, tokens_per_s=TRAIN_BATCH * NUM_EVENTS * 4 / ms * 1e3)
-        log(f"# (d) {world} NCCL ranks, data-parallel: {ms:.2f} ms/step, "
-            f"{out[world]['tokens_per_s']:.1f} tokens/s")
+        for job, r in zip(jobs, res[0]["jobs"]):
+            name = job["name"].split()[0]
+            ms = r["seconds"] / len(r["losses"]) * 1e3
+            out[f"{name} {world}"] = dict(step_ms=ms, tokens_per_s=tokens[name] / ms * 1e3)
+            log(f"# (d) {name}, {world} NCCL ranks, data-parallel: {ms:.2f} ms/step, "
+                f"{out[f'{name} {world}']['tokens_per_s']:.1f} tokens/s")
     return out
 
 
@@ -4911,7 +5211,7 @@ def phase_mesh(gen: torch.Generator, encoder_config: str) -> dict:
     "launches" (the main path's: (b) in this process and (c)'s ranks, as a
     Launches), "k7" (the K7 wrappers' main-path launches), "gloo", "nccl"}."""
     shards = _mesh_shards(gen)
-    cli_launches, cli_seconds = _mesh_clis(encoder_config)
+    cli_launches, cli_seconds, encoder_cli_launches, epoch_ms = _mesh_clis(encoder_config)
     gloo = _mesh_ranks_on_one_card()
     _hold_mesh_gaps(gloo["gaps"])
     nccl = _mesh_nccl_gpus()
@@ -4920,11 +5220,15 @@ def phase_mesh(gen: torch.Generator, encoder_config: str) -> dict:
     launches.by_kind = {kind: cli_launches.by_kind[kind]
                         + ranks.get(f"vq_nearest/{kind}", 0)
                         for kind in cli_launches.by_kind}
+    encoder_side = {k: encoder_cli_launches.get(k, 0) + gloo["encoder_launches"].get(k, 0)
+                    for k in ("vq_nearest",) + tuple(K7_WRAPPERS)}
     log(f"# [mesh] main-path launches: (b) {json.dumps(dict(cli_launches))}, "
-        f"(c) {json.dumps({k: v for k, v in ranks.items() if v})}; CLI seconds "
+        f"(c) {json.dumps({k: v for k, v in ranks.items() if v})}; of them the "
+        f"encoder side's (the encoder CLI calls and (c)'s encoder jobs): K1 and K7 "
+        f"{json.dumps(encoder_side)}; CLI seconds "
         f"{json.dumps({k: round(v, 2) for k, v in cli_seconds.items()})}")
     return dict(shards=shards, launches=launches, k7=gloo["k7"], gloo=gloo,
-                nccl=nccl)
+                nccl=nccl, encoder_side=encoder_side, encoder_cli_epoch_ms=epoch_ms)
 
 
 def main() -> int:
@@ -5012,7 +5316,8 @@ def main() -> int:
               "vqcpcb_tpu/ops/pallas_vq.py:28", "vqcpcb_tpu/ops/pallas_vq.py:_kernel",
               [], vq, shapes=vq["shapes"], kinds=vq["kinds"],
               launches_by_kind=k1_kinds, redesigned=True,
-              mesh_row_shards_held=mesh["shards"]["k1_held"]),
+              mesh_row_shards_held=mesh["shards"]["k1_held"],
+              encoder_mesh_launches=mesh["encoder_side"]["vq_nearest"]),
         # top-level times at the serving prefill's shape (B=512, T=S=384, f32
         # inputs), as since the kernel was first ported; the training shape
         # (B=32, T=S=384, packed bf16, dropout 0.2) under "training"
@@ -5095,6 +5400,8 @@ def main() -> int:
                   for name, site in K7_WRAPPERS.items()],
         gloo_on_cuda=mesh["gloo"]["probe"],
         gloo_one_card_step_ms=mesh["gloo"]["step_ms"],
+        encoder_mesh_launches={k: mesh["encoder_side"][k] for k in K7_WRAPPERS},
+        encoder_cli_epoch_ms=mesh["encoder_cli_epoch_ms"],
         nccl_gpus=mesh["nccl"]))
     # the error is read under two names by readers of this line; one number
     for k in kernels:

@@ -1,6 +1,8 @@
 """Shared by tests/test_torch_mesh.py, tests/test_torch_cuda.py and
-chip_smoke.py: a decoder or prior trainer over a mesh of rank processes
-(`train_over_mesh`, a target of parallel/launch.run_ranks), every kernel
+chip_smoke.py: a decoder, prior, VQ-CPC or student trainer over a mesh of
+rank processes (`train_over_mesh`, a target of parallel/launch.run_ranks;
+`run_job` the same steps over a given mesh, one rank's in the calling
+process), every kernel
 wrapper's launch count (`launch_counts`), and `ReluPins`, which records the
 ReLU pre-activations near zero of one run and holds another run's ReLU
 masks to them.
@@ -17,6 +19,14 @@ the gradient's largest value over 4 row blocks of one batch, with no mesh
 code). Pinning the masks keeps each value within rounding of the other
 run's, passes the gradient through unchanged (value + (ref - value)
 .detach()) and leaves every other difference to the comparison.
+
+The nearest-codebook codes of a VQ-CPC or student step are held the same
+way, but only at near ties: a row whose best and second-best squared
+distances, in the recorded run, lie within CODE_TIE_REL of the sums that
+make them (`search_margins`; a bf16 step where the attention kernels
+take bf16 dots) may take the other code over rounding and is held to the
+recorded one; any other row whose code differs is reported,
+not pinned.
 """
 from __future__ import annotations
 
@@ -55,6 +65,28 @@ def reset_launch_counts() -> None:
     ak.launches = ak.bwd_launches = ak.tp_launches = ak.tp_bhld_launches = 0
     fk.launches = fk.train_fwd_launches = fk.train_tp_launches = 0
     fk.train_bwd_launches = fk.train_bwd_nobias_launches = 0
+
+
+# a nearest-codebook row is a near tie when its best and second-best squared
+# distances differ by at most this share of |x|^2 + the largest |e|^2 (f32
+# rounding; payload["code_tie"]); BF16_STEP, one bf16 step, is the rounding
+# of a run whose attention kernels round their dot inputs to bf16, for its
+# code ties and its ReLU pins (payload["relu_rel"])
+CODE_TIE_REL = 1e-5
+BF16_STEP = 2.0 ** -8
+
+
+def search_margins(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """x (N, K, d) search inputs, codebooks (K, S, d) -> (N, K) float64: the
+    gap between the best and the second-best squared distance, over |x|^2 +
+    the largest |e|^2 of the sub-codebook (the size of the f32 sums the
+    kernel compares)."""
+    x, cb = x.double(), codebooks.double()
+    x2 = (x * x).sum(-1)                                     # (N, K)
+    e2 = (cb * cb).sum(-1)                                   # (K, S)
+    d2 = x2[..., None] - 2.0 * torch.einsum("nkd,ksd->nks", x, cb) + e2[None]
+    two = d2.topk(2, dim=-1, largest=False).values
+    return (two[..., 1] - two[..., 0]) / (x2 + e2.amax(-1)[None]).clamp_min(1e-30)
 
 
 # ---- ReLU masks held to another run's ------------------------------------------
@@ -148,26 +180,43 @@ class _Functional:
 # ---- a trainer over a mesh -------------------------------------------------------
 
 def train_over_mesh(rank: int, world_size: int, payload: Dict) -> Dict:
-    """Train a DecoderTrainer or a PriorTrainer over a (world / num_model,
-    num_model) mesh of the group and report what rank 0 sees.
-
-    payload: kind ("decoder" or "prior"), encoder and model (modules with
-    the full weights, the same on every rank), codebook_size, num_model,
-    batches (global token batches, one a step), lr, device ("cpu", or
-    "cuda": every rank on the current card), optional model_dir (rank 0
-    saves the overfitted slot there after the steps), optional eval_batch,
-    env (variables set while the job runs) and relu_pins (a ReluPins
-    recording of one rank's first step on the same batch: this rank's
-    first step holds its ReLU masks to it). Returns {"losses" (one a step),
-    "grads" (the first step's clipped gradients, gathered to the one-GPU
-    layout, by name), "eval_loss", "launches" (this rank's, counted over
-    the steps), "seconds" (the steps, synchronised), "flips" and "pin_gap"
-    (ReluPins' counts, summed over the ranks, and largest gap)}; other
-    ranks return their losses, launches and pins' numbers only. A list of
-    payloads runs each in turn and returns the list of results."""
+    """Train a DecoderTrainer, a PriorTrainer, a VQCPCEncoderTrainer or a
+    StudentEncoderTrainer over a (world / num_model, num_model) mesh of the
+    group (run_job) and report what rank 0 sees; other ranks return their
+    losses, launches, masked indices, init codebooks and pins' numbers only.
+    A list of payloads runs each in turn and returns the list of results."""
     if isinstance(payload, list):
         return [train_over_mesh(rank, world_size, job) for job in payload]
-    return with_env(payload.get("env", {}), lambda: _train_over_mesh(rank, payload))
+    if payload["kind"] == "encoder_cli":
+        return encoder_cli(payload)
+    from vqcpcb_tpu_torch.parallel.mesh import make_mesh
+    result = with_env(payload.get("env", {}),
+                      lambda: run_job(payload, make_mesh(payload["num_model"]),
+                                      payload.get("relu_pins")))
+    if rank == 0:
+        return result
+    return {k: result[k] for k in ("launches", "losses", "flips", "pin_gap",
+                                   "masked", "init_codebooks", "buffers", "codes",
+                                   "code_flips", "code_faults", "code_flip_margin")
+            if k in result}
+
+
+def encoder_cli(payload: Dict) -> Dict:
+    """main_encoder.main(payload["argv"]) on this rank of the group, in
+    payload["workdir"] (models/ lands there), the corpus caches under
+    payload["cache_root"]; returns {"exit": its exit code, "coordinator":
+    the VQCPCB_COORDINATOR this rank started from}."""
+    from vqcpcb_tpu_torch import main_encoder
+    from vqcpcb_tpu_torch.data import dataset
+    saved_cwd, saved_root = os.getcwd(), dataset.DEFAULT_CACHE_ROOT
+    os.chdir(payload["workdir"])
+    dataset.DEFAULT_CACHE_ROOT = payload["cache_root"]
+    try:
+        return {"exit": main_encoder.main(payload["argv"]),
+                "coordinator": os.environ.get("VQCPCB_COORDINATOR")}
+    finally:
+        os.chdir(saved_cwd)
+        dataset.DEFAULT_CACHE_ROOT = saved_root
 
 
 def with_env(env: Dict[str, str], fn):
@@ -185,31 +234,159 @@ def with_env(env: Dict[str, str], fn):
                 os.environ[k] = value
 
 
-def _train_over_mesh(rank: int, payload: Dict) -> Dict:
-    from vqcpcb_tpu_torch.parallel.mesh import gather_tensor, make_mesh, module_specs
-    mesh = make_mesh(payload["num_model"])
-    device = torch.device(payload["device"])
-    if payload["kind"] == "decoder":
-        from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer as cls
+def build_trainer(payload: Dict, mesh, device: torch.device):
+    """The payload's trainer over `mesh`, its state initialised, and the
+    module whose gradients are reported."""
+    kind = payload["kind"]
+    if kind in ("decoder", "prior"):
+        if kind == "decoder":
+            from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer as cls
+        else:
+            from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer as cls
+        trainer = cls(payload["encoder"], payload["model"], payload["codebook_size"],
+                      device=device, model_dir=payload.get("model_dir"), mesh=mesh)
+        trainer.init_state(payload["lr"])
+        return trainer, trainer.decoder if kind == "decoder" else trainer.prior
+    common = dict(device=device, model_dir=payload.get("model_dir"), mesh=mesh,
+                  local_batches=payload.get("local", False))
+    if kind == "vqcpc":
+        from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
+        trainer = VQCPCEncoderTrainer(payload["model"], **common)
     else:
-        from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer as cls
-    trainer = cls(payload["encoder"], payload["model"], payload["codebook_size"],
-                  device=device, model_dir=payload.get("model_dir"), mesh=mesh)
-    trainer.init_state(payload["lr"])
-    module = trainer.decoder if payload["kind"] == "decoder" else trainer.prior
+        from vqcpcb_tpu_torch.training.student_trainer import StudentEncoderTrainer
+        encoder, teacher, auxiliary_decoder = payload["model"]
+        trainer = StudentEncoderTrainer(
+            encoder, teacher, auxiliary_decoder, payload["num_events_masked"],
+            payload["quantization_weighting"], **common)
+    trainer.init_state(_rows(payload, payload["batches"][0], mesh), payload["lr"],
+                       perms=payload.get("perms"),
+                       initialize=payload.get("initialize", True))
+    return trainer, trainer.model
+
+
+def _rows(payload: Dict, batch, mesh):
+    """The batch a step is given: the global one, or with payload["local"]
+    this rank's rows only (per-rank feeding)."""
+    if not payload.get("local"):
+        return batch
+    from vqcpcb_tpu_torch.parallel.mesh import shard_batch
+    return shard_batch(batch, mesh)
+
+
+def _quantizer(trainer):
+    model = trainer.model
+    return (model.encoder if hasattr(model, "bidirectional") else model["encoder"]).quantizer
+
+
+def _floats(metrics: Dict) -> Dict:
+    return {k: v.tolist() if v.dim() else float(v) for k, v in metrics.items()}
+
+
+def run_job(payload: Dict, mesh, relu_pins: Optional[List] = None,
+            record: bool = False) -> Dict:
+    """Train one payload's trainer over `mesh` (a one-rank Mesh(1, 1) for a
+    reference in the calling process).
+
+    payload: kind ("decoder", "prior", "vqcpc" or "student"), model (a
+    module with the full weights, the same on every rank; for the student
+    (encoder, teacher, auxiliary decoder)), batches (global batches, one a
+    step: token arrays, or the VQ-CPC's dicts), lr, device ("cpu", or
+    "cuda": every rank on the current card), num_model, env (variables set
+    while the job runs); the decoder and the prior also encoder and
+    codebook_size; the student num_events_masked and quantization_weighting;
+    optional: model_dir (rank 0 saves the overfitted slot there after the
+    steps), eval_batch, local (the VQ-CPC and the student: each rank is given
+    only its rows), initialize and perms (their init_state's; initialize
+    defaults to True), masked_event_index (the student's, in place of its
+    draws), relu_pins (a ReluPins recording of one rank's first
+    step on the same batch: this run's first step holds its ReLU masks to
+    it); record: record this run's first step's ReLU pre-activations near
+    zero instead (within payload["relu_rel"] of each call's max |h|,
+    default 1e-4).
+
+    Returns {"losses" (one a step; the student's teacher + encoder-decoder
+    loss), "metrics" (every metric of each step), "grads" (the first step's
+    clipped gradients, gathered to the one-GPU layout, by name),
+    "eval_loss", "launches" (counted over the steps), "seconds" (the steps,
+    synchronised), "flips" and "pin_gap" (ReluPins' counts and largest gap)
+    or "pins" (recording)}; the VQ-CPC and the student also
+    "init_codebooks" (after init_state), "buffers" (the quantizer's buffers
+    after each step: BatchNorm's running statistics, the EMA codebooks,
+    cluster_size and ema_sums), with payload["record_codes"] "codes" (each
+    nearest-codebook search of the first step: (x, codebooks, this run's
+    own codes, their search_margins) on the CPU) and, given
+    payload["code_pins"] (a recorded run's (codes, margins) of those
+    searches, on the whole batch), "code_flips" (by search, the rows whose
+    codes differed from the recording's at a near tie, margin <=
+    payload["code_tie"] (default CODE_TIE_REL), and were held to them, as ReluPins holds the ReLU masks)
+    and "code_faults" (by search, the rows whose codes differed elsewhere,
+    not held), "code_flip_margin" (the largest recorded margin of a row
+    whose code differed, 0 if none) and, the student, "masked" (the masked event of each
+    step)."""
+    from vqcpcb_tpu_torch.parallel.mesh import gather_tensor, module_specs
+    device = torch.device(payload["device"])
+    kind = payload["kind"]
+    trainer, module = build_trainer(payload, mesh, device)
+    encoder_side = kind in ("vqcpc", "student")
+    result = {}
+    if encoder_side:
+        result["init_codebooks"] = _quantizer(trainer).state_dict()
+        result["init_codebooks"] = {k: v.detach().cpu().clone()
+                                    for k, v in result["init_codebooks"].items()
+                                    if "embeddings" in k or k == "codebooks"}
+    searched, code_flips, code_faults, flip_margins = [], [], [], []
+    code_pins = payload.get("code_pins")
+    if payload.get("record_codes"):
+        quantizer = _quantizer(trainer)
+        search = quantizer.search
+
+        def recording(x, codebooks):
+            codes = search(x, codebooks)
+            if grads is not None:                    # the first step's only
+                return codes
+            searched.append((x.cpu(), codebooks.cpu(), codes.cpu(),
+                             search_margins(x, codebooks).cpu()))
+            if code_pins is None:
+                return codes
+            # this rank's rows of the recorded run's codes and margins
+            pinned, margins = (t.to(codes.device) for t in code_pins[len(searched) - 1])
+            if len(pinned) != len(codes):
+                mine = slice(mesh.data_index * len(codes),
+                             (mesh.data_index + 1) * len(codes))
+                pinned, margins = pinned[mine], margins[mine]
+            flip = pinned != codes
+            tie = flip & (margins <= payload.get("code_tie", CODE_TIE_REL))
+            code_flips.append(int(tie.any(-1).sum()))
+            code_faults.append(int((flip & ~tie).any(-1).sum()))
+            flip_margins.append(margins[flip].max().item() if flip.any() else 0.0)
+            return torch.where(tie, pinned, codes)
+        quantizer.search = recording
     before = launch_counts()
-    losses, grads, pins = [], None, None
+    losses, metrics, masked, grads, pins = [], [], [], None, None
+    buffers = []
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
+    fixed = ({"masked_event_index": payload["masked_event_index"]}
+             if payload.get("masked_event_index") is not None else {})
     for batch in payload["batches"]:
-        if grads is None and payload.get("relu_pins") is not None:
-            pins = ReluPins(payload["relu_pins"], (mesh.data_index, mesh.n_data),
-                            (mesh.model_index, mesh.n_model))
+        step = lambda: trainer.train_step(_rows(payload, batch, mesh), **fixed)  # noqa: E731
+        if grads is None and (record or relu_pins is not None):
+            pins = (ReluPins(rel=payload.get("relu_rel", 1e-4)) if record else
+                    ReluPins(relu_pins, (mesh.data_index, mesh.n_data),
+                             (mesh.model_index, mesh.n_model)))
             with pins:
-                losses.append(float(trainer.train_step(batch)["loss"]))
+                out = step()
         else:
-            losses.append(float(trainer.train_step(batch)["loss"]))
+            out = step()
+        metrics.append(_floats(out))
+        losses.append(metrics[-1]["loss_teacher"] + metrics[-1]["loss_encdec"]
+                      if kind == "student" else metrics[-1]["loss"])
+        if kind == "student":
+            masked.append(int(trainer.masked_event_index))
+        if encoder_side:
+            buffers.append({k: v.detach().cpu().clone()
+                            for k, v in _quantizer(trainer).named_buffers()})
         if grads is None:
             specs = module_specs(module)
             grads = {name: gather_tensor(
@@ -219,15 +396,26 @@ def _train_over_mesh(rank: int, payload: Dict) -> Dict:
     sync()
     seconds = time.perf_counter() - t0
     after = launch_counts()
-    result = {"losses": losses, "grads": grads, "seconds": seconds,
-              "launches": {k: after[k] - before[k] for k in after}}
-    if pins is not None:
+    result.update(losses=losses, metrics=metrics, grads=grads, seconds=seconds,
+                  launches={k: after[k] - before[k] for k in after})
+    if encoder_side:
+        result["buffers"] = buffers
+    if payload.get("record_codes"):
+        quantizer.search = search
+        result["codes"] = searched
+        if code_pins is not None:
+            result.update(code_flips=code_flips, code_faults=code_faults,
+                          code_flip_margin=max(flip_margins, default=0.0))
+    if kind == "student":
+        result["masked"] = masked
+    if pins is not None and record:
+        result["pins"] = pins.pins
+    elif pins is not None:
         result.update(flips=pins.flips, pin_gap=pins.gap)
     if payload.get("eval_batch") is not None:
-        result["eval_loss"] = float(trainer.eval_step(payload["eval_batch"])["loss"])
+        out = trainer.eval_step(_rows(payload, payload["eval_batch"], mesh))
+        result["eval_loss"] = float(out["loss_monitor" if kind == "student"
+                                        else "loss"])
     if payload.get("model_dir"):
         trainer.save(early_stopped=False)
-    if rank == 0:
-        return result
-    return {k: result[k] for k in ("launches", "losses", "flips", "pin_gap")
-            if k in result}
+    return result

@@ -18,6 +18,16 @@ and the auxiliary decoder the config describes, main_encoder.py:75-103).
 After training or loading, the per-code excerpt dumps (clusters_train/,
 clusters_val/) and the codebook's nearest neighbours follow
 (main_encoder.py:146-184).
+
+On ranks (main_encoder.py:35-37): with VQCPCB_COORDINATOR,
+VQCPCB_NUM_PROCESSES and VQCPCB_PROCESS_ID, or VQCPCB_DISTRIBUTED=1 and
+torchrun's variables, every process joins the group
+(distributed.maybe_initialize: NCCL on the card, gloo with --device cpu)
+and -t trains over a data-parallel mesh of all of them (make_mesh), every
+rank reading the same global batches; rank 0 fills the corpus caches
+first, names the model directory (its timestamp, broadcast), writes the
+one-GPU-layout slots, metrics and events, and alone runs the cluster dumps
+after training; -l without -t runs on rank 0 alone.
 """
 from __future__ import annotations
 
@@ -53,18 +63,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from vqcpcb_tpu_torch import getters
     from vqcpcb_tpu_torch.models.encoder import merge_codes
+    from vqcpcb_tpu_torch.parallel import distributed
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh, make_mesh
     from vqcpcb_tpu_torch.training import analysis, checkpoints
-    from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
     from vqcpcb_tpu_torch.training.optim import warmup_steps_from_env
     from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
-    from vqcpcb_tpu_torch.utils import load_config_module, resolve_device
+    from vqcpcb_tpu_torch.utils import load_config_module
 
+    distributed.maybe_initialize(args.device)
     enable_debug_checks()
-    device = resolve_device(args.device)
-    print(f"Device: {device}")
+    device = distributed.rank_device(args.device)
+    rank = distributed.rank()
+    if not args.train and rank != 0:
+        return 0                              # -l runs on rank 0 alone
+    mesh = make_mesh() if args.train else Mesh(1, 1)
+    print(f"Device: {device}" + (f" (rank {rank} of a {mesh.n_data} x "
+                                 f"{mesh.n_model} mesh)" if mesh.size > 1 else ""))
     config = load_config_module(args.config_path)
     if config.get("timestamp") is None:
-        config["timestamp"] = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        config["timestamp"] = distributed.broadcast_object(
+            datetime.now().strftime("%Y-%m-%d_%H-%M-%S"), mesh.size > 1)
     if args.load:
         model_dir = os.path.dirname(os.path.abspath(args.config_path))
     else:
@@ -79,20 +97,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     training_method = config["training_method"].lower()
     if training_method not in ("vqcpc", "student"):
         raise NotImplementedError(training_method)
-    dataloader_generator = getters.get_dataloader_generator(
-        dataset=config["dataset"], training_method=training_method,
-        dataloader_generator_kwargs=config["dataloader_generator_kwargs"],
-        config=config)
-    torch.manual_seed(0)                      # the fresh weights
-    if training_method == "vqcpc":
-        model = getters.get_vqcpc_model(dataloader_generator, config)
-        encoder = model.encoder
-        trainer = VQCPCEncoderTrainer(model, device=device, model_dir=model_dir,
-                                      dataloader_generator=dataloader_generator)
-    else:
-        encoder = getters.get_encoder(dataloader_generator, config)
-        trainer = student_trainer(config, dataloader_generator, encoder,
-                                  device, model_dir)
+    # rank 0 fills the corpus caches
+    with distributed.rank_zero_first(mesh.size > 1):
+        trainer, dataloader_generator = build_encoder_trainer(
+            config, device, model_dir, mesh)
+    encoder = trainer.encoder if training_method == "student" else trainer.model.encoder
     schedule_lr = config.get("schedule_lr", False)
 
     if args.load:
@@ -113,7 +122,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # from the step slot
 
     if args.train:
-        if not args.load:
+        if not args.load and rank == 0:
             os.makedirs(model_dir, exist_ok=True)
             shutil.copy(args.config_path, os.path.join(model_dir, "config.py"))
         trainer.train_model(
@@ -127,6 +136,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             num_workers=args.num_workers,
             initialize=not args.load,
             checkpoint_every_steps=config.get("checkpoint_every_steps"))
+        if rank != 0:
+            return 0                          # the dumps run on rank 0 alone
 
     # ---- cluster exploration (main_encoder.py:146-184) ----------------------
     if (not trainer.initialized
@@ -153,7 +164,35 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
-def student_trainer(config, dataloader_generator, encoder, device, model_dir):
+def build_encoder_trainer(config, device, model_dir: str, mesh=None):
+    """(the config's trainer, its data loader generator): a
+    VQCPCEncoderTrainer or a StudentEncoderTrainer over fresh weights from
+    torch.manual_seed(0) (the same on every rank), training over `mesh`
+    (None: make_mesh())."""
+    import torch
+
+    from vqcpcb_tpu_torch import getters
+    from vqcpcb_tpu_torch.training.encoder_trainer import VQCPCEncoderTrainer
+    training_method = config["training_method"].lower()
+    dataloader_generator = getters.get_dataloader_generator(
+        dataset=config["dataset"], training_method=training_method,
+        dataloader_generator_kwargs=config["dataloader_generator_kwargs"],
+        config=config)
+    torch.manual_seed(0)                      # the fresh weights
+    if training_method == "vqcpc":
+        trainer = VQCPCEncoderTrainer(
+            getters.get_vqcpc_model(dataloader_generator, config), device=device,
+            model_dir=model_dir, dataloader_generator=dataloader_generator,
+            mesh=mesh)
+    else:
+        encoder = getters.get_encoder(dataloader_generator, config)
+        trainer = student_trainer(config, dataloader_generator, encoder,
+                                  device, model_dir, mesh)
+    return trainer, dataloader_generator
+
+
+def student_trainer(config, dataloader_generator, encoder, device, model_dir,
+                    mesh=None):
     """The StudentEncoderTrainer of a 'student' config, its teacher and
     auxiliary decoder built with the widths JAX derives
     (main_encoder.py:75-103): the vocabulary and token counts of the
@@ -183,7 +222,7 @@ def student_trainer(config, dataloader_generator, encoder, device, model_dir):
         num_events_masked=aux["num_events_masked"],
         quantization_weighting=aux["quantization_weighting"],
         device=device, model_dir=model_dir,
-        dataloader_generator=dataloader_generator)
+        dataloader_generator=dataloader_generator, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
+from vqcpcb_tpu_torch.models.heads import VocabParallelHeads
 from vqcpcb_tpu_torch.ops.transformer import TransformerEncoder
 
 
@@ -20,7 +21,7 @@ def upscale(x: torch.Tensor, factor: int, embeddings: torch.Tensor
             + embeddings.repeat(x.shape[1], 1)[None])
 
 
-class AuxiliaryDecoder(nn.Module):
+class AuxiliaryDecoder(VocabParallelHeads, nn.Module):
     """z (batch, num_tokens_bottleneck, codebook_dim) -> per channel, logits
     (batch, num_events, vocab_c).
 
@@ -30,7 +31,9 @@ class AuxiliaryDecoder(nn.Module):
     bottleneck and its attention carries no bias. Train mode (the
     module's) takes the attention's training route and applies dropout.
     Reference names: linear, positional_embeddings, transformers.{i},
-    upscale_embeddings.{i}, pre_softmaxes.{c}."""
+    upscale_embeddings.{i}, pre_softmaxes.{c}. Under a model axis the
+    heads are vocabulary-parallel (models/heads.py) and each comes out
+    whole."""
 
     relative = False
 
@@ -82,7 +85,7 @@ class AuxiliaryDecoder(nn.Module):
         b, num_tokens, _ = out.shape
         out = out.reshape(b, num_tokens // self.num_channels, self.num_channels,
                           self.d_model)
-        return [head(out[:, :, c]) for c, head in enumerate(self.pre_softmaxes)]
+        return self.head_logits(out, per_channel=True)
 
 
 class AuxiliaryDecoderRelative(AuxiliaryDecoder):

@@ -10,6 +10,14 @@ The negatives go through the encoder as one batch of b * num_neg * k
 windows, so each encoder call searches its codebook once: on the card, one
 nearest-codebook kernel launch each for the negatives, the left and the
 right windows (and the backward negatives when bidirectional).
+
+Over a (data, model) mesh (parallel/mesh.py shard_params calls `set_mesh`)
+each rank scores its rows; the metrics are those of the global batch, as
+JAX's under GSPMD: the losses and the per-k accuracy averaged over `data`
+(equal local batches), the codebook-usage histograms summed over `data`
+before the perplexity and the count of used codewords. The InfoNCE terms
+are per example; the loss this rank returns for its backward is its rows'
+mean (the optimizer averages the gradients over `data`).
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ from torch import nn
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
 from vqcpcb_tpu_torch.ops.gru import GRU
 from vqcpcb_tpu_torch.ops.losses import nce_loss, quantization_loss_aggregate
+from vqcpcb_tpu_torch.parallel.collectives import mean_over_data, sum_over_data_
+from vqcpcb_tpu_torch.parallel.mesh import MeshMember
 
 # merged codebooks larger than this get no usage histogram (cpc.py:153)
 MAX_HISTOGRAM_VOCAB = 65536
@@ -54,17 +64,18 @@ class FksModule(nn.Module):
         return torch.einsum("bc,zck,bkz->bk", c_t, self.W, zs)
 
 
-def codebook_usage(codes: torch.Tensor, vocab: int
+def codebook_usage(codes: torch.Tensor, vocab: int, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merged codes (any shape) of a `vocab`-word codebook -> (codewords
-    used, codebook perplexity: exp of the entropy of the usage
-    histogram)."""
+    used, codebook perplexity: exp of the entropy of the usage histogram),
+    the histogram summed over the data axis of `mesh` first."""
     hist = torch.bincount(codes.reshape(-1).long(), minlength=vocab).float()
+    sum_over_data_(hist, mesh)
     p = hist / hist.sum().clamp_min(1.0)
     return (hist > 0).sum(), torch.exp(-torch.xlogy(p, p).sum())
 
 
-class VQCPCModel(nn.Module):
+class VQCPCModel(MeshMember, nn.Module):
     """Encoder + context / scorer networks (+ their backward twins when
     bidirectional); forward(batch) -> (loss, metrics)."""
 
@@ -154,8 +165,11 @@ class VQCPCModel(nn.Module):
         q_loss = quantization_loss_aggregate(qloss_left, qloss_neg,
                                              qloss_right, qloss_neg_back)
         loss = contrastive_loss + self.quantization_weighting * q_loss
-        metrics = {"loss": loss, "loss_quantize": q_loss,
-                   "loss_contrastive": contrastive_loss, "accuracy": accuracy}
+        means = mean_over_data(torch.cat([
+            torch.stack([loss, q_loss, contrastive_loss]).detach(), accuracy]),
+            self.mesh)
+        metrics = dict(zip(("loss", "loss_quantize", "loss_contrastive"), means[:3]),
+                       accuracy=means[3:])
         quant = self.encoder.quantizer
         if quant.codebook_size:
             vocab = quant.codebook_size ** quant.num_codebooks
@@ -164,8 +178,8 @@ class VQCPCModel(nn.Module):
                 (metrics["num_codewords"],
                  metrics["codebook_perplexity"]) = codebook_usage(
                     merge_codes(torch.cat([idx_left, idx_right], dim=1), size),
-                    vocab)
+                    vocab, self.mesh)
                 metrics["num_codewords_negative"] = codebook_usage(
                     merge_codes(idx_neg.reshape(-1, idx_neg.shape[-1]), size),
-                    vocab)[0]
+                    vocab, self.mesh)[0]
         return loss, metrics

@@ -43,8 +43,8 @@ data_processor.embeddings.{c}, transformer.encoder.layers.{i},
 transformer.decoder.layers.{i}, pre_softmaxes.{c}).
 
 Under a model axis (parallel/mesh.py shard_params) the output heads whose
-vocabulary divides the axis are vocabulary-parallel: this rank's rows of
-each, one product over them, the logits all-gathered along the vocabulary
+vocabulary divides the axis are vocabulary-parallel (models/heads.py):
+this rank's rows of each, the logits all-gathered along the vocabulary
 before stacked_categorical_crossentropy (decoder.py:240; exact, and small
 at about 4 x 62 columns); the other heads stay replicated.
 """
@@ -57,17 +57,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from vqcpcb_tpu_torch.models.data_processor import DataProcessor
+from vqcpcb_tpu_torch.models.heads import VocabParallelHeads
 from vqcpcb_tpu_torch.ops.kv_cache import Cache, cache_update, new_cache
 from vqcpcb_tpu_torch.ops.losses import stacked_categorical_crossentropy
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerDecoder, TransformerEncoder
-from vqcpcb_tpu_torch.parallel.collectives import copy_to_model, gather_from_model
 from vqcpcb_tpu_torch.utils import (dense, flatten, kv_cache_dtype,
                                     module_device, to_device)
 
 
-class Decoder(nn.Module):
+class Decoder(VocabParallelHeads, nn.Module):
     def __init__(self, data_processor: DataProcessor,
                  encoder_attention_type: str, d_model: int,
                  num_encoder_layers: int, num_decoder_layers: int, n_head: int,
@@ -140,41 +140,18 @@ class Decoder(nn.Module):
         })
         self.pre_softmaxes = nn.ModuleList(
             nn.Linear(d_model, v) for v in data_processor.num_tokens_per_channel)
-        # set by set_mesh: the mesh and the channels whose head it splits
-        self.head_mesh = None
-        self.split_heads: List[int] = []
-
-    def set_mesh(self, mesh, specs) -> None:
-        """Run the output heads under `mesh` (see the module docstring)."""
-        self.split_heads = [c for c in range(len(self.pre_softmaxes))
-                            if specs.get(f"pre_softmaxes.{c}.weight") is not None]
-        self.head_mesh = mesh if self.split_heads else None
 
     def _stacked_logits(self, output: torch.Tensor) -> torch.Tensor:
         """(B, events, C, d_model) -> the channel-stacked logits (B, events,
         C, sum vocab): one product with the per-channel weights concatenated,
         channel c's logits in its columns (decoder.py:246-261); under a
-        model axis the split heads' product on this rank's rows, gathered."""
+        model axis the heads of models/heads.py, concatenated."""
         heads = self.pre_softmaxes
-        mesh = self.head_mesh
-        if mesh is None:
+        if self.head_mesh is None:
             return dense(output, torch.cat([h.weight for h in heads]),
                          torch.cat([h.bias for h in heads]))
-        split = self.split_heads
-        parts = [None] * len(heads)
-        local = dense(copy_to_model(output, mesh),
-                      torch.cat([heads[c].weight for c in split]),
-                      torch.cat([heads[c].bias for c in split]))
-        gathered = gather_from_model(local, mesh).unflatten(-1, (mesh.n_model, -1))
-        offset = 0
-        for c in split:
-            width = heads[c].weight.shape[0]
-            parts[c] = gathered[..., offset:offset + width].flatten(-2)
-            offset += width
-        for c, head in enumerate(heads):
-            if parts[c] is None:
-                parts[c] = dense(output, head.weight, head.bias)
-        return torch.cat(parts, dim=-1)
+        return torch.cat(self.head_logits(output, per_channel=False, linear=dense),
+                         dim=-1)
 
     @property
     def decoder_layers(self):

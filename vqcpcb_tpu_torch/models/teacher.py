@@ -8,11 +8,12 @@ import torch
 from torch import nn
 
 from vqcpcb_tpu_torch.models.data_processor import DataProcessor
+from vqcpcb_tpu_torch.models.heads import VocabParallelHeads
 from vqcpcb_tpu_torch.ops.transformer import TransformerEncoder
 from vqcpcb_tpu_torch.utils import flatten
 
 
-class TeacherRelative(nn.Module):
+class TeacherRelative(VocabParallelHeads, nn.Module):
     """Embedded tokens (batch, num_events, num_channels, emb) -> per channel,
     logits (batch, num_events, vocab_c).
 
@@ -24,7 +25,8 @@ class TeacherRelative(nn.Module):
     trainer feeds it. Train mode (the module's) takes the attention's
     training route and applies dropout. Reference names: data_processor,
     linear_to_input_transformer, channel_embeddings, transformer,
-    pre_softmaxes.{c}."""
+    pre_softmaxes.{c}. Under a model axis the heads are
+    vocabulary-parallel (models/heads.py) and each comes out whole."""
 
     def __init__(self, data_processor: DataProcessor, num_layers: int,
                  num_tokens_per_channel: Sequence[int],
@@ -57,4 +59,4 @@ class TeacherRelative(nn.Module):
                         dim=2)
         out = self.transformer(seq).reshape(b, num_events, self.num_channels,
                                             self.d_model)
-        return [head(out[:, :, c]) for c, head in enumerate(self.pre_softmaxes)]
+        return self.head_logits(out, per_channel=True)

@@ -23,9 +23,10 @@ Routes of the full forward:
     default CPU generator when None), so no device value is read per layer;
   * inference on CUDA: K4 (fused_attention, f32 dots) without the relative
     bias, or with the bias built in PyTorch when the in-kernel relbias is
-    off; the relative-bias forward kernel (bf16 dots) with it. No weights
-    are returned -- the routes the JAX module takes on the TPU
-    (attention.py:243-253);
+    off; the relative-bias forward kernel (K3, bf16 dots, f32 under
+    VQCPCB_PALLAS_BF16_DOTS=0 as JAX's K3 reads the knob,
+    pallas_attention.py:725) with it. No weights are returned -- the routes
+    the JAX module takes on the TPU (attention.py:243-253);
   * inference on the CPU: the plain path, f32 throughout, returning the
     weights.
 `step` (one query position over the KV cache) is plain PyTorch on every
@@ -383,7 +384,7 @@ class MultiheadAttention(nn.Module):
                 out = relbias_attention_fwd(q.contiguous(), k.contiguous(),
                                             v.contiguous(), attn_mask,
                                             e1.contiguous(), e2.contiguous(),
-                                            dot_dtype=torch.bfloat16)
+                                            dot_dtype=train_dot_dtype(q.device))
             else:
                 out = fused_attention(q, k, v, attn_mask, self._explicit_bias(q))
             return self._merge_heads(out), None

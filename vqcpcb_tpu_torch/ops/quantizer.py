@@ -17,6 +17,14 @@ Each forward takes `training` (None: the module's mode), `corrupt_labels`
 and `generator`, the torch.Generator of its random draws, and returns
 (straight-through quantized (..., codebook_dim), indices
 (..., num_codebooks) int32 or None, per-position loss (...,)).
+
+Over a (data, model) mesh (parallel/mesh.py shard_params calls `set_mesh`)
+each rank holds its rows of the batch, and what JAX's GSPMD computes over
+the global batch is reduced over `data` here: BatchNorm's sums of x and x^2
+and its row count, before the variance and the running statistics; and the
+EMA quantizer's per-code counts and sums, before the decay. The parameters
+are replicated (no TP rule splits them); the trainers run the
+data-dependent init on the whole batch on every rank, with one generator.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ import torch
 from torch import nn
 
 from vqcpcb_tpu_torch.ops.vq_kernels import nearest_codebook_indices
+from vqcpcb_tpu_torch.parallel.collectives import sum_over_data_
+from vqcpcb_tpu_torch.parallel.mesh import MeshMember
 
 Output = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
 # share of the indices replaced by uniform draws under corrupt_labels
@@ -62,14 +72,16 @@ def initialize_codebooks(flat_input: torch.Tensor, num_codebooks: int,
     return torch.stack(tables, dim=0)
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(MeshMember, nn.Module):
     """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) over the last axis.
 
     Training normalises by the batch's mean and biased variance
     E[x^2] - E[x]^2 (clipped at 0) and folds them into the running
     statistics as 0.9 running + 0.1 batch; flax keeps the biased variance
     there too, which torch's BatchNorm1d does not, so the statistics are
-    computed here."""
+    computed here, from the sums of x and x^2 and the row count, which a
+    mesh sums over `data` first (the global batch's statistics, as flax's
+    under GSPMD)."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -82,9 +94,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        """x (n, num_features). In training x must take no gradient: the
+        quantizer's search reads the output detached, so the statistics'
+        reduction over `data` (an in-place all-reduce) needs no autograd."""
         if training:
-            mean = x.mean(0)
-            var = ((x * x).mean(0) - mean * mean).clamp_min(0.0)
+            if x.requires_grad:
+                raise ValueError("BatchNorm's input must take no gradient: its "
+                                 "batch statistics are reduced without autograd")
+            d = x.shape[-1]
+            stats = torch.cat([x.sum(0), (x * x).sum(0),
+                               x.new_full((1,), float(x.shape[0]))])
+            sum_over_data_(stats, self.mesh)
+            mean = stats[:d] / stats[-1]
+            var = (stats[d:2 * d] / stats[-1] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     (1.0 - self.momentum) * mean)
@@ -102,7 +124,7 @@ def _lookup(codebooks: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return codebooks[k[None], indices.long()]
 
 
-class ProductVectorQuantizer(nn.Module):
+class ProductVectorQuantizer(MeshMember, nn.Module):
     """Commitment-loss product quantizer: loss q_latent + cost * e_latent,
     optional BatchNorm of the search input only (the loss and the
     straight-through path use the unnormalised input), optional 5% label
@@ -145,7 +167,7 @@ class ProductVectorQuantizer(nn.Module):
         input_shape = inputs.shape
         flat = inputs.reshape(-1, self.codebook_dim)
         search = (flat if self.batch_norm is None
-                  else self.batch_norm(flat, training))
+                  else self.batch_norm(flat.detach(), training))
         n = flat.shape[0]
         e = self.codebooks                                       # (K, S, d)
         x = search.reshape(n, self.num_codebooks, -1)
@@ -174,7 +196,7 @@ class ProductVectorQuantizer(nn.Module):
                 loss.reshape(input_shape[:-1]))
 
 
-class EMAProductVectorQuantizer(nn.Module):
+class EMAProductVectorQuantizer(MeshMember, nn.Module):
     """Product quantizer whose codebooks follow an exponential moving
     average of their assigned inputs (quantizer.py:144): in a training
     forward the per-code counts and input sums are folded in with decay
@@ -217,6 +239,10 @@ class EMAProductVectorQuantizer(nn.Module):
             indices.long(), self.codebook_size).float()           # (n, K, S)
         counts = one_hot.sum(0)
         sums = torch.einsum("nks,nkd->ksd", one_hot, x.float())
+        n = counts.numel()
+        both = sum_over_data_(torch.cat([counts.reshape(-1), sums.reshape(-1)]),
+                              self.mesh)
+        counts, sums = both[:n].view_as(counts), both[n:].view_as(sums)
         d = self.ema_decay
         cluster = d * self.cluster_size + (1 - d) * counts
         ema_sums = d * self.ema_sums + (1 - d) * sums

@@ -138,12 +138,32 @@ def row_parallel(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias.to(y.dtype)
 
 
-def mean_over_data(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def mean_over_data(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The mean of a (detached) value over the data axis: the global-batch
-    mean of a per-rank mean over equal local batches."""
-    if mesh.n_data == 1:
+    mean of a per-rank mean over equal local batches. x itself without a
+    mesh or with one data rank."""
+    if mesh is None or mesh.n_data == 1:
         return x
     return all_reduce_(x.detach().clone(), mesh, DATA_AXIS) / mesh.n_data
+
+
+def sum_over_data_(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Sum a buffer that takes no gradient (BatchNorm's and the EMA
+    quantizer's batch sums, a codebook-usage histogram) over the data axis,
+    in place; returns x. The identity without a mesh or with one data
+    rank."""
+    if mesh is not None and mesh.n_data > 1:
+        all_reduce_(x, mesh, DATA_AXIS)
+    return x
+
+
+def gather_over_data(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Every data rank's rows of x, concatenated in data order: the global
+    batch (the codebook init's, under per-rank feeding). The identity
+    without a mesh or with one data rank."""
+    if mesh is None or mesh.n_data == 1:
+        return x
+    return all_gather(x, mesh, DATA_AXIS).flatten(0, 1)
 
 
 def average_gradients(grads: List[torch.Tensor], mesh: Mesh) -> None:

@@ -48,8 +48,8 @@ def rank_device(device: Optional[Union[str, torch.device]] = None
     return resolve_device(device)
 
 
-def maybe_initialize(device: Optional[Union[str, torch.device]] = None
-                     ) -> bool:
+def maybe_initialize(device: Optional[Union[str, torch.device]] = None, *,
+                     timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> bool:
     """Join the process group the environment describes (see the module
     docstring); returns whether it did. `device` is the rank's device as
     rank_device reads it: NCCL for a CUDA device, gloo for the CPU."""
@@ -60,7 +60,7 @@ def maybe_initialize(device: Optional[Union[str, torch.device]] = None
         return True
     here = rank_device(device)
     kwargs = dict(backend="nccl" if here.type == "cuda" else "gloo",
-                  timeout=DEFAULT_TIMEOUT)
+                  timeout=timeout)
     if coordinator:
         num = os.environ.get("VQCPCB_NUM_PROCESSES")
         idx = os.environ.get("VQCPCB_PROCESS_ID")

@@ -4,9 +4,10 @@ rank, with a deadline.
     results = run_ranks("package.module:function", 4, payload, timeout_s=120)
 
 Each rank is `python -m vqcpcb_tpu_torch.parallel.launch <spec>`: it joins
-the group at tcp://127.0.0.1:<a port the OS gave>, with the group's
-timeout, calls target(rank, world_size, payload) and saves what it
-returns. The parent waits for all until the deadline; a rank that fails or
+the group through distributed.maybe_initialize's coordinator path
+(VQCPCB_COORDINATOR=127.0.0.1:<a port the OS gave>, VQCPCB_NUM_PROCESSES,
+VQCPCB_PROCESS_ID), with the group's timeout, calls target(rank,
+world_size, payload) and saves what it returns. The parent waits for all until the deadline; a rank that fails or
 outlives it gets every rank killed, and the parent raises with the ends of
 their error output. The payload and the results are pickled by this module
 and read back only by it.
@@ -48,12 +49,17 @@ def run_ranks(target: str, world_size: int, payload: Any = None, *,
         run_env = dict(os.environ)
         run_env["PYTHONPATH"] = os.pathsep.join(
             [REPO] + [p for p in run_env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        # the ranks start from the coordinator variables alone
+        for name in ("VQCPCB_DISTRIBUTED", "MASTER_ADDR", "MASTER_PORT",
+                     "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            run_env.pop(name, None)
+        run_env.update(VQCPCB_COORDINATOR=f"127.0.0.1:{port}",
+                       VQCPCB_NUM_PROCESSES=str(world_size))
         try:
             for rank in range(world_size):
                 spec = os.path.join(work, f"spec_{rank}.pkl")
                 with open(spec, "wb") as f:
                     pickle.dump(dict(target=target, rank=rank, world_size=world_size,
-                                     init_method=f"tcp://127.0.0.1:{port}",
                                      backend=backend, timeout_s=timeout_s,
                                      threads=threads, payload=payload,
                                      result=os.path.join(work, f"result_{rank}.pkl")),
@@ -62,7 +68,8 @@ def run_ranks(target: str, world_size: int, payload: Any = None, *,
                 logs.append(log)
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "vqcpcb_tpu_torch.parallel.launch", spec],
-                    cwd=REPO, env=run_env, stdout=log, stderr=subprocess.STDOUT))
+                    cwd=REPO, env=dict(run_env, VQCPCB_PROCESS_ID=str(rank)),
+                    stdout=log, stderr=subprocess.STDOUT))
             deadline = time.monotonic() + timeout_s
             while any(p.poll() is None for p in procs):
                 failed = [p for p in procs if p.poll() not in (None, 0)]
@@ -96,14 +103,20 @@ def run_ranks(target: str, world_size: int, payload: Any = None, *,
 
 def _rank_main(spec_path: str) -> None:
     import torch.distributed as dist
+
+    from vqcpcb_tpu_torch.parallel import distributed
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
     torch.set_num_threads(spec["threads"])
     module, name = spec["target"].split(":")
     fn = getattr(importlib.import_module(module), name)
-    dist.init_process_group(spec["backend"], init_method=spec["init_method"],
-                            world_size=spec["world_size"], rank=spec["rank"],
-                            timeout=datetime.timedelta(seconds=spec["timeout_s"]))
+    # the device picks the backend: a gloo rank joins as a CPU rank (gloo
+    # ranks may share one card), an NCCL rank takes cuda:LOCAL_RANK (here
+    # its process id modulo the host's GPUs)
+    if not distributed.maybe_initialize(
+            "cpu" if spec["backend"] == "gloo" else None,
+            timeout=datetime.timedelta(seconds=spec["timeout_s"])):
+        raise RuntimeError("maybe_initialize found no VQCPCB_COORDINATOR")
     try:
         result = fn(spec["rank"], spec["world_size"], spec["payload"])
     finally:

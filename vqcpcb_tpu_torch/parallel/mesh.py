@@ -272,6 +272,17 @@ def local_state_dict(state: Dict[str, torch.Tensor],
     return {k: local_slice(v, specs.get(k), mesh) for k, v in state.items()}
 
 
+class MeshMember:
+    """A mixin for a module that only keeps the mesh shard_params gives it
+    (`self.mesh`, None off a mesh), over whose data axis it reduces its
+    batch statistics."""
+
+    mesh = None
+
+    def set_mesh(self, mesh, specs) -> None:
+        self.mesh = mesh
+
+
 def shard_params(module: nn.Module, mesh: Mesh) -> nn.Module:
     """Keep this rank's blocks of `module`'s parameters, in place (the
     Parameter objects stay, so an optimizer built afterwards holds them),

@@ -20,10 +20,24 @@ transformer layers of the three modules in bf16, as in JAX
 
 The trainer holds the three modules in one ModuleDict (`model`: encoder,
 teacher, auxiliary_decoder; the teacher's data processor lies under
-teacher.data_processor), both optimizers, the step count and two
-generators every random draw comes from: one on the device (the masked
-event, the dropout layers, the codebook-init permutation) and one on the
-host (the attention layers' dropout seeds). `save` / `load` keep them all.
+teacher.data_processor), both optimizers, the step count and three
+generators every random draw comes from: two on the device (the masked
+event; the dropout layers) and one on the host (the attention layers'
+dropout seeds); the codebook-init permutation comes from a device
+generator seeded with the seed. `save` / `load` keep them all.
+
+Over a (data, model) mesh (`mesh`, by default parallel/mesh.make_mesh(),
+as JAX's trainer builds one, student_trainer.py:67-81) the three modules
+keep their blocks (shard_params: the transformer layers' FFN and attention
+split over `model`, the teacher's and the auxiliary decoder's heads by
+vocabulary, models/heads.py), each step takes this rank's rows (shard_batch
+of the global batch, or with `local_batches` the caller's own rows,
+shard_batch_local), both Adams average their gradients over `data` and
+clip as one rank would, and the metrics are averaged over `data`. The
+masked event is one per global batch, as JAX draws it (:186): its
+generator is seeded with the seed on every rank, so every rank masks the
+same event. The dropout generator is seeded with seed + data_index, the
+host seed generator with seed (the K7 wrappers offset it per shard).
 """
 from __future__ import annotations
 
@@ -42,6 +56,9 @@ from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
                                             ProductVectorQuantizer,
                                             initialize_codebooks)
 from vqcpcb_tpu_torch.ops.transformer import wire_generators
+from vqcpcb_tpu_torch.parallel.collectives import mean_over_data
+from vqcpcb_tpu_torch.parallel.mesh import make_mesh, module_specs, shard_params
+from vqcpcb_tpu_torch.training.encoder_trainer import place_rows, whole_batch
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
@@ -73,27 +90,37 @@ def mask_batch(x: torch.Tensor, masked_event_index: Union[int, torch.Tensor],
 
 class StudentEncoderTrainer(TrainLoopMixin):
     """model_dir and dataloader_generator serve train_model, save and load
-    (training/loop.py); the steps need neither."""
+    (training/loop.py); the steps need neither. mesh: the (data, model) mesh
+    to train over; local_batches: every token batch given to the steps, the
+    epochs and init_state is this rank's rows (see the module
+    docstring)."""
 
     monitor_key = "loss_monitor"
 
     def __init__(self, encoder: Encoder, teacher: nn.Module,
                  auxiliary_decoder: nn.Module, num_events_masked: int,
                  quantization_weighting: float, device=None, seed: int = 0,
-                 model_dir: Optional[str] = None, dataloader_generator=None):
+                 model_dir: Optional[str] = None, dataloader_generator=None,
+                 mesh=None, local_batches: bool = False):
         self.model_dir = model_dir
         self.dataloader_generator = dataloader_generator
         self.device = resolve_device(device)
-        self.model = nn.ModuleDict({"encoder": encoder, "teacher": teacher,
-                                    "auxiliary_decoder": auxiliary_decoder}
-                                   ).to(self.device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.local_batches = local_batches
+        self.seed = seed
+        self.model = shard_params(nn.ModuleDict(
+            {"encoder": encoder, "teacher": teacher,
+             "auxiliary_decoder": auxiliary_decoder}).to(self.device), self.mesh)
         self.encoder, self.teacher = encoder, teacher
         self.auxiliary_decoder = auxiliary_decoder
         self.num_events_masked = num_events_masked
         self.quantization_weighting = quantization_weighting
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + self.mesh.data_index)
+        self.mask_generator = torch.Generator(device=self.device).manual_seed(seed)
         self.seed_generator = torch.Generator().manual_seed(seed)
         wire_generators(self.model, self.generator, self.seed_generator)
+        self.masked_event_index: Optional[torch.Tensor] = None
         self.optimizer_teacher: Optional[Adam] = None
         self.optimizer_encdec: Optional[Adam] = None
         self.step = 0
@@ -106,24 +133,34 @@ class StudentEncoderTrainer(TrainLoopMixin):
         """Fresh optimizers at step 0 -- one for the teacher and its data
         processor, one for the encoder and the auxiliary decoder -- and,
         when `initialize`, the data-dependent codebook init (product
-        quantizers): the downscaler's latents of `sample_x` in eval mode,
-        permuted by `perms` (one per sub-codebook) or by permutations from
-        the trainer's generator; the batch must give at least codebook_size
+        quantizers): the downscaler's latents of the global batch
+        `sample_x` (gathered over `data` under local_batches) in eval mode,
+        permuted by `perms` (one per sub-codebook) or by permutations from a
+        device generator seeded with the trainer's seed, so every rank sets
+        one rank's codebooks; the batch must give at least codebook_size
         latents. A trainer about to load a checkpoint passes
         initialize=False."""
         quantizer = self.encoder.quantizer
         if initialize and isinstance(quantizer, (ProductVectorQuantizer,
                                                  EMAProductVectorQuantizer)):
-            z = self.encoder.downscale(to_device(sample_x, self.device),
-                                       training=False)
+            z = self.encoder.downscale(
+                whole_batch(sample_x, self.mesh, self.local_batches, self.device),
+                training=False)
             quantizer.set_codebooks(initialize_codebooks(
                 z.reshape(-1, quantizer.codebook_dim), quantizer.num_codebooks,
-                quantizer.codebook_size, self.generator, perms))
+                quantizer.codebook_size,
+                torch.Generator(device=self.device).manual_seed(self.seed), perms))
         schedule = trapezoid_schedule(lr, warmup_steps) if schedule_lr else lr
-        self.optimizer_teacher = Adam(self.teacher.parameters(), schedule)
-        self.optimizer_encdec = Adam(
-            list(self.encoder.parameters())
-            + list(self.auxiliary_decoder.parameters()), schedule)
+        specs = module_specs(self.model)
+
+        def adam(*names):
+            named = [(f"{name}.{k}", p) for name in names
+                     for k, p in self.model[name].named_parameters()]
+            return Adam([p for _, p in named], schedule, mesh=self.mesh,
+                        specs=[specs.get(k) for k, _ in named])
+
+        self.optimizer_teacher = adam("teacher")
+        self.optimizer_encdec = adam("encoder", "auxiliary_decoder")
         self.step = 0
         return self
 
@@ -135,12 +172,16 @@ class StudentEncoderTrainer(TrainLoopMixin):
         (B, E, C) in train or eval mode, with their graphs: the teacher's
         cross entropy at the masked event, and the distilled cross entropy
         against the teacher's detached logits plus the weighted mean
-        commitment loss. The two losses reach disjoint parameters. The
-        masked event is `masked_event_index` or drawn from the device
-        generator."""
-        x = to_device(x, self.device)
+        commitment loss. The two losses reach disjoint parameters. x is
+        the global batch or, with `local_batches`, this rank's rows; the
+        losses are this rank's rows' (the metrics their mean over `data`).
+        The masked event is `masked_event_index` or drawn from the mask
+        generator, the same on every rank; the last one is kept as
+        `masked_event_index` (a device scalar)."""
+        x = to_device(place_rows(x, self.mesh, self.local_batches, training),
+                      self.device)
         if masked_event_index is None:
-            index = torch.randint(0, x.shape[1], (), generator=self.generator,
+            index = torch.randint(0, x.shape[1], (), generator=self.mask_generator,
                                   device=self.device)
         else:
             index = torch.as_tensor(masked_event_index, device=self.device)
@@ -156,9 +197,10 @@ class StudentEncoderTrainer(TrainLoopMixin):
             predict)
         loss_q = qloss.mean()
         loss_e = self.quantization_weighting * loss_q + reconstruct
-        metrics = dict(zip(METRICS, (t.detach() for t in (
-            loss_t, loss_q, reconstruct, loss_e, reconstruct))))
-        return loss_t, loss_e, metrics
+        means = mean_over_data(torch.stack([loss_t, loss_q, reconstruct, loss_e,
+                                            reconstruct]).detach(), self.mesh)
+        self.masked_event_index = index
+        return loss_t, loss_e, dict(zip(METRICS, means.unbind()))
 
     def train_step(self, x, masked_event_index=None) -> Dict[str, torch.Tensor]:
         """One step of each optimizer on a token batch (B, E, C); the
@@ -186,8 +228,8 @@ class StudentEncoderTrainer(TrainLoopMixin):
     def epoch(self, batches: Iterable, train: bool,
               num_batches: Optional[int] = None) -> Dict[str, float]:
         """Train or evaluate over up to num_batches batches (dicts whose 'x'
-        holds a token batch); returns each metric's mean and tokens/s, with
-        one read of the device at the end."""
+        holds a token batch); returns each metric's mean and tokens/s (the
+        global batch's tokens), with one read of the device at the end."""
         sums, count, tokens = None, 0, 0
         t0 = time.perf_counter()
         for batch in islice(batches, num_batches):
@@ -196,7 +238,8 @@ class StudentEncoderTrainer(TrainLoopMixin):
             stacked = torch.stack([metrics[k].float() for k in METRICS])
             sums = stacked if sums is None else sums + stacked
             count += 1
-            tokens += int(np.prod(x.shape))
+            tokens += int(np.prod(x.shape)) * (
+                self.mesh.n_data if self.local_batches else 1)
         if not count:
             return {}
         means = dict(zip(METRICS, (sums.double().cpu().numpy() / count).tolist()))
@@ -221,6 +264,7 @@ class StudentEncoderTrainer(TrainLoopMixin):
 
     def _generators(self) -> Dict[str, torch.Generator]:
         return {"generator": self.generator,
+                "mask_generator": self.mask_generator,
                 "seed_generator": self.seed_generator}
 
     @torch.no_grad()
