@@ -107,7 +107,9 @@ Phases, in order; any failure raises and the run exits non-zero:
  14. the scale-up MIDI chain (scripts/r5_chain9.sh) through the CLIs in
      process in build/scaleup_midi, at the configs' full width: (a) 512
      .mid files from the port's writer (make_midi_corpus.py), their cache
-     key, the encoder's and the decoder's windows built (count, seconds);
+     key, the encoder's and the decoder's windows built with the native
+     tokenizer (count, seconds), and the encoder's again with
+     VQCPCB_NATIVE=0 (the NumPy paths; seconds, equal bit for bit);
      (b) the encoder CLI -t on configs/encoder_scaleup_midi.py (40 batches)
      as configured, again with VQCPCB_REMAT=1, and 6 batches with
      VQCPCB_COMPUTE_DTYPE=bfloat16: epoch tokens/s, CLI seconds, median
@@ -159,9 +161,11 @@ Phases, in order; any failure raises and the run exits non-zero:
      f32), each shard against the wrapper's plain version (the bf16 w_drop
      bit for bit), at dropout 0 against the unsharded kernel bit for bit,
      and K1 on row shards; (b) one NCCL rank through maybe_initialize
-     (torchrun's variables): the decoder and prior CLIs -t; one NCCL rank
-     from VQCPCB_COORDINATOR: the encoder CLI -t, VQ-CPC and student; then
-     -l --num_examples 1, -l -g and the encoder's -l on the one-GPU path;
+     (torchrun's variables): the decoder and prior CLIs -t, then the
+     decoder's -l -r and -l --num_examples 1 and the prior's -l -g
+     (generation over the mesh, seconds of each); one NCCL rank from
+     VQCPCB_COORDINATOR: the encoder CLI -t, VQ-CPC and student; then the
+     encoder's -l on the one-GPU path;
      (c) four ranks sharing the card over gloo (launch.run_ranks): gloo's
      collectives on CUDA tensors probed, a (2, 2) flagship and absolute
      decoder at dropout 0.2, and the flagship decoder, the prior, the
@@ -169,15 +173,23 @@ Phases, in order; any failure raises and the run exits non-zero:
      dropout 0 in f32 against one rank on the same global batches (losses,
      gathered clipped gradients; the encoder side's codebook init, quantizer
      buffers and K1 codes); (d) with two or more GPUs, NCCL ranks one per
-     GPU.
+     GPU; (e) the KV-cached samplers over four gloo ranks sharing the card
+     on (2, 2) and (4, 1): the flagship's encode (K1 on each rank's rows)
+     and sample_range at batch 512 x 384 positions (int8 caches), greedy
+     and at T 0.95 / top-p 0.8, the prior's generate_codes at 512 x 96,
+     the absolute decoder's prefill (K4) and 32 positions (f32 caches), each
+     against one rank's run on the card: greedy tokens equal but at near
+     ties (counted), the codes equal, every rank the same tokens, the
+     stochastic run's share of equal tokens, tokens/s (not speeds of the
+     mesh).
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
 (a) and (c), the CLI calls of phase 14, the runs and CLI calls of phase 15,
 the CLI calls and the two encodes at batch 512 of phase 16, and the CLI
-calls of phase 17 (b) with the ranks' steps of (c) (their launches counted
-in each rank and summed) are the main paths: each is driven with the
-launch counts set to 0 just before it and read just after. Every K1 launch
-on them must run a compiled instance.
+calls of phase 17 (b) with the ranks' steps of (c) and samplers of (e)
+(their launches counted in each rank and summed) are the main paths: each
+is driven with the launch counts set to 0 just before it and read just
+after. Every K1 launch on them must run a compiled instance.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -2883,18 +2895,40 @@ def phase_scaleup_midi(card: str) -> dict:
                                  corpus_dir, SCALEUP_DECODER_BATCHES),
         "prior": _scaleup_copy(work, "prior_scaleup_midi.py", "prior_scaleup_midi",
                                corpus_dir, SCALEUP_PRIOR_BATCHES)}
-    windows = {}
-    for label, name, method in (("encoder", "encoder", "vqcpc"),
-                                ("decoder and prior", "decoder", "decoder")):
+    windows, arrays = {}, {}
+
+    def build_windows(name, method):
         config = load_config_module(configs[name])
         t0 = time.perf_counter()
         gen = getters.get_dataloader_generator(
             config["dataset"], method, config["dataloader_generator_kwargs"], config)
-        windows[label] = (len(gen.dataset.windows), time.perf_counter() - t0)
+        return gen.dataset.windows, time.perf_counter() - t0
+
+    for label, name, method in (("encoder", "encoder", "vqcpc"),
+                                ("decoder and prior", "decoder", "decoder")):
+        arrays[label], seconds = build_windows(name, method)
+        windows[label] = (len(arrays[label]), seconds)
+    # the encoder's windows once more on the NumPy paths (VQCPCB_NATIVE=0),
+    # into a cache of their own: equal to the native route's bit for bit
+    from torch_mesh_harness import with_env
+    port_dataset.DEFAULT_CACHE_ROOT = os.path.join(work, "data_numpy")
+    try:
+        numpy_windows, numpy_s = with_env({"VQCPCB_NATIVE": "0"},
+                                          lambda: build_windows("encoder", "vqcpc"))
+    finally:
+        port_dataset.DEFAULT_CACHE_ROOT = os.path.join(work, "data")
+    if not (numpy_windows.dtype == arrays["encoder"].dtype
+            and np.array_equal(numpy_windows, arrays["encoder"])):
+        raise AssertionError("(a) the NumPy route's windows differ from the native "
+                             "tokenizer's")
+    native_s = windows["encoder"][1]
     log(f"# [scaleup] (a) {n_files} .mid files written in {write_s:.2f} s, "
         f"{sum(os.path.getsize(p) for p in glob.glob(os.path.join(corpus_dir, '*.mid')))} "
-        f"bytes, MidiCorpus.cache_key {key}; windows: "
-        + ", ".join(f"{label} {n} in {s:.2f} s" for label, (n, s) in windows.items()))
+        f"bytes, MidiCorpus.cache_key {key}; windows (native tokenizer): "
+        + ", ".join(f"{label} {n} in {s:.2f} s" for label, (n, s) in windows.items())
+        + f"; the encoder's again with VQCPCB_NATIVE=0 (NumPy): {len(numpy_windows)} "
+        f"in {numpy_s:.2f} s ({numpy_s / native_s:.2f}x the native build), equal "
+        "bit for bit")
 
     # what the calls leave: trainers, written grids, codes, step times
     trainers, grids, codes, current = {}, [], [], {}
@@ -3093,7 +3127,7 @@ def phase_scaleup_midi(card: str) -> dict:
         f"{tokens['prior']:.1f} tokens/s ({SCALEUP_PRIOR_BATCHES} steps at batch 64, "
         f"remat); CLI seconds {json.dumps({k: round(v, 2) for k, v in calls.items()})}")
     return dict(launches=main_counts, encoder=encoder, tokens_per_s=tokens,
-                cli_s=calls, windows=windows, cache_key=key)
+                cli_s=calls, windows=windows, numpy_window_s=numpy_s, cache_key=key)
 
 
 # ---- phase 15 --------------------------------------------------------------
@@ -4536,8 +4570,10 @@ def _mesh_shards(gen) -> dict:
 
 
 def _mesh_clis(encoder_config: str) -> tuple:
-    """(b): the decoder and prior CLIs -t as one NCCL rank started by
-    maybe_initialize from torchrun's variables; the encoder CLI -t on
+    """(b): the decoder and prior CLIs -t, then the decoder's -l -r and -l
+    --num_examples 1 and the prior's -l -g, as one NCCL rank started by
+    maybe_initialize from torchrun's variables (generation on every rank of
+    the mesh, from the one-GPU slots); the encoder CLI -t on
     configs/encoder_random_synthetic.py and on STUDENT_CONFIG as one NCCL
     rank started from VQCPCB_COORDINATOR (the coordinator path); then -l of
     each on the one-GPU path. Returns (the launches of the calls, seconds by
@@ -4581,17 +4617,26 @@ def _mesh_clis(encoder_config: str) -> tuple:
             prior_cfg = _prior_config_copy(work, encoder_config, decoder_config)
             run("prior -t (1 NCCL rank)", main_prior, ["-t", "-c", prior_cfg])
             (prior_dir,) = glob.glob(os.path.join(work, "models", "prior_synthetic_*"))
+            _check_model_dir(decoder_dir, 1)
+            _check_model_dir(prior_dir, 1)
+            # generation on every rank of the mesh (here the one NCCL rank),
+            # from the one-GPU slots
+            run("decoder -l -r (1 NCCL rank)", main_decoder, ["-l", "-r", "-c", decoder_config])
+            run("decoder -l --num_examples 1 (1 NCCL rank)", main_decoder,
+                ["-l", "--num_examples", "1", "-c", decoder_config])
+            run("prior -l -g (1 NCCL rank)", main_prior,
+                ["-l", "-g", "-c", os.path.join(prior_dir, "config.py")])
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
             for name in env:
                 os.environ.pop(name, None)
-        _check_model_dir(decoder_dir, 1)
-        _check_model_dir(prior_dir, 1)
-        run("decoder -l --num_examples 1 (one GPU)", main_decoder,
-            ["-l", "--num_examples", "1", "-c", decoder_config])
-        run("prior -l -g (one GPU)", main_prior,
-            ["-l", "-g", "-c", os.path.join(prior_dir, "config.py")])
+        written = {d: len(glob.glob(os.path.join(root_dir, d, "*.mid")))
+                   for root_dir, d in ((decoder_dir, "reharmonisations"),
+                                       (decoder_dir, "generations"),
+                                       (prior_dir, "generations"))}
+        if not all(written.values()):
+            raise AssertionError(f"(b) the generation CLIs wrote {written} scores")
 
         # the encoder CLI through the coordinator variables
         before = counts()
@@ -5206,6 +5251,173 @@ def _mesh_nccl_gpus() -> dict:
     return out
 
 
+# (e) the KV-cached samplers over the mesh: four gloo ranks sharing the card
+# on (2, 2) and (4, 1) (torch_mesh_harness.sample_job, each rank its rows of
+# the batch, parallel/mesh.generation_rows, and under (2, 2) its heads,
+# blocks and vocabulary rows): the flagship's encode (K1 on each rank's
+# rows) and sample_range at BATCH x 384 positions with int8 caches, the
+# prior's generate_codes at PRIOR_SAMPLE_BATCH x PRIOR_SAMPLE_CODES, the
+# absolute decoder's prefill (K4) and SAMPLE_ABSOLUTE_STEPS positions with
+# f32 caches (VQCPCB_KV_DTYPE=float32: its route is f32 end to end);
+# greedy (top_k 1), and the flagship at T 0.95 and top-p 0.8; on (4, 1)
+# the flagship greedy with f32 caches too. Each against one rank's run of
+# the same job on the card in this process: greedy tokens equal but for
+# rows whose first differing position is a near tie on one rank (top-two
+# logit margin within CODE_TIE_REL of the logits' largest |value|, within
+# BF16_STEP where the prefill's K3 takes bf16 dots; an int8 cache row moves
+# by a whole quantization step where the f32 sums that fill it round
+# differently, which the int8 jobs' ties stay within), those rows counted;
+# the flagship's codes
+# equal one rank's but for rows at a nearest-codebook near tie (left out
+# of the token comparison, counted); every rank the same tokens, the model
+# ranks of a data index the same rows; the stochastic runs' share of equal
+# tokens reported; no K7 launch (sampling has no training kernels).
+SAMPLE_ABSOLUTE_STEPS = 32
+F32_CACHES = {"VQCPCB_KV_DTYPE": "float32"}
+SAMPLE_JOBS = (
+    dict(name="flagship greedy", model="flagship", top_k=1),
+    dict(name="flagship T 0.95 top-p 0.8", model="flagship", temperature=0.95,
+         top_p=0.8),
+    dict(name="flagship greedy, f32 caches", model="flagship", top_k=1,
+         env=F32_CACHES, models=(1,)),
+    dict(name="prior greedy", model="prior", top_k=1),
+    dict(name="absolute greedy, f32 caches", model="absolute", top_k=1,
+         env=F32_CACHES))
+
+
+def _sampler_payload(job: dict) -> dict:
+    """A torch_mesh_harness.sample_job payload of one of (e)'s jobs, its
+    models, templates and codebooks built from MESH_SEED (the same in every
+    process that builds them)."""
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    common = dict(device="cuda", num_model=job.get("num_model", 1), seed=MESH_SEED,
+                  temperature=job.get("temperature", 1.0), top_k=job.get("top_k", 0),
+                  top_p=job.get("top_p", 0.0), env=job.get("env", {}))
+    if job["model"] == "prior":
+        encoder, prior, codebook_size, _, _ = prior_parts(gen)
+        return dict(common, kind="sample_prior", model=prior, encoder=encoder,
+                    codebook_size=codebook_size, num_codes=PRIOR_SAMPLE_CODES,
+                    x_init=np.zeros((PRIOR_SAMPLE_BATCH, PRIOR_CODES), np.int64),
+                    start=0, num_steps=PRIOR_SAMPLE_CODES)
+    vocab = synthetic_vocabulary()
+    encoder, decoder = build_models(vocab, kind=job["model"])
+    encoder.cuda()
+    templates = random_templates(vocab, gen, BATCH, NUM_EVENTS)
+    init_codebook(encoder, templates, gen)
+    steps = NUM_EVENTS * 4 if job["model"] == "flagship" else SAMPLE_ABSOLUTE_STEPS
+    return dict(common, kind="sample_decoder", model=decoder, encoder=encoder,
+                templates=templates.cpu().numpy(), codebook_size=CODEBOOK_SIZE,
+                tokens_init=np.zeros((BATCH, NUM_EVENTS, 4), np.int64), start=0,
+                num_steps=steps)
+
+
+def mesh_samplers(rank: int, world_size: int, spec: dict) -> list:
+    """One rank of (e), started by launch.run_ranks: spec["jobs"] through
+    torch_mesh_harness.train_over_mesh (sample_job over make_mesh), TF32
+    off as in this script's process."""
+    from torch_mesh_harness import train_over_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for job in spec["jobs"]:
+        payload = _sampler_payload(job)
+        result = train_over_mesh(rank, world_size, payload)
+        result["local"] = result["local"].astype(np.int32)
+        result["tokens"] = result["tokens"].astype(np.int32)
+        out.append(result)
+        del payload
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_samplers() -> dict:
+    """(e); returns {"launches" (summed over the ranks and the jobs),
+    "jobs" (by name and mesh: tied rows, code-tied rows, equal share,
+    gloo-on-one-card and one-rank tokens/s)}."""
+    from torch_mesh_harness import (BF16_STEP, CODE_TIE_REL, sample_job, token_ties,
+                                    with_env)
+    from vqcpcb_tpu_torch.parallel.launch import run_ranks
+    from vqcpcb_tpu_torch.parallel.mesh import Mesh
+    jobs = [dict(job, num_model=m, mesh=f"({4 // m}, {m})")
+            for job in SAMPLE_JOBS for m in job.get("models", (2, 1))]
+    t0 = time.perf_counter()
+    results = run_ranks("chip_smoke:mesh_samplers", 4, {"jobs": jobs},
+                        timeout_s=MESH_RANKS_TIMEOUT_S, backend="gloo", threads=2)
+    log(f"# (e) samplers over 4 gloo ranks sharing the card: run_ranks wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    references, launches, out = {}, {}, {}
+    for j, job in enumerate(jobs):
+        if job["name"] not in references:
+            payload = _sampler_payload(job)
+            references[job["name"]] = with_env(
+                payload["env"], lambda: sample_job(payload, Mesh(1, 1), record=True))
+            references[job["name"]]["tokens_per_s"] = (
+                len(payload["x_init" if job["model"] == "prior" else "tokens_init"])
+                * payload["num_steps"] / references[job["name"]]["seconds"])
+            del payload
+            torch.cuda.empty_cache()
+        ref = references[job["name"]]
+        ranks = [r[j] for r in results]
+        label = f"{job['name']} over {job['mesh']}"
+        per_job = {}
+        for r in ranks:
+            for key, n in r["launches"].items():
+                per_job[key] = per_job.get(key, 0) + n
+        for key, n in per_job.items():
+            launches[key] = launches.get(key, 0) + n
+        need = {"flagship": ("relbias_attention_fwd", "vq_nearest"),
+                "prior": ("relbias_attention_fwd",),
+                "absolute": ("fused_attention", "vq_nearest")}[job["model"]]
+        missing = [k for k in need if not per_job.get(k)]
+        k7 = {k: per_job.get(k, 0) for k in K7_WRAPPERS if per_job.get(k, 0)}
+        if missing or k7:
+            raise AssertionError(f"(e) {label}: no launch of {missing}, or K7 "
+                                 f"launches {k7}")
+        tokens = ranks[0]["tokens"]
+        if any(not np.array_equal(r["tokens"], tokens) for r in ranks):
+            raise AssertionError(f"(e) {label}: the ranks hold different tokens")
+        by_rows = {}
+        for r in ranks:
+            by_rows.setdefault(r["rows"], []).append(r["local"])
+        if any(not np.array_equal(x, local[0]) for local in by_rows.values()
+               for x in local):
+            raise AssertionError(f"(e) {label}: model ranks of one data index "
+                                 "sampled different rows")
+        code_tied = []
+        if ranks[0]["codes"] is not None:
+            differ = np.nonzero((ranks[0]["codes"] != ref["codes"]).reshape(
+                len(tokens), -1).any(-1))[0]
+            far = [int(row) for row in differ if ref["code_margins"][row] > CODE_TIE_REL]
+            if far:
+                raise AssertionError(f"(e) {label}: codes differ from one rank's "
+                                     f"away from a near tie in rows {far[:8]}")
+            code_tied = [int(row) for row in differ]
+        tie_rel = CODE_TIE_REL if job["model"] == "absolute" else BF16_STEP
+        ties = token_ties(tokens, ref["tokens"].astype(np.int32), ref["margins"], 0,
+                          tie_rel, skip_rows=set(code_tied))
+        greedy = job.get("top_k") == 1
+        steps = ref["margins"].shape[1]
+        tokens_per_s = len(tokens) * steps / ranks[0]["seconds"]
+        out[label] = dict(tied_rows=len(ties["tied"]), faults=len(ties["faults"]),
+                          code_tied_rows=len(code_tied), rows=ties["rows"],
+                          equal_share=ties["equal_share"], tie_margin=ties["tie_margin"],
+                          gloo_one_card_tokens_per_s=tokens_per_s,
+                          one_rank_tokens_per_s=ref["tokens_per_s"],
+                          launches={k: v for k, v in per_job.items() if v})
+        log(f"# (e) {label}: {'greedy' if greedy else 'stochastic'}, {ties['rows']} rows x "
+            f"{steps} draws; vs one rank on the card: equal share "
+            f"{ties['equal_share']:.6f}, rows differing at a near tie (<= {tie_rel:.3e}) "
+            f"{len(ties['tied'])} (largest margin {ties['tie_margin']:.3e}), elsewhere "
+            f"{len(ties['faults'])}, rows left out at a code near tie {len(code_tied)}; "
+            f"{tokens_per_s:.1f} tokens/s with 4 gloo ranks sharing one card (not a "
+            f"speed of the mesh), one rank {ref['tokens_per_s']:.1f}; launches summed "
+            f"over the ranks {json.dumps(out[label]['launches'])}")
+        if greedy and ties["faults"]:
+            raise AssertionError(f"(e) {label}: greedy rows {ties['faults'][:8]} differ "
+                                 "from one rank's away from a near tie")
+    return dict(launches=launches, jobs=out)
+
+
 def phase_mesh(gen: torch.Generator, encoder_config: str) -> dict:
     """Phase 17; see the comment above MESHES. Returns {"shards" ((a)),
     "launches" (the main path's: (b) in this process and (c)'s ranks, as a
@@ -5215,7 +5427,9 @@ def phase_mesh(gen: torch.Generator, encoder_config: str) -> dict:
     gloo = _mesh_ranks_on_one_card()
     _hold_mesh_gaps(gloo["gaps"])
     nccl = _mesh_nccl_gpus()
-    ranks = gloo["launches"]
+    samplers = _mesh_samplers()
+    ranks = {k: gloo["launches"].get(k, 0) + samplers["launches"].get(k, 0)
+             for k in set(gloo["launches"]) | set(samplers["launches"])}
     launches = Launches({k: cli_launches[k] + ranks.get(k, 0) for k in cli_launches})
     launches.by_kind = {kind: cli_launches.by_kind[kind]
                         + ranks.get(f"vq_nearest/{kind}", 0)
@@ -5223,12 +5437,15 @@ def phase_mesh(gen: torch.Generator, encoder_config: str) -> dict:
     encoder_side = {k: encoder_cli_launches.get(k, 0) + gloo["encoder_launches"].get(k, 0)
                     for k in ("vq_nearest",) + tuple(K7_WRAPPERS)}
     log(f"# [mesh] main-path launches: (b) {json.dumps(dict(cli_launches))}, "
-        f"(c) {json.dumps({k: v for k, v in ranks.items() if v})}; of them the "
+        f"(c) {json.dumps({k: v for k, v in gloo['launches'].items() if v})}, "
+        f"(e) {json.dumps({k: v for k, v in samplers['launches'].items() if v})}; of them the "
         f"encoder side's (the encoder CLI calls and (c)'s encoder jobs): K1 and K7 "
         f"{json.dumps(encoder_side)}; CLI seconds "
         f"{json.dumps({k: round(v, 2) for k, v in cli_seconds.items()})}")
     return dict(shards=shards, launches=launches, k7=gloo["k7"], gloo=gloo,
-                nccl=nccl, encoder_side=encoder_side, encoder_cli_epoch_ms=epoch_ms)
+                nccl=nccl, encoder_side=encoder_side, encoder_cli_epoch_ms=epoch_ms,
+                cli_seconds=cli_seconds, samplers=samplers["jobs"],
+                sampler_launches=samplers["launches"])
 
 
 def main() -> int:
@@ -5402,6 +5619,8 @@ def main() -> int:
         gloo_one_card_step_ms=mesh["gloo"]["step_ms"],
         encoder_mesh_launches={k: mesh["encoder_side"][k] for k in K7_WRAPPERS},
         encoder_cli_epoch_ms=mesh["encoder_cli_epoch_ms"],
+        mesh_cli_seconds=mesh["cli_seconds"],
+        mesh_samplers=mesh["samplers"],
         nccl_gpus=mesh["nccl"]))
     # the error is read under two names by readers of this line; one number
     for k in kernels:

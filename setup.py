@@ -8,7 +8,8 @@ setup(
     packages=find_packages(include=["vqcpcb_tpu", "vqcpcb_tpu.*",
                                     "vqcpcb_tpu_torch", "vqcpcb_tpu_torch.*"]),
     package_data={"vqcpcb_tpu.native": ["*.so", "*.cpp"],
-                  "vqcpcb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "vqcpcb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "vqcpcb_tpu_torch.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "click"],

@@ -25,6 +25,7 @@ from vqcpcb_tpu.data import midi as jax_midi
 from vqcpcb_tpu.data import musicxml as jax_musicxml
 from vqcpcb_tpu.data import tokenizer as jax_tokenizer
 from vqcpcb_tpu_torch import getters, main_decoder, main_encoder, make_midi_corpus
+from vqcpcb_tpu_torch.data import corpora as port_corpora
 from vqcpcb_tpu_torch.data import dataloaders, midi, musicxml, tokenizer
 from vqcpcb_tpu_torch.data import dataset as port_dataset
 
@@ -329,8 +330,12 @@ def test_getters_route_the_file_corpora(tmp_path):
         "musicxml", "decoder", dict(sequences_size=2),
         {"corpus_kwargs": dict(xml_root=xml_root)}, cache_root=str(tmp_path / "c"))
     assert gen.dataset.vocabulary.num_voices == 4
-    with pytest.raises(NotImplementedError, match=r"M6 \(h\) part 2"):
-        getters._corpus_from_config({"dataset": "bach"})
+    corpus = getters._corpus_from_config({"dataset": "bach"})
+    assert isinstance(corpus, port_corpora.Music21BachCorpus)
+    with pytest.MonkeyPatch.context() as m:
+        m.setitem(sys.modules, "music21", None)       # music21 not installed
+        with pytest.raises(ImportError, match="music21"):
+            next(iter(corpus))
 
 
 # encoder_scaleup_midi.py at a tiny width: only these strings change
@@ -392,3 +397,69 @@ def test_scaleup_midi_cli_chain_on_the_cpu(tmp_path, monkeypatch):
         assert "VQCPCB_MIDI_ENCODER_CONFIG" in f.read()
     assert any(name.startswith("midi_") for name in os.listdir(tmp_path / "data"))
     shutil.rmtree(tmp_path / "models")
+
+
+# ---- the music21 Bach corpus over the in-memory music21 fake ------------------------
+
+@pytest.fixture
+def fake_music21(monkeypatch):
+    """tests/m21fake.py installed as sys.modules["music21"] for the test,
+    its corpus.chorales.Iterator() giving 3 four-voice chorales, a
+    three-voice one (skipped), a messy one (pickup beat, repeated pitches,
+    a mid-voice rest) and one whose transpositions raise KeyError."""
+    import types
+
+    import m21fake
+    fake = m21fake.make_module()
+    base = m21fake.make_test_chorales(num=3)
+    corrupt = m21fake.TransposeKeyErrorScore(
+        [list(p.flat.elements) for p in m21fake.make_test_chorales(num=1, seed=17)[0].parts])
+    chorales = [base[0], m21fake.make_three_voice_chorale(), m21fake.make_messy_chorale(),
+                corrupt, base[1], base[2]]
+    fake.corpus = types.SimpleNamespace(
+        chorales=types.SimpleNamespace(Iterator=lambda: iter(chorales)))
+    monkeypatch.setitem(sys.modules, "music21", fake)
+    return fake
+
+
+def test_bach_corpus_matches_jax_adapter_over_the_fake(fake_music21, capsys):
+    """The port's Music21BachCorpus and JAX's over the same fake chorales:
+    the same vocabulary (index dicts, and voice ranges widened by the
+    meta-symbol pitches, the reference's quirk), the same scores, and the
+    same windows with every transposition, bit for bit (the KeyError
+    chorale's transposed windows dropped on both sides, the three-voice
+    chorale skipped)."""
+    from vqcpcb_tpu.data import corpora as jax_corpora
+    corpus, jcorpus = port_corpora.Music21BachCorpus(), jax_corpora.Music21BachCorpus()
+    assert corpus.cache_key == jcorpus.cache_key == "bach_m21_v4"
+    vocab, jvocab = corpus.build_vocabulary(), jcorpus.build_vocabulary()
+    assert vocab.note2index_dicts == jvocab.note2index_dicts
+    assert vocab.voice_ranges == jvocab.voice_ranges
+    assert all(lo <= 48 for lo, _ in vocab.voice_ranges)
+    assert [_score(s) for s in corpus] == [_score(s) for s in jcorpus]
+    assert len(list(corpus)) == 5
+    capsys.readouterr()
+    got = tokenizer.make_window_dataset(corpus, vocab, 2, 4)
+    port_log = capsys.readouterr().out
+    want = jax_tokenizer.make_window_dataset(jcorpus, jvocab, 2, 4)
+    assert port_log == capsys.readouterr().out and "KeyError" in port_log
+    assert got.dtype == want.dtype and len(got) > 100
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bach_dataset_through_the_getters_matches_jax(fake_music21, tmp_path):
+    """getters.get_dataloader_generator('bach', 'decoder', ...) builds the
+    music21 corpus, as JAX's getters do: the same vocabulary and windows
+    (sequences_size 2) as the JAX package's loader over the fake, and the
+    'bach' data processor sizes its heads from that vocabulary."""
+    from vqcpcb_tpu import getters as jax_getters
+    gen = getters.get_dataloader_generator("bach", "decoder", dict(sequences_size=2),
+                                           cache_root=str(tmp_path / "port"))
+    jgen = jax_getters.get_dataloader_generator("bach", "decoder", dict(sequences_size=2),
+                                                cache_root=str(tmp_path / "jax"))
+    assert isinstance(gen.dataset.corpus, port_corpora.Music21BachCorpus)
+    assert gen.dataset.vocabulary.note2index_dicts == jgen.dataset.vocabulary.note2index_dicts
+    np.testing.assert_array_equal(gen.dataset.windows, jgen.dataset.windows)
+    processor = getters.get_data_processor(gen, "bach", dict(embedding_size=8))
+    assert processor.num_tokens_per_channel == \
+        gen.dataset.vocabulary.num_tokens_per_channel

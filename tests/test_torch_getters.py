@@ -430,17 +430,22 @@ def test_grouped_decoder_and_prior_from_getters_at_full_width(tmp_path):
                              for m in attns)
 
 
-# ---- what waits ------------------------------------------------------------------
+# ---- the 'bach' dataset without music21 ---------------------------------------------
 
 def _bach_config():
     return dict(load_config_module(ENCODER_CONFIG), dataset="bach")
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: getters.get_dataloader_generator(
-        "bach", "vqcpc", {}, _bach_config()), "M6 (h)"),
+    (lambda root: getters.get_dataloader_generator(
+        "bach", "vqcpc", _bach_config()["dataloader_generator_kwargs"],
+        _bach_config(), cache_root=root).dataset_positive.windows, "music21"),
 ], ids=["bach"])
-def test_what_waits_raises_naming_its_roadmap_item(call, item):
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        call()
+def test_what_waits_raises_naming_its_roadmap_item(call, item, monkeypatch, tmp_path):
+    """The 'bach' dataset (music21's chorales) builds its loader, and reading
+    the corpus without music21 raises the ImportError that names it, as
+    the JAX package's does (corpora.py:121-130)."""
+    import sys
+    monkeypatch.setitem(sys.modules, "music21", None)
+    with pytest.raises(ImportError, match=item):
+        call(str(tmp_path))

@@ -450,10 +450,12 @@ def rank_runs(tmp_path_factory):
     """One group of 4 gloo ranks over a (2, 2) mesh: the flagship decoder
     and the prior (two steps each; the decoder's overfitted slot written),
     the 2-head prior over (1, 4), the VQ-CPC (BatchNorm quantizer) and the
-    student (two steps each, JAX's weights); and one of 2 ranks over (2, 1):
-    the decoder (one step), the encoder-side jobs of _two_rank_jobs and the
-    encoder CLI -t; started together. JAX's (2, 2) mesh steps are computed
-    while they run."""
+    student (two steps each, JAX's weights), then the sampler jobs of
+    _sampler_jobs(4); and one of 2 ranks over (2, 1): the decoder (one
+    step), the encoder-side jobs of _two_rank_jobs, the encoder CLI -t, the
+    sampler jobs of _sampler_jobs(2) and the decoder and prior CLIs'
+    generation (_generation_cli_jobs); started together. JAX's (2, 2) mesh
+    steps and its (4, 2) samplers are computed while they run."""
     encoder, batches = _encoder_and_batches()
     slot_dir = str(tmp_path_factory.mktemp("mesh_slot"))
     cli_dir = tmp_path_factory.mktemp("mesh_cli")
@@ -464,20 +466,34 @@ def rank_runs(tmp_path_factory):
                             initialize=False),
                _encoder_job("student", student_pair()[2], STUDENT_BATCHES, 2,
                             initialize=False, masked_event_index=STUDENT_INDEX)]
+    tp_samplers = _sampler_jobs(4)
     dp_jobs = ([_job("decoder", encoder, batches[:1], 1)]
                + list(_two_rank_jobs().values()) + [_cli_job(cli_dir)])
+    dp_samplers = _sampler_jobs(2)
+    generation_clis = _generation_cli_jobs(cli_dir)
     # the JAX steps compile side by side (XLA compiles outside the GIL) and
     # run one at a time (JAX_RUN)
     with ThreadPoolExecutor(6) as pool:
-        tp = pool.submit(run_ranks, LAUNCH, 4, tp_jobs, timeout_s=RANKS_TIMEOUT_S)
-        dp = pool.submit(run_ranks, LAUNCH, 2, dp_jobs, timeout_s=RANKS_TIMEOUT_S)
+        tp = pool.submit(run_ranks, LAUNCH, 4, tp_jobs + list(tp_samplers.values()),
+                         timeout_s=RANKS_TIMEOUT_S)
+        dp = pool.submit(run_ranks, LAUNCH, 2,
+                         dp_jobs + list(dp_samplers.values()) + generation_clis,
+                         timeout_s=RANKS_TIMEOUT_S)
         jax_steps = {kind: pool.submit(_jax_mesh_step, kind, encoder, batches[0])
                      for kind in ("decoder", "prior")}
         jax_steps.update(vqcpc=pool.submit(_jax_cpc_mesh_step),
                          student=pool.submit(_jax_student_mesh_step))
+        jax_samples = {kind: pool.submit(_jax_mesh_sample, kind)
+                       for kind in ("decoder", "prior")}
         jax_steps = {kind: f.result() for kind, f in jax_steps.items()}
+        jax_samples = {kind: f.result() for kind, f in jax_samples.items()}
         tp_results, dp_results = tp.result(), dp.result()
     names = list(_two_rank_jobs())
+    n_tp, n_dp = len(tp_jobs), len(dp_jobs)
+    samplers = {(name, 4): [r[n_tp + i] for r in tp_results]
+                for i, name in enumerate(tp_samplers)}
+    samplers.update({(name, 2): [r[n_dp + i] for r in dp_results]
+                     for i, name in enumerate(dp_samplers)})
     return dict(encoder=encoder, batches=batches, slot_dir=slot_dir,
                 decoder=tp_results[0][0], prior=tp_results[0][1],
                 two_heads=tp_results[0][2], vqcpc=tp_results[0][3],
@@ -485,7 +501,9 @@ def rank_runs(tmp_path_factory):
                 dp=[r[0] for r in dp_results],
                 two_ranks={name: [r[1 + i] for r in dp_results]
                            for i, name in enumerate(names)},
-                cli=[r[-1] for r in dp_results], cli_dir=cli_dir, jax=jax_steps)
+                cli=[r[n_dp - 1] for r in dp_results], cli_dir=cli_dir,
+                jax=jax_steps, jax_samples=jax_samples, samplers=samplers,
+                generation_clis=[r[n_dp + len(dp_samplers):] for r in dp_results])
 
 
 def _assert_grads_close(got, want, frac, what):
@@ -972,7 +990,7 @@ def _cli_job(workdir):
     import shutil
     shutil.copy(os.path.join(os.path.dirname(__file__), "configs", "encoder_smoke.py"),
                 workdir / "encoder_smoke.py")
-    return dict(kind="encoder_cli", workdir=str(workdir),
+    return dict(kind="cli", cli="main_encoder", workdir=str(workdir),
                 cache_root=str(workdir / "data"),
                 argv=["-t", "-c", "encoder_smoke.py", "--device", "cpu"])
 
@@ -1110,3 +1128,255 @@ def test_training_dot_dtype_reads_the_jax_knob(monkeypatch, env, want):
     assert train_dot_dtype("cpu") == torch.float32
     assert jpa._dots_dtype() == (jnp.bfloat16 if want == torch.bfloat16
                                  else jnp.float32)
+
+
+# ---- the samplers over ranks ---------------------------------------------------------
+
+SAMPLE_RNG = np.random.RandomState(9)
+SAMPLE_CODES = SAMPLE_RNG.randint(0, CODEBOOK, (BATCH, NUM_CODES)).astype(np.int64)
+SAMPLE_WINDOW = SAMPLE_RNG.randint(0, CODEBOOK, (BATCH, NUM_CODES)).astype(np.int64)
+SAMPLE_ZEROS = np.zeros((BATCH, NUM_EVENTS, 4), np.int64)
+PRIOR_START = 2                 # the prior's window sampled after a prefill
+
+
+def _sample_decoder(kind, num_model, **kw):
+    job = dict(kind="sample_decoder", model=model_pair(kind)[2], source=SAMPLE_CODES,
+               tokens_init=SAMPLE_ZEROS, start=0, num_steps=NUM_EVENTS * 4,
+               device="cpu", num_model=num_model)
+    job.update(kw)
+    return job
+
+
+def _sample_prior(num_model, **kw):
+    job = dict(kind="sample_prior", model=model_pair("prior")[2],
+               x_init=SAMPLE_WINDOW, start=PRIOR_START,
+               num_steps=NUM_CODES - PRIOR_START, device="cpu", num_model=num_model)
+    job.update(kw)
+    return job
+
+
+def _sampler_jobs(world):
+    """The sampler jobs of a launch of `world` ranks, by name: greedy
+    (top_k 1) and stochastic (T 1.0, top-p 0.9) flagship decoders, the
+    greedy prior after a prefilled context and, on 4 ranks, the stochastic
+    prior on a batch of 3 that does not divide the data axis (run whole on
+    every rank) from position 0 (no prefill) over (2, 2), the GQA decoder
+    (2 KV heads of 4) over (2, 2) (kv_proj split) and (1, 4) (replicated);
+    on 2 ranks the greedy decoder from the encoder's codes of its rows."""
+    num_model = 2 if world == 4 else 1
+    stochastic = dict(temperature=1.0, top_p=0.9, seed=5)
+    jobs = {"decoder greedy": _sample_decoder("decoder", num_model, top_k=1),
+            "decoder stochastic": _sample_decoder("decoder", num_model, **stochastic),
+            "prior greedy": _sample_prior(num_model, top_k=1)}
+    if world == 4:
+        jobs["prior stochastic replicated"] = _sample_prior(
+            num_model, x_init=SAMPLE_WINDOW[:3], start=0, num_steps=NUM_CODES,
+            temperature=1.0, seed=3)
+        jobs["gqa greedy"] = _sample_decoder("gqa", 2, top_k=1)
+        jobs["gqa greedy (1, 4)"] = _sample_decoder("gqa", 4, top_k=1)
+    else:
+        encoder, batches = _encoder_and_batches()
+        job = _sample_decoder("decoder", 1, top_k=1, encoder=encoder,
+                              templates=batches[0], codebook_size=CODEBOOK)
+        job.pop("source")
+        jobs["decoder greedy encoded"] = job
+    return jobs
+
+
+@functools.lru_cache(maxsize=None)
+def _one_rank_sample(name, world):
+    """_sampler_jobs(world)[name] on one rank in this process."""
+    from torch_mesh_harness import sample_job
+    return sample_job(_sampler_jobs(world)[name], pmesh.Mesh(1, 1))
+
+
+def _jax_mesh_sample(kind):
+    """JAX's greedy KV-cached sampler on a (4, 2) mesh, params sharded by
+    params_shardings and the batch by shard_batch, as
+    tests/test_multichip.py:391 runs it: the flagship decoder's
+    sample_range from position 0 over SAMPLE_CODES, or the prior's
+    sample_window from PRIOR_START over SAMPLE_WINDOW."""
+    jmod, params, _, _ = model_pair(kind)
+    mesh = _jax_mesh(2)
+    with JAX_RUN:
+        p = {"params": jmesh.shard_params(params, mesh)}
+        if kind == "decoder":
+            batch = jmesh.shard_batch({"s": SAMPLE_CODES.astype(np.int32),
+                                       "t": SAMPLE_ZEROS.astype(np.int32)}, mesh)
+            out = jmod.apply(p, batch["s"], batch["t"], jnp.int32(0), NUM_EVENTS * 4,
+                             KEY, 1.0, 1, 0.0, method=JaxDecoder.sample_range)
+        else:
+            batch = jmesh.shard_batch({"x": SAMPLE_WINDOW.astype(np.int32)}, mesh)
+            out = jmod.apply(p, batch["x"], PRIOR_START, NUM_CODES - PRIOR_START, KEY,
+                             1.0, 1, method=JaxPrior.sample_window)
+        return np.asarray(jax.device_get(out))
+
+
+def _ranks_agree(ranks):
+    """Every rank holds the same gathered tokens, and the model ranks of a
+    data index the same local rows."""
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["tokens"], ranks[0]["tokens"])
+    by_rows = {}
+    for r in ranks:
+        by_rows.setdefault(r["rows"], []).append(r["local"])
+    for local in by_rows.values():
+        assert all(np.array_equal(x, local[0]) for x in local)
+    return ranks[0]["tokens"]
+
+
+@pytest.mark.parametrize("world", [4, 2])
+@pytest.mark.parametrize("kind", ["decoder", "prior"])
+def test_mesh_greedy_sampler_matches_jax_mesh_and_one_rank(rank_runs, kind, world):
+    """The flagship decoder's sample_range and the prior's sample_window,
+    greedy, over (2, 2) (4 ranks: the heads, the FFN, the cross MLP and the
+    vocabulary heads split over `model`, the batch of 8 over `data`) and
+    (2, 1): exactly JAX's tokens on a (4, 2) mesh with shard_params, and
+    the port's one-rank tokens; every rank holds the whole batch, the model
+    ranks of a data index the same rows; on (2, 2) each rank's caches hold
+    half the KV heads."""
+    name = f"{kind} greedy"
+    ranks = rank_runs["samplers"][(name, world)]
+    got = _ranks_agree(ranks)
+    want = rank_runs["jax_samples"][kind]
+    np.testing.assert_array_equal(got, want.reshape(got.shape))
+    np.testing.assert_array_equal(got, _one_rank_sample(name, world)["tokens"])
+    assert ranks[0]["rows"] == (0, BATCH // 2, BATCH)
+    heads = 2 if world == 4 else 4
+    assert ranks[0]["cache_heads"] and all(h == heads for h in ranks[0]["cache_heads"])
+
+
+@pytest.mark.parametrize("name,world", [("decoder stochastic", 4),
+                                        ("decoder stochastic", 2),
+                                        ("prior stochastic replicated", 4)])
+def test_mesh_stochastic_sampler_matches_one_rank(rank_runs, name, world):
+    """At T 1.0 (and top-p 0.9 for the decoder) over (2, 2) and (2, 1), from
+    generators seeded seed + data_index put in rank 0's state
+    (common_generator): exactly the one-rank run's tokens for the seed, the
+    noise of each draw the global batch's; a batch of 3 runs whole on every
+    data rank."""
+    ranks = rank_runs["samplers"][(name, world)]
+    got = _ranks_agree(ranks)
+    np.testing.assert_array_equal(got, _one_rank_sample(name, world)["tokens"])
+    rows = 3 if "replicated" in name else BATCH // 2
+    assert ranks[0]["rows"][1] - ranks[0]["rows"][0] == rows
+
+
+@pytest.mark.parametrize("name,heads", [("gqa greedy", 1), ("gqa greedy (1, 4)", 1)])
+def test_mesh_gqa_sampler_matches_one_rank(rank_runs, name, heads):
+    """The grouped decoder (2 KV heads of 4 query heads): over (2, 2) its
+    kv_proj splits (one KV head a rank's caches), over (1, 4) it stays
+    replicated and each rank caches the KV head of its one query head
+    (_kv_mesh's pick); greedy tokens equal one rank's."""
+    ranks = rank_runs["samplers"][(name, 4)]
+    got = _ranks_agree(ranks)
+    np.testing.assert_array_equal(got, _one_rank_sample(name, 4)["tokens"])
+    assert all(h == heads for h in ranks[0]["cache_heads"])
+
+
+def test_mesh_sampler_encodes_each_ranks_rows(rank_runs):
+    """Over (2, 1) each rank encodes its rows of the templates (K1's route
+    on the CPU) and samples them: the gathered codes and the greedy tokens
+    equal one rank's on the whole batch."""
+    ranks = rank_runs["samplers"][("decoder greedy encoded", 2)]
+    want = _one_rank_sample("decoder greedy encoded", 2)
+    got = _ranks_agree(ranks)
+    for r in ranks:
+        np.testing.assert_array_equal(r["codes"], want["codes"])
+    np.testing.assert_array_equal(got, want["tokens"])
+    assert len(np.unique(want["codes"])) > 3
+
+
+@pytest.mark.parametrize("total,n_data", [(8, 2), (8, 4), (3, 2), (8, 1)])
+def test_sample_categorical_rows_draw_the_global_batchs_noise(total, n_data):
+    """sample_categorical with rows: each data rank's draws (its rows of
+    generation_rows) concatenated equal one draw over the whole batch from
+    the same generator state, at any temperature and top-p; rows over the
+    whole batch draw exactly what rows=None draws, which is the stream of
+    torch.empty_like(logits).exponential_ (one rank's, unchanged)."""
+    from vqcpcb_tpu_torch.ops.sampling import sample_categorical
+    logits = torch.from_numpy(np.random.RandomState(total).randn(total, 11)
+                              .astype(np.float32))
+    want = sample_categorical(torch.Generator().manual_seed(4), logits, 0.9,
+                              top_p=0.8)
+    noise = torch.empty_like(logits).exponential_(
+        generator=torch.Generator().manual_seed(4))
+    from vqcpcb_tpu_torch.ops.sampling import top_k_top_p_filtering
+    filtered = top_k_top_p_filtering(logits / 0.9, top_p=0.8)
+    assert torch.equal(want, torch.argmax(filtered - noise.log(), dim=-1))
+    parts = []
+    for d in range(n_data):
+        rows = pmesh.generation_rows(total, pmesh.simulated_mesh(n_data, 1, d))
+        part = sample_categorical(torch.Generator().manual_seed(4), rows.of(logits),
+                                  0.9, top_p=0.8, rows=rows)
+        if not rows.split:
+            assert torch.equal(part, want)
+            continue
+        parts.append(part)
+    if parts:
+        assert torch.equal(torch.cat(parts), want)
+
+
+def _generation_cli_jobs(workdir):
+    """The 2-rank launch's decoder and prior CLIs over tests/configs'
+    decoder_smoke.py and prior_smoke.py (config_encoder an absolute copy of
+    encoder_smoke.py: fresh encoder weights; fixed timestamps, so the model
+    directories are models/decoder_smoke_mesh and models/prior_smoke_mesh):
+    main_decoder -t, then -l -r --num_examples 1; main_prior -t, then -l -g
+    through that decoder. Each runs on both ranks."""
+    import shutil
+    configs = os.path.join(os.path.dirname(__file__), "configs")
+    shutil.copy(os.path.join(configs, "encoder_smoke.py"),
+                workdir / "encoder_smoke_fresh.py")
+    encoder = str(workdir / "encoder_smoke_fresh.py")
+    decoder_dir = workdir / "models" / "decoder_smoke_mesh"
+    for name, changes in (
+            ("decoder_smoke.py", {"timestamp": "mesh"}),
+            ("prior_smoke.py", {"timestamp": "mesh",
+                                "config_decoder": str(decoder_dir / "config.py")})):
+        text = open(os.path.join(configs, name)).read().replace(
+            "os.path.join(os.path.dirname(__file__), 'encoder_smoke.py')", repr(encoder))
+        for key, value in changes.items():
+            text = text.replace(f"'{key}': None", f"'{key}': {value!r}")
+        (workdir / name).write_text(text)
+
+    def cli(module, *argv):
+        return dict(kind="cli", cli=module, workdir=str(workdir),
+                    cache_root=str(workdir / "data"), argv=[*argv, "--device", "cpu"])
+    return [cli("main_decoder", "-t", "-c", "decoder_smoke.py"),
+            cli("main_decoder", "-l", "-r", "--num_examples", "1", "-c",
+                str(decoder_dir / "config.py")),
+            cli("main_prior", "-t", "-c", "prior_smoke.py"),
+            cli("main_prior", "-l", "-g", "-c",
+                str(workdir / "models" / "prior_smoke_mesh" / "config.py"))]
+
+
+def _read_scores(directory):
+    """{file name: bytes} of the .json scores written under `directory`."""
+    import glob
+    return {os.path.basename(p): open(p, "rb").read()
+            for p in sorted(glob.glob(os.path.join(directory, "*.json")))}
+
+
+def test_generation_clis_run_on_every_rank(rank_runs, monkeypatch):
+    """main_decoder -l -r --num_examples 1 and main_prior -l -g over 2 gloo
+    ranks (after -t on both): every call exits 0 on both ranks; rank 0
+    wrote the re-harmonisations (3), the generations (the 3 originals and
+    3 samples) and the prior's one score; one rank's -l -r --num_examples 1
+    from the same slot writes the same re-harmonisations, byte for byte (the
+    mesh samples the batch of 3 whole on each rank from rank 0's generator
+    state)."""
+    from vqcpcb_tpu_torch import main_decoder
+    from vqcpcb_tpu_torch.data import dataset as port_dataset
+    assert [[c["exit"] for c in r] for r in rank_runs["generation_clis"]] == [[0] * 4] * 2
+    workdir = rank_runs["cli_dir"]
+    decoder_dir = workdir / "models" / "decoder_smoke_mesh"
+    mesh_scores = _read_scores(decoder_dir / "reharmonisations")
+    assert len(mesh_scores) == 3
+    assert len(_read_scores(decoder_dir / "generations")) == 6
+    assert len(_read_scores(workdir / "models" / "prior_smoke_mesh" / "generations")) == 1
+    monkeypatch.chdir(workdir)
+    monkeypatch.setattr(port_dataset, "DEFAULT_CACHE_ROOT", str(workdir / "data"))
+    assert main_decoder.main(["-l", "-r", "--num_examples", "1", "-c",
+                              str(decoder_dir / "config.py"), "--device", "cpu"]) == 0
+    assert _read_scores(decoder_dir / "reharmonisations") == mesh_scores

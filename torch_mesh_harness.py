@@ -2,7 +2,9 @@
 chip_smoke.py: a decoder, prior, VQ-CPC or student trainer over a mesh of
 rank processes (`train_over_mesh`, a target of parallel/launch.run_ranks;
 `run_job` the same steps over a given mesh, one rank's in the calling
-process), every kernel
+process), the CLIs on the ranks of a group (`run_cli`, the "cli" kind),
+the KV-cached samplers over a mesh (`sample_job`, the "sample_decoder" and
+"sample_prior" kinds), every kernel
 wrapper's launch count (`launch_counts`), and `ReluPins`, which records the
 ReLU pre-activations near zero of one run and holds another run's ReLU
 masks to them.
@@ -187,9 +189,12 @@ def train_over_mesh(rank: int, world_size: int, payload: Dict) -> Dict:
     A list of payloads runs each in turn and returns the list of results."""
     if isinstance(payload, list):
         return [train_over_mesh(rank, world_size, job) for job in payload]
-    if payload["kind"] == "encoder_cli":
-        return encoder_cli(payload)
+    if payload["kind"] == "cli":
+        return run_cli(payload)
     from vqcpcb_tpu_torch.parallel.mesh import make_mesh
+    if payload["kind"].startswith("sample_"):
+        return with_env(payload.get("env", {}),
+                        lambda: sample_job(payload, make_mesh(payload["num_model"])))
     result = with_env(payload.get("env", {}),
                       lambda: run_job(payload, make_mesh(payload["num_model"]),
                                       payload.get("relu_pins")))
@@ -201,18 +206,20 @@ def train_over_mesh(rank: int, world_size: int, payload: Dict) -> Dict:
             if k in result}
 
 
-def encoder_cli(payload: Dict) -> Dict:
-    """main_encoder.main(payload["argv"]) on this rank of the group, in
+def run_cli(payload: Dict) -> Dict:
+    """A CLI's main(payload["argv"]) on this rank of the group (payload
+    ["cli"]: "main_encoder", "main_decoder" or "main_prior"), in
     payload["workdir"] (models/ lands there), the corpus caches under
     payload["cache_root"]; returns {"exit": its exit code, "coordinator":
     the VQCPCB_COORDINATOR this rank started from}."""
-    from vqcpcb_tpu_torch import main_encoder
+    import importlib
     from vqcpcb_tpu_torch.data import dataset
+    cli = importlib.import_module(f"vqcpcb_tpu_torch.{payload['cli']}")
     saved_cwd, saved_root = os.getcwd(), dataset.DEFAULT_CACHE_ROOT
     os.chdir(payload["workdir"])
     dataset.DEFAULT_CACHE_ROOT = payload["cache_root"]
     try:
-        return {"exit": main_encoder.main(payload["argv"]),
+        return {"exit": cli.main(payload["argv"]),
                 "coordinator": os.environ.get("VQCPCB_COORDINATOR")}
     finally:
         os.chdir(saved_cwd)
@@ -419,3 +426,151 @@ def run_job(payload: Dict, mesh, relu_pins: Optional[List] = None,
     if payload.get("model_dir"):
         trainer.save(early_stopped=False)
     return result
+
+
+# ---- the samplers over a mesh ------------------------------------------------------
+
+def sample_job(payload: Dict, mesh, record: bool = False) -> Dict:
+    """One sampling call over `mesh` (a one-rank Mesh(1, 1) for a reference
+    in the calling process), every rank making it with its rows of the
+    global batch (parallel/mesh.generation_rows) and a generator seeded
+    seed + data_index, which parallel/collectives.common_generator puts in
+    rank 0's state on every rank, as the trainers' generation does.
+
+    payload: kind "sample_decoder" (model a Decoder; source, the global
+    codes, or encoder and templates, the global token batch each rank
+    encodes its rows of with K1 as DecoderGenerator.encode_codes does;
+    tokens_init, start, num_steps, top_p) or "sample_prior" (model a
+    PriorRelative; x_init, start, num_steps: one sample_window; or encoder,
+    codebook_size and num_codes: PriorTrainer.generate_codes of
+    len(x_init) rows); temperature, top_k, seed, device, num_model, env.
+    The model is moved to the device and sharded over the mesh (its full
+    weights are the same on every rank).
+
+    Returns {"tokens" (the global batch, gathered), "local" (this rank's
+    rows), "codes" (the encoded source, where encoded), "launches",
+    "seconds" (synchronised), "rows" ((start, stop, total)), "cache_heads"
+    (each attention's, as sharded; the prior's codes run: unsharded)} and, with
+    record, "margins": each draw's top-two logit margin over the logits'
+    largest |value|, (B, draws) in draw order, on the CPU, and where the
+    source was encoded "code_margins": each row's smallest nearest-codebook
+    margin (search_margins) over its codes, (B,)."""
+    import copy
+
+    import numpy as np
+    from vqcpcb_tpu_torch.models import decoder as decoder_module
+    from vqcpcb_tpu_torch.models import prior as prior_module
+    from vqcpcb_tpu_torch.parallel.collectives import common_generator, gather_rows
+    from vqcpcb_tpu_torch.parallel.mesh import generation_rows, shard_params
+    from vqcpcb_tpu_torch.training.decoder_trainer import encode_source
+    from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
+    device = torch.device(payload["device"])
+    model = copy.deepcopy(payload["model"]).to(device).eval()
+    if "num_codes" not in payload:             # PriorTrainer shards its own
+        model = shard_params(model, mesh)
+    generator = torch.Generator(device=device).manual_seed(
+        payload.get("seed", 0) + mesh.data_index)
+    batch = payload["x_init"] if "x_init" in payload else payload["tokens_init"]
+    rows = generation_rows(len(batch), mesh)
+    margins, code_margins = [], []
+    module = decoder_module if payload["kind"] == "sample_decoder" else prior_module
+    sample = module.sample_categorical
+    if record:
+        def recording(gen, logits, *args, **kwargs):
+            finite = logits.masked_fill(~torch.isfinite(logits), 0.0)
+            top = logits.float().topk(2, dim=-1).values
+            scale = finite.float().abs().amax(-1).clamp_min(1e-30)
+            margins.append(((top[:, 0] - top[:, 1]) / scale).cpu())
+            return sample(gen, logits, *args, **kwargs)
+        module.sample_categorical = recording
+    before = launch_counts()
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    codes = None
+    try:
+        if payload["kind"] == "sample_decoder":
+            source = payload.get("source")
+            if source is None:
+                encoder = copy.deepcopy(payload["encoder"]).to(device).eval()
+                if record:
+                    search = encoder.quantizer.search
+
+                    def recording_search(x, codebooks):
+                        code_margins.append(search_margins(x, codebooks).cpu())
+                        return search(x, codebooks)
+                    encoder.quantizer.search = recording_search
+                with torch.no_grad():
+                    local = encode_source(encoder, torch.as_tensor(
+                        rows.of(payload["templates"]), device=device),
+                        payload["codebook_size"])
+                codes = gather_rows(local, rows, mesh)
+                source = codes
+            out = model.sample_range(
+                rows.of(source), rows.of(payload["tokens_init"]), payload["start"],
+                payload["num_steps"], common_generator(generator, mesh),
+                temperature=payload.get("temperature", 1.0),
+                top_k=payload.get("top_k", 0), top_p=payload.get("top_p", 0.0),
+                device=device, rows=rows)
+        elif "num_codes" in payload:
+            trainer = PriorTrainer(copy.deepcopy(payload["encoder"]), model,
+                                   payload["codebook_size"], device=device,
+                                   seed=payload.get("seed", 0), mesh=mesh)
+            whole = trainer.generate_codes(
+                payload["num_codes"], len(batch),
+                temperature=payload.get("temperature", 1.0),
+                top_k=payload.get("top_k", 0))
+            out = torch.as_tensor(rows.of(whole))
+        else:
+            out = model.sample_window(
+                rows.of(payload["x_init"]), payload["start"], payload["num_steps"],
+                common_generator(generator, mesh),
+                temperature=payload.get("temperature", 1.0),
+                top_k=payload.get("top_k", 0), device=device, rows=rows)
+        tokens = gather_rows(out.to(device), rows, mesh)
+        sync()
+    finally:
+        module.sample_categorical = sample
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
+    result = {"tokens": tokens.cpu().numpy(), "local": out.cpu().numpy(),
+              "codes": None if codes is None else codes.cpu().numpy(),
+              "launches": {k: after[k] - before[k] for k in after},
+              "seconds": seconds, "rows": (rows.start, rows.stop, rows.total),
+              "cache_heads": [m.cache_heads for m in model.modules()
+                              if hasattr(m, "cache_heads")]}
+    if record:
+        result["margins"] = torch.stack(margins, -1).numpy() if margins else np.zeros(0)
+        if code_margins:
+            result["code_margins"] = torch.cat(code_margins).reshape(
+                len(batch), -1).amin(-1).numpy()
+    return result
+
+
+def token_ties(got, want, margins, start: int, tie_rel: float,
+               skip_rows=()) -> Dict:
+    """Rows of a sampled batch against a recorded run's (flat positions
+    [start, start + draws) sampled in order, `margins` the recorded run's
+    (B, draws), sample_job's): a row whose first differing position is a
+    near tie there (margin <= tie_rel) is "tied"; any other differing row is
+    a "fault"; rows in skip_rows (whose source differed at a near tie) are
+    left out. Returns {"rows", "tied", "faults", "equal_share" (of the
+    sampled tokens), "tie_margin" (the largest margin at a tied row's first
+    difference)}."""
+    import numpy as np
+    got = np.asarray(got).reshape(len(got), -1)
+    want = np.asarray(want).reshape(len(want), -1)
+    draws = margins.shape[1]
+    got_s, want_s = got[:, start:start + draws], want[:, start:start + draws]
+    tied, faults, tie_margin = [], [], 0.0
+    for row in np.nonzero((got != want).any(-1))[0]:
+        if row in skip_rows:
+            continue
+        first = int(np.argmax(got_s[row] != want_s[row]))
+        if (got_s[row] == want_s[row]).all() or margins[row, first] > tie_rel:
+            faults.append(int(row))
+        else:
+            tied.append(int(row))
+            tie_margin = max(tie_margin, float(margins[row, first]))
+    return {"rows": len(got), "tied": tied, "faults": faults,
+            "equal_share": float((got_s == want_s).mean()), "tie_margin": tie_margin}

@@ -1,17 +1,26 @@
-"""The synthetic chorale corpus: a port-local copy of
-SyntheticChoraleCorpus (vqcpcb_tpu/data/corpora.py:43), deterministic
-4-voice scores with Bach-chorale statistics (SATB ranges, a 16th-note grid,
-held notes and rests) from np.random.RandomState, so the same seed gives the
-JAX package's scores. The music21 corpus waits for a later slice.
+"""Corpus backends producing NeutralScores, port-local copies of
+vqcpcb_tpu/data/corpora.py:
+  * SyntheticChoraleCorpus (:43): deterministic 4-voice scores with
+    Bach-chorale statistics (SATB ranges, a 16th-note grid, held notes and
+    rests) from np.random.RandomState, so the same seed gives the JAX
+    package's scores;
+  * Music21BachCorpus (:110-212): the 'bach' dataset, the reference's own
+    corpus, over music21.corpus.chorales (4-part chorales only).
+
+music21 is imported lazily, inside Music21BachCorpus's methods and nowhere
+else in the port (tests/test_torch_isolation.py holds that): importing any
+port module, or running any other dataset, never needs it, and 'bach'
+without it raises an ImportError that names music21, as JAX's does.
 """
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from vqcpcb_tpu_torch.data.tokenizer import NeutralEvent, NeutralScore
-from vqcpcb_tpu_torch.data.vocab import (REST_SYMBOL, Vocabulary,
+from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, REST_SYMBOL,
+                                         START_SYMBOL, Vocabulary,
                                          midi_of_plain_name)
 
 # SATB practical ranges (midi)
@@ -102,3 +111,108 @@ class SyntheticChoraleCorpus:
             for m in range(lo, hi + 1):
                 s.add(_plain_name(m))
         return Vocabulary.from_note_sets(note_sets, midi_of_plain_name)
+
+
+class Music21BachCorpus:
+    """music21 Bach chorale iterator -> NeutralScores
+    (4-part chorales only, reference: chorale_dataset.py:396-398)."""
+
+    def __init__(self, num_voices: int = 4):
+        self.num_voices = num_voices
+
+    @property
+    def cache_key(self) -> str:
+        return f"bach_m21_v{self.num_voices}"
+
+    @staticmethod
+    def _import_music21():
+        try:
+            import music21
+            return music21
+        except ImportError as e:
+            raise ImportError(
+                "the 'bach' dataset needs music21 (pip install music21); "
+                "for a music21-free run use dataset: 'synthetic' "
+                "(e.g. configs/encoder_random_synthetic.py)") from e
+
+    def _chorales(self):
+        """The corpus's chorales of num_voices parts, as music21 gives them."""
+        music21 = self._import_music21()
+        for chorale in music21.corpus.chorales.Iterator():
+            if len(chorale.parts) == self.num_voices:
+                yield chorale
+
+    def __iter__(self) -> Iterator[NeutralScore]:
+        for chorale in self._chorales():
+            yield self._to_neutral(chorale)
+
+    def _to_neutral(self, chorale) -> NeutralScore:
+        music21 = self._import_music21()
+
+        def convert(score) -> NeutralScore:
+            parts = []
+            for part in score.parts[:self.num_voices]:
+                events = []
+                for n in part.flat.getElementsByOffset(
+                        offsetStart=0.0,
+                        offsetEnd=score.flat.highestTime,
+                        classList=[music21.note.Note, music21.note.Rest]):
+                    if n.isNote:
+                        events.append(NeutralEvent(
+                            float(n.offset), n.nameWithOctave,
+                            int(n.pitch.midi), True))
+                    else:
+                        events.append(NeutralEvent(
+                            float(n.offset), n.name, None, False))
+                parts.append(events)
+            return NeutralScore(parts=parts,
+                                end_time=float(score.flat.highestTime))
+
+        def transpose_fn(neutral: NeutralScore, semitone: int) -> NeutralScore:
+            # the reference's spelling: music21 interval transposition
+            # (chorale_dataset.py:193-200)
+            interval_type, interval_nature = \
+                music21.interval.convertSemitoneToSpecifierGeneric(semitone)
+            transposition_interval = music21.interval.Interval(
+                str(interval_nature) + interval_type)
+            transposed = chorale.transpose(transposition_interval)
+            out = convert(transposed)
+            out.transpose_fn = transpose_fn
+            return out
+
+        neutral = convert(chorale)
+        neutral.transpose_fn = transpose_fn
+        return neutral
+
+    def build_vocabulary(self) -> Vocabulary:
+        music21 = self._import_music21()
+        note_sets = [set() for _ in range(self.num_voices)]
+        name_to_midi = {}
+        for chorale in self._chorales():
+            for part_id, part in enumerate(chorale.parts[:self.num_voices]):
+                for n in part.flat.notesAndRests:
+                    if n.isNote:
+                        note_sets[part_id].add(n.nameWithOctave)
+                        name_to_midi[n.nameWithOctave] = int(n.pitch.midi)
+                    else:
+                        note_sets[part_id].add(n.name)
+
+        # the reference's quirk, kept for parity (corpora.py:188-199):
+        # _compute_voice_ranges runs standard_note over every vocabulary
+        # entry, and standard_note maps START/END/PAD to the quarter-tone
+        # notes C~3/D~3/E~3 (midi 48/50/52, helpers.py:36-51), which widen
+        # the voice ranges and with them each window's transposition
+        # interval (chorale_dataset.py:400-416, 234-250)
+        meta_pitches = {START_SYMBOL: 48, END_SYMBOL: 50, PAD_SYMBOL: 52}
+
+        def midi_of(name: str) -> Optional[int]:
+            if name in meta_pitches:
+                return meta_pitches[name]
+            if name in name_to_midi:
+                return name_to_midi[name]
+            try:
+                return int(music21.note.Note(name).pitch.midi)
+            except Exception:
+                return None
+
+        return Vocabulary.from_note_sets(note_sets, midi_of)

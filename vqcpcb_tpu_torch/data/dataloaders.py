@@ -4,7 +4,8 @@ token windows and score writing) and `BachCPCDataloaderGenerator`
 (:135-329, CPC batches with both negative-sampling methods).
 
 Each batch is a dict of NumPy int32 arrays; the trainer moves them to its
-device. The shuffles draw from np.random.RandomState, as in the JAX package,
+device. The same-sequence negatives are assembled natively
+(vqcpcb_tpu_torch/native), as JAX's are, unless VQCPCB_NATIVE=0. The shuffles draw from np.random.RandomState, as in the JAX package,
 so the same corpus and seed give the JAX generators' batches element for
 element ('random': independent negative window streams; 'same_sequence':
 the other blocks of the same excerpt; reference:
@@ -19,6 +20,7 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from vqcpcb_tpu_torch import native
 from vqcpcb_tpu_torch.data.dataset import ChoraleBeatsDataset, batch_iterator
 from vqcpcb_tpu_torch.data.tokenizer import ticks_to_neutral_events
 
@@ -255,6 +257,9 @@ class BachCPCDataloaderGenerator(DataloaderGenerator):
         tb = self.num_tokens_per_block // NUM_VOICES
         b = x_left.shape[0]
         # block counts from the arrays: the backward direction swaps them
+        if native.enabled():
+            return native.build_negatives_same_seq_native(
+                x_left, x_right, x_left.shape[1] // tb, x_right.shape[1] // tb, tb)
         left_b = x_left.reshape(b, -1, tb, NUM_VOICES)
         right_b = x_right.reshape(b, -1, tb, NUM_VOICES)
         outs = [np.concatenate([left_b, right_b[:, :k], right_b[:, k + 1:]],

@@ -1,10 +1,11 @@
 """Neutral score representation and its tokenization into int tick grids:
-a port-local NumPy copy of vqcpcb_tpu/data/tokenizer.py:33-328 (the port
-imports nothing of the JAX package). The JAX package may run parts of it in
-native code (vqcpcb_tpu/native); these NumPy paths give the same windows.
-The JAX copy's tolerance of a transposition that raises (music21 scores,
-tokenizer.py:280-294) waits for the music21 corpus: the synthetic corpus's
-vocabulary holds every in-range pitch, so its transpositions cannot raise.
+a port-local copy of vqcpcb_tpu/data/tokenizer.py:33-328 (the port imports
+nothing of the JAX package). As in JAX, the articulation loop and the window
+extraction run in native code (vqcpcb_tpu_torch/native, built with g++ at
+first use) unless VQCPCB_NATIVE=0 selects these NumPy paths, which give the
+same windows bit for bit. A transposition that raises KeyError (a music21
+score's key analysis, tokenizer.py:280-294) drops that (score, semitone)'s
+windows, as the reference does.
 
 Per part, a tick sequence with slurs for held notes, notes outside the
 corpus voice range as OUT_OF_RANGE; sliding windows of `sequences_size`
@@ -18,6 +19,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from vqcpcb_tpu_torch import native
 from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, OUT_OF_RANGE, PAD_SYMBOL,
                                          SLUR_SYMBOL, START_SYMBOL, Vocabulary)
 
@@ -92,6 +94,11 @@ def part_to_ticks(events: Sequence[NeutralEvent],
 
     token_index = np.asarray([note2index[name_of(e)] for e in sel],
                              dtype=np.int32)
+    if native.enabled():
+        offsets = np.asarray([e.offset for e in sel], dtype=np.float64)
+        return native.part_to_ticks_native(
+            offsets, token_index, length, subdivision, offset_start,
+            slur_index).astype(np.int64)
     t = np.zeros((length, 2), dtype=np.int64)
     j = 0
     i = 0
@@ -164,11 +171,16 @@ def extract_windows_batch(grid: np.ndarray,
                           start_ticks: np.ndarray,
                           window_len: int,
                           vocab: Vocabulary) -> np.ndarray:
-    """Batched window extraction with START/END/PAD padding, vectorised
-    NumPy. Returns (num_windows, num_voices, window_len) int32."""
+    """Batched window extraction with START/END/PAD padding, natively or
+    (VQCPCB_NATIVE=0) in vectorised NumPy. Returns (num_windows,
+    num_voices, window_len) int32."""
     start_symbols = np.array(vocab.symbol_indices(START_SYMBOL), np.int32)
     end_symbols = np.array(vocab.symbol_indices(END_SYMBOL), np.int32)
     pad_symbols = np.array(vocab.symbol_indices(PAD_SYMBOL), np.int32)
+    if native.enabled():
+        return native.extract_windows_native(grid, start_ticks, window_len,
+                                             start_symbols, end_symbols,
+                                             pad_symbols)
     num_voices, length = grid.shape
     ticks = start_ticks[:, None] + np.arange(window_len)[None, :]  # (W, T)
     clipped = np.clip(ticks, 0, length - 1)
@@ -220,13 +232,24 @@ def make_window_dataset(scores: Iterable[NeutralScore],
         semis = np.array([j[0] for j in jobs])
         starts = np.array([j[1] for j in jobs], dtype=np.int64)
         out = np.empty((len(jobs), num_voices, window_len), dtype=np.int32)
+        keep = np.ones(len(jobs), dtype=bool)
         for semi_tone in np.unique(semis):
             sel = semis == semi_tone
-            ticks = score_to_ticks(score.transpose(int(semi_tone)), vocab,
-                                   subdivision)
+            try:
+                ticks = score_to_ticks(score.transpose(int(semi_tone)), vocab,
+                                       subdivision)
+            except KeyError as exc:
+                # the reference's tolerance (chorale_dataset.py:172-174): a
+                # music21 score whose transposition raises (its key analyzer)
+                # loses every window of that (score, semitone), and the rest
+                # of the dataset builds on
+                print(f"KeyError {exc!r} transposing score by {semi_tone} "
+                      "semitones; skipping its windows")
+                keep[sel] = False
+                continue
             out[sel] = extract_windows_batch(
                 ticks.astype(np.int32), starts[sel], window_len, vocab)
-        all_windows.append(out)
+        all_windows.append(out[keep])
     return np.concatenate(all_windows, axis=0).astype(np.int32)
 
 

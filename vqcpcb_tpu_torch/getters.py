@@ -6,8 +6,9 @@ package.
 The port's modules take their input widths explicitly where flax infers
 them (the downscalers', the upscaler's, the CPC context network's and an
 unquantized decoder's source input); the getters fill them in from the
-config. What the port does not have yet raises NotImplementedError naming
-the ROADMAP item that ports it.
+config. Every dataset of the JAX getters is here: 'synthetic', 'midi',
+'musicxml' and 'bach' (music21's chorales, data/corpora.Music21BachCorpus,
+which imports music21 when it reads the corpus).
 """
 from __future__ import annotations
 
@@ -35,12 +36,6 @@ from vqcpcb_tpu_torch.ops.quantizer import (EMAProductVectorQuantizer,
                                             ProductVectorQuantizer)
 
 
-def _not_yet(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to vqcpcb_tpu_torch yet (ROADMAP.md Queue 1, "
-        f"{item})")
-
-
 def _corpus_from_config(config: Dict):
     """The corpus backend of config['dataset'] (getters.py:44)."""
     dataset = config.get("dataset", "bach").lower()
@@ -56,7 +51,10 @@ def _corpus_from_config(config: Dict):
         from vqcpcb_tpu_torch.data.musicxml import MusicXmlCorpus
         return MusicXmlCorpus(**config.get("corpus_kwargs", {}))
     if dataset == "bach":
-        raise _not_yet("the 'bach' (music21) corpus", "M6 (h) part 2")
+        # music21's chorales; the import happens when the corpus is read and
+        # raises, naming music21, where it is not installed
+        from vqcpcb_tpu_torch.data.corpora import Music21BachCorpus
+        return Music21BachCorpus()
     raise NotImplementedError(
         "If you want to use your own datasets, you need to implement a "
         "corpus backend, data_processor and dataloader")

@@ -23,9 +23,12 @@ torchrun --nproc_per_node=N -m vqcpcb_tpu_torch.main_decoder -t -c ...) or
 with VQCPCB_COORDINATOR / VQCPCB_NUM_PROCESSES / VQCPCB_PROCESS_ID
 (parallel/distributed.py); rank r runs on cuda:LOCAL_RANK and -t trains
 over the data mesh of all ranks, as the JAX CLI trains over all devices.
-Rank 0 writes the model directory; generation (-r, --num_examples, and
-everything after -l without -t) runs on rank 0 alone, from the full
-weights. Without those variables the CLI is one rank, as before.
+Generation (-r, --num_examples) runs on every rank over the same mesh
+(-l loads the one-GPU slot into each rank's blocks), each rank sampling
+its rows of a batch that divides the data axis and the whole of one that
+does not (the batch of 3 on 2 or 4 ranks), as the JAX CLI samples over its
+devices; rank 0 writes the model directory and the scores. Without those
+variables the CLI is one rank, as before.
 """
 from __future__ import annotations
 
@@ -149,7 +152,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     import torch
 
     from vqcpcb_tpu_torch.parallel import distributed
-    from vqcpcb_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from vqcpcb_tpu_torch.parallel.mesh import make_mesh
     from vqcpcb_tpu_torch.training import checkpoints
     from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
     from vqcpcb_tpu_torch.utils import load_config_module
@@ -158,9 +161,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     enable_debug_checks()
     device = distributed.rank_device(args.device)
     rank = distributed.rank()
-    if not args.train and rank != 0:
-        return 0                              # generation runs on rank 0 alone
-    mesh = make_mesh() if args.train else Mesh(1, 1)
+    mesh = make_mesh()
     print(f"Device: {device}" + (f" (rank {rank} of a {mesh.n_data} x "
                                  f"{mesh.n_model} mesh)" if mesh.size > 1 else ""))
     config = load_config_module(args.config_path)
@@ -206,8 +207,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             plot=True,
             num_workers=args.num_workers,
             checkpoint_every_steps=config.get("checkpoint_every_steps"))
-        if rank != 0:
-            return 0                          # generation runs on rank 0 alone
 
     for _ in range(args.num_examples):
         if args.code_juxtaposition:

@@ -12,8 +12,10 @@ the config's `config_decoder`, writing the scores under generations/),
 without CUDA the CLI raises unless given --device cpu). The frozen encoder
 comes from the config's `config_encoder` (main_decoder.load_encoder_stack).
 Several GPUs as for main_decoder: -t trains over the data mesh of every
-rank (torchrun, or the VQCPCB_* variables), rank 0 writes, and -g runs on
-rank 0 alone.
+rank (torchrun, or the VQCPCB_* variables), -g samples the codes and
+decodes them on every rank over the same mesh (the prior's and the
+decoder's one-GPU slots loaded into each rank's blocks), and rank 0
+writes.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from vqcpcb_tpu_torch import getters
     from vqcpcb_tpu_torch.main_decoder import load_encoder_stack
     from vqcpcb_tpu_torch.parallel import distributed
-    from vqcpcb_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from vqcpcb_tpu_torch.parallel.mesh import make_mesh
     from vqcpcb_tpu_torch.training import checkpoints
     from vqcpcb_tpu_torch.training.prior_trainer import PriorTrainer
     from vqcpcb_tpu_torch.training.profiling import enable_debug_checks
@@ -57,9 +59,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     enable_debug_checks()
     device = distributed.rank_device(args.device)
     rank = distributed.rank()
-    if not args.train and rank != 0:
-        return 0                              # generation runs on rank 0 alone
-    mesh = make_mesh() if args.train else Mesh(1, 1)
+    mesh = make_mesh()
     print(f"Device: {device}" + (f" (rank {rank} of a {mesh.n_data} x "
                                  f"{mesh.n_model} mesh)" if mesh.size > 1 else ""))
     config = load_config_module(args.config_path)
@@ -114,12 +114,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             plot=True,
             num_workers=args.num_workers,
             checkpoint_every_steps=config.get("checkpoint_every_steps"))
-        if rank != 0:
-            return 0                          # generation runs on rank 0 alone
 
     if args.generate:
         decoder_trainer = load_decoder_trainer(config, encoder, encoder_config,
-                                               device)
+                                               device, mesh)
         # the code sequence covers at least one decoder window
         decoder = decoder_trainer.decoder
         decoder_window_codes = (decoder.data_processor.num_tokens
@@ -134,12 +132,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
-def load_decoder_trainer(config, encoder, encoder_config, device):
+def load_decoder_trainer(config, encoder, encoder_config, device, mesh=None):
     """The trained decoder of config['config_decoder'] (main_prior.py:
-    102-154): a DecoderTrainer on `device` rebuilt from the decoder's own
-    config (its own sequence geometry) over the prior's frozen encoder
-    (main_decoder.build_decoder_trainer), with the early_stopped slot of its
-    model directory."""
+    102-154): a DecoderTrainer on `device` over `mesh` (default: one rank)
+    rebuilt from the decoder's own config (its own sequence geometry) over
+    the prior's frozen encoder (main_decoder.build_decoder_trainer), with
+    the early_stopped slot of its model directory."""
     from vqcpcb_tpu_torch.main_decoder import build_decoder_trainer
     from vqcpcb_tpu_torch.utils import load_config_module
 
@@ -160,7 +158,7 @@ def load_decoder_trainer(config, encoder, encoder_config, device):
     from vqcpcb_tpu_torch.parallel.mesh import Mesh
     decoder_trainer = build_decoder_trainer(
         decoder_config, encoder, encoder_config, device,
-        os.path.dirname(os.path.abspath(config_decoder_path)), Mesh(1, 1))
+        os.path.dirname(os.path.abspath(config_decoder_path)), mesh or Mesh(1, 1))
     decoder_trainer.load(early_stopped=True)
     return decoder_trainer
 

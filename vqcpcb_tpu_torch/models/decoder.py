@@ -47,6 +47,16 @@ vocabulary divides the axis are vocabulary-parallel (models/heads.py):
 this rank's rows of each, the logits all-gathered along the vocabulary
 before stacked_categorical_crossentropy (decoder.py:240; exact, and small
 at about 4 x 62 columns); the other heads stay replicated.
+
+`sample_range` runs under the mesh the module was sharded with (JAX's
+sampler under GSPMD, tests/test_multichip.py:391): source and tokens_init
+are this rank's rows of the generation batch (`rows`, parallel/mesh.Rows),
+the attention layers run on this rank's heads with caches of its KV heads
+(ops/attention.py), the FFN and the aligned cross MLP column then row
+(ops/transformer.py), the sampled channel's head vocabulary-parallel
+(head_logit), and the noise of each draw is the global batch's
+(ops/sampling.py). The ranks of one data index end with the same tokens,
+which each call checks.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from vqcpcb_tpu_torch.ops.losses import stacked_categorical_crossentropy
 from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerDecoder, TransformerEncoder
+from vqcpcb_tpu_torch.parallel.collectives import check_replicated
 from vqcpcb_tpu_torch.utils import (dense, flatten, kv_cache_dtype,
                                     module_device, to_device)
 
@@ -140,6 +151,12 @@ class Decoder(VocabParallelHeads, nn.Module):
         })
         self.pre_softmaxes = nn.ModuleList(
             nn.Linear(d_model, v) for v in data_processor.num_tokens_per_channel)
+
+    mesh = None                 # the mesh shard_params gave, None off one
+
+    def set_mesh(self, mesh, specs) -> None:
+        super().set_mesh(mesh, specs)
+        self.mesh = mesh
 
     def _stacked_logits(self, output: torch.Tensor) -> torch.Tensor:
         """(B, events, C, d_model) -> the channel-stacked logits (B, events,
@@ -284,10 +301,10 @@ class Decoder(VocabParallelHeads, nn.Module):
     def _head_logits_at(self, x: torch.Tensor, t: int) -> torch.Tensor:
         """Output head of channel t % C padded to the largest vocabulary with
         -inf: x (B, d) -> (B, vocab_max), the values of the JAX padded head
-        (decoder.py:320)."""
+        (decoder.py:320); a split head's logits gathered over `model`."""
         vocabs = self.data_processor.num_tokens_per_channel
         c = t % self.num_channels_decoder
-        logits = self.pre_softmaxes[c](x)
+        logits = self.head_logit(x, c)
         pad = max(vocabs) - vocabs[c]
         if pad:
             logits = F.pad(logits, (0, pad), value=float("-inf"))
@@ -338,7 +355,7 @@ class Decoder(VocabParallelHeads, nn.Module):
                      generator: torch.Generator, temperature: float = 1.0,
                      top_k: int = 0, top_p: float = 0.0,
                      forbidden_indices=None, exact_ties: Optional[bool] = None,
-                     device=None) -> torch.Tensor:
+                     device=None, rows=None) -> torch.Tensor:
         """Sample flat positions [start, start + num_steps) autoregressively
         (decoder.py:421).
 
@@ -347,8 +364,12 @@ class Decoder(VocabParallelHeads, nn.Module):
         forbidden_indices: optional (C, n) token ids excluded per channel.
         Runs on `device` -- the card unless the caller names another; the
         module must already live there. Caches follow utils.kv_cache_dtype
-        (int8 on the card, f32 on the CPU). Returns the updated (B, E, C)
-        tokens on that device."""
+        (int8 on the card, f32 on the CPU). Under a mesh, source and
+        tokens_init are this rank's rows [rows.start, rows.stop) of the
+        generation batch (rows: a parallel/mesh.Rows; None, the batch is
+        this rank's alone) and `generator` is in the same state on every
+        rank (parallel/collectives.common_generator). Returns the updated
+        (B, E, C) tokens on that device."""
         here = module_device(self, device)
         source = to_device(source, here)
         tokens_init = to_device(tokens_init, here)
@@ -369,6 +390,7 @@ class Decoder(VocabParallelHeads, nn.Module):
             if forbidden is not None:
                 logits = logits.index_fill(1, forbidden[t % c], float("-inf"))
             new_token = sample_categorical(generator, logits, temperature,
-                                           top_k, top_p, exact_ties)
+                                           top_k, top_p, exact_ties, rows)
             tokens_flat[:, t] = new_token.to(tokens_flat.dtype)
+        check_replicated(tokens_flat, self.mesh, rows)
         return tokens_flat.reshape(b, num_events, c)

@@ -56,3 +56,15 @@ class VocabParallelHeads:
             offset += width
         return [logits[c] if c in logits else head(x, c)
                 for c in range(len(heads))]
+
+    def head_logit(self, x: torch.Tensor, c: int,
+                   linear: Callable = F.linear) -> torch.Tensor:
+        """Head c's whole logits over x (..., d): the sampler's head at one
+        position. A split head runs on this rank's rows and its logits are
+        all-gathered along the vocabulary over `model`."""
+        h = self.pre_softmaxes[c]
+        if self.head_mesh is None or c not in self.split_heads:
+            return linear(x, h.weight, h.bias)
+        mesh = self.head_mesh
+        return gather_from_model(linear(copy_to_model(x, mesh), h.weight, h.bias),
+                                 mesh)

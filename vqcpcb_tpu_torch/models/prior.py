@@ -26,6 +26,10 @@ transformer.layers.{i}, pre_softmax).
 Under a model axis (parallel/mesh.py shard_params) the head is
 vocabulary-parallel when the vocabulary divides the axis: this rank's rows
 of pre_softmax, the logits all-gathered before the cross entropy.
+`sample_window` runs under that mesh as Decoder.sample_range does: this
+rank's rows of the window (`rows`), its heads' caches, the head's logits
+gathered, the noise of the global batch, the tokens checked equal on the
+ranks of one data index.
 """
 from __future__ import annotations
 
@@ -39,7 +43,9 @@ from vqcpcb_tpu_torch.ops.losses import categorical_crossentropy
 from vqcpcb_tpu_torch.ops.masks import causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerEncoder, train_mode
-from vqcpcb_tpu_torch.parallel.collectives import copy_to_model, gather_from_model
+from vqcpcb_tpu_torch.parallel.collectives import (check_replicated,
+                                                   copy_to_model,
+                                                   gather_from_model)
 from vqcpcb_tpu_torch.utils import kv_cache_dtype, module_device, to_device
 
 
@@ -62,10 +68,20 @@ class PriorRelative(nn.Module):
             num_events, dim_feedforward, dropout, n_head_kv=n_head_kv)
         self.pre_softmax = nn.Linear(d_model, code_vocab_size)
         self.head_mesh = None            # set by set_mesh when it splits the head
+        self.mesh = None                 # the mesh shard_params gave
 
     def set_mesh(self, mesh, specs) -> None:
+        self.mesh = mesh
         self.head_mesh = (mesh if specs.get("pre_softmax.weight") is not None
                           else None)
+
+    def _head(self, out: torch.Tensor) -> torch.Tensor:
+        """pre_softmax's whole logits, gathered over `model` when it is
+        split."""
+        mesh = self.head_mesh
+        if mesh is None:
+            return self.pre_softmax(out)
+        return gather_from_model(self.pre_softmax(copy_to_model(out, mesh)), mesh)
 
     @property
     def num_tokens(self) -> int:
@@ -83,10 +99,7 @@ class PriorRelative(nn.Module):
         (prior.py:57)."""
         out = self.transformer(self._shifted_input(x),
                                causal_mask(x.shape[1], device=x.device))
-        mesh = self.head_mesh
-        if mesh is None:
-            return self.pre_softmax(out)
-        return gather_from_model(self.pre_softmax(copy_to_model(out, mesh)), mesh)
+        return self._head(out)
 
     def forward(self, x: torch.Tensor) -> Dict:
         """The next-code cross entropy of codes (B, num_tokens) (prior.py:67):
@@ -122,12 +135,13 @@ class PriorRelative(nn.Module):
     def _empty_caches(self, b: int, length: int,
                       cache_dt: Optional[torch.dtype]
                       ) -> List[Tuple[Cache, Cache]]:
-        """Zero self-attention caches of the shape prefill fills: a window
-        sampled from position 0 writes each row before it reads it."""
+        """Zero self-attention caches of the shape prefill fills (this
+        rank's KV heads, `cache_heads`): a window sampled from position 0
+        writes each row before it reads it."""
         caches = []
         for layer in self.transformer.layers:
             attn = layer.self_attn
-            zeros = self.sos.new_zeros((b, attn.num_kv_heads, length,
+            zeros = self.sos.new_zeros((b, attn.cache_heads, length,
                                         attn.head_dim))
             caches.append((new_cache(zeros, cache_dt),
                            new_cache(zeros.clone(), cache_dt)))
@@ -136,7 +150,7 @@ class PriorRelative(nn.Module):
     @torch.no_grad()
     def sample_window(self, x_init, start: int, num_steps: int,
                       generator: torch.Generator, temperature: float = 1.0,
-                      top_k: int = 0, device=None) -> torch.Tensor:
+                      top_k: int = 0, device=None, rows=None) -> torch.Tensor:
         """Sample window positions [start, start + num_steps) autoregressively
         (prior.py:114), in eval mode.
 
@@ -146,7 +160,9 @@ class PriorRelative(nn.Module):
         Runs on `device` -- the card unless the caller names another; the
         module must already live there. Caches follow utils.kv_cache_dtype;
         a window sampled from position 0 has no context to prefill, so its
-        caches start as zeros. Returns the updated (B, T) codes (int64) on
+        caches start as zeros. Under a mesh x_init is this rank's rows of
+        the window batch (rows, `generator` common to every rank), as in
+        Decoder.sample_range. Returns the updated (B, T) codes (int64) on
         that device."""
         here = module_device(self, device)
         x = to_device(x_init, here).long().clone()
@@ -165,7 +181,8 @@ class PriorRelative(nn.Module):
                     cache_update(k_cache, k_t, t)
                     cache_update(v_cache, v_t, t)
                     out = layer.step(out, k_cache, v_cache, t, num_tokens)
-                logits = self.pre_softmax(out[:, 0])
+                logits = self._head(out[:, 0])
                 x[:, t] = sample_categorical(generator, logits * temperature,
-                                             1.0, top_k)
+                                             1.0, top_k, rows=rows)
+        check_replicated(x, self.mesh, rows)
         return x

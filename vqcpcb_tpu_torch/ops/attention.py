@@ -64,8 +64,19 @@ replicated, each rank reading the KV heads of its query heads, its
 gradient summed over `model`. Heads that do not divide the model axis keep
 the attention replicated, every rank computing it at its data shard's
 offsets; out_proj, split when E divides, then takes this rank's columns.
-The KV-cached paths (project_q, project_kv, attend, step) serve one
-unsharded rank and raise under a model axis.
+
+The KV-cached paths (project_q, project_kv, attend, step: a sampler's
+prefill and decode steps) and the eval forward without gradients run
+under a model axis on this rank's heads: q of its query heads, k and v of
+the KV heads its caches hold (`cache_heads`: its block of the KV heads,
+or, grouped with a replicated kv_proj, the KV head of each of its query
+heads, as _kv_mesh picks them), its relative-bias tables, and the out
+projection row-parallel (`_project_out`). On the card the prefill's
+attention launches K3-fwd (or K4 without the bias) on the rank's own
+(b_local, h_local) planes, each equal to the unsharded kernel's plane, as
+JAX's inference path computes the whole (attention.py:239-252, which falls
+back to XLA under a mesh). Under a data axis alone a rank runs its rows
+with the unsharded code.
 """
 from __future__ import annotations
 
@@ -190,12 +201,18 @@ class MultiheadAttention(nn.Module):
     def _model_axis(self) -> bool:
         return self.mesh is not None and self.mesh.n_model > 1
 
-    def _check_unsharded(self) -> None:
-        if self._model_axis:
-            raise NotImplementedError(
-                "the KV-cached attention runs on one unsharded rank; gather "
-                "the parameters (parallel/mesh.gather_params) into a module "
-                "without a mesh to sample")
+    @property
+    def cache_heads(self) -> int:
+        """The KV heads this rank's caches hold (project_kv's): every KV
+        head off a model axis or where the heads do not split; its block of
+        them where kv_proj (or in_proj) splits; grouped with a replicated
+        kv_proj, one for each of its query heads."""
+        if not (self._model_axis and self.tp_heads):
+            return self.num_kv_heads
+        m = self.mesh.n_model
+        if self.grouped and self.tp_kv:
+            return self.num_kv_heads // m
+        return self.num_heads // m
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
@@ -225,23 +242,41 @@ class MultiheadAttention(nn.Module):
         return kv.chunk(2, dim=-1)
 
     def project_q(self, query: torch.Tensor) -> torch.Tensor:
-        """(B, L, E) -> scaled q (B, H, L, hd), in the compute dtype."""
-        self._check_unsharded()
+        """(B, L, E) -> scaled q (B, H, L, hd), in the compute dtype; under
+        a model axis that splits the heads, this rank's H / m heads."""
         return self._split_heads(self._q_packed(query) * self.head_dim ** -0.5)
 
     def project_kv(self, key: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, S, E) -> k, v each (B, H_kv, S, hd), in the compute dtype."""
-        self._check_unsharded()
-        k, v = self._kv_packed(key)
+        """(B, S, E) -> k, v each (B, cache_heads, S, hd), in the compute
+        dtype: every KV head, or under a model axis those of this rank."""
+        if (self._model_axis and self.tp_heads and self.grouped
+                and not self.tp_kv):
+            # a replicated kv_proj: the KV head of each of this rank's
+            # query heads
+            k, v = self._kv_mesh(key, self.num_heads // self.mesh.n_model)
+        else:
+            k, v = self._kv_packed(key)
         return self._split_heads(k), self._split_heads(v)
 
     def _out_proj(self, out: torch.Tensor) -> torch.Tensor:
         return dense(out, self.out_proj.weight, self.out_proj.bias)
 
+    def _project_out(self, out: torch.Tensor) -> torch.Tensor:
+        """The out projection of the attention's packed output (B, T, h *
+        hd): under a model axis row-parallel over this rank's heads (or, with
+        replicated heads and a split out_proj, over its columns of them),
+        reduced over `model`, the bias added once."""
+        if not (self._model_axis and (self.tp_heads or self.tp_out)):
+            return self._out_proj(out)
+        if not self.tp_heads:
+            out = split_to_model(out, self.mesh)
+        return row_parallel(out, self.out_proj.weight, self.out_proj.bias,
+                            self.mesh)
+
     def _merge_heads(self, out: torch.Tensor) -> torch.Tensor:
         b, h, t, d = out.shape
-        return self._out_proj(out.transpose(1, 2).reshape(b, t, h * d))
+        return self._project_out(out.transpose(1, 2).reshape(b, t, h * d))
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None
@@ -250,10 +285,12 @@ class MultiheadAttention(nn.Module):
         additive (L_tgt, L_src) mask or None. Returns (output (B, L_tgt, E),
         weights (B, H, L_tgt, L_src) on the plain inference path, None on the
         kernel and training paths). Train mode takes the training route, and
-        so does eval under a model axis, at dropout 0."""
+        so does eval under a model axis with gradients on, at dropout 0
+        (its backward needs the Megatron collectives); eval without them
+        attends on this rank's heads, as a sampler's prefill does."""
         if self.training:
             return self._train_packed(query, key, attn_mask), None
-        if self._model_axis:
+        if self._model_axis and torch.is_grad_enabled():
             return self._train_mesh(query, key, attn_mask, 0.0), None
         return self.attend(self.project_q(query), *self.project_kv(key),
                            attn_mask)
@@ -355,11 +392,7 @@ class MultiheadAttention(nn.Module):
                     self._explicit_bias(q.unflatten(-1, (h, -1)).transpose(1, 2)))
             out = fused_attention_train_tp(shards, q, k, v, attn_mask, bias, h,
                                            float(dropout), seed, dot_dtype)
-        if not (tp or self.tp_out):
-            return self._out_proj(out)
-        if not tp:
-            out = split_to_model(out, mesh)
-        return row_parallel(out, self.out_proj.weight, self.out_proj.bias, mesh)
+        return self._project_out(out)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None
@@ -371,9 +404,11 @@ class MultiheadAttention(nn.Module):
         values): the scores accumulate in f32 as JAX's
         preferred_element_type has them, and on the CPU the weights are
         rounded to v's dtype before w.v, as JAX rounds them. Grouped k and
-        v (H_kv heads) are expanded to H heads first."""
-        k, v = (expand_kv_heads(x, self.num_kv_heads, self.group)
-                for x in (k, v))
+        v (fewer heads than q) are expanded to q's heads first. Under a
+        model axis q, k and v are this rank's heads (project_q /
+        project_kv), and the kernels run on its planes."""
+        g = q.shape[1] // k.shape[1]
+        k, v = (expand_kv_heads(x, x.shape[1], g) for x in (k, v))
         v_dtype = v.dtype
         q, k, v = q.float(), k.float(), v.float()
         if q.device.type != "cpu":
@@ -407,8 +442,9 @@ class MultiheadAttention(nn.Module):
         int8 tuples. causal: the rule keys <= t, for which only rows [0, t]
         are read; key_len_mask: (S,) bool of visible keys, or None for all.
         Caches are read with the grouped einsum (attention.py:386-411, g = 1
-        when ungrouped), never expanded. Returns (B, 1, E)
-        (attention.py:354)."""
+        when ungrouped), never expanded. Under a model axis the query heads,
+        the caches and the tables are this rank's, and the out projection
+        is row-parallel. Returns (B, 1, E) (attention.py:354)."""
         q = self.project_q(query_t)[:, :, 0].float()          # (B, H, hd)
         if causal:
             k_cache = cache_prefix(k_cache, t + 1)
@@ -418,7 +454,8 @@ class MultiheadAttention(nn.Module):
         v_dtype, v = v.dtype, v.float()
         s = k.shape[2]
         b, h, d = q.shape
-        kv, g = self.num_kv_heads, self.group               # g = 1 ungrouped
+        kv = k.shape[1]
+        g = h // kv                                         # 1 ungrouped
         scores = torch.einsum("bkgd,bksd->bkgs", q.view(b, kv, g, d),
                               k).reshape(b, h, s)
         if self.attn_bias is not None:
@@ -429,5 +466,5 @@ class MultiheadAttention(nn.Module):
             scores = scores.masked_fill(~key_len_mask, float("-inf"))
         weights = torch.softmax(scores, dim=-1).to(v_dtype).float()
         out = torch.einsum("bkgs,bksd->bkgd", weights.view(b, kv, g, s), v)
-        return self._out_proj(out.reshape(b, 1, h * d))
+        return self._project_out(out.reshape(b, 1, h * d))
 

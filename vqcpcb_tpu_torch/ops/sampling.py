@@ -1,5 +1,11 @@
 """Batched top-k / top-p filtering and categorical sampling (counterpart of
-vqcpcb_tpu/ops/sampling.py). Draws come from an explicit torch.Generator."""
+vqcpcb_tpu/ops/sampling.py). Draws come from an explicit torch.Generator.
+
+Over a data mesh each rank samples its own rows of a global batch
+(`rows`, parallel/mesh.Rows): it draws the noise of the whole global batch
+from a generator every rank holds in the same state and keeps its rows, so
+a row's draws do not depend on how the batch is split, as jax.random on a
+global array gives them (vqcpcb_tpu/models/decoder.py:452-470)."""
 from __future__ import annotations
 
 import os
@@ -62,12 +68,25 @@ def _shift_right(remove: torch.Tensor) -> torch.Tensor:
 def sample_categorical(generator: torch.Generator, logits: torch.Tensor,
                        temperature: float = 1.0, top_k: int = 0,
                        top_p: float = 0.0,
-                       exact_ties: Optional[bool] = None) -> torch.Tensor:
+                       exact_ties: Optional[bool] = None,
+                       rows=None) -> torch.Tensor:
     """Temperature + top-k/top-p sampling over the last axis by the Gumbel-max
     rule, argmax(logits - log E) with E ~ Exp(1) from `generator` (the rule
-    of jax.random.categorical; the two generators' numbers differ)."""
+    of jax.random.categorical; the two generators' numbers differ).
+
+    rows: None, or this rank's slice of the global batch (parallel/mesh.Rows;
+    logits (B_local, V) are its rows [rows.start, rows.stop) of rows.total):
+    E is drawn for the whole (rows.total, V) batch and this rank keeps its
+    rows. A slice over the whole batch draws what None draws."""
     logits = logits / temperature
     logits = top_k_top_p_filtering(logits, top_k=top_k, top_p=top_p,
                                    exact_ties=exact_ties)
-    noise = torch.empty_like(logits).exponential_(generator=generator)
+    if rows is None or rows.total == logits.shape[0]:
+        noise = torch.empty_like(logits).exponential_(generator=generator)
+    else:
+        if rows.stop - rows.start != logits.shape[0]:
+            raise ValueError(f"{logits.shape[0]} rows of logits for the rows "
+                             f"[{rows.start}, {rows.stop}) of {rows.total}")
+        noise = logits.new_empty((rows.total,) + tuple(logits.shape[1:])
+                                 ).exponential_(generator=generator)[rows.start:rows.stop]
     return torch.argmax(logits - noise.log(), dim=-1)

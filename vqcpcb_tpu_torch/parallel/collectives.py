@@ -166,6 +166,58 @@ def gather_over_data(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return all_gather(x, mesh, DATA_AXIS).flatten(0, 1)
 
 
+def gather_rows(x: torch.Tensor, rows, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The global batch of a generation from this rank's rows (mesh.Rows):
+    gathered over `data` where the batch was split, x itself where every
+    data rank ran it whole."""
+    if mesh is None or not rows.split:
+        return x
+    return gather_over_data(x, mesh)
+
+
+def common_generator(generator: torch.Generator, mesh: Optional[Mesh]
+                     ) -> torch.Generator:
+    """A generator in rank 0's state on every rank (a broadcast over the
+    process group): the draws every rank of a generation makes in step
+    (ops/sampling.sample_categorical's `rows`). Rank 0, and a single rank,
+    get `generator` itself, which the draws then advance as one rank's;
+    another rank gets a new generator on the same device."""
+    if mesh is None or mesh.size == 1:
+        return generator
+    if mesh.simulated:
+        raise RuntimeError("common_generator on a simulated mesh: it has no "
+                           "process group")
+    state = generator.get_state().to(generator.device)
+    dist.broadcast(state, src=0)
+    if dist.get_rank() == 0:
+        return generator
+    common = torch.Generator(device=generator.device)
+    common.set_state(state.cpu())
+    return common
+
+
+def check_replicated(tokens: torch.Tensor, mesh: Optional[Mesh],
+                     rows=None) -> None:
+    """Raise unless the ranks of one data index hold the same tokens of a
+    generation, and, where every data rank ran the whole batch (`rows` not
+    split), every rank: two int64 checksums (the sum, and the sum weighted
+    by position) gathered over each axis, a few bytes a rank."""
+    if mesh is None or mesh.size == 1:
+        return
+    axes = (MODEL_AXIS,) if rows is None or rows.split else (MODEL_AXIS, DATA_AXIS)
+    flat = tokens.reshape(-1).long()
+    weights = torch.arange(1, flat.numel() + 1, device=flat.device) % 1000003
+    sums = torch.stack([flat.sum(), (flat * weights).sum()])
+    for axis in axes:
+        n = mesh.n_data if axis == DATA_AXIS else mesh.n_model
+        if n == 1:
+            continue
+        every = all_gather(sums, mesh, axis)
+        if not bool((every == sums).all()):
+            raise RuntimeError(f"the ranks of the {axis} axis sampled "
+                               f"different tokens (checksums {every.tolist()})")
+
+
 def average_gradients(grads: List[torch.Tensor], mesh: Mesh) -> None:
     """Average gradients over the data axis in place, one all-reduce of
     them flattened: the gradient of the global-batch mean loss."""

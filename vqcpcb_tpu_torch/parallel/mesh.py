@@ -3,8 +3,9 @@ rules (counterpart of vqcpcb_tpu/parallel/mesh.py).
 
 A mesh is the torch.distributed ranks reshaped to (data, model), rank
 r = data_index * n_model + model_index, as JAX reshapes its device list. Each
-rank holds its own rows of the batch (`shard_batch`) and, under a model axis
-above 1, its own slices of the transformer's matrices (`shard_params`); the
+rank holds its own rows of the batch (`shard_batch`; a generation's rows,
+with their place in the global batch, `generation_rows`) and, under a model
+axis above 1, its own slices of the transformer's matrices (`shard_params`); the
 modules then run Megatron's column / row split with the collectives of
 `collectives.py`, where GSPMD inserts them in JAX (mesh.py:120-177). A mesh
 of one rank is today's single-device path: nothing is sliced, nothing is
@@ -172,6 +173,36 @@ def shard_batch_local(batch, mesh: Mesh):
         return x
 
     return _map_leaves(place, batch)
+
+
+@dataclass(frozen=True)
+class Rows:
+    """This rank's rows [start, stop) of a global batch of `total` rows."""
+    start: int
+    stop: int
+    total: int
+
+    @property
+    def split(self) -> bool:
+        """Whether the rank holds only a part of the batch."""
+        return self.stop - self.start != self.total
+
+    def of(self, x):
+        """These rows of a global batch (an array or a tensor)."""
+        return x[self.start:self.stop]
+
+
+def generation_rows(batch_size: int, mesh: Mesh) -> Rows:
+    """The rows of a generation batch this rank samples: its block of the
+    data axis when the batch divides n_data (shard_batch's), else the whole
+    batch on every data rank, replicated, as JAX places a batch that does
+    not divide (the CLIs' batch of 3 on 2 or 4 ranks)."""
+    n = mesh.n_data
+    if n > 1 and batch_size % n == 0:
+        local = batch_size // n
+        return Rows(mesh.data_index * local, (mesh.data_index + 1) * local,
+                    batch_size)
+    return Rows(0, batch_size, batch_size)
 
 
 # ---- tensor-parallel parameter rules ---------------------------------------

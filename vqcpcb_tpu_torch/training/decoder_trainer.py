@@ -32,6 +32,16 @@ stream per data rank, the same for the ranks of one data index, whose
 activations are replicated); the attention's seed generator with seed on
 every rank (the K7 wrappers offset it per shard). A one-rank mesh is the
 single-device path.
+
+Generation runs over the same mesh on every rank (JAX's sampler over its
+mesh, tests/test_multichip.py:391): a batch that divides the data axis is
+split over it (parallel/mesh.generation_rows), each rank encoding its rows
+(K1 on them) and sampling them with the draws of the global batch from a
+generator common to every rank (parallel/collectives.common_generator:
+rank 0's state), the decoder on its heads and blocks; a batch that does
+not divide runs whole on every data rank. The rows are gathered over
+`data` before the host-side window glue, which every rank repeats; rank 0
+writes the scores.
 """
 from __future__ import annotations
 
@@ -47,9 +57,11 @@ from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, START_SYMBOL,
 from vqcpcb_tpu_torch.models.decoder import Decoder
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
 from vqcpcb_tpu_torch.ops.transformer import wire_generators
-from vqcpcb_tpu_torch.parallel.collectives import mean_over_data
-from vqcpcb_tpu_torch.parallel.mesh import (make_mesh, module_specs,
-                                            shard_batch, shard_params)
+from vqcpcb_tpu_torch.parallel.collectives import (common_generator,
+                                                   gather_rows, mean_over_data)
+from vqcpcb_tpu_torch.parallel.mesh import (Mesh, generation_rows, make_mesh,
+                                            module_specs, shard_batch,
+                                            shard_params)
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
@@ -180,12 +192,13 @@ class DecoderTrainer(TrainLoopMixin):
         return self.dataloader_generator.dataset.vocabulary
 
     def _generation(self) -> "DecoderGenerator":
-        """A DecoderGenerator over this trainer's modules (which puts the
-        decoder in eval mode), drawing from the trainer's device
-        generator."""
+        """A DecoderGenerator over this trainer's modules and mesh (which
+        puts the decoder in eval mode), drawing from the trainer's device
+        generator (rank 0's, on every rank)."""
         sampler = DecoderGenerator(self.encoder, self.decoder, self._vocab,
-                                   self.codebook_size, device=self.device)
-        sampler.generator = self.generator
+                                   self.codebook_size, device=self.device,
+                                   mesh=self.mesh)
+        sampler.generator = common_generator(self.generator, self.mesh)
         return sampler
 
     def generate(self, temperature: float, batch_size: int = 1, top_k: int = 0,
@@ -196,7 +209,8 @@ class DecoderTrainer(TrainLoopMixin):
         excerpt of `seed_set` (with code_juxtaposition, the first half of
         one and the second half of another), every position sampled
         `batch_size` times; writes the originals and the samples under
-        generations/ (or juxtapositions/) and returns the written paths."""
+        generations/ (or juxtapositions/) and returns the written paths
+        (rank 0; the other ranks of a mesh sample with it and return [])."""
         sampler = self._generation()
         generator_train, generator_val, _ = \
             self.dataloader_generator.dataloaders(batch_size=1, shuffle_val=True)
@@ -210,13 +224,14 @@ class DecoderTrainer(TrainLoopMixin):
             x_original_single = next(iter(pick))["x"]
         x_original = np.tile(x_original_single, (batch_size, 1, 1))
         codes = sampler.encode_codes(x_original)
-        sampled = self.decoder.sample_range(
+        sampled = sampler.sample(
             codes, np.zeros_like(x_original), 0,
-            self.decoder.data_processor.num_tokens, self.generator,
+            self.decoder.data_processor.num_tokens,
             temperature=float(temperature), top_k=int(top_k),
             top_p=float(top_p),
-            forbidden_indices=sampler._forbidden(exclude_meta_symbols),
-            device=self.device).cpu().numpy()
+            forbidden_indices=sampler._forbidden(exclude_meta_symbols))
+        if not self._writes:
+            return []
 
         timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         save_dir = os.path.join(
@@ -239,23 +254,25 @@ class DecoderTrainer(TrainLoopMixin):
         re-harmonised `num_reharmonisations` times by
         DecoderGenerator.generate_reharmonisation; variant k of score i is
         written as score{i}_{k} under write_dir (default
-        {model_dir}/reharmonisations). Returns the grids."""
+        {model_dir}/reharmonisations; rank 0 writes). Returns the grids."""
         from vqcpcb_tpu_torch.data.tokenizer import score_to_ticks
         sampler = self._generation()
         dataset = self.dataloader_generator.dataset
         if scores is None:
             scores = [next(iter(dataset.corpus))]
         write_dir = write_dir or os.path.join(self.model_dir, "reharmonisations")
-        os.makedirs(write_dir, exist_ok=True)
+        if self._writes:
+            os.makedirs(write_dir, exist_ok=True)
         all_outputs = []
         for score_id, score in enumerate(scores):
             ticks = score_to_ticks(score, dataset.vocabulary, dataset.subdivision)
             outs = sampler.generate_reharmonisation(
                 ticks.T[None], num_reharmonisations, temperature=temperature,
                 top_k=top_k, top_p=top_p)
-            for k, grid in enumerate(outs):
-                self.dataloader_generator.write(
-                    grid, os.path.join(write_dir, f"score{score_id}_{k}"))
+            if self._writes:
+                for k, grid in enumerate(outs):
+                    self.dataloader_generator.write(
+                        grid, os.path.join(write_dir, f"score{score_id}_{k}"))
             all_outputs.extend(outs)
         return all_outputs
 
@@ -263,7 +280,7 @@ class DecoderTrainer(TrainLoopMixin):
                            temperature: float, num_decodings: int = 3
                            ) -> List[np.ndarray]:
         """Decode hand-written codes (decoder_trainer.py:473): the body
-        between start and end codes, written under alla_mano/."""
+        between start and end codes, written under alla_mano/ (rank 0)."""
         code_index_start = len(start_codes)
         codes = list(start_codes) + list(body_codes)
         code_index_end = len(codes)
@@ -271,6 +288,8 @@ class DecoderTrainer(TrainLoopMixin):
         outs = self._generation().generate_from_code_long(
             codes, temperature=temperature, num_decodings=num_decodings,
             code_index_start=code_index_start, code_index_end=code_index_end)
+        if not self._writes:
+            return outs
         save_dir = os.path.join(self.model_dir, "alla_mano")
         os.makedirs(save_dir, exist_ok=True)
         for k, grid in enumerate(outs):
@@ -318,23 +337,43 @@ class DecoderTrainer(TrainLoopMixin):
 
 
 class DecoderGenerator:
+    """mesh: the mesh the decoder was sharded with (default: the decoder's,
+    else one rank); every rank of it makes the same calls, each encoding
+    and sampling its rows of every batch (generation_rows) and holding the
+    whole batch after them."""
+
     def __init__(self, encoder: Encoder, decoder: Decoder,
                  vocabulary: Vocabulary, codebook_size: int, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.device = resolve_device(device)
         self.encoder = encoder.to(self.device).eval()
         self.decoder = decoder.to(self.device).eval()
         self.vocabulary = vocabulary
         self.codebook_size = codebook_size
+        self.mesh = mesh or decoder.mesh or Mesh(1, 1)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     @torch.no_grad()
     def encode_codes(self, x) -> torch.Tensor:
         """Token grid (B, ticks, voices) -> merged codes (B, S), or z (B, S,
         dim) over an unquantized encoder, on the device
-        (decoder_trainer.py:109)."""
-        return encode_source(self.encoder, to_device(x, self.device),
-                             self.codebook_size)
+        (decoder_trainer.py:109): each rank encodes its rows, gathered
+        over `data` after."""
+        rows = generation_rows(len(x), self.mesh)
+        codes = encode_source(self.encoder, to_device(rows.of(x), self.device),
+                              self.codebook_size)
+        return gather_rows(codes, rows, self.mesh)
+
+    def sample(self, source, tokens_init, start: int, num_steps: int,
+               **kwargs) -> np.ndarray:
+        """Decoder.sample_range over the mesh from the generator: this
+        rank's rows of the batch, the whole batch (B, E, C) gathered back
+        to the host."""
+        rows = generation_rows(len(tokens_init), self.mesh)
+        out = self.decoder.sample_range(
+            rows.of(source), rows.of(tokens_init), start, num_steps,
+            self.generator, device=self.device, rows=rows, **kwargs)
+        return gather_rows(out, rows, self.mesh).cpu().numpy()
 
     def _meta_chunks(self, num_events: int):
         """START/PAD, END/PAD and PAD framing chunks (decoder_trainer.py:250)."""
@@ -417,12 +456,11 @@ class DecoderGenerator:
             chunk = min(codes_per_window, code_index_end - code_index,
                         num_tokens_indices - t_relative)
             ev0, ev1 = t_begin * events_per_code, t_end * events_per_code
-            sampled = dec.sample_range(
+            sampled = self.sample(
                 codes_rep[:, t_begin:t_end], chorale[:, ev0:ev1],
                 t_relative * total_upscaling, chunk * total_upscaling,
-                self.generator, temperature=temperature, top_k=top_k,
-                top_p=top_p, forbidden_indices=forbidden, device=self.device)
-            sampled = sampled.cpu().numpy()
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                forbidden_indices=forbidden)
             rel0 = t_relative * events_per_code
             abs0 = code_index * events_per_code
             n_ev = chunk * events_per_code

@@ -21,7 +21,11 @@ Over a (data, model) mesh (`mesh`, by default make_mesh() over every rank,
 prior_trainer.py:54-57) it trains as DecoderTrainer does
 (training/decoder_trainer.py): the prior's blocks, this rank's rows through
 the frozen encoder and the prior, gradients and losses averaged over
-`data`, the dropout generator seeded per data rank.
+`data`, the dropout generator seeded per data rank. It generates over the
+mesh on every rank as DecoderTrainer does: each rank samples its rows of a
+batch that divides the data axis (the whole batch otherwise) with rank 0's
+generator state, the rows gathered over `data` before the window glue;
+rank 0 writes.
 """
 from __future__ import annotations
 
@@ -35,9 +39,11 @@ import torch
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
 from vqcpcb_tpu_torch.models.prior import PriorRelative
 from vqcpcb_tpu_torch.ops.transformer import wire_generators
-from vqcpcb_tpu_torch.parallel.collectives import mean_over_data
-from vqcpcb_tpu_torch.parallel.mesh import (make_mesh, module_specs,
-                                            shard_batch, shard_params)
+from vqcpcb_tpu_torch.parallel.collectives import (common_generator,
+                                                   gather_rows, mean_over_data)
+from vqcpcb_tpu_torch.parallel.mesh import (generation_rows, make_mesh,
+                                            module_specs, shard_batch,
+                                            shard_params)
 from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import Adam
 from vqcpcb_tpu_torch.training.profiling import check_finite
@@ -122,7 +128,7 @@ class PriorTrainer(TrainLoopMixin):
 
     def generate_codes(self, num_tokens: int, num_generated_codes: int = 1,
                        temperature: float = 1.0,
-                       chunk: Optional[int] = None) -> np.ndarray:
+                       chunk: Optional[int] = None, top_k: int = 0) -> np.ndarray:
         """Sample (num_generated_codes, num_tokens) codes, KV-cached.
 
         The first model window's codes come from one sample_window call
@@ -133,7 +139,10 @@ class PriorTrainer(TrainLoopMixin):
         prior_relative.py:327-353). `chunk` (default VQCPCB_PRIOR_CHUNK, else
         half the model window, as the JAX code does) is clipped to
         [1, model_tokens - 1]. The logits are multiplied by `temperature`
-        (PriorRelative.sample_window)."""
+        (PriorRelative.sample_window; top_k, its filter, 0 as JAX's
+        generate_codes samples, 1 greedy). Over the mesh each rank samples its
+        rows (generation_rows) from rank 0's generator state; every rank
+        returns the whole batch."""
         model_tokens = self.prior.num_tokens
         if num_tokens < model_tokens:
             raise ValueError(f"{num_tokens} codes is shorter than the prior's "
@@ -144,12 +153,15 @@ class PriorTrainer(TrainLoopMixin):
         chunk = max(1, min(chunk, model_tokens - 1))
         b = num_generated_codes
         x = np.zeros((b, num_tokens), dtype=np.int32)
+        generator = common_generator(self.generator, self.mesh)
+        rows = generation_rows(b, self.mesh)
 
         def sample(window, start, num_steps):
-            return self.prior.sample_window(
-                window, start, num_steps, self.generator,
-                temperature=float(temperature),
-                device=self.device).cpu().numpy().astype(np.int32)
+            out = self.prior.sample_window(
+                rows.of(window), start, num_steps, generator,
+                temperature=float(temperature), top_k=top_k,
+                device=self.device, rows=rows)
+            return gather_rows(out, rows, self.mesh).cpu().numpy().astype(np.int32)
 
         x[:, :model_tokens] = sample(x[:, :model_tokens], 0, model_tokens)
         pos = model_tokens
@@ -167,13 +179,16 @@ class PriorTrainer(TrainLoopMixin):
         """Sample codes, decode each num_decodings_per_generated_code times
         through `decoder_trainer` (a DecoderTrainer over the same encoder's
         codes) and write the scores under {model_dir}/generations
-        (prior_trainer.py:229). Returns the token grids."""
+        (prior_trainer.py:229; rank 0 writes). Returns the token grids. Over
+        a mesh both trainers run over it (the same ranks)."""
         codes = self.generate_codes(num_tokens,
                                     num_generated_codes=num_generated_codes,
                                     temperature=temperature)
         grids = decoder_trainer._generation().generate_from_code_long(
             codes, temperature=temperature,
             num_decodings=num_decodings_per_generated_code)
+        if not self._writes:
+            return grids
         timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         save_dir = os.path.join(self.model_dir, "generations")
         os.makedirs(save_dir, exist_ok=True)
