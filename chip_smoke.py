@@ -103,14 +103,14 @@ Phases, in order; any failure raises and the run exits non-zero:
      teacher-forced argmax, (d) with --profile, 3 profiled steps and
      one profiled sampling window;
  13. one JSON line of per-kernel numbers, then the result line (printed
-     last, after phases 14, 15 and 16);
+     last, after phases 14 to 18);
  14. the scale-up MIDI chain (scripts/r5_chain9.sh) through the CLIs in
      process in build/scaleup_midi, at the configs' full width: (a) 512
      .mid files from the port's writer (make_midi_corpus.py), their cache
      key, the encoder's and the decoder's windows built with the native
      tokenizer (count, seconds), and the encoder's again with
      VQCPCB_NATIVE=0 (the NumPy paths; seconds, equal bit for bit);
-     (b) the encoder CLI -t on configs/encoder_scaleup_midi.py (40 batches)
+     (b) the encoder CLI -t on configs/encoder_scaleup_midi.py (12 batches)
      as configured, again with VQCPCB_REMAT=1, and 6 batches with
      VQCPCB_COMPUTE_DTYPE=bfloat16: epoch tokens/s, CLI seconds, median
      ms/step, peak memory of the train steps; (c) the decoder CLI -t on
@@ -181,13 +181,29 @@ Phases, in order; any failure raises and the run exits non-zero:
      against one rank's run on the card: greedy tokens equal but at near
      ties (counted), the codes equal, every rank the same tokens, the
      stochastic run's share of equal tokens, tokens/s (not speeds of the
-     mesh).
+     mesh);
+ 18. the f32 route (VQCPCB_PALLAS_BF16_DOTS=0 with
+     VQCPCB_COMPUTE_DTYPE=float32, the in-kernel relative bias): (a) the
+     f32-dot kernels at the flagship's shapes against their plain versions
+     within 1e-5 of max(1, max |value|), the dropout masks bit for bit, a
+     second backward bit for bit: K2-fwd and K2-bwd at batch 32, T = S =
+     384 causal, packed, dropout 0.2; K3-fwd at batch 512, causal 384 x 384
+     and 384 x 24 (ratio 16); K6-bwd with a real bias at batch 32; each
+     timed beside its plain version, its bound and one f32 SDPA call with
+     the mask and bias as a float mask (its backward by device time);
+     (b) the flagship's serving at full width: encode, sample_range at 512
+     x 384 (tokens/s, the prefill's ms and launches), logits at batch 8
+     against the CPU plain route; (c) 30 train steps at batch 32, dropout
+     0.2 (ms/step, tokens/s, a falling loss), and the kernel route against
+     the CPU f32 plain route at batch 2 (the loss within 1e-5 relative,
+     every gradient's relative L2 gap within 1e-4).
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
 (a) and (c), the CLI calls of phase 14, the runs and CLI calls of phase 15,
 the CLI calls and the two encodes at batch 512 of phase 16, and the CLI
 calls of phase 17 (b) with the ranks' steps of (c) and samplers of (e)
-(their launches counted in each rank and summed) are the main paths: each
+(their launches counted in each rank and summed), and the serving run and
+the 30 steps of phase 18 are the main paths: each
 is driven with the launch counts set to 0 just before it and read just
 after. Every K1 launch on them must run a compiled instance.
 
@@ -645,35 +661,40 @@ def _hold_scratch(what, bwd, weights_plain, inputs, kw) -> str:
     return f"bf16 w_drop and ds = the plain version's at all {b * h * t * s} entries"
 
 
-def _hold_weights(what, fwd, weights_plain, inputs, kw) -> str:
-    """The forward's bf16 w_drop against the plain version's f32 w_drop
-    rounded to bf16: equal at every entry (the forward's counterpart of
-    _hold_scratch). With v the one-hot columns of a block of 64 keys, the
-    kernel's out is exactly its bf16 w_drop there: one product of a bf16
-    weight and 1, and zeros, summed in f32. `inputs` is (q, k, v, mask,
-    *extra, dout) as weights_plain takes them; fwd takes them without dout."""
+def _dropped_rows(fwd, q, k, v, mask, extra, kw, s):
+    """The forward's dropped weights (B, H, T, S) in f32: with v the one-hot
+    columns of a block of d keys, its output is that block of w_drop (one
+    product of a weight and 1, and zeros, summed in f32). v shares k's
+    strides, as the kernels ask (k, v may be slices of one projection)."""
     from vqcpcb_tpu_torch.ops._kernel_io import heads
-    q, k, v, mask, *extra, g = inputs
-    kw = {key: val for key, val in kw.items() if key != "need_dmask"}
-    w_drop, _ = weights_plain(*inputs, **kw)
-    b, h, t, s = w_drop.shape
     nh = kw.get("num_heads")
-    d = heads(q, nh).shape[-1]
-    differ = 0
+    b, h, t, d = heads(q, nh).shape
+    rows = torch.empty((b, h, t, s), device="cuda")
     for c0 in range(0, s, d):
         n = min(d, s - c0)
         one_hot = torch.zeros((b, h, s, d), device="cuda")
         one_hot[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
         if nh:
             one_hot = one_hot.transpose(1, 2).reshape(b, s, h * d)
-        # v shares k's strides, as the kernels ask (k, v may be slices of
-        # one projection)
         vv = torch.empty_strided(k.shape, k.stride(), dtype=v.dtype, device="cuda")
         vv.copy_(one_hot)
-        out = heads(fwd(q, k, vv, mask, *extra, **kw), nh)
-        want = w_drop[..., c0:c0 + n].to(torch.bfloat16).float()
-        differ += (out[..., :n].float() != want).sum().item()
-        del out, one_hot
+        rows[..., c0:c0 + n] = heads(fwd(q, k, vv, mask, *extra, **kw), nh)[..., :n]
+        del one_hot, vv
+    return rows
+
+
+def _hold_weights(what, fwd, weights_plain, inputs, kw) -> str:
+    """The forward's bf16 w_drop against the plain version's f32 w_drop
+    rounded to bf16: equal at every entry (the forward's counterpart of
+    _hold_scratch), read through _dropped_rows. `inputs` is (q, k, v, mask,
+    *extra, dout) as weights_plain takes them; fwd takes them without dout."""
+    q, k, v, mask, *extra, g = inputs
+    kw = {key: val for key, val in kw.items() if key != "need_dmask"}
+    w_drop, _ = weights_plain(*inputs, **kw)
+    b, h, t, s = w_drop.shape
+    rows = _dropped_rows(fwd, q, k, v, mask, extra, kw, s)
+    differ = (rows != w_drop.to(torch.bfloat16).float()).sum().item()
+    del rows
     log(f"# {what}: forward bf16 w_drop vs the plain version's, {differ} of "
         f"{b * h * t * s} entries differ (need 0)")
     if differ:
@@ -1369,14 +1390,17 @@ PREFILL_LAUNCHES = {"flagship": ("relbias_attention_fwd", 6),
                     "absolute": ("fused_attention", 9)}
 # Launches of one train step: the attentions' forward and backward, and K1
 # for the frozen encoder's codes. "explicit_bias" is the flagship with
-# VQCPCB_PALLAS_RELBIAS=0.
+# VQCPCB_PALLAS_RELBIAS=0, "flagship_f32" with f32 dots (phase 18).
 STEP_LAUNCHES = {
     "flagship": {"relbias_attention_fwd": 6, "relbias_attention_bwd": 6,
                  "vq_nearest": 1},
     "absolute": {"fused_attention_train_fwd": 9,
                  "fused_attention_train_bwd_nobias": 9, "vq_nearest": 1},
     "explicit_bias": {"fused_attention_train_fwd": 6,
-                      "fused_attention_train_bwd": 6, "vq_nearest": 1}}
+                      "fused_attention_train_bwd": 6, "vq_nearest": 1},
+    "flagship_f32": {"relbias_attention_fwd": 6, "relbias_attention_bwd": 6,
+                     "relbias_attention_fwd_f32": 6, "relbias_attention_bwd_f32": 6,
+                     "vq_nearest": 1}}
 
 
 def build_models(vocab, dropout: float = 0.0, kind: str = "flagship",
@@ -1450,7 +1474,10 @@ class Launches(dict):
 
 KERNELS = ("vq_nearest", "relbias_attention_fwd", "relbias_attention_bwd",
            "fused_attention", "fused_attention_train_fwd",
-           "fused_attention_train_bwd", "fused_attention_train_bwd_nobias")
+           "fused_attention_train_bwd", "fused_attention_train_bwd_nobias",
+           # of those, the calls with f32 dots (VQCPCB_PALLAS_BF16_DOTS=0)
+           "relbias_attention_fwd_f32", "relbias_attention_bwd_f32",
+           "fused_attention_train_fwd_f32", "fused_attention_train_bwd_f32")
 
 
 def counts() -> Launches:
@@ -1703,8 +1730,10 @@ def train_steps(trainer, batches, steps: int, kind: str, must_fall: bool) -> dic
         raise AssertionError(f"the loss did not fall: {losses}")
     step_ms = float(np.median(step_s)) * 1e3
     tokens_per_s = TRAIN_BATCH * NUM_EVENTS * 4 / (step_ms / 1e3)
+    layers = "f32 transformer layers, f32 dots" if kind.endswith("_f32") else \
+        "bf16 transformer layers"
     log(f"# [{kind}] decoder training batch {TRAIN_BATCH} x {NUM_EVENTS * 4} "
-        f"tokens, bf16 transformer layers, dropout {TRAIN_DROPOUT}, Adam lr 1e-4 clip 5: "
+        f"tokens, {layers}, dropout {TRAIN_DROPOUT}, Adam lr 1e-4 clip 5: "
         f"median {step_ms:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
         f"{max(step_s) * 1e3:.3f}), {tokens_per_s:.1f} tokens/s; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 4 {first:.4f}, "
@@ -2797,7 +2826,7 @@ def phase_prior(gen: torch.Generator, profile: bool, card: str) -> dict:
 # and the prior then run over this one, REMAT on, as the chain runs them),
 # and a few steps with VQCPCB_COMPUTE_DTYPE=bfloat16.
 SCALEUP_FILES = 512
-SCALEUP_ENCODER_BATCHES = 40
+SCALEUP_ENCODER_BATCHES = 12
 SCALEUP_BF16_BATCHES = 6
 SCALEUP_DECODER_BATCHES = 20
 SCALEUP_PRIOR_BATCHES = 20
@@ -4261,7 +4290,9 @@ def phase_migrated(card: str) -> dict:
 # coordinator path): gloo's
 # collectives probed on CUDA tensors, then a (2, 2) flagship decoder and a
 # (2, 2) absolute decoder at dropout 0.2 (the loss falls; gloo-on-one-card
-# step times, not speeds of the mesh), and the flagship decoder and the
+# step times, not speeds of the mesh), and the flagship decoder (on the
+# explicit-bias route, and on the in-kernel relative bias: K2's f32-dot
+# instances at T = S = 384) and the
 # prior at dropout 0 in f32 (VQCPCB_COMPUTE_DTYPE=float32 and
 # VQCPCB_PALLAS_BF16_DOTS=0: a bf16 rounding would land in other places
 # than one rank's) against one rank on the same global batches: the losses
@@ -4908,8 +4939,9 @@ def _encoder_mesh_jobs(f32: dict, bf16_dots: dict, relbias: tuple,
     BatchNorm and with the EMA quantizer, its transformer-downscaler twin
     (K2 through K7 with f32 dots at T = S = 16 and 4), and the student at
     full width (the relative auxiliary decoder; K6 with the explicit
-    relative bias through K7, the teacher's T = S = 384 being beyond the
-    relative-bias kernels' f32 tables); the BatchNorm VQ-CPC's (2, 2) job
+    relative bias through K7, the student's explicit-bias route held on the
+    mesh, as the flagship's in-kernel f32 route is held by phase 17 (c)'s
+    flagship job and phase 18); the BatchNorm VQ-CPC's (2, 2) job
     a second time; and the student on its default route (K7 packed over K2
     with bf16 dots), layers in f32, one step on (2, 2) and on (4, 1), held
     as the flagship's bf16-dot pair, from the model's own codebooks (no
@@ -5031,10 +5063,12 @@ def _mesh_ranks_on_one_card(jobs=None) -> dict:
               "fused_attention_train_bwd_nobias")
     explicit = ("fused_attention_train_tp", "fused_attention_train_fwd",
                 "fused_attention_train_bwd")
-    # f32 end to end: the layers, and the kernels' f32-dot instances (K6 with
-    # the explicit relative bias at the flagship's T=S=384, where the
-    # relative-bias kernels' f32 tables do not fit; K2 at the prior's 24)
+    # f32 end to end: the layers, and the kernels' f32-dot instances: the
+    # flagship on the in-kernel relative bias (K2's f32 forward and streamed
+    # backward at T=S=384) and on the explicit-bias route (K6 with f32 dots),
+    # the prior's K2 at 24
     f32 = {"VQCPCB_COMPUTE_DTYPE": "float32", "VQCPCB_PALLAS_BF16_DOTS": "0"}
+    relbias_f32 = relbias + ("relbias_attention_fwd_f32", "relbias_attention_bwd_f32")
     bf16_dots = {"VQCPCB_COMPUTE_DTYPE": "float32"}
     jobs = jobs or [
         dict(name="flagship dropout", kind="decoder", model="flagship",
@@ -5046,6 +5080,9 @@ def _mesh_ranks_on_one_card(jobs=None) -> dict:
         dict(name="flagship f32", kind="decoder", model="flagship", dropout=0.0,
              steps=MESH_STEPS, num_model=2, need=explicit, compare="exact",
              env=dict(f32, VQCPCB_PALLAS_RELBIAS="0")),
+        dict(name="flagship f32 in-kernel relbias", kind="decoder", model="flagship",
+             dropout=0.0, steps=MESH_STEPS, num_model=2, need=relbias_f32,
+             compare="exact", env=f32),
         dict(name="prior f32", kind="prior", dropout=0.0, steps=MESH_STEPS,
              num_model=2, need=relbias, compare="exact", env=f32),
         # the default route (K2 with bf16 dots), layers in f32: the (2, 2)
@@ -5448,6 +5485,399 @@ def phase_mesh(gen: torch.Generator, encoder_config: str) -> dict:
                 sampler_launches=samplers["launches"])
 
 
+# ---- phase 18 --------------------------------------------------------------
+
+# The f32 route: VQCPCB_PALLAS_BF16_DOTS=0 (the attention kernels' f32-dot
+# instances) with VQCPCB_COMPUTE_DTYPE=float32 (the layers in f32), on the
+# in-kernel relative bias. (a) The f32-dot kernels at the flagship's shapes,
+# each against its plain version with f32 dots within F32_FRAC of
+# max(1, max |value|): K2-fwd and K2-bwd (csrc/attention_fwd_f32.cuh with
+# the bias window; csrc/attention_bwd_f32.cuh's streamed rows kernel, then
+# the cols and table kernels) at the training batch, T = S = 384 causal,
+# packed, dropout 0.2, their dropout masks bit for bit (the forward's
+# dropped weights read through one-hot v, the backward's w_drop scratch);
+# K3-fwd at the serving batch 512, causal 384 x 384 and 384 x 24 (ratio 16);
+# K6-bwd f32 (the same rows kernel with an explicit bias) at the training
+# batch with a real bias, its mask bit for bit. Each timed beside its plain
+# version, its bound (K4's yardstick: f32 bytes at 3.35 TB/s, the live
+# entries' products at the 3xTF32 rate) and one SDPA call on f32 inputs with
+# the mask and the bias as one float mask (its backward by device time).
+# (b) The flagship at full width on that route: encode and sample_range at
+# 512 x 384 (tokens/s, the prefill's ms, its launches), teacher-forced
+# logits at batch 8 against the CPU plain route within F32_LOGITS_RTOL of
+# the max |logit|; (c) 30 train steps at batch 32, dropout 0.2 (ms/step,
+# tokens/s, a falling loss), then the kernel route against the CPU f32
+# plain route at batch 2, dropout 0: the loss within F32_LOSS_RTOL
+# relative, every gradient's relative L2 gap within F32_GRAD_L2.
+F32_ENV = {"VQCPCB_COMPUTE_DTYPE": "float32", "VQCPCB_PALLAS_BF16_DOTS": "0"}
+F32_FRAC = 1e-5
+F32_LOGITS_RTOL = 1e-4
+F32_LOSS_RTOL = 1e-5
+F32_GRAD_L2 = 1e-4
+
+
+def _f32_hold(what, names, got, want, worst, key) -> str:
+    """Each result within F32_FRAC of max(1, its plain max |value|); keeps
+    the largest absolute error in worst[key]; returns the log's numbers."""
+    line = []
+    for name, a, w in zip(names, got, want):
+        if (a is None) != (w is None):
+            raise AssertionError(f"{what}: {name} returned on one side only")
+        if a is None:
+            continue
+        err = (a.float() - w.float()).abs().max().item()
+        scale = max(1.0, w.float().abs().max().item())
+        worst[key] = max(worst[key], err)
+        line.append(f"{name} {err:.2e}/{scale:.3g}")
+        if not err <= F32_FRAC * scale:
+            raise AssertionError(f"{what}: {name} err {err} (limit {F32_FRAC * scale})")
+    return ", ".join(line)
+
+
+def _f32_bounds(b, t, s, mask, bias_bytes=0):
+    """(forward, relative-bias backward, K6 backward) bounds at one shape:
+    f32 q-side (T) and k-side (S) tensors once each, the mask and the
+    table (read, and the table's gradient written), K6's bias and dbias
+    (bias_bytes each); 3, 8 and 5 products of 2 d flops for each live mask
+    entry of each plane at the 3xTF32 rate."""
+    n = b * HEADS
+    live = t * s if mask is None else int((mask > -1e29).sum().item())
+    act, kv = 4 * n * t * HEAD_DIM, 4 * n * s * HEAD_DIM
+    side = (0 if mask is None else 4 * t * s)
+    table = 4 * HEADS * (2 * s - 1) * HEAD_DIM
+    flops = 2 * HEAD_DIM * n * live
+    return (bound(2 * act + 2 * kv + side + table, 3 * flops, F32_ACCURATE_FLOPS),
+            bound(3 * act + 4 * kv + side + 2 * table, 8 * flops, F32_ACCURATE_FLOPS),
+            bound(3 * act + 4 * kv + side + 2 * bias_bytes, 5 * flops,
+                  F32_ACCURATE_FLOPS))
+
+
+def _f32_planes(x, b, t, s):
+    """The (B, H, T, S) values of an f32-dot backward's scratch (row stride S)."""
+    return x[:b * HEADS * t * s].view(b, HEADS, t, s)
+
+
+def _f32_masks(what, live, keep, fwd_rows, wd_scratch) -> None:
+    """The forward's dropped weights and the backward's w_drop scratch are
+    not 0 exactly where the hash keeps a live weight."""
+    want = keep & live
+    differ = [((x != 0) & live != want).sum().item() for x in (fwd_rows, wd_scratch)]
+    log(f"# [f32] {what}: dropout mask vs the hash, forward {differ[0]} and "
+        f"backward scratch {differ[1]} of {want.numel()} entries differ (need 0)")
+    if any(differ):
+        raise AssertionError(f"{what}: dropout masks differ at {differ} entries")
+
+
+def _f32_profile(fn, label: str) -> None:
+    """Device time by kernel of three calls of fn (where a backward's time
+    goes)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall_s = synced_seconds(lambda: [fn() for _ in range(3)])
+    _log_profile(prof, wall_s, f"[f32] 3 calls of {label}", 6)
+
+
+def _f32_kernels(gen) -> dict:
+    """(a); returns the numbers of the kernels line by kernel."""
+    from vqcpcb_tpu_torch.ops import attention_kernels as ak
+    from vqcpcb_tpu_torch.ops import fused_attention_kernels as fk
+    from vqcpcb_tpu_torch.ops._kernel_io import bwd_scratch
+    from vqcpcb_tpu_torch.ops.relative_attention import subsampled_relative_bias
+    import torch.nn.functional as F
+    f32 = torch.float32
+    worst = {"fwd": 0.0, "bwd": 0.0, "k6": 0.0}
+    cuda = (ak.relbias_attention_fwd_cuda, ak.relbias_attention_bwd_cuda)
+    plain = (ak.relbias_attention_fwd_plain, ak.relbias_attention_bwd_plain)
+
+    # K2 at the training batch, packed f32, dropout 0.2
+    b, t = TRAIN_BATCH, 384
+    q, k, v, mask, e1, e2, g = _train_inputs(gen, b, t, t, "causal", True)
+    kw = dict(num_heads=HEADS, dropout=TRAIN_DROPOUT, seed=7)
+    scratch = bwd_scratch(b, HEADS, t, t, f32, "cuda")
+    got = [cuda[0](q, k, v, mask, e1, e2, f32, **kw),
+           *cuda[1](q, k, v, mask, e1, e2, g, f32, need_dmask=True,
+                    scratch=scratch, **kw)]
+    want = _fwd_bwd(*plain, q, k, v, mask, e1, e2, g, f32, need_dmask=True, **kw)
+    torch.cuda.synchronize()
+    line = ", ".join((_f32_hold("K2-fwd f32", ("out",), got[:1], want[:1], worst, "fwd"),
+                      _f32_hold("K2-bwd f32", TRAIN_RESULTS[1:], got[1:], want[1:],
+                                worst, "bwd")))
+    if got[-1].any():
+        raise AssertionError("K2 f32: e2's gradient under the causal mask is not 0")
+    again = cuda[1](q, k, v, mask, e1, e2, g, f32, need_dmask=False, **kw)
+    for name, a, a2 in zip(TRAIN_RESULTS[1:], got[1:], again):
+        if name != "dmask" and not torch.equal(a, a2):
+            raise AssertionError(f"K2-bwd f32: a second backward's {name} differs")
+    del got, want, again
+    live = ak.relbias_attention_bwd_weights_plain(
+        q, k, v, mask, e1, e2, g, f32, **dict(kw, dropout=0.0))[0] > 0
+    keep = ak.dropout_keep_plain((t, t), TRAIN_DROPOUT,
+                                 ak._stream_seeds(kw["seed"], b, HEADS, "cuda"))
+    rows = _dropped_rows(cuda[0], q, k, v, mask, (e1, e2),
+                             dict(kw, dot_dtype=f32), t)
+    _f32_masks(f"K2 (B={b}, T=S={t})", live, keep, rows,
+               _f32_planes(scratch[1], b, t, t))
+    del rows, live, keep, scratch
+    torch.cuda.empty_cache()
+    fwd = lambda: cuda[0](q, k, v, mask, e1, e2, f32, **kw)            # noqa: E731
+    bwd = lambda: cuda[1](q, k, v, mask, e1, e2, g, f32,               # noqa: E731
+                          need_dmask=False, **kw)
+    fwd_ms, fwd_dev = time_cuda(fwd, 20), device_ms(fwd, 20)
+    bwd_ms, bwd_dev = time_cuda(bwd, 5), device_ms(bwd, 5)
+    _f32_profile(bwd, f"K2-bwd f32 (B={b}, T=S={t})")
+    fwd_plain = time_cuda(lambda: plain[0](q, k, v, mask, e1, e2, f32, **kw), 3,
+                          warmup=1)
+    bwd_plain = time_cuda(lambda: plain[1](q, k, v, mask, e1, e2, g, f32,
+                                           need_dmask=False, **kw), 3, warmup=1)
+    q4, k4, v4, g4 = (_split_heads(x).contiguous() for x in (q, k, v, g))
+    attn = (mask + subsampled_relative_bias(q4, e1, e2)).contiguous()
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4, attn)]
+    sdpa = lambda: F.scaled_dot_product_attention(                     # noqa: E731
+        *leaves[:3], attn_mask=leaves[3], dropout_p=TRAIN_DROPOUT, scale=1.0)
+    lib_fwd = time_cuda(sdpa, 10, warmup=2)
+    out = sdpa()
+    sdpa_bwd = lambda: torch.autograd.grad(out, leaves, g4,            # noqa: E731
+                                           retain_graph=True)
+    lib_bwd = device_ms(sdpa_bwd, 10)
+    del out, leaves, attn, q4, k4, v4, g4
+    fwd_b, bwd_b, _ = _f32_bounds(b, t, t, mask)
+    k2_fwd = dict(ms=fwd_ms, device_ms=fwd_dev, plain_ms=fwd_plain, library_ms=lib_fwd,
+                  bound_ms=fwd_b[0], bound_by=fwd_b[1])
+    k2_bwd = dict(ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd,
+                  bound_ms=bwd_b[0], bound_by=bwd_b[1])
+    log(f"# [f32] K2 (B={b}, H={HEADS}, T=S={t} causal, packed f32, f32 dots, "
+        f"dropout {TRAIN_DROPOUT}): err/max(1, max|value|) {line}; e2's gradient 0; "
+        f"a second backward bit for bit; fwd {fwd_ms:.4f} ms (device {fwd_dev:.4f}; "
+        f"plain {fwd_plain:.4f}, sdpa f32 {lib_fwd:.4f}, bound {fwd_b[0]:.5f} "
+        f"{fwd_b[1]}); bwd {bwd_ms:.4f} ms (device {bwd_dev:.4f}; plain "
+        f"{bwd_plain:.4f}, sdpa bwd {lib_bwd:.4f} device time, bound "
+        f"{bwd_b[0]:.5f} {bwd_b[1]})")
+    del q, k, v, g, e1, e2
+    torch.cuda.empty_cache()
+
+    # K3-fwd at the serving batch, (B, H, L, d) f32, no dropout
+    inference = {}
+    for label, s, kind in (("decoder self-attention", 384, "causal"),
+                           ("ratio 16", 24, "anticausal_rect")):
+        q, k, v, mask, e1, e2 = _relbias_inputs(gen, BATCH, 384, s, kind)
+        got = cuda[0](q, k, v, mask, e1, e2, f32)
+        want = plain[0](q, k, v, mask, e1, e2, f32)
+        torch.cuda.synchronize()
+        line = _f32_hold(f"K3-fwd f32 {label}", ("out",), [got], [want], worst, "fwd")
+        del got, want
+        torch.cuda.empty_cache()
+        inf = lambda: cuda[0](q, k, v, mask, e1, e2, f32)              # noqa: E731
+        ms, dev = time_cuda(inf, 5), device_ms(inf, 5)
+        plain_ms = time_cuda(lambda: plain[0](q, k, v, mask, e1, e2, f32), 2, warmup=1)
+        attn = (mask + subsampled_relative_bias(q, e1, e2)).contiguous()
+        lib = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn, scale=1.0), 5, warmup=1)
+        fb = _f32_bounds(BATCH, 384, s, mask)[0]
+        inference[label] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                                library_ms=lib, bound_ms=fb[0], bound_by=fb[1], t=384,
+                                s=s, batch=BATCH)
+        log(f"# [f32] K3-fwd {label} (B={BATCH}, H={HEADS}, T=384, S={s}, f32, f32 "
+            f"dots): err/max(1, max|value|) {line}; {ms:.4f} ms (device {dev:.4f}; "
+            f"plain {plain_ms:.4f}, sdpa f32 {lib:.4f}, bound {fb[0]:.5f} {fb[1]})")
+        del q, k, v, e1, e2, attn
+        torch.cuda.empty_cache()
+
+    # K6 with f32 dots and a real bias at the training batch, packed
+    t = 384
+    q, k, v = _projected(gen, b, t, t, f32)
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    mask = _fused_mask("causal", t, t)
+    bias = torch.randn((b * HEADS, t, t), generator=gen, device="cuda")
+    kw = dict(num_heads=HEADS, dropout=TRAIN_DROPOUT, seed=9)
+    fcuda = (fk.fused_attention_train_fwd_cuda, fk.fused_attention_train_bwd_cuda)
+    fplain = (fk.fused_attention_train_fwd_plain, fk.fused_attention_train_bwd_plain)
+    scratch = bwd_scratch(b, HEADS, t, t, f32, "cuda")
+    got = [fcuda[0](q, k, v, mask, bias, f32, **kw),
+           *fcuda[1](q, k, v, mask, bias, g, f32, need_dmask=True, scratch=scratch,
+                     **kw)]
+    want = _fused_fwd_bwd(*fplain, q, k, v, mask, bias, g, f32, need_dmask=True, **kw)
+    torch.cuda.synchronize()
+    line = _f32_hold("K6 f32", FUSED_RESULTS, got, want, worst, "k6")
+    again = fcuda[1](q, k, v, mask, bias, g, f32, need_dmask=False, **kw)
+    for name, a, a2 in zip(FUSED_RESULTS[1:], got[1:], again):
+        if a2 is not None and not torch.equal(a, a2):
+            raise AssertionError(f"K6-bwd f32: a second backward's {name} differs")
+    del got, want, again
+    w = fk.fused_attention_train_bwd_weights_plain(q, k, v, mask, bias, g, f32,
+                                                   **dict(kw, dropout=0.0))[0]
+    keep = ak.dropout_keep_plain((t, t), TRAIN_DROPOUT,
+                                 fk.flat_stream_seeds(kw["seed"], b, HEADS, "cuda"))
+    rows = _dropped_rows(fcuda[0], q, k, v, mask, (bias,), dict(kw, dot_dtype=f32), t)
+    _f32_masks(f"K6 (B={b}, T=S={t}, real bias)", w > 0, keep, rows,
+               _f32_planes(scratch[1], b, t, t))
+    del w, keep, rows, scratch
+    torch.cuda.empty_cache()
+    bwd = lambda: fcuda[1](q, k, v, mask, bias, g, f32,                # noqa: E731
+                           need_dmask=False, **kw)
+    bwd_ms, bwd_dev = time_cuda(bwd, 5), device_ms(bwd, 5)
+    _f32_profile(bwd, f"K6-bwd f32 (B={b}, T=S={t}, real bias)")
+    bwd_plain = time_cuda(lambda: fplain[1](q, k, v, mask, bias, g, f32,
+                                            need_dmask=False, **kw), 3, warmup=1)
+    q4, k4, v4, g4 = (_split_heads(x).contiguous() for x in (q, k, v, g))
+    attn = (mask + bias.view(b, HEADS, t, t)).contiguous()
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4, attn)]
+    out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                         dropout_p=TRAIN_DROPOUT, scale=1.0)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True), 10)
+    del out, leaves, attn, q4, k4, v4, g4
+    kb = _f32_bounds(b, t, t, mask, bias_bytes=4 * b * HEADS * t * t)[2]
+    k6_bwd = dict(ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd,
+                  bound_ms=kb[0], bound_by=kb[1], max_abs_err=worst["k6"])
+    log(f"# [f32] K6 (B={b}, H={HEADS}, T=S={t} causal, packed f32, real bias, f32 "
+        f"dots, dropout {TRAIN_DROPOUT}): err/max(1, max|value|) {line}; a second "
+        f"backward bit for bit; bwd {bwd_ms:.4f} ms (device {bwd_dev:.4f}; plain "
+        f"{bwd_plain:.4f}, sdpa bwd {lib_bwd:.4f} device time, bound {kb[0]:.5f} "
+        f"{kb[1]})")
+    del q, k, v, g, bias
+    torch.cuda.empty_cache()
+    return dict(fwd=dict(k2_fwd, max_abs_err=worst["fwd"], inference=inference),
+                bwd=dict(k2_bwd, max_abs_err=worst["bwd"]), k6_bwd=k6_bwd)
+
+
+def _f32_serving(gen) -> dict:
+    """(b): the flagship's serving path on the f32 route."""
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderGenerator
+    vocab = synthetic_vocabulary()
+    encoder, decoder = build_models(vocab, kind="flagship")
+    generator = DecoderGenerator(encoder, decoder, vocab, CODEBOOK_SIZE, seed=0)
+    templates = random_templates(vocab, gen, BATCH, NUM_EVENTS)
+    init_codebook(encoder, templates, gen)
+    warm_codes = generator.encode_codes(templates[:8])
+    decoder.sample_range(warm_codes, templates[:8], 0, 8, generator.generator,
+                         temperature=0.95, top_p=0.8)
+    torch.cuda.synchronize()
+    reset_counts()
+    codes, encode_s = synced_seconds(lambda: generator.encode_codes(templates))
+    after_encode = counts()
+    tokens0 = torch.zeros((BATCH, NUM_EVENTS, 4), dtype=torch.int32, device="cuda")
+    n_tok = NUM_EVENTS * 4
+    sampled, sample_s = synced_seconds(lambda: decoder.sample_range(
+        codes, tokens0, 0, n_tok, generator.generator, temperature=0.95, top_p=0.8))
+    main_counts = counts()
+    prefill = _delta(main_counts, after_encode)
+    want = {k: 6 if k in ("relbias_attention_fwd", "relbias_attention_fwd_f32") else 0
+            for k in prefill}
+    if after_encode["vq_nearest"] < 1 or prefill != want:
+        raise AssertionError(f"[f32] encode launched {dict(after_encode)}, one prefill "
+                             f"{prefill}, not {want}")
+    sizes = torch.tensor(vocab.num_tokens_per_channel, device="cuda")
+    if codes.min() < 0 or codes.max() >= CODEBOOK_SIZE or not (
+            (sampled >= 0) & (sampled < sizes)).all():
+        raise AssertionError("[f32] codes or sampled tokens outside their range")
+    tokens_per_s = BATCH * n_tok / sample_s
+    with torch.no_grad():
+        _, prefill_s = synced_seconds(lambda: decoder.prefill(codes, tokens0, torch.int8))
+        small_codes, small = codes[:8], sampled[:8]
+        kernel_logits = decoder(small_codes, small)["weights_per_category"]
+        plain = copy.deepcopy(decoder).cpu()
+        plain_logits = plain(small_codes.cpu(), small.cpu())["weights_per_category"]
+    scale = max(lg.abs().max().item() for lg in plain_logits)
+    err = max((k.cpu() - p).abs().max().item()
+              for k, p in zip(kernel_logits, plain_logits))
+    log(f"# [f32] (b) flagship serving, f32 route: encode_codes {BATCH} templates "
+        f"{encode_s * 1e3:.3f} ms; sample_range batch {BATCH} x {n_tok} positions (T "
+        f"0.95, top_p 0.8, int8 caches) {sample_s:.4f} s, {tokens_per_s:.1f} tokens/s; "
+        f"one prefill launched K3-fwd's f32-dot instance 6 times and no other attention "
+        f"kernel; prefill alone {prefill_s * 1e3:.3f} ms; logits at batch 8 vs the CPU "
+        f"plain route: max abs err {err:.3e}, max |logit| {scale:.3f} (need <= "
+        f"{F32_LOGITS_RTOL} x max |logit|)")
+    if not err <= F32_LOGITS_RTOL * scale:
+        raise AssertionError(f"[f32] kernel-route logits differ by {err}")
+    return dict(launches=main_counts, encode_ms=encode_s * 1e3, tokens_per_s=tokens_per_s,
+                prefill_ms=prefill_s * 1e3, logits_err=err)
+
+
+def _f32_training(gen) -> dict:
+    """(c): 30 flagship train steps on the f32 route, then the kernel route
+    against the CPU f32 plain route at batch 2."""
+    trainer, batches = _trainer(gen, "flagship")
+    result = train_steps(trainer, batches, TRAIN_STEPS, "flagship_f32", must_fall=True)
+    from torch_mesh_harness import ReluPins
+    dec = trainer.decoder
+    set_dropout(dec, 0.0)
+    small = batches[0][:2]
+    codes = trainer.encode_codes(small)
+    with ReluPins() as record:
+        loss_p, grads_p = loss_and_grads(copy.deepcopy(dec).cpu(), codes.cpu(),
+                                         small.cpu(), bf16=False)
+
+    def gaps(grads_k):
+        l2 = {}
+        for name, gp in grads_p.items():
+            norm = gp.norm().item()
+            gap = (grads_k[name] - gp).norm().item()
+            l2[name] = gap / norm if norm else (0.0 if gap == 0 else float("inf"))
+        return sorted(l2.items(), key=lambda kv: -kv[1]), np.median(list(l2.values()))
+
+    # free, then with the feed-forward ReLU units whose pre-activation lies
+    # within rounding of 0 pinned to the CPU route's sign (phase 17's
+    # ReluPins): such a unit that flips moves its layer's gradients by a
+    # token's whole term, which no kernel's rounding explains
+    free, free_median = gaps(loss_and_grads(dec, codes, small, bf16=False)[1])
+    with ReluPins(record.pins) as pinned:
+        loss_k, grads_k = loss_and_grads(dec, codes, small, bf16=False)
+    worst, median = gaps(grads_k)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    line = lambda w: ", ".join(f"{n} {v:.3e}" for n, v in w[:3])   # noqa: E731
+    log(f"# [f32] (c) batch 2, dropout 0, kernel route vs CPU f32 plain route: loss "
+        f"{loss_k:.7f} vs {loss_p:.7f} (relative {loss_err:.3e}, need <= "
+        f"{F32_LOSS_RTOL}); gradients' relative L2 gaps over {len(worst)} parameters, "
+        f"ReLU units free: largest {line(free)}, median {free_median:.3e}; pinned "
+        f"({json.dumps(pinned.flips)} units by call, largest pre-activation gap "
+        f"{pinned.gap:.3e}): largest {line(worst)}, median {median:.3e} (need each "
+        f"<= {F32_GRAD_L2})")
+    if not loss_err <= F32_LOSS_RTOL or worst[0][1] > F32_GRAD_L2:
+        raise AssertionError("[f32] the kernel route and the CPU f32 route disagree")
+    return dict(result, loss_err=loss_err, grad_l2=worst[0][1], grad_l2_free=free[0][1],
+                relu_flips=sum(pinned.flips))
+
+
+def f32_route(out_path: str) -> None:
+    """Phase 18's work, in a process of its own (phase_f32_route): the
+    kernels' numbers and serving's and training's results, their main-path
+    launches with K1's by kind, as JSON in out_path."""
+    from torch_mesh_harness import with_env
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = with_env(F32_ENV, lambda: dict(kernels=_f32_kernels(gen),
+                                         serving=_f32_serving(gen),
+                                         training=_f32_training(gen)))
+    for part in ("serving", "training"):
+        launches = out[part]["launches"]
+        out[part]["launches"] = dict(launches, by_kind=launches.by_kind)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_f32_route() -> dict:
+    """Phase 18; see the comment above F32_ENV. Runs in a process of its
+    own: after phase 17's ranks torch.profiler records no (or partial)
+    device time in this one, and phase 18 times by device time. Returns
+    the kernels' numbers, and serving's and training's results with their
+    main-path launches (Launches)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_path = os.path.join(root, "build", "phase18.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    torch.cuda.empty_cache()
+    subprocess.run([sys.executable, "-c",
+                    "import sys, chip_smoke; chip_smoke.f32_route(sys.argv[1])",
+                    out_path], cwd=root, check=True, timeout=600)
+    with open(out_path) as f:
+        out = json.load(f)
+    for part in ("serving", "training"):
+        raw = out[part]["launches"]
+        launches = Launches({k: v for k, v in raw.items() if k != "by_kind"})
+        launches.by_kind = raw["by_kind"]
+        out[part]["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -5459,15 +5889,23 @@ def main() -> int:
         print(f"chip_smoke: the vqcpcb_tpu_torch package is missing ({exc}); "
               "run from the root of the repository", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+
+    def mark(label):   # where the smoke's time goes, phase by phase
+        log(f"# [time] {label} done at {time.perf_counter() - t_start:.1f} s")
+
     card = phase_environment()
     phase_build()
+    mark("build")
     gen = torch.Generator(device="cuda").manual_seed(0)
     vq = phase_vq(gen)
+    mark("phase 3")
     rb = phase_relbias(gen)
     rb_train = phase_relbias_train(gen)
     rb_unmasked = phase_relbias_unmasked(gen)
     rb_prior = phase_relbias_prior(gen)
     fused = phase_fused(gen)
+    mark("phases 4-6")
     profile = "--profile" in sys.argv[1:]
     by_path = {}
     serving = phase_serving(gen, profile, "flagship")
@@ -5477,26 +5915,39 @@ def main() -> int:
     by_path["absolute_serving"] = phase_serving(gen, profile, "absolute")["launches"]
     by_path["absolute_training"] = phase_decoder_training(gen, profile, "absolute")["launches"]
     by_path["explicit_bias"] = phase_explicit_bias(gen)["launches"]
+    mark("phases 7-8")
     by_path["encoder_training"] = phase_encoder_training(gen, profile)["launches"]
+    mark("phase 9")
     student = phase_student(gen, profile, card)
     by_path["student_training"] = student["launches"]
     by_path["student_absolute_training"] = student["absolute_launches"]
     by_path["transfo_encoder_training"] = student["transfo_launches"]
+    mark("phase 10")
     entry_points = phase_entry_points(card)
     by_path["entry_points"] = entry_points["launches"]
+    mark("phase 11")
     prior = phase_prior(gen, profile, card)
     by_path["prior_training"] = prior["launches"]
     by_path["prior_sampling"] = prior["sampling_launches"]
+    mark("phase 12")
     by_path["scaleup_midi"] = phase_scaleup_midi(card)["launches"]
+    mark("phase 14")
     by_path.update(phase_unquantized_and_grouped(
         gen, card, entry_points["encoder_config"],
         dict(serving_tokens_per_s=serving["tokens_per_s"],
              serving_prefill_ms=serving["prefill_ms"],
              train_ms=training["step_ms"], prior_train_ms=prior["step_ms"],
              prior_codes_per_s=prior["sample_codes_per_s"]))["launches"])
+    mark("phase 15")
     by_path.update(phase_migrated(card)["launches"])
+    mark("phase 16")
     mesh = phase_mesh(gen, entry_points["encoder_config"])
     by_path["mesh"] = mesh["launches"]
+    mark("phase 17")
+    f32_route = phase_f32_route()
+    by_path["f32_serving"] = f32_route["serving"]["launches"]
+    by_path["f32_training"] = f32_route["training"]["launches"]
+    mark("phase 18")
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
     # every main path's K1 launches run a compiled instance
@@ -5596,6 +6047,26 @@ def main() -> int:
         # with the explicit relative bias (VQCPCB_PALLAS_RELBIAS=0)
         entry("fused_attention_train_bwd", "vqcpcb_tpu_torch/csrc/fused_attention_bwd.cu",
               f"{pa}:211", f"{pa}:_train_bwd_kernel", [], fused["bwd"]),
+        # the f32-dot instances (VQCPCB_PALLAS_BF16_DOTS=0; phase 18): times
+        # at the flagship training shape (B=32, T=S=384 causal, packed f32,
+        # dropout 0.2), K3-fwd's at the serving batch under "inference";
+        # their launches are counted within the entries above too
+        entry("relbias_attention_fwd_f32", "vqcpcb_tpu_torch/csrc/attention_fwd_f32.cuh",
+              f"{pa}:875", f"{pa}:_relbias_fwd_kernel_packed", [f"{pa}:571"],
+              f32_route["kernels"]["fwd"], dots="f32",
+              inference=f32_route["kernels"]["fwd"]["inference"],
+              via="vqcpcb_tpu_torch/csrc/relbias_attention.cu"),
+        entry("relbias_attention_bwd_f32", "vqcpcb_tpu_torch/csrc/attention_bwd_f32.cuh",
+              f"{pa}:895", f"{pa}:_relbias_bwd_kernel_packed", [f"{pa}:582"],
+              f32_route["kernels"]["bwd"], dots="f32",
+              via="vqcpcb_tpu_torch/csrc/relbias_attention_bwd.cu"),
+        # K6-bwd and K6-bwd-nobias with f32 dots (a real bias timed), and
+        # K6-fwd's f32-dot launches (K4's kernel) beside them
+        entry("fused_attention_train_bwd_f32", "vqcpcb_tpu_torch/csrc/attention_bwd_f32.cuh",
+              f"{pa}:211", f"{pa}:_train_bwd_kernel", [f"{pa}:244"],
+              f32_route["kernels"]["k6_bwd"], dots="f32",
+              fwd_f32_launches=launches["fused_attention_train_fwd_f32"],
+              via="vqcpcb_tpu_torch/csrc/fused_attention_bwd.cu"),
     ]
     # K7: the shard wrappers, the kernels above on each rank's (b_local,
     # h_local) planes; launches on the mesh path ((c)'s ranks), the shard

@@ -249,29 +249,33 @@ def _scratch_differs(scratch, weights_plain, inputs, kw):
             for name, x, want in (("w_drop", scratch[1], w_drop), ("ds", scratch[0], ds))}
 
 
-def _weights_differ(fwd, weights_plain, inputs, kw):
-    """The entries of the forward's bf16 w_drop that differ from the plain
-    version's f32 w_drop rounded to bf16 (must be 0, as for the backward's
-    scratch). With v the one-hot columns of a block of d keys, the kernel's
-    out is exactly its bf16 w_drop there (one product of a bf16 weight and
-    1, and zeros, summed in f32)."""
-    q, k, v, mask, *extra, g = inputs
-    w_drop, _ = weights_plain(*inputs, **kw)
-    b, h, t, s = w_drop.shape
-    d = heads(q, kw["num_heads"]).shape[-1]
-    differ = 0
+def _one_hot_rows(fwd, q, k, v, mask, extra, kw, s):
+    """The forward's dropped weights (B, H, T, S) in f32: with v the one-hot
+    columns of a block of d keys, the output is that block of w_drop (one
+    product of a weight and 1, and zeros, summed in f32)."""
+    nh = kw.get("num_heads")
+    b, h, t, d = heads(q, nh).shape
+    rows = torch.empty((b, h, t, s), device="cuda")
     for c0 in range(0, s, d):
         n = min(d, s - c0)
         one_hot = torch.zeros((b, h, s, d), device="cuda")
         one_hot[:, :, c0:c0 + n, :n] = torch.eye(n, device="cuda")
-        if kw["num_heads"]:
+        if nh:
             one_hot = one_hot.transpose(1, 2).reshape(b, s, h * d)
         vv = torch.empty_strided(k.shape, k.stride(), dtype=v.dtype, device="cuda")
         vv.copy_(one_hot)                  # v shares k's strides, as the kernels ask
-        out = heads(fwd(q, k, vv, mask, *extra, **kw), kw["num_heads"])
-        want = w_drop[..., c0:c0 + n].to(torch.bfloat16).float()
-        differ += (out[..., :n].float() != want).sum().item()
-    return differ
+        rows[..., c0:c0 + n] = heads(fwd(q, k, vv, mask, *extra, **kw), nh)[..., :n]
+    return rows
+
+
+def _weights_differ(fwd, weights_plain, inputs, kw):
+    """The entries of the forward's bf16 w_drop that differ from the plain
+    version's f32 w_drop rounded to bf16 (must be 0, as for the backward's
+    scratch), read through _one_hot_rows."""
+    q, k, v, mask, *extra, g = inputs
+    w_drop, _ = weights_plain(*inputs, **kw)
+    rows = _one_hot_rows(fwd, q, k, v, mask, extra, kw, w_drop.shape[-1])
+    return (rows != w_drop.to(torch.bfloat16).float()).sum().item()
 
 
 # (B, H, T, S, d, packed, dropout, input dtype, fully masked query row):
@@ -526,6 +530,144 @@ def test_fused_attention_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fk.fused_attention(q4, q4, q4, None)
     with pytest.raises(ValueError, match="bias must be"):
         fk.fused_attention(q4, q4, q4, None, torch.zeros((2, 3, 1), device="cuda"))
+
+
+# ---- the f32-dot instances (VQCPCB_PALLAS_BF16_DOTS=0) at full length -------
+
+def _f32_err(a, w):
+    """How far `a` lies past 1e-5 of max(1, max |w|) (<= 0 within it): f32
+    throughout on both sides, sums in other orders (3xTF32 products in the
+    forward)."""
+    err = (a.float() - w.float()).abs().max().item()
+    return err - 1e-5 * max(1.0, w.float().abs().max().item())
+
+
+def _f32_planes(x, b, h, t, s):
+    """The (B, H, T, S) values of an f32-dot backward's ds or w_drop scratch
+    (row stride S)."""
+    return x[:b * h * t * s].view(b, h, t, s)
+
+
+# (B, H, T, S, d, packed, dropout, fully masked query row): past the
+# CUDA-core kernels' whole-plane staging (the forward stopped at S = 287,
+# the backward at 273, d = 64), the flagship's 384, a long 1024, d = 128 at
+# 512, a ragged 300 with a fully masked row, ratio 16; and the short shapes
+# and other head dims the f32 route meets (ratio 4, T = S = 17 with a
+# masked row, d = 8 and 16)
+F32_CASES = [
+    (2, 2, 96, 24, 32, False, 0.2, None),
+    (2, 2, 17, 17, 32, True, 0.2, 5),
+    (2, 2, 64, 64, 8, True, 0.2, None),
+    (2, 2, 64, 64, 16, False, 0.0, None),
+    (2, 2, 288, 288, 64, True, 0.2, None),
+    (2, 2, 384, 384, 64, True, 0.2, None),
+    (1, 2, 1024, 1024, 64, False, 0.2, None),
+    (1, 2, 512, 512, 128, True, 0.0, None),
+    (2, 2, 300, 300, 64, False, 0.2, 7),
+    (2, 2, 384, 24, 64, True, 0.2, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,s,d,packed,dropout,masked_row", F32_CASES)
+def test_relbias_f32_dot_kernels_at_full_length(gen, b, h, t, s, d, packed,
+                                                dropout, masked_row):
+    """K2/K3's f32-dot forward and backward against their plain versions
+    with f32 dots: out, dq, dk, dv, dmask, de1 and de2 within 1e-5 of
+    max(1, max |value|); the dropout mask of the forward's output and of
+    the backward's w_drop scratch is the hash's, bit for bit; e2's gradient
+    is exactly 0 under the causal mask; a second backward gives the same
+    dq, dk, dv, de1 and de2 bit for bit (dmask sums by atomics)."""
+    nh = h if packed else None
+    inputs = _train_case(gen, b, h, t, s, d, packed, torch.float32, masked_row)
+    q, k, v, mask, e1, e2, g = inputs
+    kw = dict(num_heads=nh, dropout=dropout, seed=31)
+    f32 = torch.float32
+    before = (ak.launches_f32, ak.bwd_launches_f32)
+    got = [ak.relbias_attention_fwd(q, k, v, mask, e1, e2, f32, **kw),
+           *ak.relbias_attention_bwd(q, k, v, mask, e1, e2, g, f32, **kw)]
+    assert (ak.launches_f32, ak.bwd_launches_f32) == (before[0] + 1, before[1] + 1)
+    scratch = bwd_scratch(b, h, t, s, f32, "cuda")
+    again = ak.relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, g, f32,
+                                          scratch=scratch, **kw)
+    for name, a, a2 in zip(("dq", "dk", "dv", "dmask", "de1", "de2"), got[1:], again):
+        assert name == "dmask" or torch.equal(a, a2), name
+    want = [ak.relbias_attention_fwd_plain(q, k, v, mask, e1, e2, f32, **kw),
+            *ak.relbias_attention_bwd_plain(q, k, v, mask, e1, e2, g, f32, **kw)]
+    for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "de1", "de2"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert _f32_err(a, w) <= 0, (name, _f32_err(a, w))
+    w_drop, ds = ak.relbias_attention_bwd_weights_plain(q, k, v, mask, e1, e2, g,
+                                                        f32, **kw)
+    assert _f32_err(_f32_planes(scratch[0], b, h, t, s), ds) <= 0
+    w = ak.relbias_attention_bwd_weights_plain(q, k, v, mask, e1, e2, g, f32,
+                                               **dict(kw, dropout=0.0))[0]
+    live = w > 0
+    keep = (ak.dropout_keep_plain((t, s), dropout, ak._stream_seeds(31, b, h, "cuda"))
+            if dropout else torch.ones_like(live))
+    assert torch.equal((_f32_planes(scratch[1], b, h, t, s) != 0) & live, keep & live)
+    rows = _one_hot_rows(ak.relbias_attention_fwd_cuda, q, k, v, mask, (e1, e2),
+                         dict(kw, dot_dtype=f32), s)
+    assert torch.equal((rows != 0) & live, keep & live)
+    assert _f32_err(rows, w_drop) <= 0
+    if t == s and masked_row is None:
+        assert not got[-1].any()
+
+
+# (B, H, T, S, d, mask, bias, packed, dropout, fully masked query row)
+F32_FUSED_CASES = [
+    (2, 2, 288, 288, 64, "causal", "placeholder", True, 0.2, None),
+    (2, 2, 384, 384, 64, "causal", "real", True, 0.2, None),
+    (1, 2, 1024, 1024, 64, "causal", "placeholder", False, 0.2, None),
+    (1, 2, 512, 512, 128, "causal", "real", True, 0.0, None),
+    (2, 2, 300, 300, 64, "causal", "none", False, 0.2, 7),
+    (2, 2, 384, 24, 64, "zero", "real", True, 0.2, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,s,d,mask_kind,bias_kind,packed,dropout,masked_row",
+                         F32_FUSED_CASES)
+def test_fused_attention_f32_dot_backward_at_full_length(gen, b, h, t, s, d,
+                                                         mask_kind, bias_kind,
+                                                         packed, dropout,
+                                                         masked_row):
+    """K6-bwd's f32-dot instance (and K6-fwd's beside it) against the plain
+    versions with f32 dots, past the CUDA-core rows kernel's whole-plane
+    staging (S <= 397 at d = 64, 209 at d = 128): out, dq, dk, dv, dmask
+    and dbias within 1e-5 of max(1, max |value|), the w_drop scratch's
+    dropout mask the flat hash's bit for bit, and a second backward's dq,
+    dk, dv and dbias the same bits."""
+    inputs = _fused_case(gen, b, h, t, s, d, mask_kind, bias_kind, packed)
+    q, k, v, mask, bias, g = inputs
+    if masked_row is not None:
+        mask[masked_row] = float("-inf")
+    kw = dict(num_heads=h if packed else None, dropout=dropout, seed=41)
+    f32 = torch.float32
+    before = (fk.train_fwd_launches_f32, fk.train_bwd_launches_f32)
+    got = [fk.fused_attention_train_fwd(q, k, v, mask, bias, f32, **kw),
+           *fk.fused_attention_train_bwd(q, k, v, mask, bias, g, f32, **kw)]
+    assert (fk.train_fwd_launches_f32, fk.train_bwd_launches_f32) == (
+        before[0] + 1, before[1] + 1)
+    scratch = bwd_scratch(b, h, t, s, f32, "cuda")
+    again = fk.fused_attention_train_bwd_cuda(q, k, v, mask, bias, g, f32,
+                                              scratch=scratch, **kw)
+    for name, a, a2 in zip(("dq", "dk", "dv", "dmask", "dbias"), got[1:], again):
+        assert name == "dmask" or a is None or torch.equal(a, a2), name
+    want = [fk.fused_attention_train_fwd_plain(q, k, v, mask, bias, f32, **kw),
+            *fk.fused_attention_train_bwd_plain(q, k, v, mask, bias, g, f32, **kw)]
+    for name, a, w in zip(("out", "dq", "dk", "dv", "dmask", "dbias"), got, want):
+        assert (a is None) == (w is None), name
+        if a is not None:
+            assert a.shape == w.shape and a.dtype == w.dtype, name
+            assert _f32_err(a, w) <= 0, (name, _f32_err(a, w))
+    assert (got[-1] is not None) == (bias_kind == "real")
+    w = fk.fused_attention_train_bwd_weights_plain(q, k, v, mask, bias, g, f32,
+                                                   **dict(kw, dropout=0.0))[0]
+    live = w > 0
+    keep = (ak.dropout_keep_plain((t, s), dropout, fk.flat_stream_seeds(41, b, h, "cuda"))
+            if dropout else torch.ones_like(live))
+    assert torch.equal((_f32_planes(scratch[1], b, h, t, s) != 0) & live, keep & live)
 
 
 # ---- checkpoints on the card (twins of tests/test_torch_checkpoints.py) ----

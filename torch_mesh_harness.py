@@ -48,12 +48,16 @@ def launch_counts() -> Dict[str, int]:
     return {**{f"vq_nearest/{kind}": n for kind, n in vk.launches_by_kind.items()},
             "vq_nearest": vk.launches, "relbias_attention_fwd": ak.launches,
             "relbias_attention_bwd": ak.bwd_launches,
+            "relbias_attention_fwd_f32": ak.launches_f32,
+            "relbias_attention_bwd_f32": ak.bwd_launches_f32,
             "relbias_attention_packed_tp": ak.tp_launches,
             "relbias_attention_tp": ak.tp_bhld_launches,
             "fused_attention": fk.launches,
             "fused_attention_train_fwd": fk.train_fwd_launches,
             "fused_attention_train_bwd": fk.train_bwd_launches,
             "fused_attention_train_bwd_nobias": fk.train_bwd_nobias_launches,
+            "fused_attention_train_fwd_f32": fk.train_fwd_launches_f32,
+            "fused_attention_train_bwd_f32": fk.train_bwd_launches_f32,
             "fused_attention_train_tp": fk.train_tp_launches}
 
 
@@ -65,8 +69,10 @@ def reset_launch_counts() -> None:
     vk.launches = 0
     vk.launches_by_kind.update(dict.fromkeys(vk.launches_by_kind, 0))
     ak.launches = ak.bwd_launches = ak.tp_launches = ak.tp_bhld_launches = 0
+    ak.launches_f32 = ak.bwd_launches_f32 = 0
     fk.launches = fk.train_fwd_launches = fk.train_tp_launches = 0
     fk.train_bwd_launches = fk.train_bwd_nobias_launches = 0
+    fk.train_fwd_launches_f32 = fk.train_bwd_launches_f32 = 0
 
 
 # a nearest-codebook row is a near tie when its best and second-best squared

@@ -1,13 +1,20 @@
 // The attention forward's f32-dot instances, Hopper (sm_90a): K4 (f32 or
 // bf16 inputs) and K6's forward with f32 dots, launched from
-// fused_attention.cu.
+// fused_attention.cu, and the relative-bias forward (K2-fwd, K3-fwd) with
+// f32 dots, launched from relbias_attention.cu.
 //
 // Replaces: vqcpcb_tpu/ops/pallas_attention.py:_kernel (K4, behind
-// fused_attention, :32-95), and :_train_fwd_kernel (:194) with f32 dots.
-// Per (b, h) plane, p = b*H + h, f32 throughout:
+// fused_attention, :32-95), and :_train_fwd_kernel (:194) with f32 dots;
+// with kRel, :_relbias_fwd_kernel_packed (:875) and :_relbias_fwd_kernel
+// (:571) under _dots_dtype() = f32 (VQCPCB_PALLAS_BF16_DOTS=0), both
+// _relbias_fwd_head. Per (b, h) plane, p = b*H + h, f32 throughout:
 //
 //   w[t]   = softmax_s( (q_t . k_s + mask[t, s]) + bias[p, t, s] )
 //   out[t] = dropout(w[t]) . v
+//
+// where with kRel bias[t, s] = q_t . E[s + (S-1) - t/r], E = [e1; e2[1:]]
+// the (2S-1, d) table of head h, r = T/S, and dropout draws stream
+// seed + h*B + b (K6 and K4: seed + b*H + h).
 //
 // The TPU kernel never rounds its weights to a narrower type, so the card
 // may take the sums in its own order (an online softmax) as long as the
@@ -68,6 +75,22 @@
 //    tiles of one plane re-read its K and V while they are in L2, and no
 //    causal tile waits on another block. With few planes (the explicit-bias
 //    prefill's 64), the tiles spread over blocks too.
+//  - The relative bias (kRel). The TPU kernel holds a whole (b, h) plane and
+//    its table in VMEM; its CUDA-core predecessor here staged K, V and the
+//    table window of the plane in shared memory and so stopped at S = 287
+//    (f32, d = 64). Here the bias streams with the keys: for query tile
+//    [t0, t0 + 64) and key block [s0, s0 + 64) the rows of E that the
+//    pair addresses are the window jlo + i, jlo = s0 + (S-1) - tmax/r,
+//    i < n_keys + tmax/r - t0/r <= 127 (tmax the tile's last row). Before
+//    q . k^T the window goes through the same 3xTF32 product as K, in
+//    chunks of 64 rows split into K's tiles (read from L2, where the
+//    table of every head stays), into a 64 x 128 f32 tile C in shared
+//    memory; the score then adds its skewed entry, bias[t, s] =
+//    C[t - t0, (s - s0) + tmax/r - t/r], after the mask term, as the
+//    plain version adds them. C shares V's split tiles, so V is split
+//    after the scores are formed, and the next block's K and V land while
+//    the softmax and p . v run. The TPU kernel's log-step lane rolls
+//    (_row_shift) were a Mosaic workaround: the skew is an indexed read.
 // Shapes: d in {8, 16, 32, 64, 128}, any T and S (shared memory does not
 // grow with S but for one flag bit per key block and query tile; T <= 32
 // computes 64 rows, of which T are kept).
@@ -105,6 +128,7 @@ struct Args {
   float inv_keep;
   int dropout;
   int mask_vec;        // S % 4 == 0 and the mask starts on 16 bytes
+  const float* e;      // kRel: the (H, 2S-1, d) f32 combined table
 };
 
 __host__ __device__ inline int key_blocks(int S) {
@@ -129,9 +153,21 @@ __host__ __device__ inline size_t flag_bytes(int T, int S) {
   return ((size_t)tiles * (1 + 2 * flag_words(S)) * 4 + 15) / 16 * 16;
 }
 
-template <int D>
+// kRel: the bias tile C (kRows rows of kWin window entries, row stride
+// kCLd) shares the region of V's split tiles.
+constexpr int kWin = 2 * kKeys;
+constexpr int kCLd = kWin + 4;
+
+template <int D, bool kRel>
+__host__ __device__ inline size_t v_split_floats() {
+  return kRel && kRows * kCLd > 2 * kKeys * D ? (size_t)kRows * kCLd
+                                             : (size_t)2 * kKeys * D;
+}
+
+template <int D, bool kRel = false>
 __host__ __device__ inline size_t smem_bytes(int T, int S) {
-  return flag_bytes(T, S) + sizeof(float) * kKeys * (2 * (D + 4) + 4 * D);
+  return flag_bytes(T, S) +
+         sizeof(float) * (kKeys * (2 * (D + 4) + 2 * D) + v_split_floats<D, kRel>());
 }
 
 // Stage keys [first, first + rows) of K and V (key r of each at
@@ -307,7 +343,28 @@ __device__ __forceinline__ void split_v(const float* vraw, float* vhi,
   }
 }
 
-template <typename In, int D, bool kAsync>
+// The tf32 halves of window rows [first, first + rows) of one head's table
+// (row j at eh + j * D), in split_k's layout: rows at or past n_table are
+// zeros. Read from global memory (L2) by 16-byte loads.
+template <int D>
+__device__ __forceinline__ void split_e(const float* __restrict__ eh,
+                                        int first, int rows, int n_table,
+                                        float* khi, float* klo) {
+  const int key_tiles = (rows + 7) / 8;
+  for (int i = threadIdx.x; i < 2 * key_tiles * D; i += blockDim.x) {
+    const int key = (i >> 3) / (D / 4) * 8 + (i & 7);
+    const int d = (i >> 3) % (D / 4) * 4;
+    const int row = first + key;
+    const float4 x4 =
+        key < rows && row < n_table
+            ? __ldg(reinterpret_cast<const float4*>(eh + (long long)row * D + d))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    split4(x, khi + 4 * i, klo + 4 * i);
+  }
+}
+
+template <typename In, int D, bool kAsync, bool kRel>
 __global__ void __launch_bounds__(kThreads, 2)
 fwd_kernel(const Args<In> a) {
   constexpr int LD = D + 4;
@@ -317,6 +374,7 @@ fwd_kernel(const Args<In> a) {
   const int T = a.T, S = a.S;
   const int nb = key_blocks(S), nw = flag_words(S);
   const int tiles = (T + kRows - 1) / kRows;
+  const int ratio = kRel ? T / S : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* skip = reinterpret_cast<uint32_t*>(smem_raw);
   uint32_t* bits = skip + tiles;
@@ -327,6 +385,7 @@ fwd_kernel(const Args<In> a) {
   float* klo = khi + kKeys * D;
   float* vhi = klo + kKeys * D;
   float* vlo = vhi + kKeys * D;
+  float* cb = vhi;   // kRel: the bias tile C, in V's split tiles
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -343,10 +402,21 @@ fwd_kernel(const Args<In> a) {
     const In* kb = a.k + b * a.lkv.b + h * a.lkv.h;
     const In* vb = a.v + b * a.lkv.b + h * a.lkv.h;
     In* ob = a.out + b * a.lo.b + h * a.lo.h;
-    const uint32_t key = relbias::plane_key(a.seed, plane);
+    const uint32_t key = kRel ? relbias::stream_key(a.seed, h, b, a.B)
+                              : relbias::plane_key(a.seed, plane);
     const float* bp = a.bias.p ? a.bias.p + plane * a.bias.bh : nullptr;
+    const float* eh = kRel ? a.e + (long long)h * (2 * S - 1) * D : nullptr;
     for (int tile = tile0; tile < tile1; ++tile) {
       const int tw = tile * kRows + 16 * warp;     // the warp's first row
+      const int t0 = tile * kRows;
+      const int tmax = min(t0 + kRows - 1, T - 1);  // the tile's last row
+      // kRel: the window offset of the thread's two rows, tmax/r - t/r
+      int woff[2] = {0, 0};
+      if constexpr (kRel) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          woff[r] = tmax / ratio - min(tw + g + 8 * r, tmax) / ratio;
+      }
       const bool skips = skip[tile] != 0;
       const uint32_t* tbits = bits + tile * nw;
       int j = next_block(tbits, skips, nb, -1);
@@ -375,55 +445,93 @@ fwd_kernel(const Args<In> a) {
 #pragma unroll
           for (int kk = 0; kk < kDTiles; ++kk) q_load(kk, qv[kk]);
         }
+        uint32_t qh[kQRegs ? kDTiles : 1][4], ql[kQRegs ? kDTiles : 1][4];
+        auto q_split = [&]() {
+          if constexpr (kQRegs) {
+#pragma unroll
+            for (int kk = 0; kk < kDTiles; ++kk)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                mma::split_tf32(qv[kk][x], qh[kk][x], ql[kk][x]);
+          }
+        };
+        // acc += q . B^T in 3xTF32, B the 64 rows split into khi / klo;
+        // issued, not waited for (d = 128: waited for k-step by k-step)
+        float sc[4 * kKeyTiles];
+        auto q_product = [&](float (&acc)[4 * kKeyTiles]) {
+#pragma unroll
+          for (int i = 0; i < 4 * kKeyTiles; ++i) acc[i] = 0.f;
+          mma::wgmma_fence();
+          constexpr uint32_t kSboK = 32 * D;   // bytes between 8-key groups
+#pragma unroll
+          for (int kk = 0; kk < kDTiles; ++kk) {
+            const uint64_t bh = mma::smem_desc(khi + 64 * kk, 128, kSboK);
+            const uint64_t bl = mma::smem_desc(klo + 64 * kk, 128, kSboK);
+            if constexpr (kQRegs) {
+              mma::WgmmaTf32<kKeys>::run(acc, ql[kk], bh);
+              mma::WgmmaTf32<kKeys>::run(acc, qh[kk], bl);
+              mma::WgmmaTf32<kKeys>::run(acc, qh[kk], bh);
+            } else {   // one k-step at a time, its fragments held until done
+              float v[4];
+              uint32_t ah[4], al[4];
+              q_load(kk, v);
+#pragma unroll
+              for (int x = 0; x < 4; ++x) mma::split_tf32(v[x], ah[x], al[x]);
+              mma::wgmma_fence();
+              mma::WgmmaTf32<kKeys>::run(acc, al, bh);
+              mma::WgmmaTf32<kKeys>::run(acc, ah, bl);
+              mma::WgmmaTf32<kKeys>::run(acc, ah, bh);
+              mma::wgmma_commit();
+              mma::wgmma_wait_all();
+            }
+          }
+          mma::wgmma_commit();
+        };
+        if constexpr (kRel) q_split();
         mma::cp_async_wait<0>();   // this block's K and V
         __syncthreads();
+        if constexpr (kRel) {
+          // C = q . E_window^T over the window's chunks of 64 rows, each
+          // thread's entries (rows g, g + 8; columns 2c, 2c + 1 of each
+          // 8-row tile) stored to C's rows of its warp
+          const int jlo = s0 + (S - 1) - tmax / ratio;
+          const int n_win = min(kKeys, S - s0) + tmax / ratio - t0 / ratio;
+          for (int ch = 0; ch * kKeys < n_win; ++ch) {
+            split_e<D>(eh, jlo + ch * kKeys, min(kKeys, n_win - ch * kKeys),
+                       2 * S - 1, khi, klo);
+            mma::fence_proxy_async();
+            __syncthreads();
+            q_product(sc);
+            mma::wgmma_wait_all();
+#pragma unroll
+            for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                *reinterpret_cast<float2*>(
+                    cb + (16 * warp + g + 8 * r) * kCLd + ch * kKeys + 8 * nt + 2 * c) =
+                    make_float2(sc[4 * nt + 2 * r], sc[4 * nt + 2 * r + 1]);
+            __syncthreads();   // khi / klo are split again
+          }
+        }
         split_k<D>(kraw, khi, klo, n_tiles);
         mma::fence_proxy_async();
         __syncthreads();
-        // scores = q . k^T in 3xTF32 over the 64 keys of the block, issued
-        // here and waited for once V is split
-        float sc[4 * kKeyTiles] = {};
-        uint32_t qh[kQRegs ? kDTiles : 1][4], ql[kQRegs ? kDTiles : 1][4];
-        if constexpr (kQRegs) {
-#pragma unroll
-          for (int kk = 0; kk < kDTiles; ++kk)
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-              mma::split_tf32(qv[kk][x], qh[kk][x], ql[kk][x]);
+        if constexpr (!kRel) q_split();
+        // scores = q . k^T over the 64 keys of the block, issued here and
+        // waited for once V is split (kRel: before; C holds V's tiles)
+        q_product(sc);
+        if constexpr (!kRel) {
+          split_v<D>(vraw, vhi, vlo, n_tiles);
+          mma::fence_proxy_async();
+          __syncthreads();
         }
-        mma::wgmma_fence();
-        constexpr uint32_t kSboK = 32 * D;   // bytes between 8-key groups
-#pragma unroll
-        for (int kk = 0; kk < kDTiles; ++kk) {
-          const uint64_t bh = mma::smem_desc(khi + 64 * kk, 128, kSboK);
-          const uint64_t bl = mma::smem_desc(klo + 64 * kk, 128, kSboK);
-          if constexpr (kQRegs) {
-            mma::WgmmaTf32<kKeys>::run(sc, ql[kk], bh);
-            mma::WgmmaTf32<kKeys>::run(sc, qh[kk], bl);
-            mma::WgmmaTf32<kKeys>::run(sc, qh[kk], bh);
-          } else {   // one k-step at a time, its fragments held until done
-            float v[4];
-            uint32_t ah[4], al[4];
-            q_load(kk, v);
-#pragma unroll
-            for (int x = 0; x < 4; ++x) mma::split_tf32(v[x], ah[x], al[x]);
-            mma::wgmma_fence();
-            mma::WgmmaTf32<kKeys>::run(sc, al, bh);
-            mma::WgmmaTf32<kKeys>::run(sc, ah, bl);
-            mma::WgmmaTf32<kKeys>::run(sc, ah, bh);
-            mma::wgmma_commit();
-            mma::wgmma_wait_all();
-          }
-        }
-        mma::wgmma_commit();
-        split_v<D>(vraw, vhi, vlo, n_tiles);
-        mma::fence_proxy_async();
-        __syncthreads();
         const int jn = next_block(tbits, skips, nb, j);
-        if (jn >= 0)               // the next live block lands meanwhile
-          stage_kv<D, kAsync>(kraw, vraw, kb, vb, a.lkv.l, jn * kKeys,
-                              key_rows(S, jn), S);
-        mma::cp_async_commit();
+        if constexpr (!kRel) {
+          if (jn >= 0)             // the next live block lands meanwhile
+            stage_kv<D, kAsync>(kraw, vraw, kb, vb, a.lkv.l, jn * kKeys,
+                                key_rows(S, jn), S);
+          mma::cp_async_commit();
+        }
         mma::wgmma_wait_all();
 
         // (q.k + mask) + bias, -inf past the last key. The mask terms are
@@ -454,10 +562,23 @@ fwd_kernel(const Args<In> a) {
               score = __fadd_rn(sc[4 * nt + x], add[nt][x]);
               if (bp && t < T)
                 score = __fadd_rn(score, bp[t * a.bias.t + s * a.bias.s]);
+              if (kRel && t < T)
+                score = __fadd_rn(score, cb[(t - t0) * kCLd + (s - s0) +
+                                            woff[x >> 1]]);
             }
             sc[4 * nt + x] = score;
             mx[x >> 1] = fmaxf(mx[x >> 1], score);
           }
+        }
+        if constexpr (kRel) {
+          __syncthreads();         // every warp has read its rows of C
+          split_v<D>(vraw, vhi, vlo, n_tiles);
+          mma::fence_proxy_async();
+          __syncthreads();
+          if (jn >= 0)             // the next live block lands meanwhile
+            stage_kv<D, kAsync>(kraw, vraw, kb, vb, a.lkv.l, jn * kKeys,
+                                key_rows(S, jn), S);
+          mma::cp_async_commit();
         }
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -564,10 +685,10 @@ inline int device_attribute(cudaDeviceAttr what) {
 // tiles.
 // Returns 0, kErrSharedMemory when a block does not fit, or the
 // cudaError_t of the launch.
-template <typename In, int D, bool kAsync>
+template <typename In, int D, bool kAsync, bool kRel>
 int launch(Args<In> a, cudaStream_t stream) {
-  auto kernel = fwd_kernel<In, D, kAsync>;
-  const size_t bytes = smem_bytes<D>(a.T, a.S);
+  auto kernel = fwd_kernel<In, D, kAsync, kRel>;
+  const size_t bytes = smem_bytes<D, kRel>(a.T, a.S);
   if (bytes > (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin))
     return relbias::kErrSharedMemory;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -596,26 +717,27 @@ int launch(Args<In> a, cudaStream_t stream) {
 
 // The launcher for one input type and head dim: cp.async where the input
 // is f32 and every q, k, v row starts on 16 bytes, else synchronous loads.
-template <typename In, int D>
+template <typename In, int D, bool kRel>
 int launch_any(const Args<In>& a, cudaStream_t stream) {
   if constexpr (sizeof(In) == 4) {
     if (mma::rows_aligned<In>(a.q, a.lq.b, a.lq.h, a.lq.l) &&
         mma::rows_aligned<In>(a.k, a.lkv.b, a.lkv.h, a.lkv.l) &&
         mma::rows_aligned<In>(a.v, a.lkv.b, a.lkv.h, a.lkv.l))
-      return launch<In, D, true>(a, stream);
+      return launch<In, D, true, kRel>(a, stream);
   }
-  return launch<In, D, false>(a, stream);
+  return launch<In, D, false, kRel>(a, stream);
 }
 
-template <typename In>
+// kRel: the relative bias from a.e (T a multiple of S), no explicit bias.
+template <typename In, bool kRel = false>
 int dispatch(int D, Args<In> a, cudaStream_t stream) {
   a.mask_vec = a.S % 4 == 0 && reinterpret_cast<uintptr_t>(a.mask) % 16 == 0;
   switch (D) {
-    case 8: return launch_any<In, 8>(a, stream);
-    case 16: return launch_any<In, 16>(a, stream);
-    case 32: return launch_any<In, 32>(a, stream);
-    case 64: return launch_any<In, 64>(a, stream);
-    case 128: return launch_any<In, 128>(a, stream);
+    case 8: return launch_any<In, 8, kRel>(a, stream);
+    case 16: return launch_any<In, 16, kRel>(a, stream);
+    case 32: return launch_any<In, 32, kRel>(a, stream);
+    case 64: return launch_any<In, 64, kRel>(a, stream);
+    case 128: return launch_any<In, 128, kRel>(a, stream);
     default: return relbias::kErrHeadDim;
   }
 }

@@ -31,147 +31,23 @@
 //
 // bf16 dots (every training call on the card): the tensor-core rows and
 // cols kernels of attention_bwd_mma.cuh, whose note gives the design.
-// f32 dots (the f32 rule, off the main path): the CUDA-core kernels below
-// -- rows: one block of 8 warps per (b, h, 64 query rows) stages K and V,
-// each warp takes one row (scores and do.v^T, softmax, dropout, row term,
-// ds, then dq from the row of ds in shared memory) and writes ds and w_drop
-// to f32 scratch; cols (attention_bwd_cols.cuh): dk and dv per (b, h, 32
-// keys).
+// f32 dots (VQCPCB_PALLAS_BF16_DOTS=0): the rows kernel of
+// attention_bwd_f32.cuh (K and V streamed through shared memory in blocks
+// of 64 keys, the score rows in the (B, H, T, S) f32 scratch, ds and w_drop
+// written there, dq a second sweep over the key blocks; it replaces a
+// kernel that staged K, V and two score rows of S per warp and refused
+// S > 397 at d = 64, S > 209 at d = 128), then the cols kernel
+// (attention_bwd_cols.cuh): dk and dv per (b, h, 32 keys). Neither one's
+// shared memory grows with S.
 #include "attention_bwd_cols.cuh"
+#include "attention_bwd_f32.cuh"
 #include "attention_bwd_mma.cuh"
 
 namespace {
 
 using namespace relbias;
 
-// K (padded rows), V, and per warp two f32 rows of S and the row of do.
-size_t rows_smem_bytes_f32(int S, int D) {
-  return sizeof(float) * ((size_t)S * (D + Dot<float>::kPad) + (size_t)S * D) +
-         sizeof(float) * (size_t)kWarps * (2 * (size_t)S + D);
-}
-
-template <int D, bool kWriteBias>
-__global__ void __launch_bounds__(kThreads)
-fused_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ mask, Bias bias,
-                      const float* __restrict__ dout, float* __restrict__ dq,
-                      float* __restrict__ ds_out, float* __restrict__ wd_out,
-                      float* __restrict__ dbias, float* __restrict__ dmask,
-                      Layout lq, Layout lkv, Layout ldo, Layout ldq, int H,
-                      int T, int S, uint32_t seed, uint32_t threshold,
-                      float inv_keep, int dropout) {
-  using In = float;
-  using Elem = float;
-  using DT = Dot<Elem>;
-  constexpr int kStride = D + DT::kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Elem* ks = reinterpret_cast<Elem*>(smem_raw);
-  Elem* vs = ks + (size_t)S * kStride;
-  float* rows = reinterpret_cast<float*>(vs + (size_t)S * D);
-  float* vecs = rows + (size_t)kWarps * 2 * S;
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.x * kMaxTile;
-  const int t1 = min(t0 + kMaxTile, T);
-  const int plane = b * H + h;
-  const In* qb = q + b * lq.b + h * lq.h;
-  const In* dob = dout + b * ldo.b + h * ldo.h;
-  In* dqb = dq + b * ldq.b + h * ldq.h;
-  const long long scratch = (long long)plane * T * S;
-  stage_kv_table<In, Elem, D>(k + b * lkv.b + h * lkv.h,
-                              v + b * lkv.b + h * lkv.h, lkv.l, nullptr, 0, S,
-                              ks, vs, nullptr);
-  __syncthreads();
-
-  const uint32_t key = plane_key(seed, plane);
-  const float* bp = bias.p ? bias.p + plane * bias.bh : nullptr;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* wrow = rows + warp * 2 * S;   // scores -> w -> rounded ds
-  float* dwrow = wrow + S;             // do.v^T -> dropped dw
-  float* dor = vecs + warp * D;        // the row of do, rounded
-  for (int t = t0 + warp; t < t1; t += kWarps) {
-    float qr[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j) qr[j] = DT::round(to_float(qb[t * lq.l + j]));
-    for (int j = lane; j < D; j += 32)
-      dor[j] = DT::round(to_float(dob[t * ldo.l + j]));
-    __syncwarp();
-    const float* mrow = mask + (long long)t * S;
-    const float* brow = bp ? bp + t * bias.t : nullptr;
-
-    float m = -INFINITY;
-    for (int s = lane; s < S; s += 32) {
-      const Elem* kr = ks + s * kStride;
-      const Elem* vr = vs + s * D;
-      float acc_k = 0.f, acc_v = 0.f;
-#pragma unroll
-      for (int j = 0; j < D; j += 2) {
-        const float2 kk = DT::load2(kr + j);
-        const float2 vv = DT::load2(vr + j);
-        acc_k = fmaf(qr[j], kk.x, acc_k);
-        acc_k = fmaf(qr[j + 1], kk.y, acc_k);
-        acc_v = fmaf(dor[j], vv.x, acc_v);
-        acc_v = fmaf(dor[j + 1], vv.y, acc_v);
-      }
-      float score = __fadd_rn(acc_k, mrow[s]);
-      if (brow) score = __fadd_rn(score, brow[s * bias.s]);
-      wrow[s] = score;
-      dwrow[s] = acc_v;
-      m = fmaxf(m, score);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float p = expf(wrow[s] - m);
-      wrow[s] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    float row_term = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float w = wrow[s] / sum;
-      float dw = dwrow[s], w_drop = w;
-      if (dropout) {
-        const bool kept = dropout_keep(key, t, s, S, threshold);
-        w_drop = kept ? w * inv_keep : 0.f;
-        dw = kept ? dw * inv_keep : 0.f;
-      }
-      wd_out[scratch + (long long)t * S + s] = DT::store(w_drop);
-      row_term = __fadd_rn(row_term, __fmul_rn(dw, w));
-      wrow[s] = w;
-      dwrow[s] = dw;
-    }
-    row_term = warp_sum(row_term);
-    for (int s = lane; s < S; s += 32) {
-      const float ds = wrow[s] * (dwrow[s] - row_term);
-      if (kWriteBias) dbias[scratch + (long long)t * S + s] = ds;
-      if (dmask) atomicAdd(dmask + (long long)t * S + s, ds);
-      ds_out[scratch + (long long)t * S + s] = DT::store(ds);
-      wrow[s] = DT::round(ds);
-    }
-    __syncwarp();
-
-    // dq = ds . k; lanes split the head dimension
-    for (int p = lane; p < D / 2; p += 32) {
-      float ax = 0.f, ay = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const float d = wrow[s];
-        const float2 kk = DT::load2(ks + s * kStride + 2 * p);
-        ax = fmaf(d, kk.x, ax);
-        ay = fmaf(d, kk.y, ay);
-      }
-      In* o = dqb + t * ldq.l + 2 * p;
-      o[0] = from_float<In>(ax);
-      o[1] = from_float<In>(ay);
-    }
-    __syncwarp();   // the row buffers are rewritten by the next query row
-  }
-}
-
-// f32 dots: the CUDA-core rows kernel, then the cols kernel.
+// f32 dots: the streamed rows kernel, then the cols kernel.
 template <int D, bool kWriteBias>
 int launch_f32(const float* q, const float* k, const float* v,
                const float* mask, Bias bias, const float* dout, float* dq,
@@ -179,16 +55,11 @@ int launch_f32(const float* q, const float* k, const float* v,
                float* wd, const Layout* lay, int B, int H, int T, int S,
                uint32_t seed, uint32_t threshold, float inv_keep, int dropout,
                cudaStream_t stream) {
-  const size_t bytes = rows_smem_bytes_f32(S, D);
-  if (bytes > (size_t)bwd_mma::max_smem()) return kErrSharedMemory;
-  cudaFuncSetAttribute(fused_bwd_rows_kernel<D, kWriteBias>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  fused_bwd_rows_kernel<D, kWriteBias>
-      <<<dim3((T + kMaxTile - 1) / kMaxTile, H, B), kThreads, bytes,
-         stream>>>(q, k, v, mask, bias, dout, dq, ds, wd, dbias, dmask,
-                   lay[0], lay[1], lay[2], lay[3], H, T, S, seed, threshold,
-                   inv_keep, dropout);
-  const int err = (int)cudaGetLastError();
+  const bwd_f32::RowsArgs a = {q, k, v, mask, nullptr, bias, dout, dq, ds,
+                               wd, dbias, dmask, lay[0], lay[1], lay[2],
+                               lay[3], B, H, T, S, seed, threshold, inv_keep,
+                               dropout};
+  const int err = bwd_f32::launch_rows<D, false, kWriteBias>(a, stream);
   if (err) return err;
   return launch_cols_f32<D>(q, dout, ds, wd, dk, dv, lay[0], lay[2], lay[4],
                             B, H, T, S, stream);
@@ -286,8 +157,8 @@ extern "C" {
 // wd_scratch right after ds_scratch; sc_scratch 2*B*H*T*Sp + 3*B*H*T floats
 // (bf16 dots only: the scores, the dropped do . v^T and the row
 // statistics). Returns 0 when
-// launched, -1 for an unsupported head dimension, -2 when a kernel does not
-// fit in shared memory, -3 for bf16 inputs with f32 dots, -4 when a bf16-dot
+// launched, -1 for an unsupported head dimension, -2 when a bf16-dot kernel
+// does not fit in shared memory (S > 4096), -3 for bf16 inputs with f32 dots, -4 when a bf16-dot
 // call gets rows that do not start on 16 bytes, -5 when wd_scratch does not
 // follow ds_scratch, else the first cudaError_t of the launches.
 int fused_attention_bwd(const void* q, const void* k, const void* v,

@@ -1,8 +1,7 @@
 // Shared pieces of the attention kernels (relbias_attention.cu,
 // relbias_attention_bwd.cu, fused_attention.cu, fused_attention_bwd.cu): the
 // dot-type rounding rules, input/output element conversions, the layout and
-// bias strides, the shared-memory plan of a (b, h, query tile) block, and
-// the in-kernel dropout hash.
+// bias strides, and the in-kernel dropout hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,7 +13,6 @@ namespace relbias {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxTile = 64;
 
 enum : int {
   kErrHeadDim = -1,
@@ -35,7 +33,6 @@ template <> struct Dot<float> {
   static __device__ __forceinline__ float2 load2(const float* p) {
     return make_float2(p[0], p[1]);
   }
-  static constexpr int kPad = 1;   // elements: one 32-bit word
 };
 
 template <> struct Dot<__nv_bfloat16> {
@@ -51,7 +48,6 @@ template <> struct Dot<__nv_bfloat16> {
   static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   }
-  static constexpr int kPad = 2;   // elements: one 32-bit word
 };
 
 // Input / output elements (q, k, v, do, out, dq, dk, dv): f32 or bf16.
@@ -83,62 +79,6 @@ struct Bias {
   const float* p;
   long long bh, t, s;
 };
-
-__host__ __device__ inline int table_rows(int S, int tile, int ratio) {
-  return S + (tile - 1) / ratio + 1;
-}
-
-// Shared memory of a (b, h, query tile) block: K (padded rows), V, the rows
-// of E = [e1; e2[1:]] that the tile's shifts address (padded rows), and
-// `rows_per_warp` f32 rows of S plus `vec_per_warp` f32 vectors of D per warp.
-template <typename Elem>
-__host__ __device__ inline size_t tile_smem_bytes(int S, int D, int tile,
-                                                  int ratio, int rows_per_warp,
-                                                  int vec_per_warp) {
-  const int stride = D + Dot<Elem>::kPad;
-  return sizeof(Elem) * ((size_t)S * stride + (size_t)S * D +
-                         (size_t)table_rows(S, tile, ratio) * stride) +
-         sizeof(float) * (size_t)kWarps *
-             ((size_t)rows_per_warp * S + (size_t)vec_per_warp * D);
-}
-
-// The largest query tile (a power of two up to kMaxTile) whose block fits
-// the card's opt-in shared memory; 0 when not even one row fits.
-template <typename Elem>
-inline int pick_tile(int S, int D, int ratio, int rows_per_warp,
-                     int vec_per_warp, size_t* bytes) {
-  int device = 0, max_smem = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
-  for (int tile = kMaxTile; tile >= 1; tile >>= 1) {
-    *bytes = tile_smem_bytes<Elem>(S, D, tile, ratio, rows_per_warp,
-                                   vec_per_warp);
-    if (*bytes <= (size_t)max_smem) return tile;
-  }
-  return 0;
-}
-
-// Stage K, V and the table window of one (b, h, query tile) block. K and E
-// rows are padded by one 32-bit word so lanes reading 32 different rows hit
-// 32 different banks. Returns nothing; the caller synchronises.
-template <typename In, typename Elem, int D>
-__device__ __forceinline__ void stage_kv_table(
-    const In* __restrict__ kb, const In* __restrict__ vb, long long kv_row,
-    const float* __restrict__ eb, int e_count, int S, Elem* ks, Elem* vs,
-    Elem* es) {
-  using DT = Dot<Elem>;
-  constexpr int kStride = D + DT::kPad;
-  for (int i = threadIdx.x; i < S * D; i += kThreads) {
-    const int s = i / D, j = i - s * D;
-    ks[s * kStride + j] = DT::store(to_float(kb[s * kv_row + j]));
-    vs[i] = DT::store(to_float(vb[s * kv_row + j]));
-  }
-  for (int i = threadIdx.x; i < e_count * D; i += kThreads) {
-    const int s = i / D, j = i - s * D;
-    es[s * kStride + j] = DT::store(eb[i]);
-  }
-}
 
 // ---- in-kernel dropout (pallas_attention.py:_hash_u32, _dropout_keep) ----
 // keep(t, s) = lowbias32((t*S + s) ^ lowbias32(stream * 0x9E3779B9))

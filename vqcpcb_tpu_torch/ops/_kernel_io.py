@@ -22,8 +22,8 @@ NEG_BIG = -1e30
 MASK32 = 0xFFFFFFFF
 
 ERRORS = {-1: "head dim must be one of 8, 16, 32, 64, 128",
-          -2: "K and V (and the bias table) do not fit in shared memory "
-              "at this source length and dot dtype",
+          -2: "the bf16-dot kernels' score rows do not fit in shared "
+              "memory at this source length (S > 4096)",
           -3: "bf16 inputs need bf16 dots",
           -4: "the bf16-dot backward reads rows that start on 16 bytes: "
               "strides must be multiples of 16 bytes",

@@ -21,10 +21,12 @@ bit the JAX mask, regenerated by the backward.
 Each wrapper routes by device: a CPU tensor takes the plain PyTorch version,
 a CUDA tensor launches csrc/relbias_attention.cu (forward: with bf16 dots
 the kernel of csrc/attention_fwd_mma.cuh, w.v on the tensor cores, with f32
-dots a CUDA-core kernel) or csrc/relbias_attention_bwd.cu (backward: with
-bf16 dots the tensor-core rows, cols, table and table-sum kernels of
-csrc/attention_bwd_mma.cuh, with f32 dots three CUDA-core kernels) or
-raises. Both
+dots the 3xTF32 tensor-core kernel of csrc/attention_fwd_f32.cuh with the
+bias window streamed beside K) or csrc/relbias_attention_bwd.cu (backward:
+with bf16 dots the tensor-core rows, cols, table and table-sum kernels of
+csrc/attention_bwd_mma.cuh, with f32 dots the streamed rows kernel of
+csrc/attention_bwd_f32.cuh and two CUDA-core kernels) or raises; no f32-dot
+kernel's shared memory grows with S. Both
 round q, k, v, E (and do) to `dot_dtype` before the products with f32
 accumulation, keep the softmax in f32, and return the input dtype.
 `RelbiasAttention` is the autograd Function pairing the two.
@@ -41,9 +43,12 @@ from vqcpcb_tpu_torch.ops._kernel_io import (
     raise_status, score_grads_plain, strides, typed, unheads)
 
 # Launches since the last reset: forward kernel calls, and backward wrapper
-# calls (each launches the backward's kernels in turn).
+# calls (each launches the backward's kernels in turn); of those, the ones
+# with f32 dots (VQCPCB_PALLAS_BF16_DOTS=0), whose kernels are their own.
 launches = 0
 bwd_launches = 0
+launches_f32 = 0
+bwd_launches_f32 = 0
 
 
 # ---- dropout hash (pallas_attention.py:158-191) -----------------------------
@@ -225,7 +230,7 @@ def relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
                                dropout: float = 0.0, seed: int = 0
                                ) -> torch.Tensor:
     """Launch csrc/relbias_attention.cu; see the module docstring."""
-    global launches
+    global launches, launches_f32
     q4, k4, v4 = (heads(x, num_heads) for x in (q, k, v))
     _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype)
     b, h, t, d = q4.shape
@@ -242,6 +247,7 @@ def relbias_attention_fwd_cuda(q, k, v, mask, e1, e2,
         drop, torch.cuda.current_stream(q.device).cuda_stream)
     raise_status(status, "relbias_attention_fwd", q4, s, dot_dtype)
     launches += 1
+    launches_f32 += not bf16_dots
     return out
 
 
@@ -254,8 +260,8 @@ def relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, dout,
     relbias_attention_bwd_plain returns. `scratch` is bwd_scratch's triple
     for these shapes, or None to allocate one; with bf16 dots its ds and
     w_drop hold the bf16 values of relbias_attention_bwd_weights_plain's
-    results afterwards."""
-    global bwd_launches
+    results afterwards (with f32 dots, the f32 values, row stride S)."""
+    global bwd_launches, bwd_launches_f32
     q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
     _check_cuda(q4, k4, v4, e1, e2, mask, dot_dtype, extra=(("dout", do4),))
     b, h, t, d = q4.shape
@@ -271,10 +277,11 @@ def relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, dout,
     dmask = (torch.zeros((t, s), dtype=torch.float32, device=q.device)
              if need_dmask else None)
     de = torch.empty((h, 2 * s - 1, d), dtype=torch.float32, device=q.device)
-    # with bf16 dots: the table kernel's per-group sums, then dq's f32 ds.k part
-    de_partial = (torch.empty(min(b, TABLE_GROUPS) * de.numel() + b * h * t * d,
-                              dtype=torch.float32, device=q.device)
-                  if dot_dtype == torch.bfloat16 else de)
+    # the table kernel's per-group sums, then with bf16 dots dq's f32 ds.k part
+    de_partial = torch.empty(
+        min(b, TABLE_GROUPS) * de.numel()
+        + (b * h * t * d if dot_dtype == torch.bfloat16 else 0),
+        dtype=torch.float32, device=q.device)
     if scratch is None:
         scratch = bwd_scratch(b, h, t, s, dot_dtype, q.device)
     ds_scratch, wd_scratch, sc_scratch = scratch
@@ -291,6 +298,7 @@ def relbias_attention_bwd_cuda(q, k, v, mask, e1, e2, dout,
         torch.cuda.current_stream(q.device).cuda_stream)
     raise_status(status, "relbias_attention_bwd", q4, s, dot_dtype)
     bwd_launches += 1
+    bwd_launches_f32 += not bf16_dots
     de1, de2 = split_table_grad(de.to(q.dtype), s)
     return dq, dk, dv, dmask, de1, de2
 

@@ -31,8 +31,9 @@ a CUDA tensor launches csrc/fused_attention.cu (K4, and K6-fwd with f32
 dots: the 3xTF32 tensor-core kernel of csrc/attention_fwd_f32.cuh; K6-fwd
 with bf16 dots, the kernel of csrc/attention_fwd_mma.cuh) or
 csrc/fused_attention_bwd.cu (K6-bwd with a real bias, K6-bwd-nobias
-otherwise: tensor-core kernels with bf16 dots, CUDA-core ones with f32
-dots) or raises. `FusedAttentionTrain` is the autograd Function pairing
+otherwise: tensor-core kernels with bf16 dots; with f32 dots the streamed
+rows kernel of csrc/attention_bwd_f32.cuh and a CUDA-core cols kernel) or
+raises. `FusedAttentionTrain` is the autograd Function pairing
 the K6 forward and backward.
 """
 from __future__ import annotations
@@ -48,11 +49,14 @@ from vqcpcb_tpu_torch.ops._kernel_io import (
 from vqcpcb_tpu_torch.ops.attention_kernels import dropout_keep_plain, shard_seed
 
 # Launches since the last reset: K4; K6's forward; K6's backward with a real
-# bias, and with the placeholder (each launches a rows and a cols kernel).
+# bias, and with the placeholder (each launches a rows and a cols kernel);
+# K6's forward and backward calls (either bias) with f32 dots among them.
 launches = 0
 train_fwd_launches = 0
 train_bwd_launches = 0
 train_bwd_nobias_launches = 0
+train_fwd_launches_f32 = 0
+train_bwd_launches_f32 = 0
 
 
 def flat_stream_seeds(seed: int, b: int, h: int, device) -> torch.Tensor:
@@ -212,9 +216,10 @@ def fused_attention_train_fwd_cuda(q, k, v, mask, bias=None,
                                    dropout: float = 0.0, seed: int = 0
                                    ) -> torch.Tensor:
     """K6's forward: launch csrc/fused_attention.cu."""
-    global train_fwd_launches
+    global train_fwd_launches, train_fwd_launches_f32
     out = _fwd_cuda(q, k, v, mask, bias, dot_dtype, num_heads, dropout, seed)
     train_fwd_launches += 1
+    train_fwd_launches_f32 += dot_dtype == torch.float32
     return out
 
 
@@ -227,8 +232,9 @@ def fused_attention_train_bwd_cuda(q, k, v, mask, bias, dout,
     fused_attention_train_bwd_plain returns. `scratch` is bwd_scratch's
     triple for these shapes, or None to allocate one; with bf16 dots its ds
     and w_drop hold the bf16 values of
-    fused_attention_train_bwd_weights_plain's results afterwards."""
-    global train_bwd_launches, train_bwd_nobias_launches
+    fused_attention_train_bwd_weights_plain's results afterwards (with f32
+    dots, the f32 values, row stride S)."""
+    global train_bwd_launches, train_bwd_nobias_launches, train_bwd_launches_f32
     q4, k4, v4, do4 = (heads(x, num_heads) for x in (q, k, v, dout))
     bias3 = _check_cuda(q4, k4, v4, mask, bias, dot_dtype, extra=(("dout", do4),))
     b, h, t, d = q4.shape
@@ -264,6 +270,7 @@ def fused_attention_train_bwd_cuda(q, k, v, mask, bias, dout,
         train_bwd_launches += 1
     else:
         train_bwd_nobias_launches += 1
+    train_bwd_launches_f32 += not bf16_dots
     return dq, dk, dv, dmask, dbias
 
 
