@@ -103,7 +103,7 @@ Phases, in order; any failure raises and the run exits non-zero:
      teacher-forced argmax, (d) with --profile, 3 profiled steps and
      one profiled sampling window;
  13. one JSON line of per-kernel numbers, then the result line (printed
-     last, after phases 14 to 18);
+     last, after phases 14 to 19);
  14. the scale-up MIDI chain (scripts/r5_chain9.sh) through the CLIs in
      process in build/scaleup_midi, at the configs' full width: (a) 512
      .mid files from the port's writer (make_midi_corpus.py), their cache
@@ -196,14 +196,28 @@ Phases, in order; any failure raises and the run exits non-zero:
      against the CPU plain route; (c) 30 train steps at batch 32, dropout
      0.2 (ms/step, tokens/s, a falling loss), and the kernel route against
      the CPU f32 plain route at batch 2 (the loss within 1e-5 relative,
-     every gradient's relative L2 gap within 1e-4).
+     every gradient's relative L2 gap within 1e-4);
+ 19. attention maps of the flagship, the AC/AC/C
+     (configs/decoder_relative_AC_AC_C_random.py) and the absolute decoder
+     at full width, batch 8: (a) encode_codes and
+     Decoder.forward(collect_attentions=True), the dump's path, launch K1
+     once and K3-fwd or K4 once a memory-encoder layer (3); the decoder
+     stack takes the plain route and returns every map, within 1e-5 of the
+     CPU plain route's on the same memory (TF32 off), each row summing to
+     1 within 1e-5;
+     (b) the forward without collection launches K3-fwd (6, 9) or K4 (9)
+     once a layer and returns no map, (a)'s loss within 1e-4 relative of
+     its; (c) DecoderTrainer.dump_attention_maps writes one PDF a map under
+     the expected names in build/phase19 where matplotlib and seaborn are
+     installed (a line says which case held).
 The five runs of phases 7 and 8, the run of phase 9 (a), the three runs of
 phase 10 (a), (c) and (d), the CLI calls of phase 11, the runs of phase 12
 (a) and (c), the CLI calls of phase 14, the runs and CLI calls of phase 15,
 the CLI calls and the two encodes at batch 512 of phase 16, and the CLI
 calls of phase 17 (b) with the ranks' steps of (c) and samplers of (e)
-(their launches counted in each rank and summed), and the serving run and
-the 30 steps of phase 18 are the main paths: each
+(their launches counted in each rank and summed), the serving run and
+the 30 steps of phase 18, and the encode and collected forward of each
+decoder in phase 19 (a) are the main paths: each
 is driven with the launch counts set to 0 just before it and read just
 after. Every K1 launch on them must run a compiled instance.
 
@@ -1383,7 +1397,11 @@ def synthetic_vocabulary():
 DECODERS = {"flagship": dict(transformer_type="relative",
                              cross_attention_type="diagonal"),
             "absolute": dict(transformer_type="absolute",
-                             cross_attention_type="full")}
+                             cross_attention_type="full"),
+            # configs/decoder_relative_AC_AC_C_random.py (decoder_type
+            # 'transformer_relative'): relative cross-attention (phase 19)
+            "relative_acac": dict(transformer_type="relative",
+                                  cross_attention_type="anticausal")}
 # The kernel one prefill launches, and how often: 3 encoder + 3 decoder
 # self-attentions (relative bias), or those and 3 cross-attentions (K4).
 PREFILL_LAUNCHES = {"flagship": ("relbias_attention_fwd", 6),
@@ -3924,10 +3942,10 @@ def _spread_codebook(encoder, x) -> None:
         encoder.quantizer.set_codebooks(z[pick[:CODEBOOK_SIZE]][None])
 
 
-def _attend_plain(self, q, k, v, attn_mask=None):
+def _attend_plain(self, q, k, v, attn_mask=None, need_weights=False):
     """MultiheadAttention.attend's card branch for a relative layer with the
     kernel's plain version in place of the kernel, at its bf16 dots, on the
-    CPU or the card."""
+    CPU or the card (the encoders it serves never ask for weights)."""
     from vqcpcb_tpu_torch.ops.attention import expand_kv_heads
     from vqcpcb_tpu_torch.ops.attention_kernels import relbias_attention_fwd_plain
     k, v = (expand_kv_heads(x, self.num_kv_heads, self.group) for x in (k, v))
@@ -5878,6 +5896,167 @@ def phase_f32_route() -> dict:
     return out
 
 
+# ---- phase 19 ----------------------------------------------------------------
+
+# The three decoders at full width, batch 8: the kernel counter of their
+# inference attentions, its launches in the forward that collects the maps
+# (the memory encoder's 3 self-attentions; the decoder stack, which gives
+# the maps, takes the plain route) and in one eval forward without
+# collection (3 encoder + 3 decoder self-attentions, plus 3
+# cross-attentions for an attention cross branch).
+MAP_DECODERS = (("flagship", "relbias_attention_fwd", 3, 6),
+                ("relative_acac", "relbias_attention_fwd", 3, 9),
+                ("absolute", "fused_attention", 3, 9))
+MAP_BATCH = 8
+MAP_ATOL = 1e-5         # the card's plain route against the CPU's, f32, TF32 off
+MAP_ROW_ATOL = 1e-5     # each weights row sums to 1
+MAP_LOSS_RTOL = 1e-4    # the collected forward's loss against the kernels'
+PLOT_PACKAGES = ("matplotlib", "seaborn")
+
+
+def _map_names(attentions) -> list:
+    """layer{i}_{name}.pdf of every map that is not None, in the dump's order."""
+    return [f"layer{i}_{name}.pdf" for i, att in enumerate(attentions)
+            for name in ("a_self_decoder", "a_cross") if att[name] is not None]
+
+
+def _stack_maps_on_cpu(dec, codes, x) -> list:
+    """The decoder stack's maps from the CPU plain route, fed the memory
+    the card's forward attends to (the memory encoder runs the kernels
+    there, K3-fwd with bf16 dots), so only the stack's plain route on the
+    card is held against the CPU's."""
+    from vqcpcb_tpu_torch.ops.masks import causal_mask
+    with torch.no_grad():
+        memory = dec.encode_memory(codes).cpu()
+        cpu = copy.deepcopy(dec).cpu()
+        tgt = cpu.shift_with_sos(cpu.embed_target(x.cpu()))
+        t_len = tgt.shape[1]
+        _, maps = cpu.transformer["decoder"](
+            tgt, memory, causal_mask(t_len), cpu.cross_mask(memory.shape[1], t_len),
+            collect_attentions=True)
+    return maps
+
+
+def _attention_maps_of(kind: str, kernel: str, memory_layers: int, layers: int,
+                       gen, plots: bool, work: str) -> dict:
+    """Phase 19 for one decoder of MAP_DECODERS; see phase_attention_maps."""
+    from vqcpcb_tpu_torch.training.decoder_trainer import DecoderTrainer
+    vocab = synthetic_vocabulary()
+    encoder, decoder = build_models(vocab, kind=kind)
+    trainer = DecoderTrainer(encoder, decoder, CODEBOOK_SIZE, seed=0,
+                             model_dir=os.path.join(work, kind))
+    x = random_templates(vocab, gen, MAP_BATCH, NUM_EVENTS)
+    init_codebook(trainer.encoder, x, gen)
+    dec = trainer.decoder.eval()
+
+    # (a) the dump's path: encode, then the forward that collects the maps
+    def collected():
+        codes = trainer.encode_codes(x)
+        return codes, dec(codes, x, collect_attentions=True)
+
+    reset_counts()
+    with torch.no_grad():
+        (codes, out_a), seconds_a = synced_seconds(collected)
+    main_counts = counts()
+    want = {k: 0 for k in main_counts}
+    want.update({"vq_nearest": 1, kernel: memory_layers})
+    log(f"# [{kind}] (a) encode + collected forward at batch {MAP_BATCH}, "
+        f"{seconds_a:.3f} s, launches {json.dumps(main_counts)} "
+        f"(need {json.dumps(want)})")
+    if main_counts != want:
+        raise AssertionError(f"[{kind}] (a) launched {main_counts}, not {want}")
+    maps_cpu = _stack_maps_on_cpu(dec, codes, x)
+    names = _map_names(out_a["attentions_decoder"])
+    if names != _map_names(maps_cpu) or \
+            len(names) != (3 if kind == "flagship" else 6):
+        raise AssertionError(f"[{kind}] (a) maps {names}")
+    map_err = row_err = 0.0
+    for got, want_cpu in zip(out_a["attentions_decoder"], maps_cpu):
+        for name, w in got.items():
+            if w is None:
+                continue
+            map_err = max(map_err, float((w.cpu() - want_cpu[name]).abs().max()))
+            row_err = max(row_err, float((w.sum(-1) - 1).abs().max()))
+    log(f"# [{kind}] (a) {len(names)} maps of "
+        f"{tuple(out_a['attentions_decoder'][0]['a_self_decoder'].shape)}: "
+        f"max |card - CPU| {map_err:.3e} (need <= {MAP_ATOL}), max |row sum "
+        f"- 1| {row_err:.3e} (need <= {MAP_ROW_ATOL})")
+    if not (map_err <= MAP_ATOL and row_err <= MAP_ROW_ATOL):
+        raise AssertionError(f"[{kind}] (a) the card's maps disagree")
+
+    # (b) the same forward without collection: the kernels in every layer
+    reset_counts()
+    with torch.no_grad():
+        out_b, seconds_b = synced_seconds(lambda: dec(codes, x))
+    b_counts = counts()
+    want_b = {k: 0 for k in b_counts}
+    want_b[kernel] = layers
+    loss_err = abs(out_a["loss"].item() - out_b["loss"].item()) / abs(
+        out_b["loss"].item())
+    log(f"# [{kind}] (b) forward without collection {seconds_b:.3f} s, "
+        f"launches {json.dumps(b_counts)} (need {json.dumps(want_b)}); loss "
+        f"{out_b['loss'].item():.6f} vs (a)'s {out_a['loss'].item():.6f}, "
+        f"relative {loss_err:.3e} (need <= {MAP_LOSS_RTOL})")
+    if b_counts != want_b or out_b["attentions_decoder"] != []:
+        raise AssertionError(f"[{kind}] (b) launched {b_counts}, maps "
+                             f"{len(out_b['attentions_decoder'])}")
+    if not loss_err <= MAP_LOSS_RTOL:
+        raise AssertionError(f"[{kind}] (b) the losses disagree")
+
+    # (c) the dump, where the plotting packages are installed
+    written, seconds_c = [], None
+    if plots:
+        written, seconds_c = synced_seconds(lambda: trainer.dump_attention_maps(x))
+        got_names = [os.path.basename(p) for p in written]
+        log(f"# [{kind}] (c) dump_attention_maps: {len(written)} PDFs in "
+            f"{seconds_c:.3f} s under {os.path.dirname(written[0])}")
+        if got_names != names or not all(os.path.getsize(p) for p in written):
+            raise AssertionError(f"[{kind}] (c) wrote {got_names}, not {names}")
+    return dict(launches=main_counts, map_err=map_err, row_err=row_err,
+                loss_err=loss_err, seconds=dict(a=seconds_a, b=seconds_b,
+                                                c=seconds_c),
+                written=len(written))
+
+
+def phase_attention_maps(gen: torch.Generator, card: str) -> dict:
+    """Phase 19: attention maps of the three decoders of MAP_DECODERS at full
+    width, batch 8, random weights from a seed. (a) The dump's path (the
+    main path): encode_codes and Decoder.forward(collect_attentions=True)
+    launch K1 once and the inference attention kernel once a memory-encoder
+    layer; the decoder stack takes the plain route and returns every map,
+    held against the CPU plain route's on the same memory within MAP_ATOL,
+    each row summing to 1. (b) The same forward without collection launches the kernel once a
+    layer and returns no maps; the loss of (a) within MAP_LOSS_RTOL of its.
+    (c) DecoderTrainer.dump_attention_maps writes one PDF a map, under the
+    expected names, in build/phase19, where matplotlib and seaborn are
+    installed; a line says which case held. Returns the main path's
+    launches (Launches) and each decoder's results."""
+    import importlib.util
+    missing = [p for p in PLOT_PACKAGES if importlib.util.find_spec(p) is None]
+    plots = not missing
+    log("# [phase 19] plotting packages: " + (
+        "matplotlib and seaborn found, (c) runs" if plots else
+        f"{' and '.join(missing)} not installed, (c) skipped"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase19")
+    launches = None
+    results = {}
+    for kind, kernel, memory_layers, layers in MAP_DECODERS:
+        out, seconds = synced_seconds(lambda: _attention_maps_of(
+            kind, kernel, memory_layers, layers, gen, plots, work))
+        results[kind] = dict(out, phase_seconds=seconds)
+        log(f"# [{kind}] phase 19: {seconds:.3f} s ({card})")
+        if launches is None:
+            launches = out["launches"]
+        else:
+            by_kind = {k: launches.by_kind[k] + out["launches"].by_kind[k]
+                       for k in launches.by_kind}
+            launches = Launches({k: launches[k] + out["launches"][k]
+                                 for k in launches})
+            launches.by_kind = by_kind
+    return dict(launches=launches, decoders=results, plots=plots)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -5948,6 +6127,8 @@ def main() -> int:
     by_path["f32_serving"] = f32_route["serving"]["launches"]
     by_path["f32_training"] = f32_route["training"]["launches"]
     mark("phase 18")
+    by_path["attention_maps"] = phase_attention_maps(gen, card)["launches"]
+    mark("phase 19")
     launches = {k: sum(path[k] for path in by_path.values()) for k in counts()}
     log(f"# main-path launches: {json.dumps(by_path)}")
     # every main path's K1 launches run a compiled instance

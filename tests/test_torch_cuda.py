@@ -1211,3 +1211,72 @@ def test_data_parallel_step_over_gloo_ranks_sharing_the_card(gen, monkeypatch):
         want = p.grad.float().cpu()
         err = (ranks[0]["grads"][name].float() - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,relative,cross", [
+    ("AC_D_C", True, "diagonal"), ("AC_AC_C", True, "anticausal"),
+    ("absolute", False, "full")])
+def test_attention_maps_on_card(gen, f32_matmuls, kind, relative, cross):
+    """The card twin of tests/test_torch_attention_maps.py's collection
+    cases, a small decoder (d_model 32, 2 heads, 2 + 2 layers): (a)
+    Decoder.forward(collect_attentions=True) launches the inference kernel
+    (K3-fwd, or K4 without the relative bias) in the memory encoder's 2
+    layers only, and the decoder stack returns every map, within 1e-5 of
+    the CPU plain route's on the memory the card attends to (its memory
+    encoder runs the kernels, K3-fwd with bf16 dots), each row summing to
+    1 within 1e-5; (b) the
+    forward without collection launches the kernel once an attention layer
+    and returns no map, (a)'s loss within 1e-4 relative of its."""
+    import copy
+    from vqcpcb_tpu_torch.models.data_processor import BachDataProcessor
+    from vqcpcb_tpu_torch.models.decoder import Decoder
+    from vqcpcb_tpu_torch.ops.masks import causal_mask
+    torch.manual_seed(0)
+    vocabs = [7, 9, 6, 8]
+    dec = Decoder(BachDataProcessor(12, 16, vocabs), "anticausal", d_model=32,
+                  num_encoder_layers=2, num_decoder_layers=2, n_head=2,
+                  dim_feedforward=48, positional_embedding_size=4,
+                  num_channels_encoder=1, num_events_encoder=4,
+                  num_channels_decoder=4, num_events_decoder=16,
+                  total_upscaling=16, source_vocab_size=8,
+                  transformer_type="relative" if relative else "absolute",
+                  cross_attention_type=cross).cuda().eval()
+    codes = torch.randint(0, 8, (4, 4), generator=gen, device="cuda")
+    x = torch.stack([torch.randint(0, v, (4, 16), generator=gen, device="cuda")
+                     for v in vocabs], -1).int()
+
+    def launched_by(fn):
+        before = (ak.launches, fk.launches)
+        with torch.no_grad():
+            out = fn()
+        return out, (ak.launches - before[0], fk.launches - before[1])
+
+    def expect(n):
+        return (n, 0) if relative else (0, n)
+
+    out_a, launched = launched_by(lambda: dec(codes, x, collect_attentions=True))
+    assert launched == expect(2)
+    with torch.no_grad():
+        memory = dec.encode_memory(codes).cpu()
+        cpu = copy.deepcopy(dec).cpu()
+        tgt = cpu.shift_with_sos(cpu.embed_target(x.cpu()))
+        _, want = cpu.transformer["decoder"](
+            tgt, memory, causal_mask(tgt.shape[1]),
+            cpu.cross_mask(memory.shape[1], tgt.shape[1]), collect_attentions=True)
+    maps = 0
+    for got, ref in zip(out_a["attentions_decoder"], want):
+        for name, w in got.items():
+            assert (w is None) == (ref[name] is None), name
+            if w is None:
+                continue
+            maps += 1
+            assert (w.cpu() - ref[name]).abs().max().item() <= 1e-5, name
+            assert (w.sum(-1) - 1).abs().max().item() <= 1e-5, name
+    assert maps == (2 if cross == "diagonal" else 4)
+
+    out_b, launched = launched_by(lambda: dec(codes, x))
+    assert launched == expect(4 if cross == "diagonal" else 6)
+    assert out_b["attentions_decoder"] == []
+    loss_a, loss_b = out_a["loss"].item(), out_b["loss"].item()
+    assert abs(loss_a - loss_b) <= 1e-4 * abs(loss_b)

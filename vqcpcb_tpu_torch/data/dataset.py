@@ -56,6 +56,22 @@ class ChoraleBeatsDataset:
                 self._vocab.save(self.vocab_path)
         return self._vocab
 
+    @property
+    def note2index_dicts(self):
+        return self.vocabulary.note2index_dicts
+
+    @property
+    def index2note_dicts(self):
+        return self.vocabulary.index2note_dicts
+
+    @property
+    def num_tokens_per_channel(self):
+        return self.vocabulary.num_tokens_per_channel
+
+    @property
+    def num_voices(self) -> int:
+        return self.vocabulary.num_voices
+
     # ---- window tensor -----------------------------------------------------
 
     @property

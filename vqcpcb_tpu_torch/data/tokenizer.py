@@ -167,6 +167,34 @@ def min_max_transposition(current_subseq_ranges,
     return (max(mins), min(maxs))
 
 
+def extract_with_padding(tensor_score: np.ndarray,
+                         start_tick: int,
+                         end_tick: int,
+                         vocab: Vocabulary) -> np.ndarray:
+    """One window [start_tick, end_tick) of a (voices, ticks) grid, padded
+    where it leaves the score: a single START (resp. END) symbol next to
+    the score, PAD beyond it (tokenizer.py:152-179; reference:
+    chorale_dataset.py:418-470)."""
+    assert start_tick < end_tick
+    assert end_tick > 0
+    length = tensor_score.shape[1]
+    start_symbols = np.array(vocab.symbol_indices(START_SYMBOL))
+    end_symbols = np.array(vocab.symbol_indices(END_SYMBOL))
+    pad_symbols = np.array(vocab.symbol_indices(PAD_SYMBOL))
+
+    parts = []
+    if start_tick < 0:
+        left = np.tile(pad_symbols[:, None], (1, -start_tick))
+        left[:, -1] = start_symbols
+        parts.append(left)
+    parts.append(tensor_score[:, max(start_tick, 0):min(end_tick, length)])
+    if end_tick > length:
+        right = np.tile(pad_symbols[:, None], (1, end_tick - length))
+        right[:, 0] = end_symbols
+        parts.append(right)
+    return np.concatenate(parts, axis=1)
+
+
 def extract_windows_batch(grid: np.ndarray,
                           start_ticks: np.ndarray,
                           window_len: int,

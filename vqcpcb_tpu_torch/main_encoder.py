@@ -16,8 +16,9 @@ The config's training_method picks the trainer: 'vqcpc'
 (VQCPCEncoderTrainer) or 'student' (StudentEncoderTrainer, with the teacher
 and the auxiliary decoder the config describes, main_encoder.py:75-103).
 After training or loading, the per-code excerpt dumps (clusters_train/,
-clusters_val/) and the codebook's nearest neighbours follow
-(main_encoder.py:146-184).
+clusters_val/) and the codebook's nearest neighbours follow, and with
+3-d codewords the scatter plot clusters_scatter.pdf (main_encoder.py:146-184;
+on a machine without matplotlib a line says it was not written).
 
 On ranks (main_encoder.py:35-37): with VQCPCB_COORDINATOR,
 VQCPCB_NUM_PROCESSES and VQCPCB_PROCESS_ID, or VQCPCB_DISTRIBUTED=1 and
@@ -32,6 +33,7 @@ after training; -l without -t runs on rank 0 alone.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import shutil
 import sys
@@ -159,8 +161,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for split in ("train", "val"):
         analysis.plot_clusters(encode_fn, clusters_loader, split, model_dir,
                                num_events_for_one_index, num_batches=64)
+    # the EMA quantizer's codebooks are its buffer, as JAX reads them from
+    # its 'ema' collection
     codebooks = encoder.quantizer.codebooks.detach().cpu().numpy()
     analysis.show_nn_clusters(codebooks)
+    if config["quantizer_kwargs"]["codebook_dim"] == 3:
+        if importlib.util.find_spec("matplotlib") is None:
+            print("clusters_scatter.pdf not written: matplotlib is not installed")
+        else:
+            analysis.scatterplot_clusters_3d(codebooks, model_dir)
     return 0
 
 

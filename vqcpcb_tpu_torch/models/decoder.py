@@ -255,19 +255,27 @@ class Decoder(VocabParallelHeads, nn.Module):
 
     # ---- teacher-forced forward ---------------------------------------------
 
-    def forward(self, source: torch.Tensor, target: torch.Tensor) -> Dict:
+    def forward(self, source: torch.Tensor, target: torch.Tensor,
+                collect_attentions: bool = False) -> Dict:
         """source (B, S) codes or (B, S, source_dim) z, target (B,
-        num_events, C) tokens. Returns {'loss', 'weights_per_category'}:
-        the per-channel logits (B, num_events, vocab_c) and their summed CE
-        (decoder.py:223). In train mode the attention layers take the
-        training route, with dropout."""
+        num_events, C) tokens. Returns {'loss', 'weights_per_category',
+        'attentions_decoder'}: the per-channel logits (B, num_events,
+        vocab_c), their summed CE (decoder.py:223) and, with
+        collect_attentions, one dict per decoder layer of its weights
+        (ops/transformer.py Attentions: from the plain attention, on the
+        card too; None for the aligned cross branch and on the training
+        routes), else [].
+        In train mode the attention layers take the training route, with
+        dropout."""
         b = target.shape[0]
         memory = self.encode_memory(source)
         target_seq = self.shift_with_sos(self.embed_target(target))
         t_len = target_seq.shape[1]
         output = self.transformer["decoder"](
             target_seq, memory, causal_mask(t_len, device=target_seq.device),
-            self.cross_mask(memory.shape[1], t_len))
+            self.cross_mask(memory.shape[1], t_len),
+            collect_attentions=collect_attentions)
+        output, attentions = output if collect_attentions else (output, [])
         output = output.reshape(b, -1, self.num_channels_decoder, self.d_model)
         vocabs = self.data_processor.num_tokens_per_channel
         stacked = self._stacked_logits(output)
@@ -275,7 +283,8 @@ class Decoder(VocabParallelHeads, nn.Module):
         logits = [stacked[:, :, c, o:o + v]
                   for c, (o, v) in enumerate(zip(offsets, vocabs))]
         return {"loss": stacked_categorical_crossentropy(stacked, target, vocabs),
-                "weights_per_category": logits}
+                "weights_per_category": logits,
+                "attentions_decoder": attentions}
 
     # ---- KV-cached sampling ---------------------------------------------------
 

@@ -26,9 +26,16 @@ Routes of the full forward:
     off; the relative-bias forward kernel (K3, bf16 dots, f32 under
     VQCPCB_PALLAS_BF16_DOTS=0 as JAX's K3 reads the knob,
     pallas_attention.py:725) with it. No weights are returned -- the routes
-    the JAX module takes on the TPU (attention.py:243-253);
+    the JAX module takes on the TPU (attention.py:243-253). A caller that
+    asks for the weights (need_weights, which the stacks' collect_attentions
+    sets) gets the plain path below on the card instead, and the weights;
+    every other forward launches the kernels. JAX picks this route with
+    its VQCPCB_PALLAS_ATTENTION switch for every forward of the process;
+    the port reads no such switch. Unlike JAX, grouped layers take the
+    kernels too unless the weights are asked for (JAX returns their weights
+    on the TPU, attention.py:243);
   * inference on the CPU: the plain path, f32 throughout, returning the
-    weights.
+    weights whatever need_weights says.
 `step` (one query position over the KV cache) is plain PyTorch on every
 device, as it is plain XLA in JAX.
 
@@ -279,12 +286,14 @@ class MultiheadAttention(nn.Module):
         return self._project_out(out.transpose(1, 2).reshape(b, t, h * d))
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
-                attn_mask: Optional[torch.Tensor] = None
+                attn_mask: Optional[torch.Tensor] = None,
+                need_weights: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """query (B, L_tgt, E), key (= value) (B, L_src, E), attn_mask an
         additive (L_tgt, L_src) mask or None. Returns (output (B, L_tgt, E),
-        weights (B, H, L_tgt, L_src) on the plain inference path, None on the
-        kernel and training paths). Train mode takes the training route, and
+        weights (B, H, L_tgt, L_src) on the plain inference path, which the
+        CPU and need_weights take, None on the kernel and training paths).
+        Train mode takes the training route, and
         so does eval under a model axis with gradients on, at dropout 0
         (its backward needs the Megatron collectives); eval without them
         attends on this rank's heads, as a sampler's prefill does."""
@@ -293,7 +302,7 @@ class MultiheadAttention(nn.Module):
         if self._model_axis and torch.is_grad_enabled():
             return self._train_mesh(query, key, attn_mask, 0.0), None
         return self.attend(self.project_q(query), *self.project_kv(key),
-                           attn_mask)
+                           attn_mask, need_weights)
 
     def _explicit_bias(self, q4: torch.Tensor) -> torch.Tensor:
         """The relative bias as a (B*H, T, S) f32 tensor, from the scaled q
@@ -395,7 +404,8 @@ class MultiheadAttention(nn.Module):
         return self._project_out(out)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               attn_mask: Optional[torch.Tensor] = None
+               attn_mask: Optional[torch.Tensor] = None,
+               need_weights: bool = False
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The forward after the projections: scaled q (B, H, L_tgt, hd), k and
         v (B, H, L_src, hd) as project_q / project_kv give them. A prefill
@@ -406,12 +416,15 @@ class MultiheadAttention(nn.Module):
         rounded to v's dtype before w.v, as JAX rounds them. Grouped k and
         v (fewer heads than q) are expanded to q's heads first. Under a
         model axis q, k and v are this rank's heads (project_q /
-        project_kv), and the kernels run on its planes."""
+        project_kv), and the kernels run on its planes. Returns the merged
+        output and, on the plain path (the CPU, or the card with
+        need_weights), the f32 weights (B, H, L_tgt, L_src); None from the
+        kernels."""
         g = q.shape[1] // k.shape[1]
         k, v = (expand_kv_heads(x, x.shape[1], g) for x in (k, v))
         v_dtype = v.dtype
         q, k, v = q.float(), k.float(), v.float()
-        if q.device.type != "cpu":
+        if q.device.type != "cpu" and not need_weights:
             if self.attn_bias is None:
                 out = fused_attention(q, k, v, attn_mask)
             elif relbias_in_kernel():

@@ -24,6 +24,15 @@ Grouped-query attention: `n_head_kv` (None: one KV head per query head)
 goes to every attention of a layer, self and cross (transformer.py:81,
 186, 272); `capture` returns the H_kv-head k and v the caches keep.
 
+Attention maps: each layer's forward returns its output and a dict of its
+weights under JAX's keys (`Attentions`: a_self_encoder; a_self_decoder and
+a_cross, None for the aligned branch), and both stacks take
+collect_attentions (transformer.py:160-169, 366-375), with which they
+return (output, one dict per layer); without it, the output alone. The
+flag reaches each attention as need_weights: the forward that collects
+takes the plain path on the card, since the kernels keep no weights, and
+every other forward launches the kernels.
+
 Compute dtype: the attention projections and the FFN's linears compute in
 utils.layer_compute_dtype (bf16 under VQCPCB_COMPUTE_DTYPE=bfloat16 or the
 decoder trainer's scope, transformer.py:61-64); the residual stream, the
@@ -50,7 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +75,10 @@ from vqcpcb_tpu_torch.utils import (default_compute_dtype, dense, dropout,
                                     layer_compute_dtype)
 
 LAYER_NORM_EPS = 1e-6
+# a layer's attention weights under JAX's keys (a_self_encoder;
+# a_self_decoder, a_cross): (B, H, T, S) on the plain path, None from the
+# kernels, the training route and the aligned cross branch
+Attentions = Dict[str, Optional[torch.Tensor]]
 
 
 class Dropout(nn.Dropout):
@@ -140,6 +153,18 @@ def remat_layer(layer: nn.Module, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
+def _run_stack(layers: nn.ModuleList, collect_attentions: bool, x, *args
+               ) -> Tuple[torch.Tensor, List[Attentions]]:
+    """x through every layer (remat_layer), and each layer's weights dict
+    when collect_attentions, which asks each layer for its weights."""
+    attentions = []
+    for layer in layers:
+        x, attn = remat_layer(layer, x, *args, collect_attentions)
+        if collect_attentions:
+            attentions.append(attn)
+    return x, attentions
+
+
 @contextlib.contextmanager
 def train_mode(module: nn.Module, training: Optional[bool]) -> Iterator[None]:
     """Runs the block with `module` and its submodules in train mode
@@ -211,10 +236,14 @@ class TransformerEncoderLayer(_MeshLayer):
         self.ff_dropout = Dropout(dropout)
         self.activation = activation
 
-    def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        src2, a_self = self.self_attn(src, src, attn_mask=src_mask)
-        return self._after_self(src, src2), a_self
+    def forward(self, src: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
+                need_weights: bool = False) -> Tuple[torch.Tensor, Attentions]:
+        """(output, {'a_self_encoder': the weights or None}), as JAX's
+        layer returns them (transformer.py:101-109); need_weights asks the
+        attention for them on the card (MultiheadAttention.forward)."""
+        src2, a_self = self.self_attn(src, src, attn_mask=src_mask,
+                                      need_weights=need_weights)
+        return self._after_self(src, src2), {"a_self_encoder": a_self}
 
     def _after_self(self, src, src2):
         src = self.norm1(src + self.drop1(src2))
@@ -253,12 +282,12 @@ class TransformerEncoder(nn.Module):
                                     dropout=dropout, n_head_kv=n_head_kv)
             for _ in range(num_layers))
 
-    def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        out = src
-        for layer in self.layers:
-            out, _ = remat_layer(layer, out, mask)
-        return out
+    def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                collect_attentions: bool = False):
+        """The stack's output; with collect_attentions, (output, one
+        weights dict per layer), as JAX's stack (transformer.py:160-169)."""
+        out, attentions = _run_stack(self.layers, collect_attentions, src, mask)
+        return (out, attentions) if collect_attentions else out
 
 
 class TransformerAlignedDecoderLayer(_MeshLayer):
@@ -332,11 +361,14 @@ class TransformerAlignedDecoderLayer(_MeshLayer):
             x, self.linear1, self.linear2, self.activation, self.ff_dropout,
             self.ff_mesh)))
 
-    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                need_weights: bool = False):
         """memory_mask is unused: the aligned branch masks nothing."""
-        tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask)
+        tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask,
+                                      need_weights=need_weights)
         tgt = self.norm1(tgt + self.drop1(tgt2))
-        return self._after_self(tgt, self.cross_branch(memory, tgt.shape[1])), a_self
+        return (self._after_self(tgt, self.cross_branch(memory, tgt.shape[1])),
+                {"a_self_decoder": a_self, "a_cross": None})
 
     def capture(self, tgt, memory, tgt_mask=None, memory_mask=None):
         """Full forward returning the self-attention K/V and the cross branch
@@ -398,12 +430,15 @@ class TransformerDecoderLayer(_MeshLayer):
             x, self.linear1, self.linear2, self.activation, self.ff_dropout,
             self.ff_mesh)))
 
-    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
-        tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask)
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                need_weights: bool = False):
+        tgt2, a_self = self.self_attn(tgt, tgt, attn_mask=tgt_mask,
+                                      need_weights=need_weights)
         tgt = self.norm1(tgt + self.drop1(tgt2))
-        tgt2, _ = self.multihead_attn(tgt, memory, attn_mask=memory_mask)
+        tgt2, a_cross = self.multihead_attn(tgt, memory, attn_mask=memory_mask,
+                                            need_weights=need_weights)
         tgt = self.norm2(tgt + self.drop2(tgt2))
-        return self._ff_block(tgt), a_self
+        return self._ff_block(tgt), {"a_self_decoder": a_self, "a_cross": a_cross}
 
     def capture(self, tgt, memory, tgt_mask=None, memory_mask=None):
         """Full forward returning the self-attention K/V and the memory's K/V
@@ -440,8 +475,10 @@ class TransformerDecoder(nn.Module):
         self.layers = nn.ModuleList(layer(**layer_kwargs)
                                     for _ in range(num_layers))
 
-    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
-        out = tgt
-        for layer in self.layers:
-            out, _ = remat_layer(layer, out, memory, tgt_mask, memory_mask)
-        return out
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                collect_attentions: bool = False):
+        """The stack's output; with collect_attentions, (output, one
+        weights dict per layer), as JAX's stack (transformer.py:366-375)."""
+        out, attentions = _run_stack(self.layers, collect_attentions, tgt,
+                                     memory, tgt_mask, memory_mask)
+        return (out, attentions) if collect_attentions else out

@@ -1,10 +1,15 @@
-"""Cluster and codebook analysis (counterpart of
+"""Cluster, codebook and attention analysis (counterpart of
 vqcpcb_tpu/training/analysis.py): per-cluster score dumps (`plot_clusters`,
-:19-61) and the codebook's nearest neighbours (`show_nn_clusters`, :64-76),
-NumPy only. Cluster indices are merged product codes, so multi-codebook
-encoders work too. The matplotlib plots (`scatterplot_clusters_3d`,
-`plot_attention`) wait for an environment with matplotlib (ROADMAP.md Queue
-1, item 3).
+:19-61) and the codebook's nearest neighbours (`show_nn_clusters`, :62-73),
+NumPy only; the per-head attention heatmaps (`plot_attention`, :76-100) and
+the codebook's 3-d scatter (`scatterplot_clusters_3d`, :103-123), PDFs
+under JAX's names. Cluster indices are merged product codes, so
+multi-codebook encoders work too.
+
+The plots import matplotlib (the Agg backend) and, for the heatmaps,
+seaborn inside the two functions only, so nothing else of the port needs
+either package; without one, the call raises Python's ImportError, which
+names it.
 """
 from __future__ import annotations
 
@@ -66,3 +71,53 @@ def show_nn_clusters(codebooks: np.ndarray, k: int = 3) -> Dict[int, list]:
         out[i] = res.tolist()
         print(f"{i}: {res}")
     return out
+
+
+def plot_attention(attentions, out_path: str, batch_index: int = 0) -> str:
+    """Per-head attention heatmaps of one batch item, one subplot a head,
+    written to out_path (reference: decoders/decoder.py:1019-1050).
+
+    attentions: (batch, heads, tgt, src), any array-like. Returns out_path."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import seaborn as sns
+
+    att = np.asarray(attentions)[batch_index]
+    num_heads = att.shape[0]
+    plt.clf()
+    plt.cla()
+    for head_index in range(num_heads):
+        plt.subplot(1, num_heads, head_index + 1)
+        plt.title(f"Head {head_index}")
+        sns.heatmap(att[head_index], vmin=0, vmax=1, cmap="YlGnBu")
+        plt.grid(True)
+    if os.path.dirname(out_path):
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    plt.savefig(out_path)
+    plt.close()
+    return out_path
+
+
+def scatterplot_clusters_3d(codebooks, model_dir: str) -> str:
+    """The first sub-codebook's codewords as labelled points in 3-d, written
+    to {model_dir}/clusters_scatter.pdf (reference: encoder.py:187-228);
+    1- and 2-d codewords are zero-padded to 3 axes, wider ones cut to their
+    first 3. Returns the path."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    clusters = np.asarray(codebooks)[0]
+    if clusters.shape[1] < 3:
+        pad = np.zeros((clusters.shape[0], 3 - clusters.shape[1]))
+        clusters = np.concatenate([clusters, pad], axis=1)
+    fig = plt.figure()
+    ax = fig.add_subplot(111, projection="3d")
+    for i, (x, y, z) in enumerate(clusters[:, :3]):
+        ax.scatter(x, y, z, color="b")
+        ax.text(x, y, z, str(i), size=12, zorder=1, color="k")
+    savepath = os.path.join(model_dir, "clusters_scatter.pdf")
+    plt.savefig(savepath)
+    plt.close(fig)
+    return savepath

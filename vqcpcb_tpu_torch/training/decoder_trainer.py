@@ -14,7 +14,8 @@ device (the decoder's dropout layers and sampling) and one on the host (the
 attention layers' dropout seeds); `save` / `load` keep them with the rest.
 Its generation methods write scores (`generate`, `generate_reharmonisation`
 from scores, `generate_alla_mano`) through a `DecoderGenerator` over its
-modules. `DecoderGenerator` holds a frozen encoder and a decoder on one
+modules; `dump_attention_maps` writes one teacher-forced forward's
+attention heatmaps. `DecoderGenerator` holds a frozen encoder and a decoder on one
 device and an explicit torch.Generator for the draws: frozen-encoder codes
 for a template, then sliding-window KV-cached decoding of the code
 sequence. Both run on the card unless the caller names another device.
@@ -56,7 +57,7 @@ from vqcpcb_tpu_torch.data.vocab import (END_SYMBOL, PAD_SYMBOL, START_SYMBOL,
                                          Vocabulary)
 from vqcpcb_tpu_torch.models.decoder import Decoder
 from vqcpcb_tpu_torch.models.encoder import Encoder, merge_codes
-from vqcpcb_tpu_torch.ops.transformer import wire_generators
+from vqcpcb_tpu_torch.ops.transformer import train_mode, wire_generators
 from vqcpcb_tpu_torch.parallel.collectives import (common_generator,
                                                    gather_rows, mean_over_data)
 from vqcpcb_tpu_torch.parallel.mesh import (Mesh, generation_rows, make_mesh,
@@ -295,6 +296,39 @@ class DecoderTrainer(TrainLoopMixin):
         for k, grid in enumerate(outs):
             self.dataloader_generator.write(grid, os.path.join(save_dir, str(k)))
         return outs
+
+    # ---- attention-map dumps (decoder_trainer.py:492-512) -------------------
+
+    @torch.no_grad()
+    def dump_attention_maps(self, x, out_dir: Optional[str] = None) -> List[str]:
+        """One teacher-forced eval forward of the token batch x (B, events,
+        voices) on its frozen-encoder codes, collecting every decoder
+        layer's weights, and one heatmap PDF of batch item 0 per layer and
+        kind, {out_dir}/layer{i}_{a_self_decoder|a_cross}.pdf (out_dir
+        defaults to {model_dir}/attention_maps); weights that are None are
+        skipped. Returns the written paths. The collecting forward takes the
+        plain attention on the card too (the kernels keep no weights), so
+        the maps are written there, where JAX's dump on the TPU writes none
+        (its kernels return None, decoder_trainer.py:505). Runs in the
+        default compute dtype (f32 unless VQCPCB_COMPUTE_DTYPE says
+        otherwise), outside the steps' scope, as JAX's. Needs matplotlib and
+        seaborn once there is a map to write (training/analysis.py)."""
+        from vqcpcb_tpu_torch.training import analysis
+
+        out_dir = out_dir or os.path.join(self.model_dir, "attention_maps")
+        x = to_device(x, self.device)
+        codes = self.encode_codes(x)
+        with train_mode(self.decoder, False):
+            out = self.decoder(codes, x, collect_attentions=True)
+        written = []
+        for layer_idx, att in enumerate(out["attentions_decoder"]):
+            for name in ("a_self_decoder", "a_cross"):
+                if att.get(name) is None:
+                    continue
+                path = os.path.join(out_dir, f"layer{layer_idx}_{name}.pdf")
+                written.append(analysis.plot_attention(
+                    att[name].float().cpu().numpy(), path))
+        return written
 
     # ---- plagiarism check (decoder_trainer.py:515-549) ----------------------
 
