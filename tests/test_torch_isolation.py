@@ -24,8 +24,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "vqcpcb_tpu")
 ALLOWED = frozenset(sys.stdlib_module_names) | {
     "vqcpcb_tpu_torch", "torch", "numpy", "scipy", "einops",
-    "chip_smoke",             # the port's own smoke script, in the checkout
-    "torch_mesh_harness"}     # its and the tests' mesh harness, held below too
+    "torch_mesh_harness"}     # chip_smoke's and the tests' mesh harness, held below too
 # the one place a port file may import music21: inside a method of this
 # class of this file, never at module level
 MUSIC21_FILE = REPO / "vqcpcb_tpu_torch" / "data" / "corpora.py"

@@ -12,7 +12,9 @@ flagship AC/D/C (relative, diagonal); `configs/decoder_random.py`
 Codes are re-embedded and run through the encoder transformer (the
 memory); target tokens are embedded, shifted by SOS and decoded causally.
 `sample_range` is the KV-cached sampler: one prefill per call, then one
-decode step per position, eager PyTorch.
+decode step per position, eager PyTorch; under a profiler its phases are
+the spans vqcpcb.sample_range, .prefill, .decode_step and .sample
+(training/profiling.py).
 
 Training: `forward` in train mode runs every attention layer on the
 training route (the relative-bias or the fused-attention kernels on CUDA)
@@ -74,6 +76,7 @@ from vqcpcb_tpu_torch.ops.masks import anticausal_mask, causal_mask
 from vqcpcb_tpu_torch.ops.sampling import sample_categorical
 from vqcpcb_tpu_torch.ops.transformer import TransformerDecoder, TransformerEncoder
 from vqcpcb_tpu_torch.parallel.collectives import check_replicated
+from vqcpcb_tpu_torch.training.profiling import count, span
 from vqcpcb_tpu_torch.utils import (dense, flatten, kv_cache_dtype,
                                     module_device, to_device)
 
@@ -379,27 +382,34 @@ class Decoder(VocabParallelHeads, nn.Module):
         this rank's alone) and `generator` is in the same state on every
         rank (parallel/collectives.common_generator). Returns the updated
         (B, E, C) tokens on that device."""
-        here = module_device(self, device)
-        source = to_device(source, here)
-        tokens_init = to_device(tokens_init, here)
-        b, num_events, c = tokens_init.shape
-        tokens_flat = tokens_init.reshape(b, num_events * c).clone()
-        caches, crosses = self.prefill(source, tokens_init, kv_cache_dtype(here))
-        cross_visible = None if self.aligned else self._cross_visibility()
-        forbidden = (None if forbidden_indices is None
-                     else to_device(forbidden_indices, here).long())
-        for t in range(start, start + num_steps):
-            if t > 0:
-                x_t = self._embed_input_at(tokens_flat[:, t - 1], t)
-            else:
-                x_t = self.sos[0].expand(b, -1)
-            out = self._decode_one(x_t[:, None], caches, crosses, t,
-                                   cross_visible)
-            logits = self._head_logits_at(out[:, 0], t)
-            if forbidden is not None:
-                logits = logits.index_fill(1, forbidden[t % c], float("-inf"))
-            new_token = sample_categorical(generator, logits, temperature,
-                                           top_k, top_p, exact_ties, rows)
-            tokens_flat[:, t] = new_token.to(tokens_flat.dtype)
-        check_replicated(tokens_flat, self.mesh, rows)
-        return tokens_flat.reshape(b, num_events, c)
+        with span("vqcpcb.sample_range"):
+            count("positions", num_steps)
+            here = module_device(self, device)
+            source = to_device(source, here)
+            tokens_init = to_device(tokens_init, here)
+            b, num_events, c = tokens_init.shape
+            tokens_flat = tokens_init.reshape(b, num_events * c).clone()
+            with span("vqcpcb.prefill"):
+                caches, crosses = self.prefill(source, tokens_init,
+                                               kv_cache_dtype(here))
+            cross_visible = None if self.aligned else self._cross_visibility()
+            forbidden = (None if forbidden_indices is None
+                         else to_device(forbidden_indices, here).long())
+            for t in range(start, start + num_steps):
+                if t > 0:
+                    x_t = self._embed_input_at(tokens_flat[:, t - 1], t)
+                else:
+                    x_t = self.sos[0].expand(b, -1)
+                with span("vqcpcb.decode_step"):
+                    out = self._decode_one(x_t[:, None], caches, crosses, t,
+                                           cross_visible)
+                with span("vqcpcb.sample"):
+                    logits = self._head_logits_at(out[:, 0], t)
+                    if forbidden is not None:
+                        logits = logits.index_fill(1, forbidden[t % c],
+                                                   float("-inf"))
+                    new_token = sample_categorical(generator, logits, temperature,
+                                                   top_k, top_p, exact_ties, rows)
+                tokens_flat[:, t] = new_token.to(tokens_flat.dtype)
+            check_replicated(tokens_flat, self.mesh, rows)
+            return tokens_flat.reshape(b, num_events, c)

@@ -7,7 +7,9 @@ encodes the batch (the nearest-codebook kernel on the card), runs the
 decoder in train mode in the compute dtype (bf16 transformer layers on CUDA,
 f32 on the CPU, unless VQCPCB_COMPUTE_DTYPE says otherwise:
 utils.compute_dtype, utils.default_compute_dtype),
-and applies the clipped Adam of training/optim.py. It holds the
+and applies the clipped Adam of training/optim.py (under a profiler the
+spans vqcpcb.train_step over vqcpcb.encode, .forward, .backward and
+.optimizer, training/profiling.py). It holds the
 model, the optimizer and the step count, the counterpart of the JAX
 TrainState, and two generators every random draw comes from: one on the
 device (the decoder's dropout layers and sampling) and one on the host (the
@@ -67,7 +69,7 @@ from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
                                              warmup_steps_from_env)
-from vqcpcb_tpu_torch.training.profiling import check_finite
+from vqcpcb_tpu_torch.training.profiling import check_finite, count, span
 from vqcpcb_tpu_torch.utils import (compute_dtype, default_compute_dtype,
                                     resolve_device, to_device)
 
@@ -148,23 +150,28 @@ class DecoderTrainer(TrainLoopMixin):
         encoder's codes included, as JAX traces both inside its scope
         (decoder_trainer.py:233-242)."""
         with default_compute_dtype(self.compute_dtype):
-            codes = self.encode_codes(x)
-            return self.decoder(codes, x)["loss"]
+            with span("vqcpcb.encode"):
+                codes = self.encode_codes(x)
+            with span("vqcpcb.forward"):
+                return self.decoder(codes, x)["loss"]
 
     def train_step(self, x) -> Dict[str, torch.Tensor]:
         """One clipped Adam step on a (global) token batch; returns {'loss'},
         the mean over `data`, as a device scalar (not read back)."""
         if self.optimizer is None:
             raise RuntimeError("init_state before train_step")
-        x = to_device(shard_batch(x, self.mesh), self.device)
-        self.decoder.train()
-        self.optimizer.zero_grad()
-        loss = self._loss(x)
-        check_finite(loss)
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
-        return {"loss": mean_over_data(loss.detach(), self.mesh)}
+        with span("vqcpcb.train_step"):
+            count("steps")
+            x = to_device(shard_batch(x, self.mesh), self.device)
+            self.decoder.train()
+            self.optimizer.zero_grad()
+            loss = self._loss(x)
+            check_finite(loss)
+            with span("vqcpcb.backward"):
+                loss.backward()
+            self.optimizer.step()
+            self.step += 1
+            return {"loss": mean_over_data(loss.detach(), self.mesh)}
 
     @torch.no_grad()
     def eval_step(self, x) -> Dict[str, torch.Tensor]:
@@ -393,10 +400,11 @@ class DecoderGenerator:
         dim) over an unquantized encoder, on the device
         (decoder_trainer.py:109): each rank encodes its rows, gathered
         over `data` after."""
-        rows = generation_rows(len(x), self.mesh)
-        codes = encode_source(self.encoder, to_device(rows.of(x), self.device),
-                              self.codebook_size)
-        return gather_rows(codes, rows, self.mesh)
+        with span("vqcpcb.encode"):
+            rows = generation_rows(len(x), self.mesh)
+            codes = encode_source(self.encoder, to_device(rows.of(x), self.device),
+                                  self.codebook_size)
+            return gather_rows(codes, rows, self.mesh)
 
     def sample(self, source, tokens_init, start: int, num_steps: int,
                **kwargs) -> np.ndarray:

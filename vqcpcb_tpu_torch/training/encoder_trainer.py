@@ -15,7 +15,8 @@ there by design); VQCPCB_COMPUTE_DTYPE=bfloat16 puts a transformer
 downscaler's layers in bf16 and nothing else, as in JAX
 (utils.layer_compute_dtype). `save` / `load` (training/loop.py) keep the whole state:
 parameters, the BatchNorm and EMA buffers, the optimizer, the step and the
-generators.
+generators. Under a profiler a train step is the span vqcpcb.train_step
+over vqcpcb.forward, .backward and .optimizer (training/profiling.py).
 
 Over a (data, model) mesh (`mesh`, by default parallel/mesh.make_mesh()
 over every rank, as JAX's trainer builds one over every device,
@@ -61,7 +62,7 @@ from vqcpcb_tpu_torch.training.loop import TrainLoopMixin
 from vqcpcb_tpu_torch.training.optim import (WARMUP_STEPS, Adam,
                                              trapezoid_schedule,
                                              warmup_steps_from_env)
-from vqcpcb_tpu_torch.training.profiling import check_finite
+from vqcpcb_tpu_torch.training.profiling import check_finite, count, span
 from vqcpcb_tpu_torch.utils import resolve_device, to_device
 
 # batch keys whose elements count as the step's tokens (encoder_trainer.py:227)
@@ -166,17 +167,21 @@ class VQCPCEncoderTrainer(TrainLoopMixin):
         read back)."""
         if self.optimizer is None:
             raise RuntimeError("init_state before train_step")
-        batch = self._batch(batch, train=True)
-        self.model.train()
-        self.optimizer.zero_grad()
-        loss, metrics = self.model(batch, training=True,
-                                   corrupt_labels=corrupt_labels,
-                                   generator=self.generator)
-        check_finite(loss)
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("vqcpcb.train_step"):
+            count("steps")
+            batch = self._batch(batch, train=True)
+            self.model.train()
+            self.optimizer.zero_grad()
+            with span("vqcpcb.forward"):
+                loss, metrics = self.model(batch, training=True,
+                                           corrupt_labels=corrupt_labels,
+                                           generator=self.generator)
+            check_finite(loss)
+            with span("vqcpcb.backward"):
+                loss.backward()
+            self.optimizer.step()
+            self.step += 1
+            return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:

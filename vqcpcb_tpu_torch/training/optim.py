@@ -11,7 +11,8 @@ The arithmetic follows optax so one step matches the JAX trainer's:
   * p <- p - lr(k-1) * u: the first update reads the schedule at 0, as
     optax's step count does.
 Parameters are updated in place; nothing is read back to the host, so a step
-does not wait for the device.
+does not wait for the device. A step, clip included, is the span
+vqcpcb.optimizer under a profiler (training/profiling.py).
 
 Under a mesh (parallel/mesh.py) the gradients are first averaged over
 `data` (the gradient of the global-batch mean loss: the data loaders drop
@@ -31,6 +32,7 @@ import torch
 
 from vqcpcb_tpu_torch.parallel.collectives import all_reduce_, average_gradients
 from vqcpcb_tpu_torch.parallel.mesh import MODEL_AXIS, gather_tensor, local_slice
+from vqcpcb_tpu_torch.training.profiling import span
 
 WARMUP_STEPS = 10_000
 MIN_SCALING = 0.1
@@ -116,27 +118,28 @@ class Adam:
         """One update from the parameters' .grad (a missing grad counts as
         zeros, as a JAX gradient of an unused parameter is). Returns the
         gradients' global norm before clipping (a device scalar)."""
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in self.params]
-        if self.mesh is not None:
-            average_gradients(grads, self.mesh)
-        norm = clip_by_global_norm(grads, mesh=self.mesh, sharded=self.sharded)
-        lr = self.lr(self.count) if callable(self.lr) else self.lr
-        self.count += 1
-        c1 = 1.0 - B1 ** self.count
-        c2 = 1.0 - B2 ** self.count
-        torch._foreach_mul_(self.mu, B1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - B1)
-        torch._foreach_mul_(self.nu, B2)
-        torch._foreach_addcmul_(self.nu, grads, grads, 1.0 - B2)
-        denom = torch._foreach_div(self.nu, c2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, EPS)
-        update = torch._foreach_div(self.mu, c1)
-        torch._foreach_div_(update, denom)
-        torch._foreach_mul_(update, -lr)
-        torch._foreach_add_(self.params, update)
-        return norm
+        with span("vqcpcb.optimizer"):
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in self.params]
+            if self.mesh is not None:
+                average_gradients(grads, self.mesh)
+            norm = clip_by_global_norm(grads, mesh=self.mesh, sharded=self.sharded)
+            lr = self.lr(self.count) if callable(self.lr) else self.lr
+            self.count += 1
+            c1 = 1.0 - B1 ** self.count
+            c2 = 1.0 - B2 ** self.count
+            torch._foreach_mul_(self.mu, B1)
+            torch._foreach_add_(self.mu, grads, alpha=1.0 - B1)
+            torch._foreach_mul_(self.nu, B2)
+            torch._foreach_addcmul_(self.nu, grads, grads, 1.0 - B2)
+            denom = torch._foreach_div(self.nu, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, EPS)
+            update = torch._foreach_div(self.mu, c1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_mul_(update, -lr)
+            torch._foreach_add_(self.params, update)
+            return norm
 
     def _gather(self, moments: List[torch.Tensor]) -> List[torch.Tensor]:
         if self.mesh is None:
